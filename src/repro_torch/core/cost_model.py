@@ -1,0 +1,234 @@
+"""Architecture-aware cost model (paper §5.2.1): split rates and dispatch tiers.
+
+The paper derives a density threshold from per-engine throughputs
+
+    alpha = r * P_AIV / P_AIC            (Eq. 3)
+
+where the vector engine's cost is proportional to NNZ and the matrix
+engine's cost to the full tile volume M*K (Eq. 1).  Tiles with density
+below alpha go to the vector path; the rest to the matrix path.
+
+This module keeps the analytic model, the matrix-format pricing and the
+vector-path tier selection of ``repro.core.cost_model``, with the same
+arithmetic, so plans built from the same COO and config have the same
+leaves.  The one deliberate difference is the H100 tier rule in
+:func:`select_fringe_tier`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+# The reference's TPU constants, kept so that plan leaves match the JAX
+# package's (the split threshold, reuse capacities and fringe tiers are all
+# derived from them).  They do not describe the H100; re-deriving them for
+# it is ROADMAP item A10.
+PEAK_FLOPS_BF16 = 197e12  # per chip
+HBM_BW = 819e9  # bytes/s
+ICI_BW = 50e9  # bytes/s/link
+VMEM_BYTES = 16 * 1024 * 1024
+MXU_DIM = 128  # systolic array edge; min efficient tile
+VPU_LANES = 128
+SUBLANES = 8
+
+
+@dataclasses.dataclass
+class EngineCostModel:
+    """Predicts per-path execution cost and the split threshold alpha."""
+
+    p_matrix: float  # matrix-path rate: dense tile elements / second
+    p_vector: float  # vector-path rate: nonzeros / second
+    r: float = 1.0   # capacity ratio (paper's r; engine-count analogue)
+    n_cols: int = 256  # dense operand width N the rates were calibrated for
+
+    # --- Eq. (1) ---
+    def cost_vector(self, nnz: float) -> float:
+        return nnz / self.p_vector
+
+    def cost_matrix(self, m: float, k: float) -> float:
+        return (m * k) / self.p_matrix
+
+    # --- Eq. (3) ---
+    @property
+    def alpha(self) -> float:
+        a = self.r * self.p_vector / self.p_matrix
+        return float(np.clip(a, 1e-6, 1.0))
+
+    def length_threshold(self, k: int) -> float:
+        """Eq. (5): convert the density boundary into a row-length bound."""
+        return self.alpha * k
+
+    @classmethod
+    def analytic_tpu(cls, n_cols: int = 256, mxu_efficiency: float = 0.7,
+                     r: float = 1.0) -> "EngineCostModel":
+        """Roofline-derived rates from the reference's constants.
+
+        Matrix path: each dense A element drives 2*N flops (compute-bound
+        once tiles are dense).  Vector path: each nonzero touches one N-wide
+        bf16 row of B (bound by memory bandwidth).
+        """
+        p_matrix = mxu_efficiency * PEAK_FLOPS_BF16 / (2.0 * n_cols)
+        bytes_per_nnz = n_cols * 2  # gather of one bf16 B row
+        p_vector = HBM_BW / bytes_per_nnz
+        return cls(p_matrix=p_matrix, p_vector=p_vector, r=r, n_cols=n_cols)
+
+    # --- Eq. (7): residual split target ---
+    def split_residual(
+        self, nnz_candidates: np.ndarray, rows_candidates: np.ndarray, k: int
+    ) -> int:
+        """Pick a prefix count c of candidate units (sorted sparse-first) for
+        the vector path so that NNZ(vec) / (M(mat) * K) ≈ alpha."""
+        total_rows = float(rows_candidates.sum())
+        csum_nnz = np.concatenate(
+            [[0.0], np.cumsum(nnz_candidates, dtype=np.float64)])
+        csum_rows = np.concatenate(
+            [[0.0], np.cumsum(rows_candidates, dtype=np.float64)])
+        mat_rows = np.maximum(total_rows - csum_rows, 1.0)
+        ratio = csum_nnz / (mat_rows * k)
+        return int(np.argmin(np.abs(ratio - self.alpha)))
+
+    def predict_baldu(self, nnz_vec: float, m_mat: float, k: int) -> float:
+        """Predicted finish-time imbalance (max/min) of a proposed split."""
+        tv = self.cost_vector(max(nnz_vec, 1.0))
+        tm = self.cost_matrix(max(m_mat, 1.0), k)
+        return max(tv, tm) / max(min(tv, tm), 1e-12)
+
+    # --- dispatch-decision hooks (prepare consults these on the instance) ---
+
+    def select_fringe_tier(
+        self, k: int, num_rows: int, bn: int,
+        vmem_budget: Optional[int] = None, impl: str = "torch",
+    ) -> tuple:
+        return select_fringe_tier(k, num_rows, bn, vmem_budget=vmem_budget,
+                                  impl=impl)
+
+    def select_matrix_format(
+        self, *, nm_pattern: Optional[tuple], tile_zero_fraction: float,
+        num_steps: int, bm: int, bk: int, row_cap: int, hint=None,
+    ) -> str:
+        return select_matrix_format(
+            nm_pattern=nm_pattern, tile_zero_fraction=tile_zero_fraction,
+            num_steps=num_steps, bm=bm, bk=bk, row_cap=row_cap, hint=hint,
+        )
+
+
+def default_cost_model(n_cols: int = 256) -> EngineCostModel:
+    return EngineCostModel.analytic_tpu(n_cols=n_cols)
+
+
+# --- structured matrix-path payload format -----------------------------------
+STRUCTURED_BYTES_HYSTERESIS = 0.7   # packed bytes must be <= 70% of general
+
+
+def matrix_payload_bytes(
+    fmt: str, num_steps: int, bm: int, bk: int,
+    *, nm_pattern: Optional[tuple] = None, row_cap: int = 0,
+) -> int:
+    """Modeled device bytes of the matrix-path A payload under ``fmt``."""
+    if fmt == "nm":
+        n_pat, m_pat = nm_pattern
+        gk = bk // m_pat
+        # packed fp32 values (n per group) + int32 position codes (1/group)
+        return num_steps * bm * gk * (n_pat + 1) * 4
+    if fmt == "bitmap":
+        words = (bk + 31) // 32
+        return num_steps * bm * (words + row_cap) * 4
+    return num_steps * bm * bk * 4
+
+
+def select_matrix_format(
+    *, nm_pattern: Optional[tuple], tile_zero_fraction: float,
+    num_steps: int, bm: int, bk: int, row_cap: int,
+    hint=None,
+) -> str:
+    """Pick the matrix-path payload format: general | nm | bitmap.
+
+    Explicit hints (``("nm", n, m)`` / ``"bitmap"``) override pricing; the
+    soft ``"nm"`` hint takes any detected pattern.  Unhinted selection
+    promotes only a *detected* N:M pattern with a substantial modeled-bytes
+    saving, never the bitmap payload.
+    """
+    if isinstance(hint, tuple) and hint and hint[0] == "nm":
+        return "nm"
+    general = matrix_payload_bytes("general", num_steps, bm, bk)
+    if hint == "bitmap":
+        bitmap_bytes = matrix_payload_bytes(
+            "bitmap", num_steps, bm, bk, row_cap=row_cap
+        )
+        return "bitmap" if bitmap_bytes <= general else "general"
+    if nm_pattern is not None:
+        nm_bytes = matrix_payload_bytes(
+            "nm", num_steps, bm, bk, nm_pattern=nm_pattern
+        )
+        if hint == "nm" or nm_bytes <= STRUCTURED_BYTES_HYSTERESIS * general:
+            return "nm"
+    return "general"
+
+
+# --- vector-path (fringe) dispatch tiers -------------------------------------
+# The reference's budget: 12 MB of the TPU's 16 MB VMEM.
+FRINGE_VMEM_BUDGET = 12 * 1024 * 1024
+FRINGE_MIN_BK = SUBLANES  # smallest legal fp32 k-slice (sublane multiple)
+
+
+def _pad_rows(num_rows: int) -> int:
+    """Packed fringe rows padded to the fp32 sublane multiple."""
+    return max(SUBLANES, ((num_rows + SUBLANES - 1) // SUBLANES) * SUBLANES)
+
+
+def fringe_resident_bytes(k: int, num_rows: int, bn: int) -> int:
+    """Resident-tier working set: full (K, bn) B panel + packed out block."""
+    return (k + _pad_rows(num_rows)) * bn * 4
+
+
+def fringe_ksharded_bytes(bk: int, num_rows: int, bn: int) -> int:
+    """Streaming-tier working set: double-buffered (bk, bn) B slice + out."""
+    return (2 * bk + _pad_rows(num_rows)) * bn * 4
+
+
+def ksharded_bk_cap(k: int, num_rows: int, bn: int, budget: int) -> int:
+    """Largest legal ``bk`` for the K-sharded fringe tier, or 0 if none.
+
+    Two clamps: the double-buffered (bk, bn) slice pair plus the packed
+    output block must fit ``budget`` bytes, and streaming must be strictly
+    cheaper in bytes than the resident panel (``2*bk < k``).  The result is
+    a sublane multiple; candidates below ``FRINGE_MIN_BK`` collapse to 0.
+    """
+    bk_budget = (int(budget) // (bn * 4) - _pad_rows(num_rows)) // 2
+    bk_superior = (int(k) - 1) // 2  # strictly cheaper in bytes: 2*bk < k
+    bk = (min(bk_budget, bk_superior) // SUBLANES) * SUBLANES
+    return int(bk) if bk >= FRINGE_MIN_BK else 0
+
+
+def select_fringe_tier(
+    k: int, num_rows: int, bn: int, vmem_budget: Optional[int] = None,
+    impl: str = "torch",
+) -> tuple:
+    """Pick the vector-path kernel tier for a fringe of this shape.
+
+    Returns ``(tier, bk)``, decided by the reference's VMEM arithmetic:
+
+    - ``("resident", 0)``  — the whole (K, bn) B panel fits the budget;
+    - ``("ksharded", bk)`` — a (bk, bn) slice stream fits, bk from
+      :func:`ksharded_bk_cap`;
+    - ``("xla", 0)``       — nothing fits.
+
+    H100 tier rule: when that arithmetic returns ``"xla"`` and ``impl ==
+    "cuda"``, the answer is ``("resident", 0)``.  On the TPU "xla" means
+    "no kernel can hold this panel in VMEM"; on Hopper the resident-tier
+    kernel is a row-sorted gather that streams B rows through L2 and owns
+    disjoint output rows, so it has no panel-size ceiling and a realistic
+    fringe must not run kernel-less.  Every other outcome, and every
+    ``impl == "torch"`` outcome, is the reference's.
+    """
+    budget = FRINGE_VMEM_BUDGET if vmem_budget is None else int(vmem_budget)
+    if fringe_resident_bytes(k, num_rows, bn) <= budget:
+        return "resident", 0
+    bk = ksharded_bk_cap(k, num_rows, bn, budget)
+    if bk:
+        return "ksharded", bk
+    if impl == "cuda":
+        return "resident", 0
+    return "xla", 0

@@ -1,0 +1,449 @@
+"""Plan IR: the static representation the executor consumes.
+
+A :class:`NeutronPlan` holds the 19 leaves of ``repro.core.plan_ir``'s plan,
+as tensors on one device, in the same order and with the same contents:
+
+- matrix path: the flat active-tile stream (``step_window``, ``step_col``,
+  ``flat_values``) and the packed-row map;
+- vector path: the packed row-sorted fringe COO, and the k-bucketed copy of
+  it that the streaming tier reads (1-element dummies unless that tier and
+  the ``"cuda"`` impl are selected);
+- the scatter-free merge: inverse row maps from each original row to its
+  packed slot on either path (-1 when the path does not touch the row);
+- the four structured-lane payloads, (1, 1, 1) dummies in this port.
+
+``plan_leaves`` gives the 17-leaf executor order of the reference, and
+``signature()`` the same structure key.  Besides the leaves a plan carries
+``derived``: index arrays the kernel wrappers derive from leaves on the
+device (window segment offsets, CSR row offsets, the row-major order of the
+k-bucketed stream), built once on first use and never part of the leaf set.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..errors import PlanBuildError
+
+PLAN_FORMAT_VERSION = 2
+
+PATH_CORE = 0
+PATH_FRINGE = 1
+
+# SpmmConfig.impl values and the device type each one runs on
+IMPL_DEVICE = {"cuda": "cuda", "torch": "cpu"}
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmmConfig:
+    bm: int = 128
+    bk: int = 64
+    bn: int = 256
+    alpha: Optional[float] = None          # override Eq. 3 threshold
+    enable_global_reorder: bool = True
+    enable_local_reorder: bool = True
+    reorder_cols: bool = False             # requires caller to pre-permute B
+    enable_col_stage: bool = True          # stage-2 column extraction
+    enable_reuse_order: bool = True
+    max_clusters: int = 64
+    # "cuda": the hand-written Hopper kernels, on CUDA tensors;
+    # "torch": the plain versions, on CPU tensors
+    impl: str = "cuda"
+    fringe_chunk: Optional[int] = None     # nonzeros per fringe step
+    fringe_vmem_budget: Optional[int] = None  # override dispatch-tier budget
+    seed: int = 0
+    # capacity of the process-wide executor cache (repro_torch.exec)
+    executor_cache_capacity: Optional[int] = None
+    # measured dispatch decisions are not ported yet (ROADMAP A10): only
+    # False is accepted
+    autotune: Any = False
+    # structured-sparsity lane is not ported yet (ROADMAP A8): only None
+    # and "general" are accepted
+    structure_hint: Optional[Any] = None
+
+
+def check_impl_device(impl: str, device: Any) -> torch.device:
+    """The device for ``impl``; raises for any other pairing.
+
+    ``"cuda"`` runs only on CUDA tensors and ``"torch"`` only on CPU ones:
+    neither falls back to the other.
+    """
+    if impl not in IMPL_DEVICE:
+        raise PlanBuildError(
+            f"impl must be one of {sorted(IMPL_DEVICE)}, got {impl!r}")
+    device = torch.device(device)
+    if device.type != IMPL_DEVICE[impl]:
+        raise PlanBuildError(
+            f'impl={impl!r} runs on {IMPL_DEVICE[impl]} tensors, not on '
+            f'{device}; use impl="cuda" with a CUDA device or impl="torch" '
+            'with device="cpu"'
+        )
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise PlanBuildError(
+            "impl='cuda' needs a CUDA device and none is available; pass "
+            "device='cpu' (impl='torch') to run the plain versions")
+    return device
+
+
+@dataclasses.dataclass
+class UpdateMaps:
+    """Host-side COO->slot inverse maps, built once at ``prepare()`` time.
+
+    For every input nonzero ``j`` the maps record which plan slot its value
+    landed in; ``rows``/``cols``/``vals`` keep the validated input COO.
+    """
+
+    shape: Tuple[int, int]
+    rows: np.ndarray             # (nnz,) int64 original COO rows
+    cols: np.ndarray             # (nnz,) int64 original COO cols
+    vals: np.ndarray             # (nnz,) current values (input dtype)
+    path: np.ndarray             # (nnz,) int8 PATH_CORE | PATH_FRINGE
+    core_lin: np.ndarray         # (nnz,) int64 flat slot in flat_values, -1
+    fringe_pos: np.ndarray       # (nnz,) int64 packed fringe slot, -1
+    kb_pos: np.ndarray           # (nnz,) int64 k-bucketed stream slot, -1
+    core_lin_sorted: np.ndarray     # core slots sorted
+    core_members_sorted: np.ndarray  # nnz ids sorted by (slot, input order)
+    key_sorted: np.ndarray
+    key_order: np.ndarray
+
+    @property
+    def nnz(self) -> int:
+        return int(self.rows.shape[0])
+
+
+def build_key_index(
+    rows: np.ndarray, cols: np.ndarray, k: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    key = rows.astype(np.int64) * k + cols
+    order = np.argsort(key, kind="stable")
+    return key[order], order
+
+
+# the 19 plan leaves, in NeutronPlan field order
+LEAF_NAMES = (
+    "step_window", "step_col", "flat_values", "core_row_map",
+    "fringe_rows", "fringe_cols", "fringe_vals", "fringe_row_ids",
+    "col_perm", "gather_src_matrix", "gather_src_vector",
+    "fringe_kb_chunk", "fringe_kb_rows", "fringe_kb_cols", "fringe_kb_vals",
+    "nm_values", "nm_codes", "bitmap_words", "bitmap_values",
+)
+
+
+@dataclasses.dataclass
+class NeutronPlan:
+    """Prepared execution plan: 19 tensor leaves on one device + metadata."""
+
+    # matrix path: flat active-tile stream (window-major under reuse order)
+    step_window: torch.Tensor   # (T,) int32
+    step_col: torch.Tensor      # (T,) int32
+    flat_values: torch.Tensor   # (T, bm, bk) float32
+    core_row_map: torch.Tensor  # (num_windows*bm,) int32 -> original row (-1 pad)
+    # vector path: packed row-sorted fringe COO
+    fringe_rows: torch.Tensor   # (nnz_f,) int32 packed ids
+    fringe_cols: torch.Tensor   # (nnz_f,) int32
+    fringe_vals: torch.Tensor   # (nnz_f,) float32
+    fringe_row_ids: torch.Tensor  # (n_fringe_rows,) int32 original ids
+    col_perm: torch.Tensor      # (K,) int32 — B row perm (identity unless reorder_cols)
+    # scatter-free merge: original row -> packed slot or -1
+    gather_src_matrix: torch.Tensor  # (M,) int32
+    gather_src_vector: torch.Tensor  # (M,) int32
+    # K-sharded streaming tier: fringe COO re-bucketed by k-block (sorted by
+    # (k-block, row, col), per-bucket chunk-padded with zero-value entries,
+    # columns k-block-local); 1-element dummies unless it is in use
+    fringe_kb_chunk: torch.Tensor  # (num_chunks,) int32, chunk -> k-block id
+    fringe_kb_rows: torch.Tensor   # (num_chunks*chunk,) int32
+    fringe_kb_cols: torch.Tensor   # (num_chunks*chunk,) int32
+    fringe_kb_vals: torch.Tensor   # (num_chunks*chunk,) float32
+    # structured-lane payloads: (1, 1, 1) dummies (general format only)
+    nm_values: torch.Tensor
+    nm_codes: torch.Tensor
+    bitmap_words: torch.Tensor
+    bitmap_values: torch.Tensor
+
+    shape: Tuple[int, int]
+    config: SpmmConfig
+    stats: Tuple  # immutable (key, value) pairs
+    fringe_tier: str = "resident"  # "resident" | "ksharded" | "xla"
+    fringe_bk: int = 0             # k-block size of the ksharded tier
+    matrix_format: str = "general"
+    format_params: Tuple[int, int] = (0, 0)
+    update_maps: Optional[UpdateMaps] = None
+    # kernel-side index arrays derived from leaves on first use (not leaves)
+    derived: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    @property
+    def device(self) -> torch.device:
+        return self.step_window.device
+
+    @property
+    def num_windows(self) -> int:
+        return self.core_row_map.shape[0] // self.config.bm
+
+    @property
+    def stats_dict(self) -> Dict:
+        return dict(self.stats)
+
+    @property
+    def has_core(self) -> bool:
+        return bool(self.stats_dict["core_nnz"])
+
+    @property
+    def has_fringe(self) -> bool:
+        return bool(self.stats_dict["fringe_nnz"])
+
+    def leaves(self) -> Dict[str, torch.Tensor]:
+        """The 19 leaves by name."""
+        return {name: getattr(self, name) for name in LEAF_NAMES}
+
+    def signature(self) -> Tuple:
+        """Static structure key: plans sharing it reuse one executor."""
+        cfg = self.config
+        return (
+            PLAN_FORMAT_VERSION,
+            self.shape, cfg.bm, cfg.bk, cfg.bn, cfg.impl, cfg.reorder_cols,
+            cfg.fringe_chunk, self.num_windows,
+            int(self.step_window.shape[0]), int(self.fringe_rows.shape[0]),
+            int(self.fringe_row_ids.shape[0]), self.has_core, self.has_fringe,
+            self.fringe_tier, self.fringe_bk,
+            int(self.fringe_kb_chunk.shape[0]),
+            int(self.fringe_kb_rows.shape[0]),
+            self.matrix_format, tuple(self.format_params),
+        )
+
+
+# --- executor-body leaf ordering -------------------------------------------
+N_PLAN_LEAVES = 17   # executor-body plan args (everything before b)
+LEAF_RANKS = (1, 1, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 3, 3, 3, 3)
+
+
+def plan_leaves(plan: NeutronPlan) -> Tuple[torch.Tensor, ...]:
+    """Executor-body args in fused-body order (without b)."""
+    return (
+        plan.step_window, plan.step_col, plan.flat_values,
+        plan.fringe_rows, plan.fringe_cols, plan.fringe_vals,
+        plan.col_perm, plan.gather_src_matrix, plan.gather_src_vector,
+        plan.fringe_kb_chunk, plan.fringe_kb_rows,
+        plan.fringe_kb_cols, plan.fringe_kb_vals,
+        plan.nm_values, plan.nm_codes,
+        plan.bitmap_words, plan.bitmap_values,
+    )
+
+
+def plan_from_leaves(
+    leaves: Dict[str, np.ndarray], meta: Dict[str, Any], device: Any,
+) -> NeutronPlan:
+    """A plan from its 19 leaves as host arrays plus metadata.
+
+    ``meta`` holds ``shape``, ``config`` (a :class:`SpmmConfig` or a dict of
+    its fields), ``stats``, ``fringe_tier``, ``fringe_bk``,
+    ``matrix_format``, ``format_params`` and optionally ``update_maps``.
+    Leaves are copied to ``device``, which must suit ``config.impl``.
+    """
+    missing = [n for n in LEAF_NAMES if n not in leaves]
+    extra = sorted(set(leaves) - set(LEAF_NAMES))
+    if missing or extra:
+        raise PlanBuildError(
+            f"plan leaves mismatch: missing {missing}, unexpected {extra}")
+    config = meta["config"]
+    if isinstance(config, dict):
+        known = {f.name for f in dataclasses.fields(SpmmConfig)}
+        unknown = sorted(set(config) - known)
+        if unknown:
+            raise PlanBuildError(f"unknown SpmmConfig fields: {unknown}")
+        config = SpmmConfig(**config)
+    if meta.get("matrix_format", "general") != "general":
+        raise PlanBuildError(
+            "structured matrix formats are not ported yet (ROADMAP A8)")
+    if (config.impl == "cuda" and meta["fringe_tier"] == "ksharded"
+            and dict(meta.get("stats", ())).get("fringe_nnz", 1)
+            and leaves["fringe_kb_rows"].size < leaves["fringe_rows"].size):
+        raise PlanBuildError(
+            "a ksharded plan for impl='cuda' needs its k-bucketed fringe "
+            "stream, and this one holds only placeholders (the reference "
+            "builds it for impl='pallas')")
+    dev = check_impl_device(config.impl, device)
+    tensors = {}
+    for name in LEAF_NAMES:
+        arr = np.asarray(leaves[name])
+        # CPU plans own a copy (no aliasing of the caller's arrays); CUDA
+        # plans copy to the card anyway
+        if dev.type == "cpu" or not arr.flags.writeable:
+            arr = np.array(arr, order="C")
+        tensors[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    return NeutronPlan(
+        **tensors,
+        shape=tuple(int(s) for s in meta["shape"]),
+        config=config,
+        stats=tuple(meta.get("stats", ())),
+        fringe_tier=str(meta["fringe_tier"]),
+        fringe_bk=int(meta["fringe_bk"]),
+        matrix_format="general",
+        format_params=tuple(meta.get("format_params", (0, 0))),
+        update_maps=meta.get("update_maps"),
+    )
+
+
+# --- validation -------------------------------------------------------------
+
+
+def validate_coo(
+    rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+    shape: Tuple[int, int],
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Reject malformed COO input with a descriptive error (negative
+    indices would otherwise wrap around python-style)."""
+    m, k = shape
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    vals = np.asarray(vals)
+    if not (rows.ndim == cols.ndim == vals.ndim == 1):
+        raise ValueError(
+            f"COO triplets must be 1-D; got rows.ndim={rows.ndim} "
+            f"cols.ndim={cols.ndim} vals.ndim={vals.ndim}"
+        )
+    if not (rows.shape == cols.shape == vals.shape):
+        raise ValueError(
+            f"COO triplet lengths disagree: rows={rows.shape[0]} "
+            f"cols={cols.shape[0]} vals={vals.shape[0]}"
+        )
+    for name, arr in (("rows", rows), ("cols", cols)):
+        if not np.issubdtype(arr.dtype, np.integer):
+            raise ValueError(f"{name} must be an integer array, got {arr.dtype}")
+    if rows.size:
+        if int(rows.min()) < 0 or int(rows.max()) >= m:
+            raise ValueError(
+                f"row indices out of range for shape {shape}: "
+                f"[{int(rows.min())}, {int(rows.max())}]"
+            )
+        if int(cols.min()) < 0 or int(cols.max()) >= k:
+            raise ValueError(
+                f"col indices out of range for shape {shape}: "
+                f"[{int(cols.min())}, {int(cols.max())}]"
+            )
+    return rows.astype(np.int64), cols.astype(np.int64), vals
+
+
+def validate_rhs(b: torch.Tensor, shape: Tuple[int, int]) -> None:
+    """Reject an operand whose K disagrees with the plan (a short b would
+    otherwise zero-pad silently into a wrong output)."""
+    if b.ndim not in (2, 3):
+        raise ValueError(
+            f"b must be (K, N) or (batch, K, N); got shape {tuple(b.shape)}"
+        )
+    if int(b.shape[-2]) != shape[1]:
+        raise ValueError(
+            f"operand K={int(b.shape[-2])} does not match the plan's "
+            f"K={shape[1]} (plan shape {shape})"
+        )
+
+
+# --- padding + merge helpers ------------------------------------------------
+
+
+def permute_pad_b(
+    b: torch.Tensor, col_perm: torch.Tensor, reorder_cols: bool, bk: int,
+) -> torch.Tensor:
+    """Apply the column permutation to B rows, cast to fp32 and pad K to a
+    multiple of ``bk`` (the tile stream addresses whole k-blocks).
+
+    Unlike the reference, N is not padded to ``bn``: the kernels mask their
+    ragged column edge, so padding would only add work.
+    """
+    k = b.shape[0]
+    if reorder_cols:
+        b = b[col_perm.long()]
+    b = b.to(torch.float32)
+    k_pad = ((k + bk - 1) // bk) * bk
+    if k_pad != k:
+        b = F.pad(b, (0, 0, 0, k_pad - k))
+    return b.contiguous()
+
+
+def gather_rows(packed: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Scatter-free merge: out[r] = packed[src[r]] where src[r] >= 0 else 0."""
+    idx = src.long().clamp(0, packed.shape[0] - 1)
+    return torch.where((src >= 0)[:, None], packed[idx], 0.0)
+
+
+# --- k-bucketed fringe stream -----------------------------------------------
+
+
+def bucket_fringe_kblocks(
+    pr: np.ndarray, pc: np.ndarray, pv: np.ndarray,
+    k_pad: int, fringe_bk: int, chunk_eff: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Relayout packed fringe COO for the K-sharded streaming kernel.
+
+    Nonzeros sorted by (k-block, row, col), per-bucket padded to a chunk
+    multiple with zero-value entries (row 0, col 0), columns made
+    k-block-local; empty k-blocks get no chunks.  The trailing return is
+    ``pos_of_packed``: the bucketed-stream slot of each packed fringe entry.
+    """
+    nkb_f = (k_pad + fringe_bk - 1) // fringe_bk
+    kb = pc.astype(np.int64) // fringe_bk
+    order_kb = np.argsort(kb, kind="stable")  # keeps (row, col) per kb
+    kbs = kb[order_kb]
+    counts = np.bincount(kbs, minlength=nkb_f)
+    padded = ((counts + chunk_eff - 1) // chunk_eff) * chunk_eff
+    src_start = np.cumsum(counts) - counts
+    dst_start = np.cumsum(padded) - padded
+    dest = dst_start[kbs] + np.arange(kbs.size) - src_start[kbs]
+    total_kb = int(padded.sum())
+    kb_rows = np.zeros(total_kb, np.int32)
+    kb_rows[dest] = pr[order_kb]
+    kb_cols = np.zeros(total_kb, np.int32)
+    kb_cols[dest] = (pc[order_kb] % fringe_bk).astype(np.int32)
+    kb_vals = np.zeros(total_kb, pv.dtype)
+    kb_vals[dest] = pv[order_kb]
+    kb_chunk = np.repeat(
+        np.arange(nkb_f, dtype=np.int32), padded // chunk_eff
+    )
+    pos_of_packed = np.empty(kbs.size, np.int64)
+    pos_of_packed[order_kb] = dest
+    return kb_chunk, kb_rows, kb_cols, kb_vals, pos_of_packed
+
+
+# --- update-map construction ------------------------------------------------
+
+
+def build_update_maps(
+    rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+    shape: Tuple[int, int], part, core_lin: np.ndarray,
+    fringe_pos: np.ndarray, kb_pos_of_packed: Optional[np.ndarray],
+) -> UpdateMaps:
+    """Invert prepare()'s packing into per-nonzero COO->slot maps."""
+    nnz = rows.shape[0]
+    path = np.full(nnz, PATH_FRINGE, np.int8)
+    core_lin_of = np.full(nnz, -1, np.int64)
+    fringe_pos_of = np.full(nnz, -1, np.int64)
+    kb_pos_of = np.full(nnz, -1, np.int64)
+    core_idx = (
+        part.core_idx if part.core_idx is not None
+        else np.zeros(0, np.int64)
+    )
+    fringe_idx = (
+        part.fringe_idx if part.fringe_idx is not None
+        else np.zeros(0, np.int64)
+    )
+    if core_idx.size:
+        path[core_idx] = PATH_CORE
+        core_lin_of[core_idx] = core_lin
+    if fringe_idx.size:
+        fringe_pos_of[fringe_idx] = fringe_pos
+        if kb_pos_of_packed is not None:
+            kb_pos_of[fringe_idx] = kb_pos_of_packed[fringe_pos]
+    # stable sort keeps input order within a slot
+    cm_order = np.argsort(core_lin, kind="stable")
+    key_sorted, key_order = build_key_index(rows, cols, shape[1])
+    return UpdateMaps(
+        shape=tuple(shape), rows=rows, cols=cols, vals=vals.copy(),
+        path=path, core_lin=core_lin_of, fringe_pos=fringe_pos_of,
+        kb_pos=kb_pos_of,
+        core_lin_sorted=core_lin[cm_order],
+        core_members_sorted=core_idx[cm_order],
+        key_sorted=key_sorted, key_order=key_order,
+    )

@@ -1,0 +1,336 @@
+"""NeutronSparse plan construction: ``prepare``.
+
+``prepare`` runs the preprocessing pipeline of the paper's workflow
+(Fig. 7) on the host, in numpy, exactly as ``repro.core.spmm.prepare``
+does: cost-model split -> two-stage extraction -> global-local reorder ->
+reuse-ordered flat tile stream -> packed fringe COO -> fringe tier ->
+inverse row maps.  The leaves come out of :func:`build_plan_arrays` as
+host arrays and are then moved to the plan's device in one step.
+
+Scope of this port: the analytic cost model only, and the general matrix
+format only.  ``autotune`` and structured hints raise, and so does a
+matrix whose N:M structure the reference would route to its structured
+lane: building a general plan where the reference builds a structured one
+would silently change what the plan computes with.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from ..errors import PlanBuildError
+from ..kernels.ops import effective_chunk
+from ..obs import REGISTRY
+from . import formats, partition, plan_ir, reorder, reuse
+from .cost_model import EngineCostModel, default_cost_model
+from .plan_ir import IMPL_DEVICE, NeutronPlan, SpmmConfig
+
+_PREPARES = REGISTRY.counter(
+    "core_prepares_total", "host-side prepare() preprocessing runs")
+
+# the structured payload leaves are (1, 1, 1) dummies on general plans
+_DUMMY_F32 = np.zeros((1, 1, 1), np.float32)
+_DUMMY_I32 = np.zeros((1, 1, 1), np.int32)
+
+
+def prepare_call_count() -> int:
+    """Number of ``prepare()`` calls since process start (test hook)."""
+    return int(_PREPARES.total())
+
+
+def _check_config(config: SpmmConfig) -> None:
+    if config.autotune:
+        raise PlanBuildError(
+            "autotune is not ported yet (ROADMAP A10): the port prepares "
+            "with the analytic cost model only; pass autotune=False")
+    if config.structure_hint not in (None, "general"):
+        raise PlanBuildError(
+            f"structure_hint={config.structure_hint!r} needs the structured "
+            "lane, which is not ported yet (ROADMAP A8)")
+
+
+def _refuse_structured(
+    rows: np.ndarray, cols: np.ndarray, shape: Tuple[int, int],
+    config: SpmmConfig, cm: EngineCostModel, num_steps: int,
+    has_core: bool, tile_density: float,
+) -> None:
+    """Raise where the reference's ``_structured_payload`` would pack an
+    unhinted matrix into the N:M lane.
+
+    Unhinted selection never picks the bitmap payload, and the N:M pack
+    cannot fail on a pattern ``detect_nm_pattern`` found on the same cells,
+    so a detected, priced-in pattern is exactly the reference's "nm" case.
+    """
+    if config.structure_hint == "general" or not has_core \
+            or config.reorder_cols:
+        return
+    nm_pat = formats.detect_nm_pattern(rows, cols, shape)
+    if nm_pat is None or config.bk % nm_pat[1]:
+        return
+    fmt = cm.select_matrix_format(
+        nm_pattern=nm_pat, tile_zero_fraction=1.0 - float(tile_density),
+        num_steps=int(num_steps), bm=config.bm, bk=config.bk, row_cap=0,
+        hint=None,
+    )
+    if fmt != "general":
+        raise PlanBuildError(
+            f"this matrix has a {nm_pat[0]}:{nm_pat[1]} pattern that the "
+            "reference packs into its structured lane, which is not ported "
+            "yet (ROADMAP A8); pass structure_hint='general' to build the "
+            "general plan")
+
+
+def build_plan_arrays(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    shape: Tuple[int, int],
+    config: SpmmConfig = SpmmConfig(),
+    cost_model: Optional[EngineCostModel] = None,
+) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """Host-side preprocessing: the 19 plan leaves as numpy arrays + meta.
+
+    ``meta`` is what :func:`plan_ir.plan_from_leaves` takes besides the
+    leaves.  Runs no kernel and touches no device.
+    """
+    _check_config(config)
+    m, k = shape
+    rows, cols, vals = plan_ir.validate_coo(rows, cols, vals, shape)
+    _PREPARES.inc()
+    cm = cost_model if cost_model is not None else default_cost_model(
+        config.bn)
+    t0 = time.perf_counter()
+
+    # 1) heterogeneous workload partitioning (§5.2)
+    part = partition.partition_rows_cols(
+        rows, cols, vals, shape, cm, alpha=config.alpha,
+        col_stage=config.enable_col_stage,
+    )
+    t_part = time.perf_counter() - t0
+
+    # 2) global-local reordering of the dense core (§6.1): only the active
+    # (window, k-block) structure; tile values are written once, directly
+    # into the flat stream (step 3)
+    t0 = time.perf_counter()
+    n_core = int(part.core_row_ids.shape[0])
+    nw = (n_core + config.bm - 1) // config.bm
+    nkb = (k + config.bk - 1) // config.bk
+    if n_core:
+        local_of_row = np.full(m, -1, np.int64)
+        local_of_row[part.core_row_ids] = np.arange(n_core)
+        lrows = local_of_row[part.core_rows]
+        ro = reorder.reorder(
+            lrows, part.core_cols, (n_core, k), config.bm, config.bk,
+            enable_global=config.enable_global_reorder,
+            enable_local=config.enable_local_reorder,
+            reorder_cols=config.reorder_cols,
+            max_clusters=config.max_clusters,
+            seed=config.seed,
+        )
+        inv_col = np.empty(k, np.int64)
+        inv_col[ro.col_order] = np.arange(k)
+        ccols = inv_col[part.core_cols]
+        inv_row = np.empty(n_core, np.int64)
+        inv_row[ro.row_order] = np.arange(n_core)
+        prow = inv_row[lrows]
+        st = formats.block_structure_from_coo(
+            prow // config.bm, ccols // config.bk, nw, nkb
+        )
+        block_cols = np.zeros((nw, st.max_blocks), np.int32)
+        block_cols[st.uw, st.slot] = st.ub.astype(np.int32)
+        num_blocks = st.counts
+        cluster_of_window = ro.cluster_of_row[:: config.bm][:nw]
+        col_perm = ro.col_order
+        tile_density = part.core_nnz / max(
+            st.uw.size * config.bm * config.bk, 1
+        )
+    else:
+        st = None
+        block_cols = np.zeros((0, 1), np.int32)
+        num_blocks = np.zeros(0, np.int64)
+        cluster_of_window = np.zeros(0, np.int64)
+        col_perm = np.arange(k, dtype=np.int64)
+        tile_density = 0.0
+    t_reorder = time.perf_counter() - t0
+
+    # 3) reuse-ordered flat tile stream (§6.2): pair p of window w sits at
+    # stream position start(w) + slot(p); nonzeros land in their tile cell
+    # through one flat scatter-add
+    t0 = time.perf_counter()
+    if config.enable_reuse_order and nw:
+        plan_r = reuse.plan_window_order(
+            block_cols, num_blocks, np.asarray(cluster_of_window)
+        )
+        worder = plan_r.window_order
+        reuse_factor = plan_r.reuse_factor
+    else:
+        worder = np.arange(nw, dtype=np.int64)
+        reuse_factor = 1.0
+    if st is not None and st.uw.size:
+        cnt = num_blocks[worder]
+        total = int(cnt.sum())
+        starts_w = np.zeros(nw, np.int64)
+        starts_w[worder] = np.cumsum(cnt) - cnt
+        step_of_pair = starts_w[st.uw] + st.slot
+        step_window = np.zeros(total, np.int32)
+        step_window[step_of_pair] = st.uw.astype(np.int32)
+        step_col = np.zeros(total, np.int32)
+        step_col[step_of_pair] = st.ub.astype(np.int32)
+        lin = (
+            step_of_pair[st.inv_idx] * config.bm + prow % config.bm
+        ) * config.bk + ccols % config.bk
+        flat = np.zeros(total * config.bm * config.bk, np.float32)
+        np.add.at(flat, lin, part.core_vals.astype(np.float32))
+        flat_values = flat.reshape(total, config.bm, config.bk)
+        core_lin = lin
+    else:  # degenerate all-fringe matrix: one zero tile keeps shapes static
+        step_window = np.zeros(1, np.int32)
+        step_col = np.zeros(1, np.int32)
+        flat_values = np.zeros((1, config.bm, config.bk), np.float32)
+        core_lin = np.zeros(0, np.int64)
+
+    _refuse_structured(
+        rows, cols, shape, config, cm, int(flat_values.shape[0]),
+        has_core=bool(part.core_nnz), tile_density=float(tile_density),
+    )
+
+    # map packed core rows -> original ids
+    core_row_map = np.full(nw * config.bm, -1, np.int64)
+    if n_core:
+        core_row_map[:n_core] = part.core_row_ids[ro.row_order]
+    core_row_map = core_row_map.astype(np.int32)
+
+    # 4) fringe packing: one stable sort (rows are the major key, so row
+    # runs come out contiguous); packed ids by run scan
+    f_rows, f_cols, f_vals = part.fringe_rows, part.fringe_cols, part.fringe_vals
+    if f_rows.size:
+        order = np.argsort(f_rows * np.int64(k) + f_cols, kind="stable")
+        sr = f_rows[order]
+        first = np.concatenate([[True], sr[1:] != sr[:-1]])
+        fringe_row_ids = sr[first]
+        pr = (np.cumsum(first) - 1).astype(np.int32)
+        pc = f_cols[order].astype(np.int32)
+        pv = f_vals[order].astype(np.float32)  # kernels accumulate in fp32
+        fringe_pos = np.empty(order.size, np.int64)
+        fringe_pos[order] = np.arange(order.size)  # fringe entry -> slot
+    else:
+        fringe_row_ids = np.zeros(1, np.int64)
+        pr = np.zeros(1, np.int32)
+        pc = np.zeros(1, np.int32)
+        pv = np.zeros(1, np.float32)
+        fringe_pos = np.zeros(0, np.int64)
+
+    # 4b) vector-path tier (the reference's arithmetic plus the H100 rule);
+    # the k-bucketed stream is read only by the "cuda" streaming kernel
+    k_pad = ((k + config.bk - 1) // config.bk) * config.bk
+    fringe_tier, fringe_bk = cm.select_fringe_tier(
+        k_pad, int(fringe_row_ids.shape[0]), config.bn,
+        vmem_budget=config.fringe_vmem_budget, impl=config.impl,
+    )
+    if fringe_tier == "ksharded" and f_rows.size and config.impl == "cuda":
+        kb_chunk, kb_rows, kb_cols, kb_vals, kb_pos_of_packed = (
+            plan_ir.bucket_fringe_kblocks(
+                pr, pc, pv, k_pad, fringe_bk,
+                effective_chunk(config.fringe_chunk))
+        )
+    else:
+        kb_chunk = np.zeros(1, np.int32)
+        kb_rows = np.zeros(1, np.int32)
+        kb_cols = np.zeros(1, np.int32)
+        kb_vals = np.zeros(1, np.float32)
+        kb_pos_of_packed = None
+
+    # inverse row maps for the scatter-free merge (-1 = no contribution)
+    gather_src_matrix = np.full(m, -1, np.int32)
+    valid_slots = np.flatnonzero(core_row_map >= 0)
+    gather_src_matrix[core_row_map[valid_slots]] = valid_slots
+    gather_src_vector = np.full(m, -1, np.int32)
+    if f_rows.size:
+        gather_src_vector[fringe_row_ids] = np.arange(
+            fringe_row_ids.size, dtype=np.int32
+        )
+    update_maps = plan_ir.build_update_maps(
+        rows, cols, vals, shape, part, core_lin, fringe_pos,
+        kb_pos_of_packed,
+    )
+    t_pack = time.perf_counter() - t0
+    stats = (
+        ("alpha", float(part.alpha)),
+        ("nnz", int(part.nnz)),
+        ("fringe_nnz", int(part.fringe_nnz)),
+        ("core_nnz", int(part.core_nnz)),
+        ("fringe_fraction", float(part.fringe_fraction())),
+        ("tile_density", float(tile_density)),
+        ("reuse_factor", float(reuse_factor)),
+        ("num_windows", int(nw)),
+        ("num_steps", int(step_window.shape[0])),
+        ("t_partition_s", t_part),
+        ("t_reorder_s", t_reorder),
+        ("t_pack_s", t_pack),
+        ("k_pad", k_pad),
+        ("fringe_tier", fringe_tier),
+        ("fringe_bk", int(fringe_bk)),
+        ("matrix_format", "general"),
+        ("format_params", (0, 0)),
+        ("padding_waste",
+         float(1.0 - tile_density) if part.core_nnz else 0.0),
+    )
+    leaves = {
+        "step_window": step_window,
+        "step_col": step_col,
+        "flat_values": flat_values,
+        "core_row_map": core_row_map,
+        "fringe_rows": pr,
+        "fringe_cols": pc,
+        "fringe_vals": pv,
+        "fringe_row_ids": fringe_row_ids.astype(np.int32),
+        "col_perm": col_perm.astype(np.int32),
+        "gather_src_matrix": gather_src_matrix,
+        "gather_src_vector": gather_src_vector,
+        "fringe_kb_chunk": kb_chunk,
+        "fringe_kb_rows": kb_rows,
+        "fringe_kb_cols": kb_cols,
+        "fringe_kb_vals": kb_vals,
+        "nm_values": _DUMMY_F32,
+        "nm_codes": _DUMMY_I32,
+        "bitmap_words": _DUMMY_I32,
+        "bitmap_values": _DUMMY_F32,
+    }
+    meta = {
+        "shape": tuple(shape),
+        "config": config,
+        "stats": stats,
+        "fringe_tier": fringe_tier,
+        "fringe_bk": int(fringe_bk),
+        "matrix_format": "general",
+        "format_params": (0, 0),
+        "update_maps": update_maps,
+    }
+    return leaves, meta
+
+
+def prepare(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    shape: Tuple[int, int],
+    config: SpmmConfig = SpmmConfig(),
+    cost_model: Optional[EngineCostModel] = None,
+    *,
+    device: Any = None,
+) -> NeutronPlan:
+    """Host preprocessing, then the leaves moved to ``device``.
+
+    ``device`` defaults to the one ``config.impl`` runs on ("cuda" for the
+    kernels, "cpu" for the plain versions); a mismatched pair raises before
+    any work is done.
+    """
+    _check_config(config)
+    if device is None:
+        device = IMPL_DEVICE.get(config.impl, config.impl)
+    plan_ir.check_impl_device(config.impl, device)
+    leaves, meta = build_plan_arrays(rows, cols, vals, shape, config,
+                                     cost_model)
+    return plan_ir.plan_from_leaves(leaves, meta, device)

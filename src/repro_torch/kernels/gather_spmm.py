@@ -1,0 +1,146 @@
+"""Vector-engine ("AIV") path: row-sorted COO gather SpMM, two tiers.
+
+Port of ``repro.kernels.gather_spmm`` (the two Pallas TPU fringe kernels):
+
+- :func:`gather_spmm` — tier "resident": ``out[rows[i]] += vals[i] *
+  B[cols[i]]`` over the row-sorted packed fringe COO;
+- :func:`gather_spmm_ksharded` — tier "ksharded": the same product over the
+  k-bucketed stream built by ``plan_ir.bucket_fringe_kblocks`` (columns
+  local to the k-block ``chunk_kb`` names for their chunk).
+
+Both return the packed (num_rows, N) fp32 output.  On CUDA tensors the
+wrappers launch the hand-written Hopper kernels in ``csrc/gather_spmm.cu``
+(design notes there); on CPU tensors they run the plain versions from
+:mod:`repro_torch.kernels.ref`.  A CUDA call launches its kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .ref import ref_gather_spmm, ref_gather_spmm_kblocked
+
+NAME = "gather_spmm"
+NAME_KSHARDED = "gather_spmm_ksharded"
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _P)
+_ARGTYPES_KSHARDED = (_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P)
+
+
+def csr_indptr(sorted_rows: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """(num_rows+1,) int32 row offsets of a row-sorted stream, on its
+    device.  Raises if the rows are not sorted (one device sync)."""
+    if sorted_rows.numel() > 1 and not bool(
+            (sorted_rows[1:] >= sorted_rows[:-1]).all()):
+        raise ValueError("gather_spmm needs row-sorted nonzeros")
+    counts = torch.bincount(sorted_rows.long(), minlength=num_rows)
+    indptr = torch.zeros(num_rows + 1, dtype=torch.int64,
+                         device=sorted_rows.device)
+    indptr[1:] = torch.cumsum(counts[:num_rows], 0)
+    return indptr.to(torch.int32)
+
+
+def kbucket_row_order(
+    kb_rows: torch.Tensor, num_rows: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(perm, indptr)``: a stable row-major order of the k-bucketed
+    stream (each row's entries stay in k-block order) and the row offsets
+    into it."""
+    perm = torch.argsort(kb_rows, stable=True)
+    return perm.to(torch.int32), csr_indptr(kb_rows[perm], num_rows)
+
+
+def _check(b: torch.Tensor, **tensors) -> None:
+    if b.ndim != 2 or b.dtype != torch.float32 or not b.is_contiguous():
+        raise ValueError(
+            f"b must be a contiguous float32 (K, N) tensor, got "
+            f"{b.dtype} {tuple(b.shape)}")
+    for name, (x, dtype) in tensors.items():
+        if x.dtype != dtype or not x.is_contiguous() or x.device != b.device:
+            raise ValueError(
+                f"{name} must be a contiguous {dtype} tensor on {b.device}, "
+                f"got {x.dtype} on {x.device}")
+
+
+def _stream(b: torch.Tensor) -> int:
+    return torch.cuda.current_stream(b.device).cuda_stream
+
+
+def gather_spmm(
+    rows: torch.Tensor,  # (nnz,) int32, row-sorted packed row ids
+    cols: torch.Tensor,  # (nnz,) int32
+    vals: torch.Tensor,  # (nnz,) float32
+    b: torch.Tensor,     # (K, N) float32
+    *,
+    num_rows: int,
+    chunk: Optional[int] = None,
+    indptr: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Resident tier.  ``chunk`` only bounds the plain version's gather;
+    ``indptr`` is :func:`csr_indptr` of ``rows`` when the caller has it
+    cached (plans keep it in ``plan.derived``)."""
+    if b.device.type == "cpu":
+        return ref_gather_spmm(rows, cols, vals, b, num_rows, chunk=chunk)
+    _check(b, rows=(rows, torch.int32), cols=(cols, torch.int32),
+           vals=(vals, torch.float32))
+    if indptr is None:
+        indptr = csr_indptr(rows, num_rows)
+    n = b.shape[1]
+    out = torch.empty((num_rows, n), dtype=torch.float32, device=b.device)
+    fn = _build.function(NAME, "gather_spmm_launch", _ARGTYPES)
+    status = fn(indptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                b.data_ptr(), out.data_ptr(), num_rows, n, _stream(b))
+    _build.check_status(status, NAME)
+    gather_spmm.launches += 1
+    return out
+
+
+gather_spmm.launches = 0  # kernel launches (CPU calls do not count)
+
+
+def gather_spmm_ksharded(
+    chunk_kb: torch.Tensor,  # (num_chunks,) int32, chunk -> k-block id
+    rows: torch.Tensor,  # (num_chunks*chunk,) int32 k-bucketed packed rows
+    cols: torch.Tensor,  # (num_chunks*chunk,) int32 k-block-LOCAL columns
+    vals: torch.Tensor,  # (num_chunks*chunk,) float32, 0 on padding entries
+    b: torch.Tensor,     # (K, N) float32
+    *,
+    num_rows: int,
+    bk: int,
+    row_order: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """K-sharded streaming tier.  ``row_order`` is
+    :func:`kbucket_row_order` of ``rows`` when the caller has it cached."""
+    num_chunks = chunk_kb.shape[0]
+    if num_chunks < 1 or rows.shape[0] % num_chunks:
+        raise ValueError(
+            f"bucketed stream of {rows.shape[0]} entries does not split into "
+            f"{num_chunks} chunks")
+    if b.device.type == "cpu":
+        return ref_gather_spmm_kblocked(chunk_kb, rows, cols, vals, b,
+                                        num_rows, bk)
+    _check(b, chunk_kb=(chunk_kb, torch.int32), rows=(rows, torch.int32),
+           cols=(cols, torch.int32), vals=(vals, torch.float32))
+    k, n = b.shape
+    k_pad = ((k + bk - 1) // bk) * bk
+    if k_pad != k:
+        b = F.pad(b, (0, 0, 0, k_pad - k))
+    perm, indptr = row_order or kbucket_row_order(rows, num_rows)
+    out = torch.empty((num_rows, n), dtype=torch.float32, device=b.device)
+    fn = _build.function(NAME, "gather_spmm_ksharded_launch",
+                         _ARGTYPES_KSHARDED)
+    status = fn(indptr.data_ptr(), perm.data_ptr(), cols.data_ptr(),
+                vals.data_ptr(), chunk_kb.data_ptr(),
+                rows.shape[0] // num_chunks, bk, b.data_ptr(),
+                out.data_ptr(), num_rows, n, _stream(b))
+    _build.check_status(status, NAME_KSHARDED)
+    gather_spmm_ksharded.launches += 1
+    return out
+
+
+gather_spmm_ksharded.launches = 0  # kernel launches (CPU calls do not count)

@@ -1,0 +1,171 @@
+"""Per-path dispatch: the matrix path and the vector path of the fused body.
+
+``impl`` selection (``SpmmConfig.impl``):
+
+- ``"cuda"``  — the hand-written Hopper kernels, on CUDA tensors;
+- ``"torch"`` — the plain versions, on CPU tensors.  This follows the
+  reference's ``"xla"`` branch, including its switch to one densified
+  matmul above an occupancy threshold, so CPU results track
+  ``impl="xla"`` of the JAX package.
+
+Each function takes raw tensors (plan leaves arrive via the executor in
+``repro_torch.exec``) and an optional ``derived`` dict in which index
+arrays the kernels derive from leaves are cached for the plan's lifetime.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from . import ref
+from .dense_tile_spmm import dense_tile_spmm, window_segments
+from .gather_spmm import (
+    csr_indptr, gather_spmm, gather_spmm_ksharded, kbucket_row_order,
+)
+
+IMPLS = ("cuda", "torch")
+
+# the hand-written kernels' wrappers; each counts its launches in an integer
+# attribute ``launches``, raised only where the kernel was launched
+KERNELS = (dense_tile_spmm, gather_spmm, gather_spmm_ksharded)
+
+# occupancy (active tiles / total slots) above which the plain path
+# switches from the streamed per-tile form to one densified matmul
+DENSIFY_OCCUPANCY = 0.25
+
+
+def pow2_at_least(n: int) -> int:
+    """Smallest power of two >= n."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def effective_chunk(chunk: Optional[int]) -> int:
+    """Nonzeros per chunk of the k-bucketed fringe stream.
+
+    The reference's kernels unroll their chunk loop, so it clamps the
+    value to 64, and plan builders pad the bucketed stream with this same
+    value; the clamp is kept verbatim so the port's leaves match.
+    """
+    return min(chunk or 8, 64)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last reset, by kernel name."""
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def _cached(derived: Optional[Dict[str, Any]], key: str,
+            make: Callable[[], Any]) -> Any:
+    if derived is None:
+        return make()
+    if key not in derived:
+        derived[key] = make()
+    return derived[key]
+
+
+def _check_impl(impl: str, b: torch.Tensor) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if (b.device.type == "cuda") != (impl == "cuda"):
+        raise ValueError(
+            f"impl={impl!r} does not run on a {b.device.type} tensor")
+
+
+def block_stream_spmm(
+    step_window: torch.Tensor,
+    step_col: torch.Tensor,
+    flat_values: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    num_windows: int,
+    bm: int,
+    bk: int,
+    impl: str,
+    derived: Optional[Dict[str, Any]] = None,
+) -> torch.Tensor:
+    """Matrix-engine path; returns packed (num_windows*bm, N) fp32.
+
+    The tile stream must hold each (window, k-block) pair once, as
+    ``prepare`` emits it: the plain densified form scatters tiles without
+    summing duplicates.
+    """
+    if b.ndim != 2:
+        raise ValueError(
+            f"block_stream_spmm expects a rank-2 (K, N) operand, got shape "
+            f"{tuple(b.shape)}")
+    _check_impl(impl, b)
+    if impl == "torch":
+        t_steps = flat_values.shape[0]
+        slots = max(num_windows * (b.shape[0] // bk), 1)
+        core_elems = num_windows * bm * b.shape[0]
+        if (num_windows and t_steps / slots >= DENSIFY_OCCUPANCY
+                and core_elems <= 2 ** 26):
+            return ref.densified_block_stream_spmm_unique(
+                step_window, step_col, flat_values, b, num_windows)
+        return ref.ref_block_stream_spmm(step_window, step_col, flat_values,
+                                         b, num_windows)
+    segments = _cached(derived, "window_segments",
+                       lambda: window_segments(step_window, num_windows))
+    return dense_tile_spmm(step_window, step_col, flat_values, b,
+                           num_windows=num_windows, bm=bm, bk=bk,
+                           segments=segments)
+
+
+def fringe_spmm(
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    num_rows: int,
+    impl: str,
+    chunk: Optional[int] = None,
+    tier: str = "resident",
+    bk: int = 0,
+    kb_chunk: Optional[torch.Tensor] = None,
+    kb_rows: Optional[torch.Tensor] = None,
+    kb_cols: Optional[torch.Tensor] = None,
+    kb_vals: Optional[torch.Tensor] = None,
+    derived: Optional[Dict[str, Any]] = None,
+) -> torch.Tensor:
+    """Vector-engine path; returns packed (num_rows, N) fp32.
+
+    ``impl="torch"`` runs the reference gather on the packed fringe
+    whatever the tier.  ``impl="cuda"`` runs the streaming kernel on the
+    k-bucketed stream for tier "ksharded", and the row-walk kernel on the
+    packed fringe otherwise: a plan carried over from the JAX package may
+    still say "xla", and on the card that means the row walk (the H100
+    tier rule of ``core.cost_model.select_fringe_tier``).
+    """
+    if b.ndim != 2:
+        raise ValueError(
+            f"fringe_spmm expects a rank-2 (K, N) operand, got shape "
+            f"{tuple(b.shape)}")
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"chunk must be a positive nonzero count, got {chunk}")
+    _check_impl(impl, b)
+    if impl == "torch":
+        return ref.ref_gather_spmm(rows, cols, vals, b, num_rows, chunk=chunk)
+    if tier == "ksharded":
+        if kb_rows is None or kb_chunk is None or bk <= 0:
+            raise ValueError(
+                "tier='ksharded' needs the k-bucketed stream (kb_chunk/"
+                "kb_rows/kb_cols/kb_vals) and its bk")
+        order = _cached(derived, "kbucket_row_order",
+                        lambda: kbucket_row_order(kb_rows, num_rows))
+        return gather_spmm_ksharded(kb_chunk, kb_rows, kb_cols, kb_vals, b,
+                                    num_rows=num_rows, bk=bk,
+                                    row_order=order)
+    indptr = _cached(derived, "csr_indptr",
+                     lambda: csr_indptr(rows, num_rows))
+    return gather_spmm(rows, cols, vals, b, num_rows=num_rows,
+                       indptr=indptr)

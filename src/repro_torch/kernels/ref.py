@@ -1,0 +1,146 @@
+"""Plain PyTorch versions of the SpMM kernels (ports of ``repro.kernels.ref``).
+
+Every hand-written kernel of the port has its plain version here.  They
+are what the ``"torch"`` impl runs on the CPU, what the tests hold against
+the JAX oracles, and what the kernels are held against on the card.  They
+use ordinary tensor ops (batched matmul, ``index_add_``) and are no
+yardstick of speed.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def ref_spmm_dense(a_dense: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B with fp32 accumulation."""
+    return a_dense.to(torch.float32) @ b.to(torch.float32)
+
+
+def ref_block_stream_spmm(
+    step_window: torch.Tensor,  # (T,) int32 — destination window of each step
+    step_col: torch.Tensor,     # (T,) int32 — B k-block id of each step
+    flat_values: torch.Tensor,  # (T, bm, bk)
+    b: torch.Tensor,            # (K, N), K a multiple of bk
+    num_windows: int,
+    tile_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Flat block stream: for each step t,
+    out[step_window[t]] += values[t] @ B[step_col[t]*bk : +bk].
+    Returns packed (num_windows*bm, N) fp32.
+
+    ``tile_chunk`` bounds the gathered (chunk, bk, N) B blocks and the
+    (chunk, bm, N) partial products; None takes the whole stream at once.
+    """
+    t, bm, bk = flat_values.shape
+    n = b.shape[1]
+    b_blocks = b.to(torch.float32).reshape(-1, bk, n)  # (K//bk, bk, N)
+    out = torch.zeros((num_windows, bm, n), dtype=torch.float32,
+                      device=b.device)
+    step = t if tile_chunk is None else max(1, int(tile_chunk))
+    for s in range(0, t, step):
+        cols = step_col[s:s + step].long()
+        partial = torch.bmm(flat_values[s:s + step].to(torch.float32),
+                            b_blocks[cols])
+        out.index_add_(0, step_window[s:s + step].long(), partial)
+    return out.reshape(num_windows * bm, n)
+
+
+def densified_block_stream_spmm(
+    step_window: torch.Tensor,  # (T,) int32
+    step_col: torch.Tensor,     # (T,) int32
+    flat_values: torch.Tensor,  # (T, bm, bk)
+    b: torch.Tensor,            # (K, N) — K a multiple of bk
+    num_windows: int,
+) -> torch.Tensor:
+    """High-occupancy form of the flat block stream: sum the tiles back into
+    a densified (num_windows*bm, K) core and issue one matmul.  The densify
+    is add-based, so duplicate (window, k-block) pairs accumulate like the
+    streaming form.  Returns packed (num_windows*bm, N) fp32."""
+    t, bm, bk = flat_values.shape
+    k, n = b.shape
+    nkb = k // bk
+    lin = step_window.long() * nkb + step_col.long()
+    perm = torch.argsort(lin, stable=True)
+    tiles = torch.zeros((num_windows * nkb, bm, bk), dtype=torch.float32,
+                        device=b.device)
+    tiles.index_add_(0, lin[perm], flat_values.to(torch.float32)[perm])
+    core = tiles.reshape(num_windows, nkb, bm, bk).permute(0, 2, 1, 3)
+    return core.reshape(num_windows * bm, k) @ b.to(torch.float32)
+
+
+def densified_block_stream_spmm_unique(
+    step_window: torch.Tensor,  # (T,) int32
+    step_col: torch.Tensor,     # (T,) int32
+    flat_values: torch.Tensor,  # (T, bm, bk)
+    b: torch.Tensor,            # (K, N) — K a multiple of bk
+    num_windows: int,
+) -> torch.Tensor:
+    """Densified matmul for streams with unique (window, k-block) pairs —
+    the invariant ``prepare()`` guarantees.  Scatters only the T slot
+    indices, then densifies by gathering tiles; with duplicate pairs it
+    keeps one tile per slot.  Returns packed (num_windows*bm, N) fp32."""
+    t, bm, bk = flat_values.shape
+    k, n = b.shape
+    nkb = k // bk
+    slot = torch.full((num_windows, nkb), t, dtype=torch.long,
+                      device=b.device)
+    slot[step_window.long(), step_col.long()] = torch.arange(
+        t, device=b.device)
+    valid = slot < t
+    tiles = flat_values.to(torch.float32)[torch.where(valid, slot, 0)]
+    tiles = torch.where(valid[..., None, None], tiles, 0.0)
+    core = tiles.permute(0, 2, 1, 3).reshape(num_windows * bm, k)
+    return core @ b.to(torch.float32)
+
+
+def ref_gather_spmm(
+    rows: torch.Tensor,  # (nnz,) int32 packed row ids
+    cols: torch.Tensor,  # (nnz,) int32
+    vals: torch.Tensor,  # (nnz,)
+    b: torch.Tensor,     # (K, N)
+    num_rows: int,
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Vector path: out[rows[i]] += vals[i] * B[cols[i]].
+
+    ``chunk`` bounds the materialized gather to (chunk, N) per step; None
+    is the one-shot form.  Returns packed (num_rows, N) fp32.
+    """
+    nnz = rows.shape[0]
+    out = torch.zeros((num_rows, b.shape[1]), dtype=torch.float32,
+                      device=b.device)
+    step = nnz if chunk is None or nnz <= chunk else int(chunk)
+    for s in range(0, nnz, max(step, 1)):
+        gathered = (b[cols[s:s + step].long()].to(torch.float32)
+                    * vals[s:s + step].to(torch.float32)[:, None])
+        out.index_add_(0, rows[s:s + step].long(), gathered)
+    return out
+
+
+def ref_gather_spmm_kblocked(
+    chunk_kb: torch.Tensor,  # (num_chunks,) int32, chunk -> k-block id
+    rows: torch.Tensor,  # (num_chunks*chunk,) int32 k-bucketed packed rows
+    cols: torch.Tensor,  # (num_chunks*chunk,) int32 k-block-LOCAL columns
+    vals: torch.Tensor,  # (num_chunks*chunk,) — zero for padding entries
+    b: torch.Tensor,     # (K, N)
+    num_rows: int,
+    bk: int,
+    step: Optional[int] = None,
+) -> torch.Tensor:
+    """The K-sharded streaming tier's bucketed layout: chunk c's entries
+    address B rows ``chunk_kb[c]*bk + cols[i]``.  Equals
+    :func:`ref_gather_spmm` on the un-bucketed stream.
+
+    ``step`` bounds the materialized gather to (step, N) entries at a time;
+    None is the one-shot form."""
+    num_chunks = chunk_kb.shape[0]
+    chunk = rows.shape[0] // num_chunks
+    k = b.shape[0]
+    k_pad = ((k + bk - 1) // bk) * bk
+    if k_pad != k:
+        b = torch.nn.functional.pad(b, (0, 0, 0, k_pad - k))
+    global_cols = (torch.repeat_interleave(chunk_kb.long(), chunk) * bk
+                   + cols.long())
+    return ref_gather_spmm(rows, global_cols, vals, b, num_rows, chunk=step)

@@ -14,6 +14,13 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device and nvcc (repro_torch kernels); skips "
+        "without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)

@@ -1,0 +1,143 @@
+"""repro_torch kernels on the card: each CUDA kernel against its plain version.
+
+Marked ``gpu``: they need a CUDA device and ``nvcc``, and skip without
+them.  Run them on a machine with a card::
+
+    python -m pytest -m gpu tests/test_torch_*.py
+
+This file imports only the port (the machine with the card has no JAX).
+Tolerance: max |kernel - plain| <= 1e-4 * max(1, max|plain|); both sides
+are fp32 (no TF32) summed in different orders.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.plan_ir import SpmmConfig
+from repro_torch.core.spmm import prepare
+from repro_torch.data.graphs import PAPER_DATASETS, generate
+from repro_torch.exec import api
+from repro_torch.kernels import ref
+from repro_torch.kernels.dense_tile_spmm import dense_tile_spmm
+from repro_torch.kernels.gather_spmm import gather_spmm, gather_spmm_ksharded
+
+pytestmark = pytest.mark.gpu
+
+TOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got: torch.Tensor, want: torch.Tensor) -> None:
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    assert err <= TOL * max(1.0, want.abs().max().item() if want.numel()
+                            else 0.0), err
+
+
+def _stream(rng, t, nw, nkb, bm, bk):
+    sw = rng.randint(0, nw, t).astype(np.int32)
+    sc = rng.randint(0, nkb, t).astype(np.int32)
+    fv = rng.randn(t, bm, bk).astype(np.float32)
+    return sw, sc, fv
+
+
+@pytest.mark.parametrize("bm,bk,n,empty_windows", [
+    (128, 64, 256, False),   # the main path's tile shape
+    (128, 64, 100, True),    # ragged N, windows with no tiles
+    (16, 8, 70, True),       # small tiles
+    (200, 40, 64, False),    # bm above one row chunk, bk not a multiple of 32
+])
+def test_dense_tile_spmm_matches_plain(cuda, bm, bk, n, empty_windows):
+    rng = np.random.RandomState(bm + bk + n)
+    nw, nkb = 9, 5
+    sw, sc, fv = _stream(rng, 60, nw, nkb, bm, bk)
+    if empty_windows:
+        sw[np.isin(sw, (2, 7))] = 0
+    b = rng.randn(nkb * bk, n).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda) for x in (sw, sc, fv, b)]
+    before = dense_tile_spmm.launches
+    got = dense_tile_spmm(*args, num_windows=nw, bm=bm, bk=bk)
+    assert dense_tile_spmm.launches == before + 1
+    want = ref.ref_block_stream_spmm(*args, num_windows=nw)
+    _close(got, want)
+    if empty_windows:
+        assert not got.reshape(nw, bm, n)[[2, 7]].any()
+
+
+@pytest.mark.parametrize("n", [256, 96, 300])
+def test_gather_spmm_matches_plain(cuda, n):
+    rng = np.random.RandomState(n)
+    num_rows, k, nnz = 500, 700, 6000
+    rows = np.sort(rng.randint(0, num_rows, nnz)).astype(np.int32)
+    rows[rows == 17] = 16  # an empty row
+    cols = rng.randint(0, k, nnz).astype(np.int32)
+    vals = rng.randn(nnz).astype(np.float32)
+    b = rng.randn(k, n).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda) for x in (rows, cols, vals, b)]
+    got = gather_spmm(*args, num_rows=num_rows)
+    want = ref.ref_gather_spmm(*args, num_rows=num_rows)
+    _close(got, want)
+    assert not got[17].any()
+
+
+def test_gather_spmm_rejects_unsorted_rows(cuda):
+    rows = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
+    cols = torch.zeros(2, dtype=torch.int32, device=cuda)
+    vals = torch.ones(2, dtype=torch.float32, device=cuda)
+    b = torch.ones(1, 8, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="row-sorted"):
+        gather_spmm(rows, cols, vals, b, num_rows=2)
+
+
+@pytest.mark.parametrize("k,bk", [(2048, 512), (1000, 256)])
+def test_gather_spmm_ksharded_matches_plain(cuda, k, bk):
+    from repro_torch.core.plan_ir import bucket_fringe_kblocks
+
+    rng = np.random.RandomState(k)
+    num_rows, nnz, n = 300, 5000, 256
+    key = np.unique(rng.randint(0, num_rows, nnz).astype(np.int64) * k
+                    + rng.randint(0, k, nnz))
+    pr = (key // k).astype(np.int32)
+    pc = (key % k).astype(np.int32)
+    pv = rng.randn(pr.size).astype(np.float32)
+    k_pad = ((k + bk - 1) // bk) * bk
+    kbc, kbr, kbcol, kbv, _ = bucket_fringe_kblocks(pr, pc, pv, k_pad, bk, 8)
+    b = rng.randn(k, n).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda) for x in (kbc, kbr, kbcol, kbv, b)]
+    got = gather_spmm_ksharded(*args, num_rows=num_rows, bk=bk)
+    b_pad = torch.nn.functional.pad(args[-1], (0, 0, 0, k_pad - k))
+    want = ref.ref_gather_spmm_kblocked(*args[:-1], b_pad, num_rows, bk)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("name,budget", [
+    ("ogbn-arxiv", None),   # ksharded by default
+    ("cora", None),         # resident
+    ("cora", 1),            # the reference says "xla"; the card runs resident
+])
+def test_execute_cuda_matches_plain(cuda, name, budget):
+    spec = PAPER_DATASETS[name]
+    rows, cols, vals = generate(spec)
+    shape = (spec.m, spec.k)
+    cfg = dict(fringe_vmem_budget=budget)
+    p_cuda = prepare(rows, cols, vals, shape, SpmmConfig(impl="cuda", **cfg))
+    p_cpu = prepare(rows, cols, vals, shape, SpmmConfig(impl="torch", **cfg))
+    assert p_cuda.fringe_tier == ("ksharded" if name == "ogbn-arxiv"
+                                  else "resident")
+    rng = np.random.RandomState(0)
+    b = rng.randn(spec.k, 256).astype(np.float32)
+    got = api.execute(p_cuda, torch.from_numpy(b).to(cuda))
+    want = api.execute(p_cpu, torch.from_numpy(b)).to(cuda)
+    _close(got, want)
+    bb = rng.randn(3, spec.k, 40).astype(np.float32)
+    got_b = api.execute(p_cuda, torch.from_numpy(bb).to(cuda))
+    want_b = api.execute(p_cpu, torch.from_numpy(bb)).to(cuda)
+    _close(got_b, want_b)
