@@ -7,18 +7,26 @@ Run from the root of a checkout.  It builds the hand-written CUDA kernels
 from ``src/repro_torch/kernels/csrc`` with nvcc, then:
 
 1. prints the card (name and power limit);
-2. holds each kernel (dense_tile_spmm, gather_spmm, gather_spmm_ksharded)
-   against its plain PyTorch version on the card, on the ogbn-arxiv and
-   reddit stand-ins (N = 256);
-3. drives two paths through the user entry points, each with the kernel
+2. holds each kernel (dense_tile_spmm, gather_spmm, gather_spmm_ksharded,
+   dense_tile_sddmm, gather_sddmm) against its plain PyTorch version on
+   the card, on the ogbn-arxiv and reddit stand-ins (N = D = 256);
+3. drives three paths through the user entry points, each with the kernel
    launch counts set to 0 just before it and read just after it:
    ``from_coo`` + ``spmm`` (N = 256) + ``bspmm`` (batch 4, N = 64) on a
    Reddit-scale graph (232,965 nodes, average degree 492, power-law skew
    1.05, seed 10), which must launch dense_tile_spmm and gather_spmm; then
    ``from_coo`` + ``spmm`` on the ogbn-arxiv stand-in, whose default plan
-   takes the k-sharded fringe tier and must launch gather_spmm_ksharded.
-   ``spmm`` is checked against ``torch.sparse.mm`` on the same COO,
-   ``bspmm`` against four ``spmm`` calls;
+   takes the k-sharded fringe tier and must launch gather_spmm_ksharded;
+   then the graph-attention path: one forward of ``SparseGraphAttention``
+   (one head of width 256) over the Reddit-scale plan of the first path,
+   on seeded features of Reddit's width 602 (``sddmm`` -> edge softmax ->
+   ``with_values`` -> ``spmm``), which must launch dense_tile_sddmm,
+   gather_sddmm, dense_tile_spmm and gather_spmm and not
+   gather_spmm_ksharded.  ``spmm`` is checked against ``torch.sparse.mm``
+   on the same COO, ``bspmm`` against four ``spmm`` calls, the attention
+   forward against ``torch.sparse.sampled_addmm`` scores, the same edge
+   softmax and ``torch.sparse.mm``, and ``sddmm`` against
+   ``torch.sparse.sampled_addmm``;
 4. times each kernel at its path's shapes with CUDA events, next to its
    plain version, one PyTorch library call computing the same function,
    and its bound on the card, and prints them as one JSON line.
@@ -44,6 +52,10 @@ SRC = ROOT / "src"
 
 TOL = 1e-4
 N = 256
+# graph attention: Reddit's node-feature width (Hamilton et al. 2017) and
+# one head of the per-head width GAT uses on PPI (Velickovic et al. 2018)
+D_IN = 602
+D_HEAD = 256
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 # Reddit (Hamilton et al. 2017, GraphSAGE; DGL RedditDataset): 232,965
@@ -77,9 +89,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    import numpy as np
+
     import repro_torch.sparse as sp
     from repro_torch.core import cost_model
-    from repro_torch.core.plan_ir import bucket_fringe_kblocks, permute_pad_b
+    from repro_torch.core.plan_ir import (
+        bucket_fringe_kblocks, build_sddmm_maps, gather_rows, permute_pad_b,
+    )
     from repro_torch.data.graphs import PAPER_DATASETS, GraphSpec, generate
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.dense_tile_spmm import (
@@ -88,6 +104,8 @@ def main() -> int:
     from repro_torch.kernels.gather_spmm import (
         csr_indptr, gather_spmm, gather_spmm_ksharded, kbucket_row_order,
     )
+    from repro_torch.kernels.sddmm import dense_tile_sddmm, gather_sddmm
+    from repro_torch.models import SparseGraphAttention
 
     dev = torch.device("cuda")
 
@@ -97,7 +115,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    log(f"device: {kind}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"device: {kind}; torch {torch.__version__} cuda {torch.version.cuda}"
+        f" numpy {np.__version__}")
     log(smi)
 
     t0 = time.perf_counter()
@@ -143,6 +162,16 @@ def main() -> int:
         bp = permute_pad_b(b, plan.col_perm, cfg.reorder_cols, cfg.bk)
         return bp, plan.stats_dict
 
+    def sddmm_inputs(plan, x, y):
+        """The tensors the SDDMM body hands each kernel for x @ y: the
+        window-gathered X panel, the permuted and K-padded Y, Y^T and the
+        extraction maps."""
+        cfg = plan.config
+        xp = gather_rows(x, plan.core_row_map).contiguous()
+        yp = permute_pad_b(y.t(), plan.col_perm, cfg.reorder_cols, cfg.bk)
+        return (xp, yp.t().contiguous(), y.t().contiguous(),
+                build_sddmm_maps(plan))
+
     # --- phase 2: kernels against their plain versions on the stand-ins ----
     standin_err = {}
     for name in ("ogbn-arxiv", "reddit"):
@@ -182,13 +211,27 @@ def main() -> int:
                     p.fringe_kb_vals, bp, p.fringe_row_ids.shape[0],
                     p.fringe_bk),
             ))
+        xs = operand(spec.m, N)
+        xp, yp, yt, smaps = sddmm_inputs(p, xs, operand(N, spec.k))
+        pairs += [(
+            "dense_tile_sddmm",
+            lambda: dense_tile_sddmm(p.step_window, p.step_col, xp, yp,
+                                     bm=p.config.bm, bk=p.config.bk),
+            lambda: ref.ref_tile_sddmm(p.step_window, p.step_col, xp, yp,
+                                       p.config.bm, p.config.bk),
+        ), (
+            "gather_sddmm",
+            lambda: gather_sddmm(smaps.f_rows, smaps.f_cols, xs, yt),
+            lambda: ref.ref_gather_sddmm(smaps.f_rows, smaps.f_cols, xs, yt),
+        )]
         for kname, kern, plain in pairs:
             e = err_bound(kern(), plain())
             standin_err[kname] = max(standin_err.get(kname, 0.0), e)
             log(f"  {kname}: max |kernel - plain| = {e:.3e}")
-        del a, p, bp
+        del a, p, bp, xp, yp, yt, smaps, xs
     require(set(standin_err) == {"dense_tile_spmm", "gather_spmm",
-                                 "gather_spmm_ksharded"}, standin_err)
+                                 "gather_spmm_ksharded", "dense_tile_sddmm",
+                                 "gather_sddmm"}, standin_err)
 
     # --- phase 3: the main path through the entry points -------------------
     spec = GraphSpec(**REDDIT)
@@ -254,11 +297,90 @@ def main() -> int:
     require(A_arxiv.plan.fringe_tier == "ksharded", A_arxiv.plan.fringe_tier)
     require(launches_arxiv["gather_spmm_ksharded"] > 0
             and launches_arxiv["gather_spmm"] == 0, launches_arxiv)
+    # the graph-attention path: one forward of the layer over the plan the
+    # reddit-scale path built (not prepared a second time)
+    x_att = torch.randn((spec.m, D_IN), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(602))
+    layer = SparseGraphAttention.init(
+        A, D_IN, D_HEAD,
+        generator=torch.Generator(device=dev).manual_seed(D_HEAD))
+    with_values = sp.SparseMatrix.with_values
+    t_with_values = []
+
+    def timed_with_values(self, values):
+        # host seconds of the with_values call inside the forward, taken
+        # there so that the forward runs once
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = with_values(self, values)
+        torch.cuda.synchronize()
+        t_with_values.append(time.perf_counter() - t0)
+        return out
+
+    sp.SparseMatrix.with_values = timed_with_values
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        h, launches_att = drive(lambda: layer(x_att))
+    finally:
+        sp.SparseMatrix.with_values = with_values
+    t_att = time.perf_counter() - t0
+    peak_att_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(len(t_with_values) == 1, t_with_values)
+    log(f"graph-attention path (D_in {D_IN}, one head of {D_HEAD}): forward "
+        f"{t_att:.1f} s, of which with_values {t_with_values[0]:.1f} s on "
+        f"the host; peak device memory {peak_att_gb:.2f} GB")
+    log(f"  launches on the graph-attention path: {launches_att}")
+    require(launches_att["dense_tile_sddmm"] > 0
+            and launches_att["gather_sddmm"] > 0
+            and launches_att["dense_tile_spmm"] > 0
+            and launches_att["gather_spmm"] > 0
+            and launches_att["gather_spmm_ksharded"] == 0, launches_att)
+
+    # reference from other code: cuSPARSE's SDDMM on the CSR of the COO,
+    # the same edge softmax, cuSPARSE's SpMM
+    key = rows.astype(np.int64) * spec.k + cols
+    require(bool(np.all(key[1:] > key[:-1])),
+            "the generator's COO is sorted and unique, so CSR order is "
+            "input order")
+
+    def pattern_csr(r, cc, m, k):
+        """CSR of row-sorted unique (r, cc) on the card, values 1."""
+        crow = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(torch.bincount(r.long(), minlength=m), 0)
+        return torch.sparse_csr_tensor(
+            crow, cc.long(), torch.ones(r.shape[0], device=dev), (m, k))
+
+    q, k_att, v = (x_att @ w for w in (layer.wq, layer.wk, layer.wv))
+    yk = k_att.t().contiguous()
+    pattern = pattern_csr(torch.from_numpy(rows).to(dev),
+                          torch.from_numpy(cols).to(dev), spec.m, spec.k)
+    s_ref = torch.sparse.sampled_addmm(pattern, q, yk, beta=0.0).values()
+    e_sddmm = err_bound(sp.sddmm(A, q, k_att.t()), s_ref)
+    seg = torch.repeat_interleave(
+        torch.arange(spec.m, device=dev), pattern.crow_indices().diff())
+    e = s_ref / D_HEAD ** 0.5
+    e_max = torch.full((spec.m,), -float("inf"), device=dev).scatter_reduce(
+        0, seg, e, "amax")
+    pe = torch.exp(e - e_max[seg])
+    denom = torch.zeros(spec.m, device=dev).index_add_(0, seg, pe)
+    att = torch.sparse_csr_tensor(
+        pattern.crow_indices(), pattern.col_indices(),
+        pe / denom[seg].clamp(min=1e-30), (spec.m, spec.k))
+    require(h.shape == (spec.m, D_HEAD), h.shape)
+    e_att = err_bound(h, torch.sparse.mm(att, v))
+    log(f"  sddmm vs sampled_addmm: {e_sddmm:.3e}; attention forward vs "
+        f"sampled_addmm + softmax + sparse.mm: {e_att:.3e}")
+    del pattern, att, seg, e, e_max, pe, denom, s_ref, h, v
+
     # each kernel's count from the path that runs it
     launches = {
         "dense_tile_spmm": launches_reddit["dense_tile_spmm"],
         "gather_spmm": launches_reddit["gather_spmm"],
         "gather_spmm_ksharded": launches_arxiv["gather_spmm_ksharded"],
+        "dense_tile_sddmm": launches_att["dense_tile_sddmm"],
+        "gather_sddmm": launches_att["gather_sddmm"],
     }
 
     def csr_of(r, cc, v, shape):
@@ -336,6 +458,7 @@ def main() -> int:
         crow, blk_col[order],
         p.flat_values.reshape(t_steps * sub, cfg.bk, cfg.bk)[order],
         (nw * cfg.bm, k_pad))
+    tile_nnz = int(torch.count_nonzero(p.flat_values))
     record(
         "dense_tile_spmm", "dense_tile_spmm.cu",
         "src/repro/kernels/dense_tile_spmm.py:65",
@@ -348,9 +471,54 @@ def main() -> int:
         lambda: torch.sparse.mm(bsr, bp),
         nbytes=(t_steps * 8 + p.flat_values.numel() * 4 + k_pad * n * 4
                 + nw * cfg.bm * n * 4),
-        flops=2 * int(torch.count_nonzero(p.flat_values)) * n,
+        flops=2 * tile_nnz * n,
     )
-    del bsr
+
+    # B4 and B5 at the graph-attention path's shapes: X = q, Y = k^T, D=256
+    xp, yp, yt, smaps = sddmm_inputs(p, q, k_att.t())
+    d = q.shape[1]
+    # the library's SDDMM on the core tiles: the BSR above (square bk x bk
+    # blocks) where the installed PyTorch takes a BSR input, else a CSR of
+    # the core nonzeros in the original coordinates
+    try:
+        torch.sparse.sampled_addmm(bsr, xp, yp, beta=0.0)
+        torch.cuda.synchronize()
+        lib_b4_form = f"BSR {cfg.bk}x{cfg.bk} blocks of the tile stream"
+        lib_b4 = lambda: torch.sparse.sampled_addmm(bsr, xp, yp, beta=0.0)  # noqa: E731
+    except (RuntimeError, NotImplementedError, ValueError, TypeError) as err:
+        core = smaps.core_lin >= 0
+        core_csr = pattern_csr(torch.from_numpy(rows).to(dev)[core],
+                               torch.from_numpy(cols).to(dev)[core],
+                               spec.m, spec.k)
+        lib_b4_form = (f"CSR of the core nonzeros (BSR refused: "
+                       f"{type(err).__name__}: {str(err)[:120]})")
+        lib_b4 = lambda: torch.sparse.sampled_addmm(core_csr, q, yk, beta=0.0)  # noqa: E731
+    log(f"  library call for dense_tile_sddmm: torch.sparse.sampled_addmm on "
+        f"{lib_b4_form}")
+    record(
+        "dense_tile_sddmm", "sddmm.cu", "src/repro/kernels/sddmm.py:74",
+        lambda: dense_tile_sddmm(p.step_window, p.step_col, xp, yp,
+                                 bm=cfg.bm, bk=cfg.bk),
+        lambda: ref.ref_tile_sddmm(p.step_window, p.step_col, xp, yp,
+                                   cfg.bm, cfg.bk, tile_chunk=2048),
+        lib_b4,
+        nbytes=(t_steps * 8 + xp.numel() * 4 + yp.numel() * 4
+                + t_steps * cfg.bm * cfg.bk * 4),
+        flops=2 * tile_nnz * d,
+    )
+    del bsr, lib_b4
+    nnz_fs = smaps.nnz_f
+    f_pattern = pattern_csr(smaps.f_rows, smaps.f_cols, spec.m, spec.k)
+    record(
+        "gather_sddmm", "sddmm.cu", "src/repro/kernels/sddmm.py:150",
+        lambda: gather_sddmm(smaps.f_rows, smaps.f_cols, q, yt),
+        lambda: ref.ref_gather_sddmm(smaps.f_rows, smaps.f_cols, q, yt,
+                                     chunk=1 << 19),
+        lambda: torch.sparse.sampled_addmm(f_pattern, q, yk, beta=0.0),
+        nbytes=nnz_fs * 12 + q.numel() * 4 + yt.numel() * 4,
+        flops=2 * nnz_fs * d,
+    )
+    del xp, yp, yt, f_pattern, q, k_att, yk
 
     def fringe_csr(plan, k_cols):
         nr = plan.fringe_row_ids.shape[0]

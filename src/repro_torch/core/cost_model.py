@@ -11,8 +11,8 @@ below alpha go to the vector path; the rest to the matrix path.
 This module keeps the analytic model, the matrix-format pricing and the
 vector-path tier selection of ``repro.core.cost_model``, with the same
 arithmetic, so plans built from the same COO and config have the same
-leaves.  The one deliberate difference is the H100 tier rule in
-:func:`select_fringe_tier`.
+leaves.  The deliberate differences are the H100 tier rules in
+:func:`select_fringe_tier` and :func:`select_sddmm_tier`.
 """
 from __future__ import annotations
 
@@ -232,3 +232,37 @@ def select_fringe_tier(
     if impl == "cuda":
         return "resident", 0
     return "xla", 0
+
+
+# --- SDDMM dispatch tiers ----------------------------------------------------
+# The reference's SDDMM fringe gather keeps both dense operand panels, X and
+# Y^T, resident in VMEM; its choice is binary: the resident gather kernel or
+# the kernel-less "xla" gather.
+
+
+def sddmm_resident_bytes(d: int, n_src_rows: int, n_dst_rows: int,
+                         chunk: int = 64) -> int:
+    """SDDMM gather working set: X panel + Y^T panel + one output chunk."""
+    return (_pad_rows(n_src_rows) + _pad_rows(n_dst_rows)) * d * 4 + \
+        _pad_rows(chunk) * VPU_LANES * 4
+
+
+def select_sddmm_tier(
+    d: int, n_src_rows: int, n_dst_rows: int,
+    vmem_budget: Optional[int] = None, impl: str = "torch",
+) -> str:
+    """Pick the SDDMM fringe-gather tier: ``"resident"`` or ``"xla"``.
+
+    H100 SDDMM tier rule: where the reference's arithmetic returns "xla"
+    and ``impl == "cuda"``, the answer is "resident".  The card's gather
+    kernel reads X and Y^T rows through L2 and has no panel-size ceiling,
+    so no fringe nonzero falls to a plain version on the card (the same
+    reasoning as :func:`select_fringe_tier`).  ``impl == "torch"`` keeps
+    the reference's answer.
+    """
+    budget = FRINGE_VMEM_BUDGET if vmem_budget is None else int(vmem_budget)
+    if sddmm_resident_bytes(d, n_src_rows, n_dst_rows) <= budget:
+        return "resident"
+    if impl == "cuda":
+        return "resident"
+    return "xla"

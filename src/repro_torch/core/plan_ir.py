@@ -14,9 +14,10 @@ as tensors on one device, in the same order and with the same contents:
 
 ``plan_leaves`` gives the 17-leaf executor order of the reference, and
 ``signature()`` the same structure key.  Besides the leaves a plan carries
-``derived``: index arrays the kernel wrappers derive from leaves on the
-device (window segment offsets, CSR row offsets, the row-major order of the
-k-bucketed stream), built once on first use and never part of the leaf set.
+``derived``: index arrays the kernel wrappers derive from the structure on
+the device (window segment offsets, CSR row offsets, the row-major order of
+the k-bucketed stream, the SDDMM maps), built once on first use, never part
+of the leaf set, and shared by the plans a value update makes.
 """
 from __future__ import annotations
 
@@ -64,6 +65,46 @@ class SpmmConfig:
     # structured-sparsity lane is not ported yet (ROADMAP A8): only None
     # and "general" are accepted
     structure_hint: Optional[Any] = None
+
+
+# --- operator tagging --------------------------------------------------------
+# Operators other than SpMM on the same plan structure (SDDMM) reuse the plan
+# signature with a trailing ("op", name, *extra) marker, so that (op,
+# signature) pairs never alias each other's cached executors while
+# ``sig[0]`` stays the plan format version.
+
+OP_TAG = "op"
+
+
+def _op_tag(sig: Tuple) -> Optional[Tuple]:
+    if (isinstance(sig, tuple) and sig and isinstance(sig[-1], tuple)
+            and sig[-1] and sig[-1][0] == OP_TAG):
+        return sig[-1]
+    return None
+
+
+def tag_op(sig: Tuple, op: str, *extra) -> Tuple:
+    """Suffix a plan signature with an operator tag (hashable extras only)."""
+    if not (isinstance(sig, tuple) and sig and sig[0] == PLAN_FORMAT_VERSION):
+        raise ValueError(f"not a plan-style signature: {sig!r}")
+    return sig + ((OP_TAG, op) + tuple(extra),)
+
+
+def sig_op(sig: Tuple) -> str:
+    """Operator name of a signature ("spmm" when untagged)."""
+    tag = _op_tag(sig)
+    return "spmm" if tag is None else tag[1]
+
+
+def op_extra(sig: Tuple) -> Tuple:
+    """The tag's extra payload (empty for untagged signatures)."""
+    tag = _op_tag(sig)
+    return () if tag is None else tuple(tag[2:])
+
+
+def untag_sig(sig: Tuple) -> Tuple:
+    """The base plan signature with any operator tag stripped."""
+    return sig if _op_tag(sig) is None else sig[:-1]
 
 
 def check_impl_device(impl: str, device: Any) -> torch.device:
@@ -447,3 +488,81 @@ def build_update_maps(
         core_members_sorted=core_idx[cm_order],
         key_sorted=key_sorted, key_order=key_order,
     )
+
+
+# --- SDDMM gather maps -------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SddmmMaps:
+    """Index maps for SDDMM over a plan's pattern, on the plan's device.
+
+    The matrix path computes dense ``X_window @ Y_kblock`` tiles for exactly
+    the (window, k-block) pairs of the plan's tile stream, and per-nonzero
+    values are extracted from the flat tile stream at the slots ``prepare``
+    scattered values into (``UpdateMaps.core_lin``).  Fringe nonzeros take
+    one dot product each by row gather.  Output order is the plan's input
+    COO order, the order :func:`repro_torch.dynamic.update_values` takes.
+    Extraction is duplicate-safe: duplicate COO entries share a tile slot
+    and read the same dot product.
+
+    ``core_lin`` is int64: a Reddit-scale tile stream has 1.46e9 slots, too
+    close to the int32 limit to keep there.
+    """
+
+    core_lin: torch.Tensor  # (nnz,) int64 flat tile slot, -1 on the fringe
+    f_idx: torch.Tensor     # (nnz,) int32 index into the fringe subset, -1 core
+    f_rows: torch.Tensor    # (nnz_f,) int32 fringe-subset rows (>= 1, padded)
+    f_cols: torch.Tensor    # (nnz_f,) int32 fringe-subset cols
+    nnz: int
+    nnz_f: int              # padded fringe-subset length
+
+    def leaves(self) -> Tuple[torch.Tensor, ...]:
+        return (self.core_lin, self.f_idx, self.f_rows, self.f_cols)
+
+
+def sddmm_body_leaves(
+    plan: NeutronPlan, maps: SddmmMaps
+) -> Tuple[torch.Tensor, ...]:
+    """SDDMM executor-body args in fused-body order (without x, y)."""
+    return (
+        plan.step_window, plan.step_col, plan.core_row_map, plan.col_perm,
+    ) + maps.leaves()
+
+
+def build_sddmm_maps(plan: NeutronPlan) -> SddmmMaps:
+    """Invert a plan's update maps into SDDMM extraction indices.
+
+    Built once per pattern and kept in ``plan.derived``, which plans made
+    by a value update share: the maps depend on the structure only.
+    """
+    maps = plan.update_maps
+    if maps is None:
+        raise PlanBuildError(
+            "sddmm needs the plan's COO->slot update maps; this plan has "
+            "none (carry them with interop.update_maps_from_arrays, or "
+            "prepare from COO)")
+    cached = plan.derived.get("sddmm_maps")
+    if cached is not None:
+        return cached
+    core = maps.core_lin >= 0
+    f_sel = np.flatnonzero(~core)
+    f_idx = np.full(maps.nnz, -1, np.int64)
+    f_idx[f_sel] = np.arange(f_sel.size)
+    f_rows = maps.rows[f_sel]
+    f_cols = maps.cols[f_sel]
+    if f_rows.size == 0:  # keep the gather operand nonempty for the kernels
+        f_rows = np.zeros(1, np.int64)
+        f_cols = np.zeros(1, np.int64)
+
+    def dev(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
+            plan.device)
+
+    built = SddmmMaps(
+        core_lin=dev(maps.core_lin, np.int64), f_idx=dev(f_idx, np.int32),
+        f_rows=dev(f_rows, np.int32), f_cols=dev(f_cols, np.int32),
+        nnz=maps.nnz, nnz_f=int(f_rows.shape[0]),
+    )
+    plan.derived["sddmm_maps"] = built
+    return built

@@ -11,8 +11,14 @@ each path launches once for the whole batch and the output is unfolded to
 (batch, M, N): the port's replacement for the reference's ``vmap``.  Only
 the general matrix format exists in this port.
 
+A signature tagged with ``plan_ir.tag_op(sig, "sddmm", ...)`` selects the
+SDDMM body instead, on the same plan structure: dense tiles on the matrix
+path with values extracted at ``core_lin``, per-nonzero dots on the vector
+path, merged in the input COO order.
+
 Executors live in the bounded LRU ``exec.cache.EXECUTOR_CACHE`` keyed by
-(signature, batch).
+(signature, batch); a tagged signature never equals an untagged one, so an
+SDDMM executor never aliases an SpMM one.
 """
 from __future__ import annotations
 
@@ -21,7 +27,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..core.plan_ir import gather_rows, permute_pad_b
+from ..core.plan_ir import (
+    gather_rows, op_extra, permute_pad_b, sig_op, untag_sig,
+)
 from ..errors import PlanBuildError
 from ..kernels import ops
 from .cache import EXECUTOR_CACHE, record_build
@@ -74,6 +82,65 @@ def _fused_body(sig: Tuple):
     return run
 
 
+def _sddmm_body(sig: Tuple):
+    """SDDMM body for an op-tagged plan signature.
+
+    Returns ``run(step_window, step_col, core_row_map, col_perm, core_lin,
+    f_idx, f_rows, f_cols, x, y)`` for one
+    (M, D) x and (D, K) y; the output is (nnz,) fp32 in the plan's input
+    COO order.  Unlike the reference, whose ``"xla"`` impl skips the tile
+    path and gathers every nonzero, both impls run both paths here:
+    ``"torch"`` with the plain versions, so the CPU tests cover the
+    extraction and the merge the card runs.
+    """
+    (_version, _shape, bm, bk, _bn, impl, reorder_cols, fringe_chunk,
+     _num_windows, _num_steps, _nnz_f, _n_fringe_rows, has_core, has_fringe,
+     _fringe_tier, _fringe_bk, _n_chunks, _nnz_kb,
+     _matrix_format, _format_params) = untag_sig(sig)
+    _nnz, _nnz_fs, vmem_budget = op_extra(sig)
+
+    def run(step_window, step_col, core_row_map, col_perm,
+            core_lin, f_idx, f_rows, f_cols, x, y):
+        x = x.to(torch.float32).contiguous()
+        y = y.to(torch.float32)
+        core_vals = None
+        if has_core:
+            # matrix path: window-gathered X rows x the Y panel, its
+            # columns permuted and padded as SpMM permutes and pads B's rows
+            xp = gather_rows(x, core_row_map).contiguous()
+            yp = permute_pad_b(y.t(), col_perm, reorder_cols, bk).t()
+            tiles = ops.sddmm_block_stream(step_window, step_col, xp,
+                                           yp.contiguous(), bm=bm, bk=bk,
+                                           impl=impl)
+            core_vals = tiles.reshape(-1)[core_lin.clamp(min=0)]
+            del tiles
+        fringe_vals = None
+        if has_fringe:
+            yt = y.t().contiguous()  # (K, D): both gathers address rows
+            fv = ops.sddmm_gather(f_rows, f_cols, x, yt, impl=impl,
+                                  chunk=fringe_chunk,
+                                  vmem_budget=vmem_budget)
+            fringe_vals = fv[f_idx.long().clamp(min=0)]
+        if core_vals is None:
+            return fringe_vals
+        if fringe_vals is None:
+            return core_vals
+        return torch.where(core_lin >= 0, core_vals, fringe_vals)
+
+    return run
+
+
+def _batched_sddmm(run):
+    """(batch, M, D) and (batch, D, K) operands: one SDDMM per item,
+    stacked to (batch, nnz)."""
+
+    def run_batched(*args):
+        *leaves, x, y = args
+        return torch.stack([run(*leaves, xi, yi) for xi, yi in zip(x, y)])
+
+    return run_batched
+
+
 def _batched(run):
     """Fold a (batch, K, N) operand into (K, batch*N), run once, unfold."""
 
@@ -89,16 +156,24 @@ def _batched(run):
 
 def _build(sig: Tuple, batch: Optional[int]):
     record_build("fused" if batch is None else "batched")
+    op = sig_op(sig)
+    if op == "sddmm":
+        run = _sddmm_body(sig)
+        return run if batch is None else _batched_sddmm(run)
+    if op != "spmm":
+        raise PlanBuildError(f"operator {op!r} is not ported")
     run = _fused_body(sig)
     return run if batch is None else _batched(run)
 
 
 def build_executor(sig: Tuple, *, batch: Optional[int] = None):
-    """Build (or fetch) the executor for one plan structure.
+    """Build (or fetch) the executor for one plan structure and operator.
 
-    The returned callable takes ``(*plan_leaves, b, derived=None)`` with
-    the 17 leaves of ``plan_ir.plan_leaves``; ``b`` is (K, N), or
-    (batch, K, N) when ``batch`` is set.
+    For an SpMM signature the returned callable takes ``(*plan_leaves, b,
+    derived=None)`` with the 17 leaves of ``plan_ir.plan_leaves``; ``b`` is
+    (K, N), or (batch, K, N) when ``batch`` is set.  For an SDDMM-tagged
+    signature it takes ``(*plan_ir.sddmm_body_leaves(...), x, y)``, batched
+    along a leading axis of both operands when ``batch`` is set.
     """
     return EXECUTOR_CACHE.get_or_build(
         (sig, batch), functools.partial(_build, sig, batch))

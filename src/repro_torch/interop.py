@@ -1,19 +1,29 @@
-"""Carry plans across from the JAX package.
+"""Carry state across from the JAX package.
 
-``plan_from_arrays`` builds the port's :class:`NeutronPlan` from the leaves
-of a plan that ``repro.core.spmm.prepare`` built, given as numpy arrays,
-plus its metadata.  The port's executor then runs on exactly the plan the
-reference built, independently of the port's own ``prepare``.  This module
-imports nothing of the JAX package: the caller turns the JAX plan into
-arrays.
+- ``plan_from_arrays`` builds the port's :class:`NeutronPlan` from the
+  leaves of a plan that ``repro.core.spmm.prepare`` built, given as numpy
+  arrays, plus its metadata.  The port's executor then runs on exactly the
+  plan the reference built, independently of the port's own ``prepare``.
+- ``update_maps_from_arrays`` gives such a plan the reference's COO->slot
+  maps, which ``sddmm`` and ``with_values`` need.
+- ``graph_conv_from_arrays`` and ``graph_attention_from_arrays`` build the
+  port's layers from the JAX layers' weights.
+
+This module imports nothing of the JAX package: the caller turns JAX state
+into numpy arrays.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
-from .core.plan_ir import IMPL_DEVICE, NeutronPlan, SpmmConfig, plan_from_leaves
+from .core.plan_ir import (
+    IMPL_DEVICE, NeutronPlan, SpmmConfig, UpdateMaps, plan_from_leaves,
+)
+from .models.layers import SparseGraphAttention, SparseGraphConv
 
 
 def plan_from_arrays(leaves: Dict[str, np.ndarray],
@@ -32,3 +42,36 @@ def plan_from_arrays(leaves: Dict[str, np.ndarray],
         "impl", SpmmConfig.impl)
     device = meta.get("device", IMPL_DEVICE.get(impl, impl))
     return plan_from_leaves(leaves, meta, device)
+
+
+def update_maps_from_arrays(arrays: Dict[str, Any]) -> UpdateMaps:
+    """:class:`UpdateMaps` from the fields of the reference's maps.
+
+    ``arrays`` holds every field of ``repro.core.plan_ir.UpdateMaps`` by
+    name (``shape`` as a pair, the rest as numpy arrays); the arrays are
+    copied.  Pass the result as ``meta["update_maps"]`` to
+    :func:`plan_from_arrays`.
+    """
+    names = [f.name for f in dataclasses.fields(UpdateMaps)]
+    missing = [n for n in names if n not in arrays]
+    if missing:
+        raise ValueError(f"update maps lack fields {missing}")
+    return UpdateMaps(
+        shape=tuple(int(s) for s in arrays["shape"]),
+        **{n: np.array(arrays[n]) for n in names if n != "shape"})
+
+
+def _weight(w) -> torch.Tensor:
+    return torch.from_numpy(np.array(w, np.float32))
+
+
+def graph_conv_from_arrays(a, w) -> SparseGraphConv:
+    """The port's ``SparseGraphConv`` on graph ``a`` (a SparseMatrix or a
+    plan) with the JAX layer's (d_in, d_out) weight as a numpy array."""
+    return SparseGraphConv(a, _weight(w))
+
+
+def graph_attention_from_arrays(a, wq, wk, wv) -> SparseGraphAttention:
+    """The port's ``SparseGraphAttention`` on graph ``a`` with the JAX
+    layer's three (d_in, d_head) projections as numpy arrays."""
+    return SparseGraphAttention(a, _weight(wq), _weight(wk), _weight(wv))

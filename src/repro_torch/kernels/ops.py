@@ -1,4 +1,4 @@
-"""Per-path dispatch: the matrix path and the vector path of the fused body.
+"""Per-path dispatch: the matrix path and the vector path of the fused bodies.
 
 ``impl`` selection (``SpmmConfig.impl``):
 
@@ -18,17 +18,20 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from ..core.cost_model import select_sddmm_tier
 from . import ref
 from .dense_tile_spmm import dense_tile_spmm, window_segments
 from .gather_spmm import (
     csr_indptr, gather_spmm, gather_spmm_ksharded, kbucket_row_order,
 )
+from .sddmm import dense_tile_sddmm, gather_sddmm
 
 IMPLS = ("cuda", "torch")
 
 # the hand-written kernels' wrappers; each counts its launches in an integer
 # attribute ``launches``, raised only where the kernel was launched
-KERNELS = (dense_tile_spmm, gather_spmm, gather_spmm_ksharded)
+KERNELS = (dense_tile_spmm, gather_spmm, gather_spmm_ksharded,
+           dense_tile_sddmm, gather_sddmm)
 
 # occupancy (active tiles / total slots) above which the plain path
 # switches from the streamed per-tile form to one densified matmul
@@ -169,3 +172,56 @@ def fringe_spmm(
                      lambda: csr_indptr(rows, num_rows))
     return gather_spmm(rows, cols, vals, b, num_rows=num_rows,
                        indptr=indptr)
+
+
+def sddmm_block_stream(
+    step_window: torch.Tensor,
+    step_col: torch.Tensor,
+    xp: torch.Tensor,
+    yp: torch.Tensor,
+    *,
+    bm: int,
+    bk: int,
+    impl: str,
+) -> torch.Tensor:
+    """SDDMM matrix path; returns the fp32 tile stream (T, bm, bk).
+
+    ``xp`` is the window-gathered X row panel (num_windows*bm, D) and
+    ``yp`` the column-permuted, K-padded Y operand (D, K).  The caller
+    extracts per-nonzero values at the plan's ``core_lin`` slots.
+    """
+    _check_impl(impl, yp)
+    return dense_tile_sddmm(step_window, step_col, xp, yp, bm=bm, bk=bk)
+
+
+def sddmm_gather(
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    x: torch.Tensor,
+    yt: torch.Tensor,
+    *,
+    impl: str,
+    chunk: Optional[int] = None,
+    vmem_budget: Optional[int] = None,
+) -> torch.Tensor:
+    """SDDMM vector path: fp32 dots (nnz,) in input order.
+
+    ``yt`` is Y pre-transposed to (K, D) so both operands gather by row.
+    ``impl="torch"`` runs the plain gather whatever the tier;
+    ``impl="cuda"`` runs the gather kernel, the only tier the H100 rule of
+    ``core.cost_model.select_sddmm_tier`` gives it.
+    """
+    if x.shape[-1] != yt.shape[-1]:
+        raise ValueError(
+            f"sddmm operands disagree on D: x {tuple(x.shape)} vs "
+            f"y^T {tuple(yt.shape)}")
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"chunk must be a positive nonzero count, got {chunk}")
+    _check_impl(impl, x)
+    if impl == "torch":
+        return ref.ref_gather_sddmm(rows, cols, x, yt, chunk=chunk)
+    tier = select_sddmm_tier(x.shape[-1], x.shape[0], yt.shape[0],
+                             vmem_budget=vmem_budget, impl=impl)
+    if tier != "resident":
+        raise ValueError(f"no SDDMM gather kernel for tier {tier!r}")
+    return gather_sddmm(rows, cols, x, yt)

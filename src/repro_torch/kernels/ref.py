@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the SpMM kernels (ports of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the kernels (ports of ``repro.kernels.ref``).
 
 Every hand-written kernel of the port has its plain version here.  They
 are what the ``"torch"`` impl runs on the CPU, what the tests hold against
@@ -144,3 +144,53 @@ def ref_gather_spmm_kblocked(
     global_cols = (torch.repeat_interleave(chunk_kb.long(), chunk) * bk
                    + cols.long())
     return ref_gather_spmm(rows, global_cols, vals, b, num_rows, chunk=step)
+
+
+def ref_tile_sddmm(
+    step_window: torch.Tensor,  # (T,) int32
+    step_col: torch.Tensor,     # (T,) int32
+    xp: torch.Tensor,           # (num_windows*bm, D) window-gathered X rows
+    yp: torch.Tensor,           # (D, K) — K a multiple of bk
+    bm: int,
+    bk: int,
+    tile_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """SDDMM matrix path: for each active tile t,
+    tiles[t] = Xp[step_window[t]*bm : +bm] @ Yp[:, step_col[t]*bk : +bk].
+    Returns the fp32 tile stream (T, bm, bk).
+
+    ``tile_chunk`` bounds the gathered (chunk, bm, D) X panels and
+    (chunk, D, bk) Y slabs; None takes the whole stream at once.
+    """
+    t = step_window.shape[0]
+    d = xp.shape[1]
+    xw = xp.to(torch.float32).reshape(-1, bm, d)                  # (nw, bm, D)
+    yb = yp.to(torch.float32).reshape(d, -1, bk).permute(1, 0, 2)  # (nkb, D, bk)
+    out = torch.empty((t, bm, bk), dtype=torch.float32, device=xp.device)
+    step = max(1, t if tile_chunk is None else int(tile_chunk))
+    for s in range(0, t, step):
+        out[s:s + step] = torch.bmm(xw[step_window[s:s + step].long()],
+                                    yb[step_col[s:s + step].long()])
+    return out
+
+
+def ref_gather_sddmm(
+    rows: torch.Tensor,  # (nnz,) int32 row ids into x
+    cols: torch.Tensor,  # (nnz,) int32 row ids into yt
+    x: torch.Tensor,     # (M, D)
+    yt: torch.Tensor,    # (K, D) — Y pre-transposed
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """SDDMM vector path: out[i] = x[rows[i]] . yt[cols[i]], fp32 (nnz,).
+
+    ``chunk`` bounds the materialized gathers to (chunk, D) per step; None
+    is the one-shot form.
+    """
+    nnz = rows.shape[0]
+    out = torch.empty(nnz, dtype=torch.float32, device=x.device)
+    step = nnz if chunk is None or nnz <= chunk else int(chunk)
+    for s in range(0, nnz, max(step, 1)):
+        out[s:s + step] = (x[rows[s:s + step].long()].to(torch.float32)
+                           * yt[cols[s:s + step].long()].to(torch.float32)
+                           ).sum(-1)
+    return out

@@ -8,12 +8,16 @@
     C = sp.spmm(A, B)        # (M, N)        = A @ B
     C = sp.bspmm(A, Bb)      # (batch, M, N) = A @ B per batch
     C = A @ B
+    w = sp.sddmm(A, X, Y)    # (nnz,) values of X @ Y at A's pattern
+    A2 = A.with_values(w)    # same pattern, new values, same executor
 
 The subset of ``repro.sparse`` this port carries: static single-device
-plans and the SpMM operators.  Entry points run on the card unless the
-caller passes ``device="cpu"`` (the plain versions, ``impl="torch"``);
-with no CUDA device and no ``device="cpu"`` they raise rather than carry
-on on the CPU.
+plans, SpMM, SDDMM and value updates.  ``sddmm`` returns values in the
+input COO order of the pattern, the order ``with_values`` takes, so
+GAT-style attention is three calls: ``sddmm`` -> ``with_values`` ->
+``spmm``.  Entry points run on the card unless the caller passes
+``device="cpu"`` (the plain versions, ``impl="torch"``); with no CUDA
+device and no ``device="cpu"`` they raise rather than carry on on the CPU.
 """
 from __future__ import annotations
 
@@ -24,10 +28,12 @@ import torch
 
 from .core import spmm as core_spmm
 from .core.plan_ir import NeutronPlan, SpmmConfig
+from .dynamic import update_values
 from .errors import PlanBuildError
 from .exec import api as _exec
 
-__all__ = ["SparseMatrix", "from_coo", "from_plan", "spmm", "bspmm"]
+__all__ = ["SparseMatrix", "from_coo", "from_plan", "spmm", "bspmm",
+           "sddmm"]
 
 
 class SparseMatrix:
@@ -53,6 +59,18 @@ class SparseMatrix:
     def nnz(self) -> int:
         return self.coo()[0].shape[0]
 
+    @property
+    def row(self) -> np.ndarray:
+        return self.coo()[0]
+
+    @property
+    def col(self) -> np.ndarray:
+        return self.coo()[1]
+
+    @property
+    def val(self) -> np.ndarray:
+        return self.coo()[2]
+
     def coo(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Host ``(rows, cols, vals)`` triplets of the matrix."""
         maps = self.plan.update_maps
@@ -66,6 +84,23 @@ class SparseMatrix:
         out = np.zeros(self.shape, np.float64)
         np.add.at(out, (rows, cols), vals.astype(np.float64))
         return out
+
+    def with_values(self, values) -> "SparseMatrix":
+        """Same pattern, new per-nonzero values (input COO order), as a
+        numpy array or a tensor: the landing pad for :func:`sddmm` output.
+
+        Functional: returns a new handle and leaves this one as it was.
+        The plan signature, and so the cached executor, is unchanged
+        (``dynamic.update_values`` underneath).
+        """
+        nnz = self.nnz
+        if not isinstance(values, torch.Tensor):
+            values = np.asarray(values)
+        if tuple(values.shape) != (nnz,):
+            raise ValueError(
+                f"with_values needs one value per nonzero: got shape "
+                f"{tuple(values.shape)} for nnz={nnz}")
+        return SparseMatrix(update_values(self.plan, np.arange(nnz), values))
 
     def __matmul__(self, other):
         return spmm(self, other)
@@ -116,14 +151,17 @@ def _as_matrix(a, what: str) -> SparseMatrix:
     raise TypeError(f"{what} wants a SparseMatrix, got {type(a).__name__}")
 
 
+def _on_device(x, a: SparseMatrix) -> torch.Tensor:
+    """A numpy operand copied to A's device; a tensor as it is."""
+    return torch.from_numpy(x).to(a.device) if isinstance(x, np.ndarray) else x
+
+
 def spmm(a, b) -> torch.Tensor:
     """Dense ``C = A @ B`` in fp32.  ``b`` is (K, N) on A's device (a
     numpy array is copied there); batched operands go through
     :func:`bspmm`."""
     a = _as_matrix(a, "spmm")
-    if isinstance(b, np.ndarray):
-        b = torch.from_numpy(b).to(a.device)
-    return _exec.execute(a.plan, b)
+    return _exec.execute(a.plan, _on_device(b, a))
 
 
 def bspmm(a, b) -> torch.Tensor:
@@ -135,3 +173,14 @@ def bspmm(a, b) -> torch.Tensor:
             "(use spmm for a single right-hand side)")
     return spmm(a, b)
 
+
+def sddmm(a, x, y) -> torch.Tensor:
+    """Sampled dense-dense matmul: the values of ``X @ Y`` at A's pattern.
+
+    ``x`` is (M, D) and ``y`` (D, K), or both with a leading batch axis, on
+    A's device (numpy arrays are copied there).  Returns (nnz,) fp32 values
+    ((batch, nnz) when batched) in the input COO order of ``a``, ready for
+    ``a.with_values``.
+    """
+    a = _as_matrix(a, "sddmm")
+    return _exec.execute_sddmm(a.plan, _on_device(x, a), _on_device(y, a))

@@ -20,6 +20,7 @@ from repro_torch.exec import api
 from repro_torch.kernels import ref
 from repro_torch.kernels.dense_tile_spmm import dense_tile_spmm
 from repro_torch.kernels.gather_spmm import gather_spmm, gather_spmm_ksharded
+from repro_torch.kernels.sddmm import dense_tile_sddmm, gather_sddmm
 
 pytestmark = pytest.mark.gpu
 
@@ -141,3 +142,65 @@ def test_execute_cuda_matches_plain(cuda, name, budget):
     got_b = api.execute(p_cuda, torch.from_numpy(bb).to(cuda))
     want_b = api.execute(p_cpu, torch.from_numpy(bb)).to(cuda)
     _close(got_b, want_b)
+
+
+@pytest.mark.parametrize("bm,bk,d", [
+    (128, 64, 256),   # the main path's tile shape and head width
+    (128, 64, 45),    # D not a multiple of the 32-deep slice
+    (200, 40, 70),    # bm above one row chunk, bk below one column chunk
+    (16, 8, 3),
+])
+def test_dense_tile_sddmm_matches_plain(cuda, bm, bk, d):
+    rng = np.random.RandomState(bm + bk + d)
+    nw, nkb, t = 7, 5, 50
+    sw = rng.randint(0, nw, t).astype(np.int32)
+    sc = rng.randint(0, nkb, t).astype(np.int32)
+    xp = rng.randn(nw * bm, d).astype(np.float32)
+    yp = rng.randn(d, nkb * bk).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda) for a in (sw, sc, xp, yp)]
+    before = dense_tile_sddmm.launches
+    got = dense_tile_sddmm(*args, bm=bm, bk=bk)
+    assert dense_tile_sddmm.launches == before + 1
+    _close(got, ref.ref_tile_sddmm(*args, bm, bk))
+
+
+@pytest.mark.parametrize("d,offset", [(256, 0), (602, 0), (33, 0), (64, 1)])
+def test_gather_sddmm_matches_plain(cuda, d, offset):
+    """Float4 rows where D is a multiple of 4 and the panels are aligned,
+    the scalar loop otherwise (odd D, or a panel one float off)."""
+    rng = np.random.RandomState(d + offset)
+    m, k, nnz = 400, 300, 5000
+    rows = rng.randint(0, m, nnz).astype(np.int32)
+    cols = rng.randint(0, k, nnz).astype(np.int32)
+    x = torch.from_numpy(rng.randn(m * d + offset).astype(np.float32)).to(
+        cuda)[offset:].view(m, d)
+    yt = torch.from_numpy(rng.randn(k, d).astype(np.float32)).to(cuda)
+    r, c = (torch.from_numpy(a).to(cuda) for a in (rows, cols))
+    before = gather_sddmm.launches
+    got = gather_sddmm(r, c, x, yt)
+    assert gather_sddmm.launches == before + 1
+    _close(got, ref.ref_gather_sddmm(r, c, x, yt))
+
+
+@pytest.mark.parametrize("name,budget", [("ogbn-arxiv", None), ("cora", 1)])
+def test_execute_sddmm_and_attention_cuda_match_plain(cuda, name, budget):
+    from repro_torch import sparse as sp
+    from repro_torch.models import SparseGraphAttention
+
+    spec = PAPER_DATASETS[name]
+    rows, cols, vals = generate(spec)
+    shape = (spec.m, spec.k)
+    a_cuda = sp.from_coo(rows, cols, vals, shape, device=cuda,
+                         fringe_vmem_budget=budget)
+    a_cpu = sp.from_coo(rows, cols, vals, shape, device="cpu",
+                        fringe_vmem_budget=budget)
+    rng = np.random.RandomState(1)
+    x = rng.randn(spec.m, 64).astype(np.float32)
+    y = rng.randn(64, spec.k).astype(np.float32)
+    _close(sp.sddmm(a_cuda, x, y), sp.sddmm(a_cpu, x, y).to(cuda))
+    w = [torch.from_numpy((rng.randn(64, 32) / 8).astype(np.float32))
+         for _ in range(3)]
+    feats = torch.from_numpy(x)
+    got = SparseGraphAttention(a_cuda, *w)(feats.to(cuda))
+    want = SparseGraphAttention(a_cpu, *w)(feats)
+    _close(got, want.to(cuda))
