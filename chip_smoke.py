@@ -9,7 +9,9 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
 1. prints the card (name and power limit);
 2. holds each kernel (dense_tile_spmm, gather_spmm, gather_spmm_ksharded,
    dense_tile_sddmm, gather_sddmm) against its plain PyTorch version on
-   the card, on the ogbn-arxiv and reddit stand-ins (N = D = 256);
+   the card, on the ogbn-arxiv and reddit stand-ins (N = D = 256), and
+   the structured lane's nm_tile_spmm on the dlmc-nm-1-32 and dlmc-nm-2-32
+   stand-ins and bitmap_tile_spmm on dlmc-unstr with the bitmap hint;
 3. drives three paths through the user entry points, each with the kernel
    launch counts set to 0 just before it and read just after it:
    ``from_coo`` + ``spmm`` (N = 256) + ``bspmm`` (batch 4, N = 64) on a
@@ -31,7 +33,17 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    plain version, one PyTorch library call computing the same function,
    and its bound on the card, and prints them as one JSON line.
    gather_spmm_ksharded is also held and timed on the Reddit-scale fringe,
-   pushed onto the k-sharded tier (printed on its own line).
+   pushed onto the k-sharded tier (printed on its own line);
+5. the pruned-weight paths (the structured lane): the MLP up-projection
+   weight of Llama-2-7B (11,008 x 4,096) pruned 2:4 (``structure_hint=
+   ("nm", 2, 4)``), 1:32 (detected without a hint) and 50 % unstructured
+   (``structure_hint="bitmap"``), each ``from_coo`` + ``spmm`` on one
+   2,048-token chunk, which must launch nm_tile_spmm, nm_tile_spmm and
+   bitmap_tile_spmm once each and no other matrix-path kernel, plus one
+   ``bspmm`` of batch 2 on the 2:4 plan; each result is held against
+   ``torch.sparse.mm`` on the CSR of the same COO, and the two kernels are
+   timed there as in 4, beside dense_tile_spmm on the same plans' general
+   tiles and a dense ``torch.matmul`` of the weight.
 
 Tolerance everywhere: max |x - ref| <= 1e-4 * max(1, max |ref|) (fp32 on
 both sides, no TF32, different summation orders).  Any failure raises and
@@ -45,6 +57,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -62,6 +75,24 @@ FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 # nodes, 114.6M edges; the generator's dedup leaves 70,525,725 nonzeros
 REDDIT = dict(name="reddit-full", m=232965, k=232965, avg_degree=492.0,
               kind="power_law", skew=1.05, seed=10)
+# the pruned-weight paths: the MLP up-projection of Llama-2-7B
+# (meta-llama/Llama-2-7b-hf config: intermediate_size 11008, hidden_size
+# 4096; Touvron et al. 2023) times one 2,048-token prefill chunk, pruned
+# 2:4 (the pattern of the sparse tensor cores, as SparseGPT and Wanda
+# prune), 1:32 (the density of the repo's dlmc-nm-1-32) and 50 %
+# unstructured (Wanda's headline setting); weights from seeds
+PRUNED_M, PRUNED_K, PRUNED_N = 11008, 4096, 2048
+PRUNED_PATHS = (
+    # (label, density, generator spec, config overrides, the kernel it must
+    # launch)
+    ("2:4", 0.5, dict(kind="nm_pruned", nm=(2, 4), seed=24),
+     dict(structure_hint=("nm", 2, 4)), "nm_tile_spmm"),
+    ("1:32", 1 / 32, dict(kind="nm_pruned", nm=(1, 32), seed=32),
+     {}, "nm_tile_spmm"),
+    ("50% unstructured", 0.5, dict(kind="unstructured_pruned", seed=50),
+     dict(structure_hint="bitmap"), "bitmap_tile_spmm"),
+)
+MATRIX_KERNELS = ("dense_tile_spmm", "nm_tile_spmm", "bitmap_tile_spmm")
 
 
 def log(*args) -> None:
@@ -72,6 +103,160 @@ def require(cond, what) -> None:
     """Fail the run (a check that ``python -O`` does not strip)."""
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
+    """Drive the three pruned-weight paths, check them and time their
+    kernels.  Returns ``(launches, records)``: the launch counts of each
+    structured kernel on the path that runs it, and the kernels-line
+    fields of nm_tile_spmm (2:4) and bitmap_tile_spmm.
+
+    ``ctx`` carries the script's helpers (``sp``, ``dev``, ``log``,
+    ``require``, ``drive``, ``err_bound``, ``timed_ms``, ``measure``,
+    ``operand``, ``csr_of``, ``standin_err``).
+    """
+    import torch
+
+    from repro_torch.data.graphs import GraphSpec, generate
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dense_tile_spmm import (
+        dense_tile_spmm, window_segments,
+    )
+    from repro_torch.kernels.structured_spmm import (
+        bitmap_tile_spmm, nm_tile_spmm,
+    )
+
+    log, require, dev = ctx.log, ctx.require, ctx.dev
+    log(f"pruned-weight paths: {m} x {k} weight, N = {n}; "
+        f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+        f"cudnn {torch.backends.cudnn.allow_tf32}")
+    launches, measured, records = {}, {}, []
+    for label, density, spec_kw, cfg, kname in PRUNED_PATHS:
+        spec = GraphSpec(name=f"llama2-7b-mlp-up-{label}", m=m, k=k,
+                         avg_degree=density * k, skew=1.0, **spec_kw)
+        t0 = time.perf_counter()
+        rows, cols, vals = generate(spec)
+        t_gen = time.perf_counter() - t0
+        b = ctx.operand(k, n)
+
+        def path():
+            t0 = time.perf_counter()
+            a = ctx.sp.from_coo(rows, cols, vals, (m, k), device=dev, **cfg)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            c = ctx.sp.spmm(a, b)
+            torch.cuda.synchronize()
+            return a, c, t1 - t0, time.perf_counter() - t1
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (a, c, t_prep, t_spmm), counts = ctx.drive(path)
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        p = a.plan
+        st = p.stats_dict
+        log(f"{label}: nnz {rows.size} (generated in {t_gen:.1f} s); plan "
+            f"{p.matrix_format} {p.format_params}, windows {p.num_windows},"
+            f" tiles {p.step_window.shape[0]}, fringe_nnz "
+            f"{st['fringe_nnz']}; prepare {t_prep:.1f} s; first spmm "
+            f"{t_spmm * 1e3:.1f} ms; peak device "
+            f"memory {peak_gb:.3f} GB above the {base / 1e9:.2f} GB held "
+            f"before; launches {counts}")
+        require(p.matrix_format == kname.split("_")[0], p.matrix_format)
+        require(counts[kname] == 1 and all(
+            counts[x] == 0 for x in MATRIX_KERNELS if x != kname),
+            (label, counts))
+        launches.setdefault(kname, counts[kname])
+        csr = ctx.csr_of(rows, cols, vals, (m, k))
+        e = ctx.err_bound(c, torch.sparse.mm(csr, b))
+        log(f"  {label} spmm vs torch.sparse.mm: {e:.3e}")
+        if label == "2:4":
+            bb = ctx.operand(k, n, batch=2)
+            cb, counts_b = ctx.drive(lambda: ctx.sp.bspmm(a, bb))
+            require(counts_b[kname] == 1 and all(
+                counts_b[x] == 0 for x in MATRIX_KERNELS if x != kname),
+                counts_b)
+            e_b = max(ctx.err_bound(cb[i], torch.sparse.mm(csr, bb[i]))
+                      for i in range(2))
+            log(f"  2:4 bspmm (batch 2) vs torch.sparse.mm: {e_b:.3e}; "
+                f"launches {counts_b}")
+            del cb, bb
+
+        # the kernel at this path's shapes, as spmm calls it once warm
+        cfgp = p.config
+        nw, t_steps = p.num_windows, p.step_window.shape[0]
+        segs = window_segments(p.step_window, nw)
+        io_bytes = t_steps * 8 + b.numel() * 4 + nw * cfgp.bm * n * 4
+        if kname == "nm_tile_spmm":
+            n_pat, m_pat = p.format_params
+
+            def kern():
+                return nm_tile_spmm(
+                    p.step_window, p.step_col, p.nm_values, p.nm_codes, b,
+                    num_windows=nw, bm=cfgp.bm, bk=cfgp.bk, n_pat=n_pat,
+                    m_pat=m_pat, segments=segs)
+
+            def plain():
+                return ref.ref_nm_stream_spmm(
+                    p.step_window, p.step_col, p.nm_values, p.nm_codes, b,
+                    nw, n_pat, m_pat, cfgp.bk, tile_chunk=32)
+
+            payload = p.nm_values.numel() * 4 + p.nm_codes.numel() * 4
+        else:
+            def kern():
+                return bitmap_tile_spmm(
+                    p.step_window, p.step_col, p.bitmap_words,
+                    p.bitmap_values, b, num_windows=nw, bm=cfgp.bm,
+                    bk=cfgp.bk, row_cap=p.format_params[1], segments=segs)
+
+            def plain():
+                return ref.ref_bitmap_stream_spmm(
+                    p.step_window, p.step_col, p.bitmap_words,
+                    p.bitmap_values, b, nw, cfgp.bk, tile_chunk=2048)
+
+            payload = (p.bitmap_words.numel() * 4
+                       + p.bitmap_values.numel() * 4)
+        measured[label] = ctx.measure(
+            f"{kname} ({label})", kern, plain,
+            lambda: torch.sparse.mm(csr, b),
+            nbytes=payload + io_bytes, flops=2 * st["core_nnz"] * n)
+        # what the packed lane buys: B1 on the same plan's general tiles,
+        # and the dense product of the weight
+        out = kern()
+        e_b1 = ctx.err_bound(
+            dense_tile_spmm(p.step_window, p.step_col, p.flat_values, b,
+                            num_windows=nw, bm=cfgp.bm, bk=cfgp.bk,
+                            segments=segs), out)
+        b1_ms = ctx.timed_ms(lambda: dense_tile_spmm(
+            p.step_window, p.step_col, p.flat_values, b, num_windows=nw,
+            bm=cfgp.bm, bk=cfgp.bk, segments=segs))
+        w = torch.zeros((m, k), device=dev)
+        w[torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)] = (
+            torch.from_numpy(vals).to(dev))
+        mm_ms = ctx.timed_ms(lambda: w @ b)
+        spmm_ms = ctx.timed_ms(lambda: ctx.sp.spmm(a, b))
+        log(f"  {label} beside it: dense_tile_spmm on the plan's general "
+            f"tiles {b1_ms:.3f} ms (max |diff| {e_b1:.3e}); dense "
+            f"torch.matmul of the weight {mm_ms:.3f} ms; end-to-end spmm "
+            f"{spmm_ms:.3f} ms (warm)")
+        del a, c, p, csr, w, out, segs, b
+
+    def record(name, label, source, replaces, other_errs):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": replaces, "launches": launches[name],
+                **measured[label],
+                "max_abs_err": max(measured[label]["max_abs_err"],
+                                   ctx.standin_err[name], *other_errs)}
+
+    records.append(record(
+        "nm_tile_spmm", "2:4", "structured_spmm.cu",
+        "src/repro/kernels/structured_spmm.py:132",
+        (measured["1:32"]["max_abs_err"],)))
+    records.append(record(
+        "bitmap_tile_spmm", "50% unstructured", "structured_spmm.cu",
+        "src/repro/kernels/structured_spmm.py:180", ()))
+    return launches, records
 
 
 def main() -> int:
@@ -105,6 +290,9 @@ def main() -> int:
         csr_indptr, gather_spmm, gather_spmm_ksharded, kbucket_row_order,
     )
     from repro_torch.kernels.sddmm import dense_tile_sddmm, gather_sddmm
+    from repro_torch.kernels.structured_spmm import (
+        bitmap_tile_spmm, nm_tile_spmm,
+    )
     from repro_torch.models import SparseGraphAttention
 
     dev = torch.device("cuda")
@@ -229,9 +417,47 @@ def main() -> int:
             standin_err[kname] = max(standin_err.get(kname, 0.0), e)
             log(f"  {kname}: max |kernel - plain| = {e:.3e}")
         del a, p, bp, xp, yp, yt, smaps, xs
+    # the structured lane's kernels on the DLMC stand-ins (4096 x 4096)
+    for name, hint in (("dlmc-nm-1-32", None), ("dlmc-nm-2-32", None),
+                       ("dlmc-unstr", "bitmap")):
+        spec = PAPER_DATASETS[name]
+        rows, cols, vals = generate(spec)
+        p = sp.from_coo(rows, cols, vals, (spec.m, spec.k), device=dev,
+                        structure_hint=hint).plan
+        bp, _ = kernel_inputs(p, operand(spec.k, N))
+        cfg = p.config
+        log(f"{name}: format={p.matrix_format} {p.format_params} "
+            f"windows={p.num_windows} tiles={p.step_window.shape[0]}")
+        if p.matrix_format == "nm":
+            kname = "nm_tile_spmm"
+            n_pat, m_pat = p.format_params
+            got = nm_tile_spmm(p.step_window, p.step_col, p.nm_values,
+                               p.nm_codes, bp, num_windows=p.num_windows,
+                               bm=cfg.bm, bk=cfg.bk, n_pat=n_pat,
+                               m_pat=m_pat)
+            want = ref.ref_nm_stream_spmm(p.step_window, p.step_col,
+                                          p.nm_values, p.nm_codes, bp,
+                                          p.num_windows, n_pat, m_pat,
+                                          cfg.bk)
+        else:
+            require(p.matrix_format == "bitmap", p.matrix_format)
+            kname = "bitmap_tile_spmm"
+            got = bitmap_tile_spmm(p.step_window, p.step_col, p.bitmap_words,
+                                   p.bitmap_values, bp,
+                                   num_windows=p.num_windows, bm=cfg.bm,
+                                   bk=cfg.bk, row_cap=p.format_params[1])
+            want = ref.ref_bitmap_stream_spmm(p.step_window, p.step_col,
+                                              p.bitmap_words,
+                                              p.bitmap_values, bp,
+                                              p.num_windows, cfg.bk)
+        e = err_bound(got, want)
+        standin_err[kname] = max(standin_err.get(kname, 0.0), e)
+        log(f"  {kname}: max |kernel - plain| = {e:.3e}")
+        del p, bp, got, want
     require(set(standin_err) == {"dense_tile_spmm", "gather_spmm",
                                  "gather_spmm_ksharded", "dense_tile_sddmm",
-                                 "gather_sddmm"}, standin_err)
+                                 "gather_sddmm", "nm_tile_spmm",
+                                 "bitmap_tile_spmm"}, standin_err)
 
     # --- phase 3: the main path through the entry points -------------------
     spec = GraphSpec(**REDDIT)
@@ -601,6 +827,19 @@ def main() -> int:
 
     log(f"end-to-end spmm at N={N}: "
         f"{timed_ms(lambda: sp.spmm(A, b)):.3f} ms (warm)")
+
+    # --- phase 5: the pruned-weight paths (the structured lane) ----------
+    del A, p, c, cb, bp, b, bb, layer, x_att, A_arxiv, q, c_arxiv, segments
+    torch.cuda.empty_cache()
+    ctx = types.SimpleNamespace(
+        sp=sp, dev=dev, log=log, require=require, drive=drive,
+        err_bound=err_bound, timed_ms=timed_ms, measure=measure,
+        operand=operand, csr_of=csr_of, standin_err=standin_err)
+    launches_pruned, records = pruned_weight_paths(ctx)
+    launches.update(launches_pruned)
+    report.extend(records)
+    require(len(report) == 7 and all(r["launches"] > 0 for r in report),
+            [(r["name"], r["launches"]) for r in report])
     print(json.dumps({"kernels": report}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ as tensors on one device, in the same order and with the same contents:
   the ``"cuda"`` impl are selected);
 - the scatter-free merge: inverse row maps from each original row to its
   packed slot on either path (-1 when the path does not touch the row);
-- the four structured-lane payloads, (1, 1, 1) dummies in this port.
+- the four structured-lane payloads: the N:M or bitmap encoding of the
+  flat tile stream where ``matrix_format`` selects one, (1, 1, 1) dummies
+  otherwise.  The general stream is always kept beside them.
 
 ``plan_leaves`` gives the 17-leaf executor order of the reference, and
 ``signature()`` the same structure key.  Besides the leaves a plan carries
@@ -38,6 +40,18 @@ PATH_FRINGE = 1
 # SpmmConfig.impl values and the device type each one runs on
 IMPL_DEVICE = {"cuda": "cuda", "torch": "cpu"}
 
+# fixed positions inside ``NeutronPlan.signature()`` tuples, as in the
+# reference
+SIG_IMPL = 5
+SIG_FRINGE_TIER = 14
+SIG_MATRIX_FORMAT = 18
+SIG_FORMAT_PARAMS = 19
+
+# matrix-path payload encodings (core.formats pack/unpack pairs); the
+# signature carries the format, so structured and general plans never share
+# one cached executor
+MATRIX_FORMATS = ("general", "nm", "bitmap")
+
 
 @dataclasses.dataclass(frozen=True)
 class SpmmConfig:
@@ -62,8 +76,13 @@ class SpmmConfig:
     # measured dispatch decisions are not ported yet (ROADMAP A10): only
     # False is accepted
     autotune: Any = False
-    # structured-sparsity lane is not ported yet (ROADMAP A8): only None
-    # and "general" are accepted
+    # structured-sparsity hint for the matrix-path payload format:
+    #   None          — detect at prepare time, cost model decides
+    #   "general"     — force the flat tile stream (skip detection)
+    #   "nm"          — use the detected N:M packing; general if none
+    #   ("nm", n, m)  — assert this exact N:M pattern; PlanBuildError if the
+    #                   core stream does not satisfy it
+    #   "bitmap"      — force the bitmap payload (unless it would grow)
     structure_hint: Optional[Any] = None
 
 
@@ -83,9 +102,39 @@ def _op_tag(sig: Tuple) -> Optional[Tuple]:
     return None
 
 
+def sig_impl(sig: Tuple) -> Optional[str]:
+    """The kernel impl of a plan-style signature; None for other tuples."""
+    if isinstance(sig, tuple) and len(sig) > SIG_IMPL and \
+            sig[0] == PLAN_FORMAT_VERSION:
+        return sig[SIG_IMPL]
+    return None
+
+
+def sig_matrix_format(sig: Tuple) -> Optional[str]:
+    """The matrix-path payload format of a plan-style signature; None for
+    other tuples."""
+    if sig_impl(sig) is not None and len(sig) > SIG_MATRIX_FORMAT:
+        return sig[SIG_MATRIX_FORMAT]
+    return None
+
+
+def general_format_sig(sig: Tuple) -> Tuple:
+    """The same plan signature demoted to the general (flat tile) payload.
+
+    Structured plans keep their general leaves beside the packed ones, so a
+    value update demotes the format fields rather than re-packing.
+    """
+    if sig_matrix_format(sig) in (None, "general"):
+        return sig
+    demoted = list(sig)
+    demoted[SIG_MATRIX_FORMAT] = "general"
+    demoted[SIG_FORMAT_PARAMS] = (0, 0)
+    return tuple(demoted)
+
+
 def tag_op(sig: Tuple, op: str, *extra) -> Tuple:
     """Suffix a plan signature with an operator tag (hashable extras only)."""
-    if not (isinstance(sig, tuple) and sig and sig[0] == PLAN_FORMAT_VERSION):
+    if sig_impl(sig) is None:
         raise ValueError(f"not a plan-style signature: {sig!r}")
     return sig + ((OP_TAG, op) + tuple(extra),)
 
@@ -199,11 +248,12 @@ class NeutronPlan:
     fringe_kb_rows: torch.Tensor   # (num_chunks*chunk,) int32
     fringe_kb_cols: torch.Tensor   # (num_chunks*chunk,) int32
     fringe_kb_vals: torch.Tensor   # (num_chunks*chunk,) float32
-    # structured-lane payloads: (1, 1, 1) dummies (general format only)
-    nm_values: torch.Tensor
-    nm_codes: torch.Tensor
-    bitmap_words: torch.Tensor
-    bitmap_values: torch.Tensor
+    # structured-lane payloads: alternative encodings of flat_values,
+    # (1, 1, 1) zero dummies unless matrix_format selects them
+    nm_values: torch.Tensor      # (T, bm, n*gk) f32 slot-major values
+    nm_codes: torch.Tensor       # (T, bm, gk) int32, 8-bit position per slot
+    bitmap_words: torch.Tensor   # (T, bm, ceil(bk/32)) int32 occupancy bits
+    bitmap_values: torch.Tensor  # (T, bm, row_cap) f32 packed row values
 
     shape: Tuple[int, int]
     config: SpmmConfig
@@ -296,9 +346,8 @@ def plan_from_leaves(
         if unknown:
             raise PlanBuildError(f"unknown SpmmConfig fields: {unknown}")
         config = SpmmConfig(**config)
-    if meta.get("matrix_format", "general") != "general":
-        raise PlanBuildError(
-            "structured matrix formats are not ported yet (ROADMAP A8)")
+    _check_payload(leaves, config, meta.get("matrix_format", "general"),
+                   tuple(meta.get("format_params", (0, 0))))
     if (config.impl == "cuda" and meta["fringe_tier"] == "ksharded"
             and dict(meta.get("stats", ())).get("fringe_nnz", 1)
             and leaves["fringe_kb_rows"].size < leaves["fringe_rows"].size):
@@ -322,10 +371,46 @@ def plan_from_leaves(
         stats=tuple(meta.get("stats", ())),
         fringe_tier=str(meta["fringe_tier"]),
         fringe_bk=int(meta["fringe_bk"]),
-        matrix_format="general",
-        format_params=tuple(meta.get("format_params", (0, 0))),
+        matrix_format=str(meta.get("matrix_format", "general")),
+        format_params=tuple(int(x) for x in meta.get("format_params",
+                                                     (0, 0))),
         update_maps=meta.get("update_maps"),
     )
+
+
+def _check_payload(leaves: Dict[str, np.ndarray], config: SpmmConfig,
+                   fmt: str, params: Tuple) -> None:
+    """Raise unless the structured payload leaves are the ones ``fmt`` and
+    its ``format_params`` describe over the plan's tile stream."""
+    if fmt not in MATRIX_FORMATS:
+        raise PlanBuildError(
+            f"matrix_format must be one of {MATRIX_FORMATS}, got {fmt!r}")
+    if fmt == "general":
+        return
+    t = np.shape(leaves["step_window"])[0]
+    bm, bk = config.bm, config.bk
+    if len(params) != 2:
+        raise PlanBuildError(f"format_params must be a pair, got {params}")
+    if fmt == "nm":
+        n_pat, m_pat = (int(x) for x in params)
+        if m_pat <= 0 or bk % m_pat or not 1 <= n_pat <= 4:
+            raise PlanBuildError(
+                f"N:M params {params} need 1 <= n <= 4 and m dividing "
+                f"bk={bk}")
+        gk = bk // m_pat
+        want = {"nm_values": (t, bm, n_pat * gk), "nm_codes": (t, bm, gk)}
+    else:
+        n_words, row_cap = (int(x) for x in params)
+        want = {"bitmap_words": (t, bm, (bk + 31) // 32),
+                "bitmap_values": (t, bm, row_cap)}
+        if n_words != (bk + 31) // 32 or row_cap < 1:
+            raise PlanBuildError(
+                f"bitmap params {params} do not fit bk={bk}")
+    for name, shape in want.items():
+        if tuple(np.shape(leaves[name])) != shape:
+            raise PlanBuildError(
+                f"{fmt} plan: leaf {name} has shape "
+                f"{tuple(np.shape(leaves[name]))}, expected {shape}")
 
 
 # --- validation -------------------------------------------------------------

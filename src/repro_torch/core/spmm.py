@@ -7,11 +7,12 @@ reuse-ordered flat tile stream -> packed fringe COO -> fringe tier ->
 inverse row maps.  The leaves come out of :func:`build_plan_arrays` as
 host arrays and are then moved to the plan's device in one step.
 
-Scope of this port: the analytic cost model only, and the general matrix
-format only.  ``autotune`` and structured hints raise, and so does a
-matrix whose N:M structure the reference would route to its structured
-lane: building a general plan where the reference builds a structured one
-would silently change what the plan computes with.
+Structured lane: where the core tile stream has an N:M pattern that pays
+(or a ``structure_hint`` asks for one), the stream is also packed into the
+N:M or bitmap payload the structured kernels read, as the reference does;
+the general stream always rides along.
+
+Scope of this port: the analytic cost model only (``autotune`` raises).
 """
 from __future__ import annotations
 
@@ -45,41 +46,88 @@ def _check_config(config: SpmmConfig) -> None:
         raise PlanBuildError(
             "autotune is not ported yet (ROADMAP A10): the port prepares "
             "with the analytic cost model only; pass autotune=False")
-    if config.structure_hint not in (None, "general"):
-        raise PlanBuildError(
-            f"structure_hint={config.structure_hint!r} needs the structured "
-            "lane, which is not ported yet (ROADMAP A8)")
 
 
-def _refuse_structured(
-    rows: np.ndarray, cols: np.ndarray, shape: Tuple[int, int],
-    config: SpmmConfig, cm: EngineCostModel, num_steps: int,
-    has_core: bool, tile_density: float,
-) -> None:
-    """Raise where the reference's ``_structured_payload`` would pack an
-    unhinted matrix into the N:M lane.
+def _structured_payload(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    shape: Tuple[int, int],
+    config: SpmmConfig,
+    cm: EngineCostModel,
+    flat_values: np.ndarray,
+    has_core: bool,
+    tile_density: float,
+):
+    """Choose and build the structured matrix-path payload, as the
+    reference's ``_structured_payload`` does.
 
-    Unhinted selection never picks the bitmap payload, and the N:M pack
-    cannot fail on a pattern ``detect_nm_pattern`` found on the same cells,
-    so a detected, priced-in pattern is exactly the reference's "nm" case.
+    Returns ``(matrix_format, format_params, (nm_values, nm_codes),
+    (bitmap_words, bitmap_values))``.  The general flat stream is always
+    kept beside it, so a format demotion never needs a re-prepare.
     """
-    if config.structure_hint == "general" or not has_core \
-            or config.reorder_cols:
-        return
-    nm_pat = formats.detect_nm_pattern(rows, cols, shape)
-    if nm_pat is None or config.bk % nm_pat[1]:
-        return
-    fmt = cm.select_matrix_format(
-        nm_pattern=nm_pat, tile_zero_fraction=1.0 - float(tile_density),
-        num_steps=int(num_steps), bm=config.bm, bk=config.bk, row_cap=0,
-        hint=None,
+    hint = config.structure_hint
+    general = (
+        "general", (0, 0), (_DUMMY_F32, _DUMMY_I32), (_DUMMY_I32, _DUMMY_F32)
     )
-    if fmt != "general":
-        raise PlanBuildError(
-            f"this matrix has a {nm_pat[0]}:{nm_pat[1]} pattern that the "
-            "reference packs into its structured lane, which is not ported "
-            "yet (ROADMAP A8); pass structure_hint='general' to build the "
-            "general plan")
+    if hint == "general" or not has_core:
+        return general
+    explicit_nm = (
+        isinstance(hint, tuple) and len(hint) == 3 and hint[0] == "nm"
+    )
+    if config.reorder_cols:
+        # the column permutation moves nonzeros across m-groups
+        if explicit_nm or hint in ("nm", "bitmap"):
+            raise PlanBuildError(
+                "structure_hint is incompatible with reorder_cols=True: "
+                "the column permutation destroys group-local structure"
+            )
+        return general
+    nm_pat = None
+    if explicit_nm:
+        nm_pat = (int(hint[1]), int(hint[2]))
+        if nm_pat[1] <= 0 or config.bk % nm_pat[1]:
+            raise PlanBuildError(
+                f"structure_hint {hint!r} needs m dividing bk={config.bk}"
+            )
+    elif hint in (None, "nm"):
+        nm_pat = formats.detect_nm_pattern(rows, cols, shape)
+        # tiles chunk columns at bk boundaries; groups must not straddle
+        if nm_pat is not None and config.bk % nm_pat[1]:
+            nm_pat = None
+    t_steps, bm, bk = flat_values.shape
+    # the bitmap row capacity the packer would choose, priced before the pack
+    per_row_max = int(np.count_nonzero(flat_values, axis=2).max())
+    row_cap_est = max(8, ((per_row_max + 7) // 8) * 8)
+    fmt = cm.select_matrix_format(
+        nm_pattern=nm_pat,
+        tile_zero_fraction=1.0 - float(tile_density),
+        num_steps=int(t_steps), bm=int(bm), bk=int(bk),
+        row_cap=row_cap_est, hint=hint,
+    )
+    if fmt == "nm" and nm_pat is not None:
+        n_pat, m_pat = nm_pat
+        try:
+            nm_values, nm_codes = formats.pack_nm_tiles(
+                flat_values, n_pat, m_pat
+            )
+        except ValueError as e:
+            if explicit_nm:
+                raise PlanBuildError(
+                    f"core tile stream violates the hinted {n_pat}:{m_pat} "
+                    f"pattern: {e}"
+                ) from e
+            return general
+        return (
+            "nm", (n_pat, m_pat), (nm_values, nm_codes),
+            (_DUMMY_I32, _DUMMY_F32),
+        )
+    if fmt == "bitmap":
+        words, packed, row_cap = formats.pack_bitmap_tiles(flat_values)
+        return (
+            "bitmap", (int(words.shape[2]), int(row_cap)),
+            (_DUMMY_F32, _DUMMY_I32), (words, packed),
+        )
+    return general
 
 
 def build_plan_arrays(
@@ -191,9 +239,14 @@ def build_plan_arrays(
         flat_values = np.zeros((1, config.bm, config.bk), np.float32)
         core_lin = np.zeros(0, np.int64)
 
-    _refuse_structured(
-        rows, cols, shape, config, cm, int(flat_values.shape[0]),
-        has_core=bool(part.core_nnz), tile_density=float(tile_density),
+    # 3b) structured matrix-path payload: the N:M pattern found on the
+    # deduped cells (or an explicit hint), packed where the cost model
+    # prices it below the general stream
+    matrix_format, format_params, nm_payload, bitmap_payload = (
+        _structured_payload(
+            rows, cols, shape, config, cm, flat_values,
+            has_core=bool(part.core_nnz), tile_density=float(tile_density),
+        )
     )
 
     # map packed core rows -> original ids
@@ -272,8 +325,8 @@ def build_plan_arrays(
         ("k_pad", k_pad),
         ("fringe_tier", fringe_tier),
         ("fringe_bk", int(fringe_bk)),
-        ("matrix_format", "general"),
-        ("format_params", (0, 0)),
+        ("matrix_format", matrix_format),
+        ("format_params", tuple(format_params)),
         ("padding_waste",
          float(1.0 - tile_density) if part.core_nnz else 0.0),
     )
@@ -293,10 +346,10 @@ def build_plan_arrays(
         "fringe_kb_rows": kb_rows,
         "fringe_kb_cols": kb_cols,
         "fringe_kb_vals": kb_vals,
-        "nm_values": _DUMMY_F32,
-        "nm_codes": _DUMMY_I32,
-        "bitmap_words": _DUMMY_I32,
-        "bitmap_values": _DUMMY_F32,
+        "nm_values": nm_payload[0],
+        "nm_codes": nm_payload[1],
+        "bitmap_words": bitmap_payload[0],
+        "bitmap_values": bitmap_payload[1],
     }
     meta = {
         "shape": tuple(shape),
@@ -304,8 +357,8 @@ def build_plan_arrays(
         "stats": stats,
         "fringe_tier": fringe_tier,
         "fringe_bk": int(fringe_bk),
-        "matrix_format": "general",
-        "format_params": (0, 0),
+        "matrix_format": matrix_format,
+        "format_params": tuple(format_params),
         "update_maps": update_maps,
     }
     return leaves, meta

@@ -15,7 +15,13 @@ The update is functional: the touched tensors are copied first, and the
 original plan is left as it was.  At Reddit scale that copy of
 ``flat_values`` is 5.85 GB of device memory for as long as both plans live.
 
-Scope of this port: single-device general-format plans.  Structural deltas
+A structured plan (``matrix_format`` "nm" or "bitmap") whose core values
+change is demoted to the general payload, as in the reference: the packed
+stream would go stale, and the general leaves are always kept current.
+The demotion changes the signature once (to ``general_format_sig`` of the
+old one); later updates keep it.
+
+Scope of this port: single-device plans.  Structural deltas
 (``GraphDelta``, ``DynamicPlan``, compaction) and the registry are not
 ported yet (ROADMAP A9).
 """
@@ -120,6 +126,10 @@ def update_values(plan: NeutronPlan, indices, new_values) -> NeutronPlan:
     those arrays are rebuilt; its tensors are bit-identical to
     re-preparing with the updated values.  ``new_values`` is a numpy array
     or a tensor on any device.
+
+    One exception: a structured plan whose core values are touched comes
+    back on the general payload, its signature demoted by
+    ``plan_ir.general_format_sig``.
     """
     maps = plan.update_maps
     if maps is None:
@@ -144,5 +154,18 @@ def update_values(plan: NeutronPlan, indices, new_values) -> NeutronPlan:
     if core_ids.size:
         touched, sums = _recompute_core_slots(maps, core_ids, cur)
         replacements["flat_values"] = _set(plan.flat_values, touched, sums)
+        if plan.matrix_format != "general":
+            # the scatter stales the packed payload: demote to the (always
+            # current) general leaves instead of re-packing per update
+            dev = plan.device
+            replacements.update(
+                matrix_format="general", format_params=(0, 0),
+                nm_values=torch.zeros((1, 1, 1), device=dev),
+                nm_codes=torch.zeros((1, 1, 1), dtype=torch.int32,
+                                     device=dev),
+                bitmap_words=torch.zeros((1, 1, 1), dtype=torch.int32,
+                                         device=dev),
+                bitmap_values=torch.zeros((1, 1, 1), device=dev),
+            )
     return dataclasses.replace(
         plan, update_maps=dataclasses.replace(maps, vals=cur), **replacements)

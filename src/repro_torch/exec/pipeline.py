@@ -8,8 +8,9 @@ The fused body runs both engine paths and merges them without a scatter:
 
 A batched (batch, K, N) operand is folded into columns, (K, batch*N), so
 each path launches once for the whole batch and the output is unfolded to
-(batch, M, N): the port's replacement for the reference's ``vmap``.  Only
-the general matrix format exists in this port.
+(batch, M, N): the port's replacement for the reference's ``vmap``.  The
+signature's matrix format picks the matrix-path payload: the N:M or bitmap
+encoding on a structured plan, the flat tile stream otherwise.
 
 A signature tagged with ``plan_ir.tag_op(sig, "sddmm", ...)`` selects the
 SDDMM body instead, on the same plan structure: dense tiles on the matrix
@@ -44,26 +45,40 @@ def _fused_body(sig: Tuple):
     (_version, shape, bm, bk, _bn, impl, reorder_cols, fringe_chunk,
      num_windows, _num_steps, _nnz_f, n_fringe_rows, has_core, has_fringe,
      fringe_tier, fringe_bk, _n_chunks, _nnz_kb,
-     matrix_format, _format_params) = sig
-    if matrix_format != "general":
-        raise PlanBuildError(
-            f"matrix_format={matrix_format!r} is not ported yet (ROADMAP A8)")
+     matrix_format, format_params) = sig
     m, _k = shape
 
     def run(step_window, step_col, flat_values, fringe_rows, fringe_cols,
             fringe_vals, col_perm, gsrc_m, gsrc_v,
             kb_chunk, kb_rows, kb_cols, kb_vals,
-            _nm_values, _nm_codes, _bitmap_words, _bitmap_values, b,
+            nm_values, nm_codes, bitmap_words, bitmap_values, b,
             derived: Optional[Dict[str, Any]] = None):
         n = b.shape[1]
         bp = permute_pad_b(b, col_perm, reorder_cols, bk)
         c = None
         if has_core:
-            packed_m = ops.block_stream_spmm(
-                step_window, step_col, flat_values, bp,
-                num_windows=num_windows, bm=bm, bk=bk, impl=impl,
-                derived=derived,
-            )
+            # the signature-carried format selects the payload; the general
+            # stream always rides along (a demoted plan reads it)
+            if matrix_format == "nm":
+                n_pat, m_pat = format_params
+                packed_m = ops.nm_stream_spmm(
+                    step_window, step_col, nm_values, nm_codes, bp,
+                    num_windows=num_windows, bm=bm, bk=bk, n_pat=n_pat,
+                    m_pat=m_pat, impl=impl, derived=derived,
+                )
+            elif matrix_format == "bitmap":
+                _n_words, row_cap = format_params
+                packed_m = ops.bitmap_stream_spmm(
+                    step_window, step_col, bitmap_words, bitmap_values, bp,
+                    num_windows=num_windows, bm=bm, bk=bk, row_cap=row_cap,
+                    impl=impl, derived=derived,
+                )
+            else:
+                packed_m = ops.block_stream_spmm(
+                    step_window, step_col, flat_values, bp,
+                    num_windows=num_windows, bm=bm, bk=bk, impl=impl,
+                    derived=derived,
+                )
             c = gather_rows(packed_m, gsrc_m)
         if has_fringe:
             packed_v = ops.fringe_spmm(

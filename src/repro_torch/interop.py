@@ -32,10 +32,14 @@ def plan_from_arrays(leaves: Dict[str, np.ndarray],
 
     ``meta`` holds ``shape``, ``config`` (a :class:`SpmmConfig` or a dict of
     its fields; ``impl`` is the port's, "cuda" or "torch"), ``fringe_tier``
-    and ``fringe_bk``, and optionally ``stats``, ``matrix_format`` (only
-    "general"), ``format_params``, ``update_maps`` and ``device`` (default:
-    the device of ``config.impl``).  ``stats`` must carry ``core_nnz`` and
-    ``fringe_nnz``: they decide which engine paths run.
+    and ``fringe_bk``, and optionally ``stats``, ``matrix_format``
+    ("general", "nm" or "bitmap"), ``format_params``, ``update_maps`` and
+    ``device`` (default: the device of ``config.impl``).  ``stats`` must
+    carry ``core_nnz`` and ``fringe_nnz``: they decide which engine paths
+    run.  A structured plan's packed leaves (``nm_values``/``nm_codes`` or
+    ``bitmap_words``/``bitmap_values``) must have the shapes its
+    ``format_params`` give, and the general leaves ride along as in the
+    reference.
     """
     config = meta["config"]
     impl = config.impl if isinstance(config, SpmmConfig) else config.get(

@@ -26,7 +26,7 @@ from typing import Dict, Sequence
 from ..errors import DispatchError, KernelLoweringError
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("dense_tile_spmm", "gather_spmm", "sddmm")
+SOURCES = ("dense_tile_spmm", "gather_spmm", "sddmm", "structured_spmm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

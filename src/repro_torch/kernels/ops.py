@@ -25,13 +25,14 @@ from .gather_spmm import (
     csr_indptr, gather_spmm, gather_spmm_ksharded, kbucket_row_order,
 )
 from .sddmm import dense_tile_sddmm, gather_sddmm
+from .structured_spmm import bitmap_tile_spmm, nm_tile_spmm
 
 IMPLS = ("cuda", "torch")
 
 # the hand-written kernels' wrappers; each counts its launches in an integer
 # attribute ``launches``, raised only where the kernel was launched
 KERNELS = (dense_tile_spmm, gather_spmm, gather_spmm_ksharded,
-           dense_tile_sddmm, gather_sddmm)
+           dense_tile_sddmm, gather_sddmm, nm_tile_spmm, bitmap_tile_spmm)
 
 # occupancy (active tiles / total slots) above which the plain path
 # switches from the streamed per-tile form to one densified matmul
@@ -121,6 +122,76 @@ def block_stream_spmm(
     return dense_tile_spmm(step_window, step_col, flat_values, b,
                            num_windows=num_windows, bm=bm, bk=bk,
                            segments=segments)
+
+
+def nm_stream_spmm(
+    step_window: torch.Tensor,
+    step_col: torch.Tensor,
+    nm_values: torch.Tensor,
+    nm_codes: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    num_windows: int,
+    bm: int,
+    bk: int,
+    n_pat: int,
+    m_pat: int,
+    impl: str,
+    derived: Optional[Dict[str, Any]] = None,
+) -> torch.Tensor:
+    """Matrix-engine path over the N:M-packed tile stream; returns packed
+    (num_windows*bm, N) fp32.  ``impl="torch"`` runs the reference's gather
+    form (n/m of the dense-tile multiply-adds), ``impl="cuda"`` the kernel.
+    """
+    if b.ndim != 2:
+        raise ValueError(
+            f"nm_stream_spmm expects a rank-2 (K, N) operand, got shape "
+            f"{tuple(b.shape)}")
+    _check_impl(impl, b)
+    if impl == "torch":
+        return ref.ref_nm_stream_spmm(step_window, step_col, nm_values,
+                                      nm_codes, b, num_windows, n_pat,
+                                      m_pat, bk)
+    segments = _cached(derived, "window_segments",
+                       lambda: window_segments(step_window, num_windows))
+    return nm_tile_spmm(step_window, step_col, nm_values, nm_codes, b,
+                        num_windows=num_windows, bm=bm, bk=bk, n_pat=n_pat,
+                        m_pat=m_pat, segments=segments)
+
+
+def bitmap_stream_spmm(
+    step_window: torch.Tensor,
+    step_col: torch.Tensor,
+    bitmap_words: torch.Tensor,
+    bitmap_values: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    num_windows: int,
+    bm: int,
+    bk: int,
+    row_cap: int,
+    impl: str,
+    derived: Optional[Dict[str, Any]] = None,
+) -> torch.Tensor:
+    """Matrix-engine path over the bitmap-packed tile stream; returns packed
+    (num_windows*bm, N) fp32.  ``impl="torch"`` expands the tiles and runs
+    the general streaming product, as the reference's ``"xla"`` impl does;
+    ``impl="cuda"`` runs the kernel.
+    """
+    if b.ndim != 2:
+        raise ValueError(
+            f"bitmap_stream_spmm expects a rank-2 (K, N) operand, got shape "
+            f"{tuple(b.shape)}")
+    _check_impl(impl, b)
+    if impl == "torch":
+        return ref.ref_bitmap_stream_spmm(step_window, step_col,
+                                          bitmap_words, bitmap_values, b,
+                                          num_windows, bk)
+    segments = _cached(derived, "window_segments",
+                       lambda: window_segments(step_window, num_windows))
+    return bitmap_tile_spmm(step_window, step_col, bitmap_words,
+                            bitmap_values, b, num_windows=num_windows, bm=bm,
+                            bk=bk, row_cap=row_cap, segments=segments)
 
 
 def fringe_spmm(

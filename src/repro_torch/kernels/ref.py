@@ -95,6 +95,83 @@ def densified_block_stream_spmm_unique(
     return core @ b.to(torch.float32)
 
 
+def ref_nm_stream_spmm(
+    step_window: torch.Tensor,  # (T,) int32
+    step_col: torch.Tensor,     # (T,) int32
+    nm_values: torch.Tensor,    # (T, bm, n*gk) fp32 slot-major packed values
+    nm_codes: torch.Tensor,     # (T, bm, gk) int32, 8-bit positions per slot
+    b: torch.Tensor,            # (K, N) — K a multiple of bk
+    num_windows: int,
+    n_pat: int,
+    m_pat: int,
+    bk: int,
+    tile_chunk: int = 8,
+) -> torch.Tensor:
+    """The N:M-packed tile stream in the reference's gather form: each
+    packed value multiplies its own B row (slot positions decoded into
+    global B rows), n/m of the dense-tile multiply-adds.  ``tile_chunk``
+    bounds the gathered (chunk, bm, n*gk, N) B rows per step.  Returns
+    packed (num_windows*bm, N) fp32."""
+    t, bm, _ = nm_values.shape
+    n = b.shape[1]
+    gk = bk // m_pat
+    q = n_pat * gk
+    dev = b.device
+    bf = b.to(torch.float32)
+    # slot-major local columns: value [t, r, j*gk + g] sits at in-tile
+    # column g*m_pat + ((codes[t, r, g] >> 8j) & 0xFF)
+    shifts = 8 * torch.arange(n_pat, dtype=torch.int32, device=dev)[:, None]
+    base = torch.arange(gk, dtype=torch.int64, device=dev) * m_pat
+    out = torch.zeros((num_windows, bm, n), dtype=torch.float32, device=dev)
+    step = max(1, min(int(tile_chunk), t))
+    for s in range(0, t, step):
+        pos = (nm_codes[s:s + step, :, None, :] >> shifts) & 0xFF
+        cols = (pos.long() + base).reshape(-1, bm, q)
+        rows = step_col[s:s + step].long()[:, None, None] * bk + cols
+        contrib = torch.einsum(
+            "tmq,tmqn->tmn", nm_values[s:s + step].to(torch.float32),
+            bf[rows])
+        out.index_add_(0, step_window[s:s + step].long(), contrib)
+    return out.reshape(num_windows * bm, n)
+
+
+def expand_bitmap_tiles(
+    bitmap_words: torch.Tensor,   # (T, bm, ceil(bk/32)) int32 occupancy bits
+    bitmap_values: torch.Tensor,  # (T, bm, row_cap) fp32 packed row values
+    bk: int,
+) -> torch.Tensor:
+    """Re-expand a bitmap payload to the dense (T, bm, bk) fp32 stream:
+    rank each set bit by a row-wise exclusive cumsum and gather its packed
+    value (clamped to ``row_cap - 1``, as the reference clips).  The
+    arithmetic shift is safe for bit 31: only bit 0 of the result is
+    read."""
+    row_cap = bitmap_values.shape[2]
+    cols = torch.arange(bk, dtype=torch.int32, device=bitmap_words.device)
+    bits = (bitmap_words[:, :, (cols // 32).long()] >> (cols % 32)) & 1
+    rank = torch.cumsum(bits, dim=-1) - bits
+    gathered = torch.gather(bitmap_values.to(torch.float32), 2,
+                            rank.clamp(0, row_cap - 1).long())
+    return torch.where(bits == 1, gathered, 0.0)
+
+
+def ref_bitmap_stream_spmm(
+    step_window: torch.Tensor,    # (T,) int32
+    step_col: torch.Tensor,       # (T,) int32
+    bitmap_words: torch.Tensor,   # (T, bm, ceil(bk/32)) int32
+    bitmap_values: torch.Tensor,  # (T, bm, row_cap) fp32
+    b: torch.Tensor,              # (K, N) — K a multiple of bk
+    num_windows: int,
+    bk: int,
+    tile_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """The bitmap-packed tile stream: expand, then the general streaming
+    product (``tile_chunk`` as in :func:`ref_block_stream_spmm`).
+    Returns packed (num_windows*bm, N) fp32."""
+    flat_values = expand_bitmap_tiles(bitmap_words, bitmap_values, bk)
+    return ref_block_stream_spmm(step_window, step_col, flat_values, b,
+                                 num_windows, tile_chunk=tile_chunk)
+
+
 def ref_gather_spmm(
     rows: torch.Tensor,  # (nnz,) int32 packed row ids
     cols: torch.Tensor,  # (nnz,) int32

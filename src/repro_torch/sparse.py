@@ -11,11 +11,14 @@
     w = sp.sddmm(A, X, Y)    # (nnz,) values of X @ Y at A's pattern
     A2 = A.with_values(w)    # same pattern, new values, same executor
 
+    W = sp.from_coo(rows, cols, vals, shape, structure_hint=("nm", 2, 4))
+    Y = W @ X                # a 2:4-pruned weight on the N:M kernel
+
 The subset of ``repro.sparse`` this port carries: static single-device
-plans, SpMM, SDDMM and value updates.  ``sddmm`` returns values in the
-input COO order of the pattern, the order ``with_values`` takes, so
-GAT-style attention is three calls: ``sddmm`` -> ``with_values`` ->
-``spmm``.  Entry points run on the card unless the caller passes
+plans (general, N:M and bitmap payloads), SpMM, SDDMM and value updates.
+``sddmm`` returns values in the input COO order of the pattern, the order
+``with_values`` takes, so GAT-style attention is three calls: ``sddmm``
+-> ``with_values`` -> ``spmm``.  Entry points run on the card unless the caller passes
 ``device="cpu"`` (the plain versions, ``impl="torch"``); with no CUDA
 device and no ``device="cpu"`` they raise rather than carry on on the CPU.
 """
@@ -124,7 +127,9 @@ def from_coo(
 
     The impl follows the device unless given: ``"cuda"`` on a CUDA device,
     ``"torch"`` on the CPU.  Pass a full :class:`SpmmConfig` via ``config``
-    or individual fields as keyword overrides, not both.
+    or individual fields as keyword overrides, not both: for example
+    ``structure_hint=("nm", 2, 4)`` or ``structure_hint="bitmap"`` for a
+    pruned weight (an N:M pattern is also detected without a hint).
     """
     if config is not None and config_overrides:
         raise ValueError(

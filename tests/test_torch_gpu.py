@@ -21,6 +21,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.dense_tile_spmm import dense_tile_spmm
 from repro_torch.kernels.gather_spmm import gather_spmm, gather_spmm_ksharded
 from repro_torch.kernels.sddmm import dense_tile_sddmm, gather_sddmm
+from repro_torch.kernels.structured_spmm import bitmap_tile_spmm, nm_tile_spmm
 
 pytestmark = pytest.mark.gpu
 
@@ -204,3 +205,93 @@ def test_execute_sddmm_and_attention_cuda_match_plain(cuda, name, budget):
     got = SparseGraphAttention(a_cuda, *w)(feats.to(cuda))
     want = SparseGraphAttention(a_cpu, *w)(feats)
     _close(got, want.to(cuda))
+
+
+def _window_sorted_stream(rng, t, nw, nkb, empty=(2, 7)):
+    sw = rng.randint(0, nw, t).astype(np.int32)
+    sw[np.isin(sw, empty)] = 0
+    return np.sort(sw), rng.randint(0, nkb, t).astype(np.int32)
+
+
+@pytest.mark.parametrize("n_pat,m_pat,bm,bk,n", [
+    (2, 4, 128, 64, 256),    # 2:4 at the main path's tile shape
+    (1, 32, 128, 64, 100),   # 1:32, ragged N
+    (4, 16, 128, 64, 256),
+    (2, 4, 200, 32, 70),     # bm above one row chunk, small bk
+])
+def test_nm_tile_spmm_matches_plain(cuda, n_pat, m_pat, bm, bk, n):
+    from repro_torch.core.formats import pack_nm_tiles
+
+    rng = np.random.RandomState(n_pat * 100 + m_pat + bm)
+    nw, nkb, t = 9, 5, 60
+    sw, sc = _window_sorted_stream(rng, t, nw, nkb)
+    g = rng.randn(t, bm, bk // m_pat, m_pat).astype(np.float32)
+    keep = np.argsort(rng.rand(*g.shape), axis=-1) < rng.randint(
+        0, n_pat + 1, g.shape[:3] + (1,))
+    flat = np.where(keep, g, 0.0).astype(np.float32).reshape(t, bm, bk)
+    vals, codes = pack_nm_tiles(flat, n_pat, m_pat)
+    b = rng.randn(nkb * bk, n).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda) for x in (sw, sc, vals, codes, b)]
+    kw = dict(num_windows=nw, bm=bm, bk=bk, n_pat=n_pat, m_pat=m_pat)
+    before = nm_tile_spmm.launches
+    got = nm_tile_spmm(*args, **kw)
+    assert nm_tile_spmm.launches == before + 1
+    _close(got, ref.ref_nm_stream_spmm(*args, nw, n_pat, m_pat, bk))
+    assert not got.reshape(nw, bm, n)[[2, 7]].any()
+
+
+@pytest.mark.parametrize("row_cap,bk,n", [(8, 64, 256), (56, 64, 256),
+                                          (8, 72, 90)])
+def test_bitmap_tile_spmm_matches_plain(cuda, row_cap, bk, n):
+    from repro_torch.core.formats import pack_bitmap_tiles
+
+    rng = np.random.RandomState(row_cap + bk)
+    nw, nkb, t, bm = 9, 5, 60, 128
+    sw, sc = _window_sorted_stream(rng, t, nw, nkb)
+    # every row holds column 31 (bit 31 of word 0, the int32 sign bit) and
+    # up to row_cap - 1 others; row 0 of tile 0 is full, so the packer's
+    # row capacity is row_cap
+    other = np.delete(np.arange(bk), 31)
+    keep = (np.argsort(rng.rand(t, bm, bk - 1), axis=-1)
+            < rng.randint(0, row_cap, (t, bm, 1)))
+    flat = np.zeros((t, bm, bk), np.float32)
+    flat[:, :, other] = np.where(keep, rng.randn(t, bm, bk - 1), 0.0)
+    flat[:, :, 31] = 1.25
+    flat[0, 0, other] = 0.0
+    flat[0, 0, other[:row_cap - 1]] = 1.0
+    words, packed, cap = pack_bitmap_tiles(flat)
+    assert cap == row_cap and (words < 0).any()
+    b = rng.randn(nkb * bk, n).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda) for x in (sw, sc, words, packed, b)]
+    before = bitmap_tile_spmm.launches
+    got = bitmap_tile_spmm(*args, num_windows=nw, bm=bm, bk=bk, row_cap=cap)
+    assert bitmap_tile_spmm.launches == before + 1
+    _close(got, ref.ref_bitmap_stream_spmm(*args, nw, bk))
+    assert not got.reshape(nw, bm, n)[[2, 7]].any()
+
+
+@pytest.mark.parametrize("name,hint,fmt", [
+    ("dlmc-nm-1-32", None, "nm"),
+    ("dlmc-nm-2-32", ("nm", 2, 32), "nm"),
+    ("dlmc-unstr", "bitmap", "bitmap"),
+])
+def test_execute_structured_cuda_matches_plain(cuda, name, hint, fmt):
+    spec = PAPER_DATASETS[name]
+    rows, cols, vals = generate(spec)
+    shape = (spec.m, spec.k)
+    p_cuda = prepare(rows, cols, vals, shape,
+                     SpmmConfig(impl="cuda", structure_hint=hint))
+    p_cpu = prepare(rows, cols, vals, shape,
+                    SpmmConfig(impl="torch", structure_hint=hint))
+    assert p_cuda.matrix_format == p_cpu.matrix_format == fmt
+    rng = np.random.RandomState(0)
+    b = rng.randn(spec.k, 128).astype(np.float32)
+    kern = nm_tile_spmm if fmt == "nm" else bitmap_tile_spmm
+    before = (kern.launches, dense_tile_spmm.launches)
+    got = api.execute(p_cuda, torch.from_numpy(b).to(cuda))
+    assert (kern.launches, dense_tile_spmm.launches) == (
+        before[0] + 1, before[1])
+    _close(got, api.execute(p_cpu, torch.from_numpy(b)).to(cuda))
+    bb = rng.randn(2, spec.k, 40).astype(np.float32)
+    _close(api.execute(p_cuda, torch.from_numpy(bb).to(cuda)),
+           api.execute(p_cpu, torch.from_numpy(bb)).to(cuda))

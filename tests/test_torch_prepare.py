@@ -226,13 +226,13 @@ def test_cost_model_alpha_matches_reference():
 
 
 def test_nm_detectable_matrix_raises():
+    """A matrix the reference packs into its N:M lane: the port builds the
+    same N:M plan (it refused it before the structured lane was ported),
+    and an explicit general hint the same general plan."""
     rows, cols, vals, shape = _spec("dlmc-nm-1-32", 1024)
-    theirs = jax_spmm.prepare(rows, cols, vals, shape,
-                              jax_spmm.SpmmConfig(impl="xla"))
-    assert theirs.matrix_format == "nm"
-    with pytest.raises(PlanBuildError, match="A8"):
-        spmm.prepare(rows, cols, vals, shape, SpmmConfig(impl="torch"))
-    # an explicit general hint builds the general plan, as in the reference
+    ours, theirs = _both(rows, cols, vals, shape)
+    assert theirs.matrix_format == ours.matrix_format == "nm"
+    _check(ours, theirs)
     ours = spmm.prepare(rows, cols, vals, shape,
                         SpmmConfig(impl="torch", structure_hint="general"))
     ref = jax_spmm.prepare(
@@ -247,11 +247,29 @@ def test_nm_detectable_matrix_raises():
     (dict(structure_hint=("nm", 1, 32)), "A8"),
 ])
 def test_unported_options_raise(cfg, match):
+    """autotune (A10) still raises.  The structured hints (A8) are ported:
+    the port builds the reference's plan, or raises its PlanBuildError."""
     rng = np.random.RandomState(0)
     _, rows, cols, vals = make_sparse(rng, 40, 40, 0.1)
-    with pytest.raises(PlanBuildError, match=match):
-        spmm.prepare(rows, cols, vals, (40, 40),
-                     SpmmConfig(impl="torch", **cfg))
+    if match == "A10":
+        with pytest.raises(PlanBuildError, match=match):
+            spmm.prepare(rows, cols, vals, (40, 40),
+                         SpmmConfig(impl="torch", **cfg))
+        return
+    try:
+        theirs = jax_spmm.prepare(rows, cols, vals, (40, 40),
+                                  jax_spmm.SpmmConfig(impl="xla", **cfg))
+    except Exception as err:  # the reference's own PlanBuildError
+        assert type(err).__name__ == "PlanBuildError"
+        with pytest.raises(PlanBuildError) as ours:
+            spmm.prepare(rows, cols, vals, (40, 40),
+                         SpmmConfig(impl="torch", **cfg))
+        assert str(ours.value) == str(err)
+        return
+    ours = spmm.prepare(rows, cols, vals, (40, 40),
+                        SpmmConfig(impl="torch", **cfg))
+    assert ours.matrix_format == theirs.matrix_format
+    _check(ours, theirs)
 
 
 @pytest.mark.parametrize("impl,device", [

@@ -112,6 +112,61 @@ def test_failed_kernel_build_raises(tmp_path, monkeypatch):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
+def _fake_nvcc(tmp_path, failing_source):
+    """An nvcc stand-in that fails on ``failing_source`` and writes an empty
+    library for every other source."""
+    fake = tmp_path / "cuda" / "bin" / "nvcc"
+    fake.parent.mkdir(parents=True)
+    fake.write_text(
+        "#!/bin/sh\nout=''\nprev=''\nfor a in \"$@\"; do\n"
+        "  [ \"$prev\" = -o ] && out=\"$a\"\n  prev=\"$a\"\ndone\n"
+        f"case \"$*\" in *{failing_source}*) "
+        "echo \"error: simulated failure in $*\"; exit 1;; esac\n"
+        ": > \"$out\"\n")
+    fake.chmod(0o755)
+    return fake
+
+
+def test_failed_structured_build_raises(tmp_path, monkeypatch):
+    """structured_spmm.cu is built with the others, and its failure raises
+    from the wrappers of both structured kernels: an operand that is not
+    on the CPU never reaches the plain versions."""
+    from repro_torch.kernels import structured_spmm as ss
+
+    assert "structured_spmm" in _build.SOURCES
+    _fake_nvcc(tmp_path, "structured_spmm.cu")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_FUNCS", {})
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a non-CPU operand")
+
+    monkeypatch.setattr(ss, "ref_nm_stream_spmm", plain)
+    monkeypatch.setattr(ss, "ref_bitmap_stream_spmm", plain)
+    # tensors on the "meta" device: not on the CPU, and no card needed
+    meta = dict(device="meta")
+    i32 = dict(dtype=torch.int32, **meta)
+    t, bm, bk = 3, 16, 64
+    steps = torch.zeros(t, **i32)
+    segments = (torch.zeros(t, **i32), torch.zeros(2, **i32))
+    b = torch.zeros(bk, 8, **meta)
+    before = (ss.nm_tile_spmm.launches, ss.bitmap_tile_spmm.launches)
+    with pytest.raises(KernelLoweringError, match="structured_spmm.cu"):
+        ss.nm_tile_spmm(steps, steps, torch.zeros(t, bm, 8, **meta),
+                        torch.zeros(t, bm, 4, **i32), b, num_windows=1,
+                        bm=bm, bk=bk, n_pat=2, m_pat=16, segments=segments)
+    with pytest.raises(KernelLoweringError, match="structured_spmm.cu"):
+        ss.bitmap_tile_spmm(steps, steps, torch.zeros(t, bm, 2, **i32),
+                            torch.zeros(t, bm, 8, **meta), b, num_windows=1,
+                            bm=bm, bk=bk, row_cap=8, segments=segments)
+    assert (ss.nm_tile_spmm.launches,
+            ss.bitmap_tile_spmm.launches) == before
+    # the other sources built: only the failing one is reported
+    assert len(list((tmp_path / "build").glob("*.so"))) == 3
+
+
 def test_missing_compiler_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(_build, "NVCC_DEFAULT", str(tmp_path / "nvcc"))
