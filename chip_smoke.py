@@ -11,7 +11,12 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    dense_tile_sddmm, gather_sddmm) against its plain PyTorch version on
    the card, on the ogbn-arxiv and reddit stand-ins (N = D = 256), and
    the structured lane's nm_tile_spmm on the dlmc-nm-1-32 and dlmc-nm-2-32
-   stand-ins and bitmap_tile_spmm on dlmc-unstr with the bitmap hint;
+   stand-ins and bitmap_tile_spmm on dlmc-unstr with the bitmap hint; then
+   the paths of the redesigned kernels: dense_tile_spmm on 2.5 %-dense
+   tiles with one window of 4,096 tiles (split into chunks and reduced)
+   and on tiles alternating 2 % and 50 % density (zero-skipping walk and
+   3xTF32 tensor-core product in one launch), nm_tile_spmm at 2:4 and 1:32
+   with N = 2,048;
 3. drives three paths through the user entry points, each with the kernel
    launch counts set to 0 just before it and read just after it:
    ``from_coo`` + ``spmm`` (N = 256) + ``bspmm`` (batch 4, N = 64) on a
@@ -33,7 +38,10 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    plain version, one PyTorch library call computing the same function,
    and its bound on the card, and prints them as one JSON line.
    gather_spmm_ksharded is also held and timed on the Reddit-scale fringe,
-   pushed onto the k-sharded tier (printed on its own line);
+   pushed onto the k-sharded tier (printed on its own line).
+   dense_tile_spmm runs twice on the reddit-scale plan, and the two results
+   must be bit-identical; then it is timed on one 4,096-tile stream at
+   each tile density of SWEEP_DENSITIES (one JSON line);
 5. the pruned-weight paths (the structured lane): the MLP up-projection
    weight of Llama-2-7B (11,008 x 4,096) pruned 2:4 (``structure_hint=
    ("nm", 2, 4)``), 1:32 (detected without a hint) and 50 % unstructured
@@ -46,14 +54,16 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    tiles and a dense ``torch.matmul`` of the weight.
 
 Tolerance everywhere: max |x - ref| <= 1e-4 * max(1, max |ref|) (fp32 on
-both sides, no TF32, different summation orders).  Any failure raises and
-the script exits nonzero without its result line.  The last line is
-``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the JAX
-package, and needs no network.
+both sides, different summation orders; the kernels' tensor-core path is
+3xTF32, about fp32 accuracy, and PyTorch's TF32 switches stay off).  Any
+failure raises and the script exits nonzero without its result line.  The
+last line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX
+or of the JAX package, and needs no network.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +103,8 @@ PRUNED_PATHS = (
      dict(structure_hint="bitmap"), "bitmap_tile_spmm"),
 )
 MATRIX_KERNELS = ("dense_tile_spmm", "nm_tile_spmm", "bitmap_tile_spmm")
+# tile densities of B1's sweep in phase 4
+SWEEP_DENSITIES = (0.01, 0.025, 0.05, 0.10, 0.25, 0.50)
 
 
 def log(*args) -> None:
@@ -103,6 +115,46 @@ def require(cond, what) -> None:
     """Fail the run (a check that ``python -O`` does not strip)."""
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def mma_min_density() -> float:
+    """The tile core's density threshold, read from its source."""
+    text = (SRC / "repro_torch" / "kernels" / "csrc" /
+            "tile_core.cuh").read_text()
+    return float(re.search(
+        r"kMmaMinDensity\s*=\s*([0-9.]+)f", text).group(1))
+
+
+def density_sweep(kernel, sparse_tiles, timed_ms, operand, log):
+    """B1's time on one 4,096-tile stream (32 windows of 128 tiles, each
+    window holding every k-block once, bm = 128, bk = 64, N = 256) at each
+    tile density of SWEEP_DENSITIES; prints one JSON line."""
+    import torch
+
+    from repro_torch.kernels.dense_tile_spmm import (
+        window_chunks, window_segments,
+    )
+
+    dev = torch.device("cuda")
+    nw, per, n = 32, 128, 256
+    sw = torch.arange(nw, device=dev, dtype=torch.int32).repeat_interleave(
+        per)
+    sc = torch.arange(per, device=dev, dtype=torch.int32).repeat(nw)
+    b = operand(per * 64, n)
+    segments = window_segments(sw, nw)
+    chunks = window_chunks(segments[1])
+    threshold = mma_min_density()
+    rows = []
+    for density in SWEEP_DENSITIES:
+        fv = sparse_tiles(nw * per, (density,))
+        ms = timed_ms(lambda: kernel(sw, sc, fv, b, num_windows=nw, bm=128,
+                                     bk=64, segments=segments,
+                                     chunks=chunks))
+        rows.append({"density": density, "ms": ms, "path": (
+            "mma" if density >= threshold else "walk")})
+        del fv
+    log(json.dumps({"dense_tile_spmm_density_sweep": rows,
+                    "threshold": threshold, "tiles": nw * per, "n": n}))
 
 
 def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
@@ -120,7 +172,7 @@ def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
     from repro_torch.data.graphs import GraphSpec, generate
     from repro_torch.kernels import ref
     from repro_torch.kernels.dense_tile_spmm import (
-        dense_tile_spmm, window_segments,
+        dense_tile_spmm, window_chunks, window_segments,
     )
     from repro_torch.kernels.structured_spmm import (
         bitmap_tile_spmm, nm_tile_spmm,
@@ -186,6 +238,7 @@ def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
         cfgp = p.config
         nw, t_steps = p.num_windows, p.step_window.shape[0]
         segs = window_segments(p.step_window, nw)
+        chunks = window_chunks(segs[1])
         io_bytes = t_steps * 8 + b.numel() * 4 + nw * cfgp.bm * n * 4
         if kname == "nm_tile_spmm":
             n_pat, m_pat = p.format_params
@@ -226,10 +279,10 @@ def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
         e_b1 = ctx.err_bound(
             dense_tile_spmm(p.step_window, p.step_col, p.flat_values, b,
                             num_windows=nw, bm=cfgp.bm, bk=cfgp.bk,
-                            segments=segs), out)
+                            segments=segs, chunks=chunks), out)
         b1_ms = ctx.timed_ms(lambda: dense_tile_spmm(
             p.step_window, p.step_col, p.flat_values, b, num_windows=nw,
-            bm=cfgp.bm, bk=cfgp.bk, segments=segs))
+            bm=cfgp.bm, bk=cfgp.bk, segments=segs, chunks=chunks))
         w = torch.zeros((m, k), device=dev)
         w[torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)] = (
             torch.from_numpy(vals).to(dev))
@@ -239,7 +292,7 @@ def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
             f"tiles {b1_ms:.3f} ms (max |diff| {e_b1:.3e}); dense "
             f"torch.matmul of the weight {mm_ms:.3f} ms; end-to-end spmm "
             f"{spmm_ms:.3f} ms (warm)")
-        del a, c, p, csr, w, out, segs, b
+        del a, c, p, csr, w, out, segs, chunks, b
 
     def record(name, label, source, replaces, other_errs):
         return {"name": name, "route": "cuda",
@@ -278,13 +331,14 @@ def main() -> int:
 
     import repro_torch.sparse as sp
     from repro_torch.core import cost_model
+    from repro_torch.core.formats import pack_nm_tiles
     from repro_torch.core.plan_ir import (
         bucket_fringe_kblocks, build_sddmm_maps, gather_rows, permute_pad_b,
     )
     from repro_torch.data.graphs import PAPER_DATASETS, GraphSpec, generate
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.dense_tile_spmm import (
-        dense_tile_spmm, window_segments,
+        dense_tile_spmm, window_chunks, window_segments,
     )
     from repro_torch.kernels.gather_spmm import (
         csr_indptr, gather_spmm, gather_spmm_ksharded, kbucket_row_order,
@@ -343,6 +397,15 @@ def main() -> int:
     def operand(k, n, batch=None):
         shape = (k, n) if batch is None else (batch, k, n)
         return torch.randn(shape, generator=gen, device=dev)
+
+    def sparse_tiles(t, density, bm=128, bk=64):
+        """(t, bm, bk) seeded fp32 tiles, tile i dense at
+        density[i % len(density)]."""
+        dens = torch.tensor(density, device=dev).repeat(
+            -(-t // len(density)))[:t, None, None]
+        vals = torch.randn((t, bm, bk), generator=gen, device=dev)
+        keep = torch.rand((t, bm, bk), generator=gen, device=dev) < dens
+        return torch.where(keep, vals, torch.zeros((), device=dev))
 
     def kernel_inputs(plan, b):
         """The tensors the fused body hands each kernel for operand b."""
@@ -454,6 +517,49 @@ def main() -> int:
         standin_err[kname] = max(standin_err.get(kname, 0.0), e)
         log(f"  {kname}: max |kernel - plain| = {e:.3e}")
         del p, bp, got, want
+    # the redesigned B1 and B6 on stand-ins that reach each of their paths:
+    # B1 on 2.5 %-dense tiles with one window of 4,096 tiles (split into
+    # chunks, reduced), and on tiles alternating 2 % and 50 % (walk and
+    # tensor-core product in one launch); B6 at 2:4 (decode + 3xTF32) and
+    # 1:32 (slot walk) at the pruned-weight paths' N = 2,048
+    t0 = time.perf_counter()
+    for label, sw_np, density in (
+            ("one window of 4,096 tiles at 2.5 %",
+             np.r_[np.zeros(4096), np.full(8, 2)], (0.025,)),
+            ("2 % / 50 % alternating", np.repeat(np.arange(16), 128),
+             (0.02, 0.5))):
+        sw = torch.from_numpy(sw_np.astype(np.int32)).to(dev)
+        nw = int(sw_np.max()) + 1
+        sc = torch.arange(sw.numel(), device=dev, dtype=torch.int32) % 512
+        fv = sparse_tiles(sw.numel(), density)
+        bs = operand(512 * 64, N)
+        got = dense_tile_spmm(sw, sc, fv, bs, num_windows=nw, bm=128, bk=64)
+        e = err_bound(got, ref.ref_block_stream_spmm(sw, sc, fv, bs, nw,
+                                                     tile_chunk=512))
+        standin_err["dense_tile_spmm"] = max(standin_err["dense_tile_spmm"],
+                                             e)
+        log(f"  dense_tile_spmm, {label}: max |kernel - plain| = {e:.3e}")
+        del sw, sc, fv, bs, got
+    rng = np.random.RandomState(14)
+    for n_pat, m_pat in ((2, 4), (1, 32)):
+        t_nm, bm, bk = 512, 128, 64
+        g = rng.randn(t_nm, bm, bk // m_pat, m_pat).astype(np.float32)
+        keep = np.argsort(rng.rand(*g.shape), axis=-1) < n_pat
+        vals, codes = pack_nm_tiles(
+            np.where(keep, g, 0.0).reshape(t_nm, bm, bk), n_pat, m_pat)
+        args = [torch.from_numpy(x).to(dev) for x in (
+            np.repeat(np.arange(8), 64).astype(np.int32),
+            (np.arange(t_nm) % 64).astype(np.int32), vals, codes)]
+        bs = operand(64 * bk, PRUNED_N)
+        got = nm_tile_spmm(*args, bs, num_windows=8, bm=bm, bk=bk,
+                           n_pat=n_pat, m_pat=m_pat)
+        e = err_bound(got, ref.ref_nm_stream_spmm(*args, bs, 8, n_pat, m_pat,
+                                                  bk, tile_chunk=32))
+        standin_err["nm_tile_spmm"] = max(standin_err["nm_tile_spmm"], e)
+        log(f"  nm_tile_spmm, {n_pat}:{m_pat} at N = {PRUNED_N}: max "
+            f"|kernel - plain| = {e:.3e}")
+        del args, bs, got
+    log(f"  (B1/B6 path stand-ins: {time.perf_counter() - t0:.1f} s)")
     require(set(standin_err) == {"dense_tile_spmm", "gather_spmm",
                                  "gather_spmm_ksharded", "dense_tile_sddmm",
                                  "gather_sddmm", "nm_tile_spmm",
@@ -668,6 +774,7 @@ def main() -> int:
     t_steps = p.step_window.shape[0]
     nw = p.num_windows
     segments = window_segments(p.step_window, nw)
+    chunks = window_chunks(segments[1])
 
     # the core tile stream as a BSR matrix with square (bk, bk) blocks (the
     # library's block-sparse product takes square blocks only)
@@ -684,13 +791,22 @@ def main() -> int:
         crow, blk_col[order],
         p.flat_values.reshape(t_steps * sub, cfg.bk, cfg.bk)[order],
         (nw * cfg.bm, k_pad))
-    tile_nnz = int(torch.count_nonzero(p.flat_values))
+    per_tile = torch.count_nonzero(p.flat_values.reshape(t_steps, -1), dim=1)
+    tile_nnz = int(per_tile.sum())
+    tile_density = per_tile.float() / (cfg.bm * cfg.bk)
+    qs = torch.quantile(tile_density[:1 << 24], torch.tensor(
+        [0.5, 0.9, 0.99, 1.0], device=dev)).tolist()
+    log(f"  reddit-scale tiles: density median {qs[0]:.4f}, p90 {qs[1]:.4f},"
+        f" p99 {qs[2]:.4f}, max {qs[3]:.4f}; "
+        f"{int((tile_density >= mma_min_density()).sum())} of {t_steps} at "
+        f"or above the tensor-core threshold {mma_min_density()}")
+    del tile_density, per_tile
     record(
         "dense_tile_spmm", "dense_tile_spmm.cu",
         "src/repro/kernels/dense_tile_spmm.py:65",
         lambda: dense_tile_spmm(p.step_window, p.step_col, p.flat_values, bp,
                                 num_windows=nw, bm=cfg.bm, bk=cfg.bk,
-                                segments=segments),
+                                segments=segments, chunks=chunks),
         lambda: ref.ref_block_stream_spmm(p.step_window, p.step_col,
                                           p.flat_values, bp, nw,
                                           tile_chunk=2048),
@@ -699,6 +815,21 @@ def main() -> int:
                 + nw * cfg.bm * n * 4),
         flops=2 * tile_nnz * n,
     )
+
+    # two calls on the reddit-scale plan (split windows, partials reduced
+    # in chunk order, no atomics) must agree bit for bit
+    c1, c2 = (dense_tile_spmm(p.step_window, p.step_col, p.flat_values, bp,
+                              num_windows=nw, bm=cfg.bm, bk=cfg.bk,
+                              segments=segments, chunks=chunks)
+              for _ in range(2))
+    torch.cuda.synchronize()
+    same = bool(torch.equal(c1, c2))
+    log(f"  dense_tile_spmm twice on the reddit-scale plan ({nw} windows, "
+        f"{chunks.table.shape[0]} chunks, {chunks.n_slots} partial slots):"
+        f" bit-identical {same}")
+    require(same, "dense_tile_spmm differs between two calls")
+    del c1, c2
+    density_sweep(dense_tile_spmm, sparse_tiles, timed_ms, operand, log)
 
     # B4 and B5 at the graph-attention path's shapes: X = q, Y = k^T, D=256
     xp, yp, yt, smaps = sddmm_inputs(p, q, k_att.t())
@@ -830,6 +961,7 @@ def main() -> int:
 
     # --- phase 5: the pruned-weight paths (the structured lane) ----------
     del A, p, c, cb, bp, b, bb, layer, x_att, A_arxiv, q, c_arxiv, segments
+    del chunks
     torch.cuda.empty_cache()
     ctx = types.SimpleNamespace(
         sp=sp, dev=dev, log=log, require=require, drive=drive,

@@ -17,9 +17,10 @@ as tensors on one device, in the same order and with the same contents:
 ``plan_leaves`` gives the 17-leaf executor order of the reference, and
 ``signature()`` the same structure key.  Besides the leaves a plan carries
 ``derived``: index arrays the kernel wrappers derive from the structure on
-the device (window segment offsets, CSR row offsets, the row-major order of
-the k-bucketed stream, the SDDMM maps), built once on first use, never part
-of the leaf set, and shared by the plans a value update makes.
+the device (window segment offsets and their chunk table, CSR row offsets,
+the row-major order of the k-bucketed stream, the SDDMM maps), built once
+on first use, never part of the leaf set, and shared by the plans a value
+update makes.
 """
 from __future__ import annotations
 

@@ -5,8 +5,9 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 loaded with ``ctypes``.  The build happens at first use, never at import:
 every source is compiled at once, one ``nvcc`` process each, started
 together.  Libraries go to ``build/repro_torch/`` at the repository root
-(``REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+(``REPRO_TORCH_BUILD_DIR`` overrides it), named by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 The compiler's resource report (``-Xptxas -v``) is kept beside each library
 as ``<name>.log``.
 
@@ -59,9 +60,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"lib{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of that source,
+    every shared header ``csrc/*.cuh`` (a source may include any of them)
+    and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Sequence[str] = SOURCES) -> Dict[str, Path]:

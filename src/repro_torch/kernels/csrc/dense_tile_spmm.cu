@@ -8,141 +8,233 @@
 //
 // Computes: for every active tile t,
 //   out[w[t]*bm : +bm, :] += flat_values[t] (bm x bk) @ B[c[t]*bk : +bk, :]
-// in fp32 (FFMA, no TF32), returning the packed (num_windows*bm, N) output.
-// A window with no tiles comes out as zeros.
+// in fp32, returning the packed (num_windows*bm, N) output.  A window with
+// no tiles comes out as zeros.
 //
-// What bounds it on the H100: as written, each tile element meets N
-// columns of B, so at the main path's N = 256 the kernel does 512 flops per
-// 4-byte A element read once: ~128 flops/byte, far above the card's fp32
-// ridge (67 TFLOP/s / 3.35 TB/s = 20 flops/byte), so this kernel is bound
-// by fp32 operations.  The product itself needs a multiply-add only per
-// nonzero; where the tiles are mostly zeros (they are at Reddit scale, see
-// PERF.md) its least time is the read of the tile stream, bytes.  Closing
-// that gap means skipping zeros or moving the core/fringe split, not a
-// faster dense loop.
+// What bounds it on the H100: the product needs a multiply-add per nonzero
+// and output column; the tiles must be read once.  On the Reddit-scale
+// plan the tiles are 2.5 % dense (5.85 GB of tile stream for 1.84e10
+// useful flops), so the least time is the read of the stream (bytes).  On
+// pruned weights' general tiles (50 % dense) the flops weigh more.
 //
-// Design: blocks run in any order on the GPU, so the TPU's "reset at each
-// window change" becomes a segment walk.  The wrapper sorts tile indices
-// by window (stable, on the device) and passes each window's segment
-// [seg[w], seg[w+1]); one block per (window, 64-column n-tile,
-// 128-row chunk) walks its window's segment and keeps the 128x64 output
-// tile in registers (8x4 per thread) across the whole segment, writing it
-// once, so no two blocks touch the same output and no atomics are needed.
-// Each step stages a 32-deep slice of the A tile (transposed) and of the B
-// block in shared memory and runs an outer-product FFMA loop.  The n-tile
-// is 64 wide rather than the plan's 256, so that the Reddit-scale plan's
-// 49 windows give 196 blocks instead of 49 for the 132 SMs; the n-tiles of
-// one window are adjacent in the grid, so they stream the same A tiles
-// through L2 at about the same time.  Offsets into flat_values and B are
-// 64-bit: the stream can exceed 2^31 elements.  Simple and right first:
-// no tensor cores, no cp.async/TMA pipelining yet.
+// Design (tile core in tile_core.cuh):
+// - Split segments.  The wrapper sorts tiles by window and cuts each
+//   window's segment into chunks (window_chunks in dense_tile_spmm.py), so
+//   that a plan of a few windows holding thousands of tiles each (49
+//   windows of 3,641 tiles at Reddit scale) still gives several waves of
+//   blocks over the 132 SMs.  One block per (chunk, 128-column n-tile,
+//   128-row chunk) walks its chunk's tiles.  A window of one chunk is
+//   written straight to out; a split window's chunks write partials to a
+//   scratch buffer, and a second kernel (dense_tile_reduce_kernel) sums
+//   them in chunk order and writes zeros for windows without tiles.  No
+//   atomics: two calls are bit-identical.
+// - Pipelined staging.  Each tile (or 64-deep k-slice of it) is copied
+//   into a three-stage shared-memory ring with cp.async while the earlier
+//   ones compute: the A rows and the tile's 64 x 128 B slab; the indices
+//   of the tiles to stage next are loaded an iteration ahead.
+// - A path per tile.  The block counts the staged tile's nonzeros (warp
+//   ballots, a block sum) and takes one of two uniform branches:
+//   below kMmaMinDensity, the zero-skipping walk (one B slab row read and
+//   four FFMAs a lane per nonzero); at or above it, the 3xTF32 tensor-core
+//   product (operands split into tf32 hi/lo in registers, mma.sync
+//   m16n8k8 .tf32 into fresh fragments added to the running sum with fp32
+//   adds, since the tensor cores do not round their own additions to
+//   nearest; wgmma is later work).  The two paths
+//   keep separate accumulators, summed once at the end.  The threshold is
+//   one constant (tile_core.cuh), set from a sweep on the card (PERF.md).
+// - 128 columns per block (the first design took 64), so each A tile
+//   crosses L2 half as often.
+// - Offsets into flat_values, B, the partials and out are 64-bit: the
+//   stream can exceed 2^31 elements.  Ragged bm, bk and N are masked; a bk
+//   that is not a multiple of 8 is zero-padded in shared memory.
+// Semantics: the walk skips zeros of A, so where B holds Inf or NaN it
+// gives a finite sum where the TPU kernel's dense product gives NaN; the
+// 3xTF32 split turns an Inf of B into NaN.  Finite inputs agree within
+// fp32 rounding.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_core.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = 128;  // output rows per block (16 x TM)
-constexpr int kColsPerBlock = 64;   // output columns per block (16 x TN)
-constexpr int kDepth = 32;          // k-slice staged per step
-constexpr int kTM = 8;              // rows per thread
-constexpr int kTN = 4;              // columns per thread
+using namespace tile_core;
 
-__global__ void __launch_bounds__(kThreads)
+// the ring (kStages x (A slice + B slab)) and the block sum
+constexpr size_t kSmemBytes =
+    sizeof(float) * kStages * (static_cast<size_t>(kAFloats) + kBFloats) +
+    sizeof(int) * kWarps;
+static_assert(kRows * kEStride <= kStages * (kAFloats + kBFloats),
+              "the epilogue tile reuses the ring");
+
+// chunks[i] = (window, first, end, slot): positions [first, end) of order;
+// slot < 0 writes the window's rows of out, else partial slot `slot`.
+__global__ void __launch_bounds__(kThreads, 1)
 dense_tile_spmm_kernel(const int* __restrict__ order,
-                       const int* __restrict__ seg,
                        const int* __restrict__ step_col,
                        const float* __restrict__ flat_values,
                        const float* __restrict__ b,
+                       const int4* __restrict__ chunks,
                        float* __restrict__ out,
+                       float* __restrict__ partial,
                        int n_tiles, int bm, int bk, int n) {
-  // A slice stored transposed (k-major) with one pad column, so the
-  // transposing stores hit distinct banks
-  __shared__ float a_s[kDepth][kRowsPerBlock + 1];
-  __shared__ float b_s[kDepth][kColsPerBlock];
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  // stage st: A slice at smem + st*kAFloats, B slab at b_ring + st*kBFloats
+  float* const b_ring = smem + kStages * kAFloats;
+  int* red = reinterpret_cast<int*>(b_ring + kStages * kBFloats);
 
-  const int w = blockIdx.x / n_tiles;
-  const int n0 = (blockIdx.x % n_tiles) * kColsPerBlock;
-  const int r0 = blockIdx.y * kRowsPerBlock;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns tx + 16*j
-  const int ty = tid / 16;  // rows ty + 16*i
+  const int4 ch = chunks[blockIdx.x / n_tiles];
+  const int n0 = (blockIdx.x % n_tiles) * kCols;
+  const int r0 = blockIdx.y * kRows;
+  const int rows = min(kRows, bm - r0);
+  const int cols = min(kCols, n - n0);
+  const int n_slices = (bk + kSlice - 1) / kSlice;
+  const int items = (ch.z - ch.y) * n_slices;
+  const bool vec_a = (bk & 3) == 0 && aligned16(flat_values);
+  const bool vec_b = (n & 3) == 0 && aligned16(b);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  // the cells no copy writes stay zero
+  zero_smem(smem, kStages * (kAFloats + kBFloats));
+  __syncthreads();
 
-  const int64_t tile_elems = static_cast<int64_t>(bm) * bk;
-  const int s_end = seg[w + 1];
-  for (int s = seg[w]; s < s_end; ++s) {
-    const int t = order[s];
-    const float* a = flat_values + static_cast<int64_t>(t) * tile_elems;
-    const int64_t b_row0 = static_cast<int64_t>(step_col[t]) * bk;
-    for (int k0 = 0; k0 < bk; k0 += kDepth) {
-      // A: consecutive threads read consecutive k of one row (coalesced)
-      for (int i = tid; i < kRowsPerBlock * kDepth; i += kThreads) {
-        const int mm = i / kDepth, kk = i % kDepth;
-        const int r = r0 + mm, kx = k0 + kk;
-        a_s[kk][mm] = (r < bm && kx < bk)
-                          ? a[static_cast<int64_t>(r) * bk + kx] : 0.f;
-      }
-      // B: consecutive threads read consecutive columns of one row
-      for (int i = tid; i < kDepth * kColsPerBlock; i += kThreads) {
-        const int kk = i / kColsPerBlock, nn = i % kColsPerBlock;
-        const int kx = k0 + kk, c = n0 + nn;
-        b_s[kk][nn] = (kx < bk && c < n)
-                          ? b[(b_row0 + kx) * n + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kDepth; ++kk) {
-        float av[kTM], bv[kTN];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) av[i] = a_s[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) bv[j] = b_s[kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
+  // start staging item `it` (tile t, k-slice it % n_slices, B k-block col)
+  // into stage st
+  auto fetch = [&](int it, int st, int t, int col) {
+    const int k0 = (it % n_slices) * kSlice;
+    const int width = min(kSlice, bk - k0);
+    const int kw8 = (width + 7) & ~7, pad = kw8 - width;
+    float* a_stage = smem + st * kAFloats;
+    float* b_stage = b_ring + st * kBFloats;
+    if (pad) {
+      // a narrower last slice: clear what a wider one left in [width, kw8)
+      for (int i = threadIdx.x; i < kRows * pad; i += kThreads)
+        a_stage[(i / pad) * kAStride + width + i % pad] = 0.f;
+      for (int i = threadIdx.x; i < pad * kBStride; i += kThreads)
+        b_stage[width * kBStride + i] = 0.f;
     }
-  }
+    stage_block(a_stage, kAStride,
+                flat_values + (static_cast<int64_t>(t) * bm + r0) * bk + k0,
+                bk, rows, width, vec_a);
+    stage_block(b_stage, kBStride,
+                b + (static_cast<int64_t>(col) * bk + k0) * n + n0, n, width,
+                cols, vec_b);
+  };
+  auto tile_of = [&](int it) { return order[ch.y + it / n_slices]; };
 
-  const int64_t out_row0 = static_cast<int64_t>(w) * bm;
+  MmaAcc acc_mma;
+  WalkAcc acc_walk;
+  zero(acc_mma);
+  zero(acc_walk);
+
+  // fill all stages but one; the tile and k-block of the next item to
+  // stage, and the tile of the one after it, are loaded an iteration ahead
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < items) {
+      const int t = tile_of(it);
+      fetch(it, it, t, step_col[t]);
+    }
+    cp_async_commit();
+  }
+  int t_next = kStages - 1 < items ? tile_of(kStages - 1) : 0;
+  int c_next = kStages - 1 < items ? step_col[t_next] : 0;
+  int t_after = kStages < items ? tile_of(kStages) : 0;
+  for (int it = 0; it < items; ++it) {
+    const int st = it % kStages;
+    const int ahead = it + kStages - 1;
+    if (ahead < items) fetch(ahead, ahead % kStages, t_next, c_next);
+    cp_async_commit();
+    t_next = t_after;
+    c_next = ahead + 1 < items ? step_col[t_after] : 0;
+    t_after = ahead + 2 < items ? tile_of(ahead + 2) : 0;
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+
+    float* a_stage = smem + st * kAFloats;
+    float* b_stage = b_ring + st * kBFloats;
+    const int width = min(kSlice, bk - (it % n_slices) * kSlice);
+    uint64_t occ;
+    const int count = occupancy(a_stage, width, occ);
+    if (lane == 0) red[warp] = count;
+    __syncthreads();
+    int total = 0;
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= bm) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = n0 + tx + 16 * j;
-      if (c < n) out[(out_row0 + r) * n + c] = acc[i][j];
+    for (int w = 0; w < kWarps; ++w) total += red[w];
+    if (static_cast<float>(total) >= kMmaMinDensity * rows * width)
+      mma_tile(acc_mma, a_stage, b_stage, (width + 7) >> 3);
+    else
+      walk_tile(acc_walk, a_stage, b_stage, occ);
+    __syncthreads();  // a later iteration refills this stage
+  }
+  cp_async_wait<0>();
+
+  // sum the two accumulators through shared memory and write once
+  float* e = smem;
+  store_mma(acc_mma, e);
+  __syncthreads();
+  float* dst = ch.w < 0
+                   ? out + (static_cast<int64_t>(ch.x) * bm + r0) * n + n0
+                   : partial + (static_cast<int64_t>(ch.w) * bm + r0) * n + n0;
+  write_tile(dst, n, rows, cols, (n & 3) == 0, acc_walk, e);
+}
+
+// For each (window, first slot, end slot) of `reduce`: out's window rows =
+// the window's partials summed in slot (chunk) order; zeros if it has none.
+__global__ void __launch_bounds__(256)
+dense_tile_reduce_kernel(const int* __restrict__ reduce, int n_reduce,
+                         const float* __restrict__ partial,
+                         float* __restrict__ out, int bm, int n) {
+  const int64_t count = static_cast<int64_t>(bm) * n;
+  for (int e = blockIdx.y; e < n_reduce; e += gridDim.y) {
+    const int w = reduce[3 * e], s0 = reduce[3 * e + 1],
+              s1 = reduce[3 * e + 2];
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+         i < count; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+      float s = 0.f;
+      for (int slot = s0; slot < s1; ++slot) s += partial[slot * count + i];
+      out[w * count + i] = s;
     }
   }
 }
 
 }  // namespace
 
-// order: (T,) tile indices sorted by window; seg: (num_windows+1,) segment
-// offsets into order; step_col: (T,); flat_values: (T, bm, bk);
-// b: (K, n) row-major; out: (num_windows*bm, n), every element written.
-extern "C" int dense_tile_spmm_launch(const int* order, const int* seg,
-                                      const int* step_col,
+// order: (T,) tile indices sorted by window; step_col: (T,); flat_values:
+// (T, bm, bk); b: (K, n) row-major; chunks: (n_chunks, 4) int32 (window,
+// first, end, slot) over order; reduce: (n_reduce, 3) int32 (window, first
+// slot, end slot); partial: (n_slots, bm, n) scratch; out: (num_windows*bm,
+// n), every element written.  Two launches: the tile walk, then the
+// reduce pass.
+extern "C" int dense_tile_spmm_launch(const int* order, const int* step_col,
                                       const float* flat_values,
-                                      const float* b, float* out,
-                                      int num_windows, int bm, int bk, int n,
+                                      const float* b, const int* chunks,
+                                      int n_chunks, const int* reduce,
+                                      int n_reduce, float* partial,
+                                      float* out, int bm, int bk, int n,
                                       void* stream) {
-  if (num_windows == 0 || n == 0) return 0;
-  const int n_tiles = (n + kColsPerBlock - 1) / kColsPerBlock;
-  const dim3 grid(static_cast<unsigned>(n_tiles) * num_windows,
-                  (bm + kRowsPerBlock - 1) / kRowsPerBlock);
-  dense_tile_spmm_kernel<<<grid, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      order, seg, step_col, flat_values, b, out, n_tiles, bm, bk, n);
+  if (n == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (n + kCols - 1) / kCols;
+  if (n_chunks > 0) {
+    cudaError_t err = allow_smem(dense_tile_spmm_kernel, kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(static_cast<unsigned>(n_chunks) * n_tiles,
+                    (bm + kRows - 1) / kRows);
+    dense_tile_spmm_kernel<<<grid, kThreads, kSmemBytes, st>>>(
+        order, step_col, flat_values, b,
+        reinterpret_cast<const int4*>(chunks), out, partial, n_tiles, bm, bk,
+        n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t count = static_cast<int64_t>(bm) * n;
+  const dim3 rgrid(static_cast<unsigned>(
+                       (count + 255) / 256 < 64 ? (count + 255) / 256 : 64),
+                   n_reduce < 1 ? 1 : (n_reduce < 65535 ? n_reduce : 65535));
+  dense_tile_reduce_kernel<<<rgrid, 256, 0, st>>>(reduce, n_reduce, partial,
+                                                  out, bm, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,16 +4,19 @@ Port of ``repro.kernels.dense_tile_spmm`` (the Pallas TPU kernel).  The
 dense core of A arrives as a stream of active (window, k-block) tiles;
 ``dense_tile_spmm`` returns the packed (num_windows*bm, N) fp32 product.
 
-On a CUDA tensor the wrapper launches the hand-written Hopper kernel in
-``csrc/dense_tile_spmm.cu`` (design notes there); on a CPU tensor it runs
-the plain version, :func:`repro_torch.kernels.ref.ref_block_stream_spmm`.
-There is no other path: a CUDA call launches the kernel or raises.
+On a CUDA tensor the wrapper launches the hand-written Hopper kernels in
+``csrc/dense_tile_spmm.cu`` (design notes there): the tile walk over
+chunks of each window's segment (:func:`window_chunks`), then the pass
+that sums a split window's partials; on a CPU tensor it runs the plain
+version, :func:`repro_torch.kernels.ref.ref_block_stream_spmm`.  There is
+no other path: a CUDA call launches the kernels or raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
@@ -22,7 +25,14 @@ from .ref import ref_block_stream_spmm
 NAME = "dense_tile_spmm"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+_ARGTYPES = (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P)
+
+# the chunk table aims at this many chunks per SM (the kernel runs one
+# block of a chunk per SM at a time, so several waves), and never cuts a
+# chunk shorter than MIN_CHUNK_TILES tiles: a window that short is not
+# split, and costs no partial
+CHUNKS_PER_SM = 4
+MIN_CHUNK_TILES = 64
 
 
 def window_segments(
@@ -39,6 +49,67 @@ def window_segments(
                       device=step_window.device)
     seg[1:] = torch.cumsum(counts[:num_windows], 0)
     return order, seg.to(torch.int32)
+
+
+class WindowChunks(NamedTuple):
+    """Each window's segment cut into chunks of tiles, for the kernel.
+
+    ``table`` (n_chunks, 4) int32: (window, first, end, slot) over the
+    window-sorted ``order``, ordered by chunk position within its window,
+    then window; ``slot`` is -1 for a window of one chunk (written straight
+    to the output), else the chunk's partial slot.  ``reduce`` (n, 3)
+    int32: (window, first slot, end slot) for every window the reduce pass
+    writes: split windows (their slots in chunk order) and windows without
+    tiles (no slots: zeros).  ``n_slots``: partials the call needs.
+    """
+    table: torch.Tensor
+    reduce: torch.Tensor
+    n_slots: int
+
+
+def chunk_table(seg: np.ndarray, num_sms: int
+                ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """:class:`WindowChunks`' arrays, in numpy, from the window segment
+    offsets ``seg`` (num_windows+1,) and the card's SM count.  A
+    deterministic function of its arguments."""
+    seg = np.asarray(seg, np.int64)
+    lengths = np.diff(seg)
+    total = int(seg[-1]) if seg.size else 0
+    chunk = max(MIN_CHUNK_TILES,
+                -(-total // max(1, CHUNKS_PER_SM * num_sms)))
+    n_chunk = -(-lengths // chunk)
+    split = n_chunk > 1
+    slots = np.where(split, n_chunk, 0)  # partial slots of each window
+    slot_base = np.cumsum(slots) - slots
+    win = np.repeat(np.arange(lengths.size), n_chunk)
+    j = np.arange(win.size) - np.repeat(np.cumsum(n_chunk) - n_chunk,
+                                        n_chunk)
+    first = seg[win] + lengths[win] * j // n_chunk[win]
+    end = seg[win] + lengths[win] * (j + 1) // n_chunk[win]
+    slot = np.where(split[win], slot_base[win] + j, -1)
+    by_position = np.lexsort((win, j))
+    table = np.stack([win, first, end, slot], 1)[by_position]
+    red_w = np.flatnonzero(split | (lengths == 0))
+    reduce = np.stack([red_w, slot_base[red_w],
+                       slot_base[red_w] + slots[red_w]], 1)
+    n_slots = int(slots.sum())
+    return (table.astype(np.int32).reshape(-1, 4),
+            reduce.astype(np.int32).reshape(-1, 3), n_slots)
+
+
+def window_chunks(seg: torch.Tensor,
+                  num_sms: Optional[int] = None) -> WindowChunks:
+    """:class:`WindowChunks` of the segments ``seg`` (from
+    :func:`window_segments`), on ``seg``'s device.  ``num_sms`` defaults to
+    the SM count of that device.  Reads ``seg`` on the host (one
+    synchronisation): callers cache the result, as plans do in
+    ``plan.derived``."""
+    if num_sms is None:
+        num_sms = torch.cuda.get_device_properties(
+            seg.device).multi_processor_count
+    table, reduce, n_slots = chunk_table(seg.cpu().numpy(), num_sms)
+    return WindowChunks(torch.from_numpy(table).to(seg.device),
+                        torch.from_numpy(reduce).to(seg.device), n_slots)
 
 
 def _check(step_window, step_col, flat_values, b, num_windows, bm, bk):
@@ -71,24 +142,33 @@ def dense_tile_spmm(
     bm: int,
     bk: int,
     segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    chunks: Optional[WindowChunks] = None,
 ) -> torch.Tensor:
     """Packed fp32 output (num_windows*bm, N).
 
-    ``segments`` is :func:`window_segments` of ``step_window``, when the
-    caller has it cached (plans keep it in ``plan.derived``).
+    ``segments`` is :func:`window_segments` of ``step_window`` and
+    ``chunks`` :func:`window_chunks` of its offsets, when the caller has
+    them cached (plans keep both in ``plan.derived``).  One call is two
+    kernel launches (the tile walk and the reduce pass), counted once in
+    ``launches``.
     """
     if b.device.type == "cpu":
         return ref_block_stream_spmm(step_window, step_col, flat_values, b,
                                      num_windows)
     _check(step_window, step_col, flat_values, b, num_windows, bm, bk)
+    fn = _build.function(NAME, "dense_tile_spmm_launch", _ARGTYPES)
     order, seg = segments or window_segments(step_window, num_windows)
+    chunks = chunks or window_chunks(seg)
     n = b.shape[1]
     out = torch.empty((num_windows * bm, n), dtype=torch.float32,
                       device=b.device)
-    fn = _build.function(NAME, "dense_tile_spmm_launch", _ARGTYPES)
-    status = fn(order.data_ptr(), seg.data_ptr(), step_col.data_ptr(),
-                flat_values.data_ptr(), b.data_ptr(), out.data_ptr(),
-                num_windows, bm, bk, n,
+    partial = torch.empty((chunks.n_slots, bm, n), dtype=torch.float32,
+                          device=b.device)
+    status = fn(order.data_ptr(), step_col.data_ptr(),
+                flat_values.data_ptr(), b.data_ptr(),
+                chunks.table.data_ptr(), chunks.table.shape[0],
+                chunks.reduce.data_ptr(), chunks.reduce.shape[0],
+                partial.data_ptr(), out.data_ptr(), bm, bk, n,
                 torch.cuda.current_stream(b.device).cuda_stream)
     _build.check_status(status, NAME)
     dense_tile_spmm.launches += 1

@@ -20,7 +20,7 @@ import torch
 
 from ..core.cost_model import select_sddmm_tier
 from . import ref
-from .dense_tile_spmm import dense_tile_spmm, window_segments
+from .dense_tile_spmm import dense_tile_spmm, window_chunks, window_segments
 from .gather_spmm import (
     csr_indptr, gather_spmm, gather_spmm_ksharded, kbucket_row_order,
 )
@@ -119,9 +119,11 @@ def block_stream_spmm(
                                          b, num_windows)
     segments = _cached(derived, "window_segments",
                        lambda: window_segments(step_window, num_windows))
+    chunks = _cached(derived, "window_chunks",
+                     lambda: window_chunks(segments[1]))
     return dense_tile_spmm(step_window, step_col, flat_values, b,
                            num_windows=num_windows, bm=bm, bk=bk,
-                           segments=segments)
+                           segments=segments, chunks=chunks)
 
 
 def nm_stream_spmm(

@@ -12,8 +12,10 @@ with each tile packed (``repro_torch.core.formats``):
 
 Both return the packed (num_windows*bm, N) fp32 product.  On CUDA tensors
 the wrappers launch the hand-written Hopper kernels in
-``csrc/structured_spmm.cu`` (design notes there), which multiply only the
-packed nonzeros; on CPU tensors they run the plain versions,
+``csrc/structured_spmm.cu`` (design notes there): the N:M kernel decodes
+each tile for a tensor-core product where n/m is dense enough and walks
+the packed slots otherwise, the bitmap kernel walks the set bits; on CPU
+tensors they run the plain versions,
 :func:`~repro_torch.kernels.ref.ref_nm_stream_spmm` and
 :func:`~repro_torch.kernels.ref.ref_bitmap_stream_spmm`.  A CUDA call
 launches its kernel or raises.
@@ -34,6 +36,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES_NM = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _ARGTYPES_BITMAP = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+# the N:M kernel stages a whole tile as one slice of the tile core
+# (tile_core::kSlice)
+NM_MAX_BK = 64
 
 
 def _check(device: torch.device, shapes, **tensors) -> None:
@@ -76,12 +81,12 @@ def nm_tile_spmm(
     if b.device.type == "cpu":
         return ref_nm_stream_spmm(step_window, step_col, nm_values, nm_codes,
                                   b, num_windows, n_pat, m_pat, bk)
-    if (not 1 <= n_pat <= 4 or m_pat <= 0 or bk % m_pat or b.ndim != 2
-            or b.shape[0] % bk):
+    if (not 1 <= n_pat <= 4 or m_pat <= 0 or bk % m_pat or bk > NM_MAX_BK
+            or b.ndim != 2 or b.shape[0] % bk):
         raise ValueError(
-            f"N:M kernel needs 1 <= n <= 4, m dividing bk and b (K, N) with "
-            f"K a multiple of bk; got n={n_pat}, m={m_pat}, bk={bk}, b "
-            f"{tuple(b.shape)}")
+            f"N:M kernel needs 1 <= n <= 4, m dividing bk, bk <= "
+            f"{NM_MAX_BK} and b (K, N) with K a multiple of bk; got "
+            f"n={n_pat}, m={m_pat}, bk={bk}, b {tuple(b.shape)}")
     t = step_window.shape[0]
     gk = bk // m_pat
     _check(b.device, {"step_window": (t,), "step_col": (t,),

@@ -7,7 +7,8 @@ them.  Run them on a machine with a card::
 
 This file imports only the port (the machine with the card has no JAX).
 Tolerance: max |kernel - plain| <= 1e-4 * max(1, max|plain|); both sides
-are fp32 (no TF32) summed in different orders.
+are fp32 summed in different orders (the kernels' tensor-core path is
+3xTF32, about fp32 accuracy; no TF32 switch is set).
 """
 import numpy as np
 import pytest
@@ -72,6 +73,65 @@ def test_dense_tile_spmm_matches_plain(cuda, bm, bk, n, empty_windows):
     _close(got, want)
     if empty_windows:
         assert not got.reshape(nw, bm, n)[[2, 7]].any()
+
+
+def _sparse_tiles(rng, t, bm, bk, density):
+    """(t, bm, bk) fp32 tiles, tile i dense at density[i % len(density)]."""
+    fv = rng.randn(t, bm, bk).astype(np.float32)
+    dens = np.resize(np.asarray(density, np.float64), t)[:, None, None]
+    fv[rng.rand(t, bm, bk) >= dens] = 0.0
+    return fv
+
+
+@pytest.mark.parametrize("density,bm,bk,n", [
+    ((0.025,), 128, 64, 256),        # Reddit-scale tiles: the walk
+    ((0.02, 0.5), 128, 64, 256),     # both paths in one launch
+    ((0.02, 0.5), 200, 72, 300),     # a 64-deep and an 8-deep k-slice
+    ((0.5, 0.01), 128, 68, 130),     # a 4-deep slice, zero-padded to 8
+    ((0.3,), 16, 8, 70),
+])
+def test_dense_tile_spmm_density_paths_match_plain(cuda, density, bm, bk,
+                                                   n):
+    rng = np.random.RandomState(int(bk + n + 1000 * density[0]))
+    nw, nkb, t = 7, 6, 300
+    sw = rng.randint(0, nw, t).astype(np.int32)
+    sw[sw == 3] = 0
+    sc = rng.randint(0, nkb, t).astype(np.int32)
+    fv = _sparse_tiles(rng, t, bm, bk, density)
+    b = rng.randn(nkb * bk, n).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda) for x in (sw, sc, fv, b)]
+    got = dense_tile_spmm(*args, num_windows=nw, bm=bm, bk=bk)
+    _close(got, ref.ref_block_stream_spmm(*args, num_windows=nw))
+    assert not got.reshape(nw, bm, n)[3].any()
+
+
+def test_dense_tile_spmm_split_window_is_bit_identical(cuda):
+    """One window of 5,000 tiles (split into chunks and reduced), an empty
+    window and a short one; two calls agree bit for bit."""
+    from repro_torch.kernels.dense_tile_spmm import (
+        window_chunks, window_segments,
+    )
+
+    rng = np.random.RandomState(5000)
+    bm, bk, n, nkb = 128, 64, 256, 40
+    sw = np.concatenate([np.zeros(5000), np.full(10, 2)]).astype(np.int32)
+    sc = rng.randint(0, nkb, sw.size).astype(np.int32)
+    fv = _sparse_tiles(rng, sw.size, bm, bk, (0.025, 0.025, 0.4))
+    b = rng.randn(nkb * bk, n).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda) for x in (sw, sc, fv, b)]
+    segments = window_segments(args[0], 3)
+    chunks = window_chunks(segments[1])
+    assert chunks.n_slots > 1 and chunks.reduce.shape[0] == 2
+    before = dense_tile_spmm.launches
+    got = dense_tile_spmm(*args, num_windows=3, bm=bm, bk=bk,
+                          segments=segments, chunks=chunks)
+    again = dense_tile_spmm(*args, num_windows=3, bm=bm, bk=bk)
+    assert dense_tile_spmm.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, ref.ref_block_stream_spmm(*args, num_windows=3,
+                                          tile_chunk=256))
+    assert not got.reshape(3, bm, n)[1].any()
 
 
 @pytest.mark.parametrize("n", [256, 96, 300])
@@ -218,6 +278,9 @@ def _window_sorted_stream(rng, t, nw, nkb, empty=(2, 7)):
     (1, 32, 128, 64, 100),   # 1:32, ragged N
     (4, 16, 128, 64, 256),
     (2, 4, 200, 32, 70),     # bm above one row chunk, small bk
+    (2, 4, 128, 64, 2048),   # the pruned-weight paths' N: decode + 3xTF32
+    (1, 32, 128, 64, 2048),  # the slot walk
+    (3, 4, 128, 64, 256),    # a payload too wide for three ring stages
 ])
 def test_nm_tile_spmm_matches_plain(cuda, n_pat, m_pat, bm, bk, n):
     from repro_torch.core.formats import pack_nm_tiles
@@ -238,6 +301,31 @@ def test_nm_tile_spmm_matches_plain(cuda, n_pat, m_pat, bm, bk, n):
     assert nm_tile_spmm.launches == before + 1
     _close(got, ref.ref_nm_stream_spmm(*args, nw, n_pat, m_pat, bk))
     assert not got.reshape(nw, bm, n)[[2, 7]].any()
+
+
+def test_nm_tile_spmm_adds_slots_into_the_decoded_tile(cuda):
+    """An empty slot (position 0, value 0.0) after a real value at position
+    0 must add, not assign: the cell keeps the value."""
+    bm, bk, n, t = 128, 64, 256, 4
+    gk = bk // 4
+    vals = np.zeros((t, bm, 2 * gk), np.float32)
+    vals[:, :, :gk] = 1.5          # slot 0 of every group
+    codes = np.zeros((t, bm, gk), np.int32)   # both slots at position 0
+    codes[1] = 2 | (3 << 8)        # tile 1: slot 0 at 2, slot 1 (0.0) at 3
+    vals[2, :, gk:] = -0.5         # tile 2: both slots at position 0
+    sw = np.zeros(t, np.int32)
+    sc = np.arange(t, dtype=np.int32)
+    b = np.random.RandomState(4).randn(t * bk, n).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda) for x in (sw, sc, vals, codes, b)]
+    got = nm_tile_spmm(*args, num_windows=1, bm=bm, bk=bk, n_pat=2, m_pat=4)
+    dense = np.zeros((t, bm, bk), np.float32)
+    dense[:, :, 0::4] = 1.5
+    dense[1] = 0.0
+    dense[1, :, 2::4] = 1.5
+    dense[2, :, 0::4] = 1.0
+    want = torch.from_numpy(np.concatenate(list(dense), 1) @ b).to(cuda)
+    _close(got, want)
+    _close(got, ref.ref_nm_stream_spmm(*args, 1, 2, 4, bk))
 
 
 @pytest.mark.parametrize("row_cap,bk,n", [(8, 64, 256), (56, 64, 256),
