@@ -1,0 +1,203 @@
+#!/usr/bin/env python3
+"""The sweep that chose gather_spmm's design constants (kDefaultSlice,
+kDefaultUnroll and kDefaultStream in
+``src/repro_torch/kernels/csrc/gather_spmm.cu``) on one NVIDIA GPU.
+
+    python3 bench_torch/gather_sweep.py [--out build/gather_sweep.json]
+
+Run from the root of a checkout.  It builds the kernels, then draws a
+packed fringe at the shape of the reddit-scale plan's (226,821 rows, about
+34.6 M nonzeros over B's 232,965 rows, N = 256): row lengths from the
+graph generator's law for Reddit (Pareto 1.05, mean degree 492, seed 10)
+with its 6,144 longest rows left out (the tile band takes them), columns
+from its law ``k * power(0.3)``, duplicates removed.  On it, with CUDA
+events, it times
+
+- ``gather_spmm`` as committed, and every (slice width, unroll depth) of
+  VARIANTS through ``gather_spmm_variant_launch``, each held against the
+  plain version (1e-4 * max(1, max|plain|));
+- ``torch.sparse.mm`` on the CSR of the same fringe (the library call);
+- the gather-bandwidth probe (``gather_probe_launch``): as many 1 KB rows
+  as the fringe has nonzeros, read at random from the first 23,437 rows of
+  B (24 MB, which fits in L2) and from all of B (238 MB).
+
+It prints the fringe's row and column statistics and one JSON line per
+measurement, then the card's name and power limit.  It needs a card;
+without one it exits nonzero.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+# (slice width, unroll depth) pairs the variant entry point builds
+VARIANTS = ((16, 2), (16, 4), (32, 2), (32, 4), (32, 8), (64, 2), (64, 4),
+            (64, 8), (128, 2), (128, 4), (128, 8), (256, 2), (256, 4),
+            (256, 8))
+TOL = 1e-4
+# the reddit-scale plan (PERF.md section 5)
+M = K = 232965
+BAND_ROWS = 6144
+N = 256
+L2_SET_BYTES = 24 * 10 ** 6
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def reddit_like_fringe(seed: int = 10, m: int = M, k: int = K,
+                       avg_degree: float = 492.0, skew: float = 1.05,
+                       band_rows: int = BAND_ROWS):
+    """Row-sorted unique (rows, cols) of a fringe drawn as described in the
+    module docstring, as int32 numpy arrays, and its row count."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    deg = rng.pareto(skew, m) + 1.0
+    deg = np.maximum(np.minimum(deg / deg.mean() * avg_degree, k)
+                     .astype(np.int64), 1)
+    deg = np.sort(deg)[:m - band_rows]
+    rng.shuffle(deg)
+    rows = np.repeat(np.arange(deg.size, dtype=np.int64), deg)
+    cols = (k * rng.power(0.3, rows.size)).astype(np.int64) % k
+    key = np.unique(rows * k + cols)
+    return ((key // k).astype(np.int32), (key % k).astype(np.int32),
+            int(deg.size))
+
+
+def variant_fn():
+    from repro_torch.kernels import _build
+
+    return _build.function("gather_spmm", "gather_spmm_variant_launch",
+                           (_P,) * 5 + (_I,) * 4 + (_P,))
+
+
+def gather_probe(b, set_rows: int, reads: int, timed_ms, seed: int = 1):
+    """ms of the gather-bandwidth probe: ``reads`` 1 KB rows of ``b`` (a
+    contiguous (>= set_rows, n >= 256) fp32 tensor on the card) at random
+    below ``set_rows``.  Raises if the launch fails."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    fn = _build.function("gather_spmm", "gather_probe_launch",
+                         (_P, _I, _I, _L, _I, _P, _I, _P))
+    blocks = 8 * torch.cuda.get_device_properties(
+        b.device).multi_processor_count
+    sink = torch.empty(blocks * 256, device=b.device)
+
+    def run():
+        status = fn(b.data_ptr(), b.shape[1], set_rows, reads, seed,
+                    sink.data_ptr(), blocks,
+                    torch.cuda.current_stream(b.device).cuda_stream)
+        _build.check_status(status, "gather_probe")
+
+    return timed_ms(run)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--out", default=None,
+                        help="also write the records to this JSON file")
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("gather_sweep.py: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.gather_spmm import (
+        csr_indptr, fringe_profile, gather_spmm,
+    )
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    _build.build_all()
+
+    def timed_ms(fn, budget_ms=300.0):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        reps = int(max(5, budget_ms // max(start.elapsed_time(end), 1e-3)))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def check(got, want):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        if not err <= TOL * scale:
+            raise RuntimeError(f"max |diff| {err} > {TOL} * {scale}")
+        return err
+
+    rows_np, cols_np, num_rows = reddit_like_fringe()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows, cols = (torch.from_numpy(x).to(dev) for x in (rows_np, cols_np))
+    vals = torch.randn(rows.numel(), generator=gen, device=dev)
+    b = torch.randn((K, N), generator=gen, device=dev)
+    indptr = csr_indptr(rows, num_rows)
+    profile = fringe_profile(indptr, cols, K)
+    print(json.dumps({"fringe": profile}), flush=True)
+    nnz = rows.numel()
+    want = ref.ref_gather_spmm(rows, cols, vals, b, num_rows, chunk=1 << 21)
+    records = []
+
+    def record(**rec):
+        records.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    def committed():
+        return gather_spmm(rows, cols, vals, b, num_rows=num_rows,
+                           indptr=indptr)
+
+    record(kernel="gather_spmm", variant="committed",
+           ms=timed_ms(committed), max_abs_err=check(committed(), want))
+    fn = variant_fn()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty((num_rows, N), device=dev)
+    for s, u in VARIANTS:
+        def run(s=s, u=u):
+            status = fn(indptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                        b.data_ptr(), out.data_ptr(), num_rows, N, s, u,
+                        stream)
+            _build.check_status(status, "gather_spmm variant")
+            return out
+        record(kernel="gather_spmm", slice=s, unroll=u, ms=timed_ms(run),
+               max_abs_err=check(run(), want))
+    crow = indptr.long()
+    csr = torch.sparse_csr_tensor(crow, cols.long(), vals, (num_rows, K))
+    record(kernel="torch.sparse.mm (CSR)", ms=timed_ms(
+        lambda: torch.sparse.mm(csr, b)))
+    l2_rows = L2_SET_BYTES // (4 * N)
+    for label, set_rows in (("L2 (24 MB set)", l2_rows),
+                            ("HBM (238 MB set)", K)):
+        ms = gather_probe(b, set_rows, nnz, timed_ms)
+        record(kernel="gather_probe", set=label, rows=set_rows, reads=nnz,
+               ms=ms, gb_per_s=nnz * 4 * N / ms / 1e6)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(
+            {"device": smi, "fringe": profile, "records": records},
+            indent=1))
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

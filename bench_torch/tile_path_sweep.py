@@ -14,7 +14,9 @@ replaced in a copy of the sources, built into a directory of its own under
   each window holding every k-block once; bm = 128, bk = 64, N = 256) at
   each tile density of DENSITIES, and
 - ``nm_tile_spmm`` on 5,504 tiles (86 windows of 64, the Llama-2-7B MLP
-  up-projection's plan) at each N:M pattern of PATTERNS, N = 2,048,
+  up-projection's plan) at each N:M pattern of PATTERNS, N = 2,048, and
+- ``bitmap_tile_spmm`` on the same stream shape, its tiles drawn at each
+  density of BITMAP_DENSITIES and packed as bitmaps, N = 2,048,
 
 holds every result against the plain version (1e-4 * max(1, max|plain|))
 and prints one JSON line per measurement, then the card's name and power
@@ -36,6 +38,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 DENSITIES = (0.01, 0.025, 0.05, 0.075, 0.10, 0.125, 0.15, 0.20, 0.25, 0.50)
 PATTERNS = ((1, 32), (1, 16), (2, 16), (1, 8), (2, 8), (4, 16), (2, 4))
+BITMAP_DENSITIES = (0.01, 0.025, 0.05, 0.075, 0.10, 0.15, 0.25, 0.50)
 CONSTANT = re.compile(r"(kMmaMinDensity\s*=\s*)([0-9.]+)f")
 TOL = 1e-4
 
@@ -54,7 +57,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    from repro_torch.core.formats import pack_nm_tiles
+    from repro_torch.core.formats import pack_bitmap_tiles_torch, pack_nm_tiles
     from repro_torch.kernels import _build, dense_tile_spmm as dts, ref
     from repro_torch.kernels import structured_spmm as ss
 
@@ -120,6 +123,13 @@ def main() -> int:
         packed[(n_pat, m_pat)] = tuple(
             torch.from_numpy(x).to(dev) for x in (vals, codes))
         del g, keep
+    bitmaps = {}
+    for d in BITMAP_DENSITIES:
+        vals = torch.randn((86 * 64, 128, 64), generator=gen, device=dev)
+        keep = torch.rand(vals.shape, generator=gen, device=dev) < d
+        bitmaps[d] = pack_bitmap_tiles_torch(
+            torch.where(keep, vals, torch.zeros((), device=dev)))
+        del vals, keep
 
     src = _build.CSRC
     records = []
@@ -165,6 +175,17 @@ def main() -> int:
                             "pattern": f"{n_pat}:{m_pat}",
                             "density": n_pat / m_pat, "ms": timed_ms(kern),
                             "max_abs_err": err})
+            print(json.dumps(records[-1]), flush=True)
+        for d, (words, values, cap) in bitmaps.items():
+            def kern():
+                return ss.bitmap_tile_spmm(nm_sw, nm_sc, words, values, nm_b,
+                                           num_windows=86, bm=128, bk=64,
+                                           row_cap=cap, segments=nm_segments)
+            err = check(kern(), ref.ref_bitmap_stream_spmm(
+                nm_sw, nm_sc, words, values, nm_b, 86, 64, tile_chunk=128))
+            records.append({"kernel": "bitmap_tile_spmm", "build": build,
+                            "density": d, "row_cap": cap,
+                            "ms": timed_ms(kern), "max_abs_err": err})
             print(json.dumps(records[-1]), flush=True)
     _build.CSRC = src
     if args.out:

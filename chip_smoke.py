@@ -16,7 +16,11 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    tiles with one window of 4,096 tiles (split into chunks and reduced)
    and on tiles alternating 2 % and 50 % density (zero-skipping walk and
    3xTF32 tensor-core product in one launch), nm_tile_spmm at 2:4 and 1:32
-   with N = 2,048;
+   and bitmap_tile_spmm on tiles alternating 2 % and 50 % (bit walk and
+   decode + 3xTF32), with N = 2,048; then the non-finite phase: the same
+   stand-ins of dense_tile_spmm, nm_tile_spmm (2:4 and 1:32) and
+   bitmap_tile_spmm with +Inf, -Inf and NaN in B, each held against its
+   plain (dense-tile) version with NaN and +-Inf in the same cells;
 3. drives three paths through the user entry points, each with the kernel
    launch counts set to 0 just before it and read just after it:
    ``from_coo`` + ``spmm`` (N = 256) + ``bspmm`` (batch 4, N = 64) on a
@@ -40,8 +44,15 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    gather_spmm_ksharded is also held and timed on the Reddit-scale fringe,
    pushed onto the k-sharded tier (printed on its own line).
    dense_tile_spmm runs twice on the reddit-scale plan, and the two results
-   must be bit-identical; then it is timed on one 4,096-tile stream at
-   each tile density of SWEEP_DENSITIES (one JSON line);
+   must be bit-identical; then it and bitmap_tile_spmm are timed on one
+   4,096-tile stream at each tile density of SWEEP_DENSITIES (one JSON
+   line each).  gather_spmm runs twice on the reddit-scale fringe (bit-
+   identical), the fringe's row lengths and column concentration are
+   printed, and the gather-bandwidth probe gives the card's ceilings for
+   its reads (1 KB rows at random from a 24 MB and from the 238 MB B).
+   The cost of the non-finite check (one read of B, and the every-entry
+   kernel's launch, which returns at once) is printed beside each path's
+   ``spmm`` time;
 5. the pruned-weight paths (the structured lane): the MLP up-projection
    weight of Llama-2-7B (11,008 x 4,096) pruned 2:4 (``structure_hint=
    ("nm", 2, 4)``), 1:32 (detected without a hint) and 50 % unstructured
@@ -128,12 +139,15 @@ def mma_min_density() -> float:
 def density_sweep(kernel, sparse_tiles, timed_ms, operand, log):
     """B1's time on one 4,096-tile stream (32 windows of 128 tiles, each
     window holding every k-block once, bm = 128, bk = 64, N = 256) at each
-    tile density of SWEEP_DENSITIES; prints one JSON line."""
+    tile density of SWEEP_DENSITIES, and B7's on the same tiles packed as
+    bitmaps; prints one JSON line for each."""
     import torch
 
+    from repro_torch.core.formats import pack_bitmap_tiles_torch
     from repro_torch.kernels.dense_tile_spmm import (
         window_chunks, window_segments,
     )
+    from repro_torch.kernels.structured_spmm import bitmap_tile_spmm
 
     dev = torch.device("cuda")
     nw, per, n = 32, 128, 256
@@ -144,17 +158,125 @@ def density_sweep(kernel, sparse_tiles, timed_ms, operand, log):
     segments = window_segments(sw, nw)
     chunks = window_chunks(segments[1])
     threshold = mma_min_density()
-    rows = []
+    rows, rows_b7 = [], []
     for density in SWEEP_DENSITIES:
         fv = sparse_tiles(nw * per, (density,))
         ms = timed_ms(lambda: kernel(sw, sc, fv, b, num_windows=nw, bm=128,
                                      bk=64, segments=segments,
                                      chunks=chunks))
-        rows.append({"density": density, "ms": ms, "path": (
-            "mma" if density >= threshold else "walk")})
-        del fv
+        path = "mma" if density >= threshold else "walk"
+        rows.append({"density": density, "ms": ms, "path": path})
+        words, values, cap = pack_bitmap_tiles_torch(fv)
+        ms = timed_ms(lambda: bitmap_tile_spmm(
+            sw, sc, words, values, b, num_windows=nw, bm=128, bk=64,
+            row_cap=cap, segments=segments))
+        rows_b7.append({"density": density, "ms": ms, "path": path,
+                        "row_cap": cap})
+        del fv, words, values
     log(json.dumps({"dense_tile_spmm_density_sweep": rows,
                     "threshold": threshold, "tiles": nw * per, "n": n}))
+    log(json.dumps({"bitmap_tile_spmm_density_sweep": rows_b7,
+                    "threshold": threshold, "tiles": nw * per, "n": n}))
+
+
+def check_cost_ms(fn, reps=5):
+    """Device ms per call that the non-finite check costs inside ``fn`` (a
+    call through the matrix-path wrappers on finite B): the check of B
+    (nonfinite_kernel) and the every-entry kernel's launch, which returns
+    at once.  Read from torch.profiler's kernel records; None where it
+    records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for evt in prof.key_averages():
+        if "every_entry_kernel" in evt.key or "nonfinite_kernel" in evt.key:
+            total_us += getattr(evt, "device_time_total",
+                                getattr(evt, "cuda_time_total", 0.0))
+    return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def check_cost_line(fn, spmm_ms):
+    ms = check_cost_ms(fn)
+    if ms is None:
+        return "the non-finite check: not measured (no device time profiled)"
+    return (f"the non-finite check (one read of B, idle every-entry launch) "
+            f"{ms:.4f} ms = {100 * ms / spmm_ms:.2f} % of it")
+
+
+def nonfinite_phase(ctx):
+    """B1, B6 (2:4 and 1:32) and B7 on stand-ins with +Inf, -Inf and NaN
+    in B, each against its plain (dense-tile) version: NaN and +-Inf in the
+    same cells, with the same signs, and the finite cells within the
+    tolerance.  B1 and B7 take tiles alternating 2 % and 50 % (both of
+    their paths in one launch)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.formats import pack_bitmap_tiles_torch, pack_nm_tiles
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dense_tile_spmm import dense_tile_spmm
+    from repro_torch.kernels.structured_spmm import (
+        bitmap_tile_spmm, nm_tile_spmm,
+    )
+
+    dev, n, nw, per = ctx.dev, 256, 8, 64
+    sw = torch.arange(nw, device=dev, dtype=torch.int32).repeat_interleave(
+        per)
+    sc = torch.arange(nw * per, device=dev, dtype=torch.int32) % per
+    b = ctx.operand(per * 64, n)
+    cells = torch.randint(0, b.numel(), (9,), generator=ctx.gen, device=dev)
+    b.view(-1)[cells] = torch.tensor([np.inf] * 3 + [-np.inf] * 3
+                                     + [np.nan] * 3, device=dev)
+    fv = ctx.sparse_tiles(nw * per, (0.02, 0.5))
+    words, values, cap = pack_bitmap_tiles_torch(fv)
+    rng = np.random.RandomState(15)
+    runs = [
+        ("dense_tile_spmm",
+         lambda: dense_tile_spmm(sw, sc, fv, b, num_windows=nw, bm=128,
+                                 bk=64),
+         lambda: ref.ref_block_stream_spmm(sw, sc, fv, b, nw)),
+        ("bitmap_tile_spmm",
+         lambda: bitmap_tile_spmm(sw, sc, words, values, b, num_windows=nw,
+                                  bm=128, bk=64, row_cap=cap),
+         lambda: ref.ref_bitmap_stream_spmm(sw, sc, words, values, b, nw,
+                                            64)),
+    ]
+    for n_pat, m_pat in ((2, 4), (1, 32)):
+        g = rng.randn(nw * per, 128, 64 // m_pat, m_pat).astype(np.float32)
+        keep = np.argsort(rng.rand(*g.shape), axis=-1) < n_pat
+        vals, codes = (torch.from_numpy(x).to(dev) for x in pack_nm_tiles(
+            np.where(keep, g, 0.0).reshape(nw * per, 128, 64), n_pat, m_pat))
+        runs.append((
+            f"nm_tile_spmm {n_pat}:{m_pat}",
+            lambda v=vals, c=codes, np_=n_pat, mp=m_pat: nm_tile_spmm(
+                sw, sc, v, c, b, num_windows=nw, bm=128, bk=64, n_pat=np_,
+                m_pat=mp),
+            lambda v=vals, c=codes, np_=n_pat, mp=m_pat:
+                ref.ref_nm_stream_spmm_dense(sw, sc, v, c, b, nw, np_, mp,
+                                             64)))
+    for label, kern, plain in runs:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        nan, inf = torch.isnan(want), torch.isinf(want)
+        ctx.require(bool(nan.any()) and bool(inf.any()), (label, "vacuous"))
+        ctx.require(torch.equal(torch.isnan(got), nan), (label, "NaN cells"))
+        ctx.require(torch.equal(torch.isinf(got), inf)
+                    and torch.equal(got[inf], want[inf]),
+                    (label, "Inf cells"))
+        fin = torch.isfinite(want)
+        err = (got[fin] - want[fin]).abs().max().item()
+        scale = max(1.0, want[fin].abs().max().item())
+        ctx.require(err <= TOL * scale, (label, err, scale))
+        ctx.log(f"  {label}, B with +Inf, -Inf and NaN: {int(nan.sum())} "
+                f"NaN and {int(inf.sum())} +-Inf cells as in the plain "
+                f"version; finite cells max |diff| {err:.3e}")
 
 
 def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
@@ -291,7 +413,8 @@ def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
         log(f"  {label} beside it: dense_tile_spmm on the plan's general "
             f"tiles {b1_ms:.3f} ms (max |diff| {e_b1:.3e}); dense "
             f"torch.matmul of the weight {mm_ms:.3f} ms; end-to-end spmm "
-            f"{spmm_ms:.3f} ms (warm)")
+            f"{spmm_ms:.3f} ms (warm); "
+            f"{check_cost_line(lambda: ctx.sp.spmm(a, b), spmm_ms)}")
         del a, c, p, csr, w, out, segs, chunks, b
 
     def record(name, label, source, replaces, other_errs):
@@ -318,6 +441,7 @@ def main() -> int:
               "run it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(ROOT))
     import torch
 
     if not torch.cuda.is_available():
@@ -331,7 +455,7 @@ def main() -> int:
 
     import repro_torch.sparse as sp
     from repro_torch.core import cost_model
-    from repro_torch.core.formats import pack_nm_tiles
+    from repro_torch.core.formats import pack_bitmap_tiles_torch, pack_nm_tiles
     from repro_torch.core.plan_ir import (
         bucket_fringe_kblocks, build_sddmm_maps, gather_rows, permute_pad_b,
     )
@@ -341,13 +465,16 @@ def main() -> int:
         dense_tile_spmm, window_chunks, window_segments,
     )
     from repro_torch.kernels.gather_spmm import (
-        csr_indptr, gather_spmm, gather_spmm_ksharded, kbucket_row_order,
+        csr_indptr, fringe_profile, gather_spmm, gather_spmm_ksharded,
+        kbucket_row_order,
     )
     from repro_torch.kernels.sddmm import dense_tile_sddmm, gather_sddmm
     from repro_torch.kernels.structured_spmm import (
         bitmap_tile_spmm, nm_tile_spmm,
     )
     from repro_torch.models import SparseGraphAttention
+
+    from bench_torch.gather_sweep import gather_probe
 
     dev = torch.device("cuda")
 
@@ -559,7 +686,24 @@ def main() -> int:
         log(f"  nm_tile_spmm, {n_pat}:{m_pat} at N = {PRUNED_N}: max "
             f"|kernel - plain| = {e:.3e}")
         del args, bs, got
-    log(f"  (B1/B6 path stand-ins: {time.perf_counter() - t0:.1f} s)")
+    # B7 on tiles alternating 2 % and 50 % (bit walk and decode + 3xTF32)
+    sw = torch.arange(8, device=dev, dtype=torch.int32).repeat_interleave(64)
+    sc = torch.arange(512, device=dev, dtype=torch.int32) % 64
+    words, values, cap = pack_bitmap_tiles_torch(sparse_tiles(512,
+                                                              (0.02, 0.5)))
+    bs = operand(64 * 64, PRUNED_N)
+    got = bitmap_tile_spmm(sw, sc, words, values, bs, num_windows=8, bm=128,
+                           bk=64, row_cap=cap)
+    e = err_bound(got, ref.ref_bitmap_stream_spmm(sw, sc, words, values, bs,
+                                                  8, 64, tile_chunk=64))
+    standin_err["bitmap_tile_spmm"] = max(standin_err["bitmap_tile_spmm"], e)
+    log(f"  bitmap_tile_spmm, 2 % / 50 % alternating at N = {PRUNED_N}: max "
+        f"|kernel - plain| = {e:.3e}")
+    del sw, sc, words, values, bs, got
+    log(f"  (B1/B6/B7 path stand-ins: {time.perf_counter() - t0:.1f} s)")
+    nonfinite_phase(types.SimpleNamespace(
+        dev=dev, gen=gen, operand=operand, sparse_tiles=sparse_tiles,
+        require=require, log=log))
     require(set(standin_err) == {"dense_tile_spmm", "gather_spmm",
                                  "gather_spmm_ksharded", "dense_tile_sddmm",
                                  "gather_sddmm", "nm_tile_spmm",
@@ -889,6 +1033,8 @@ def main() -> int:
     nnz_f = p.fringe_rows.shape[0]
     f_csr = fringe_csr(p, k_pad)
     indptr = csr_indptr(p.fringe_rows, nr)
+    profile = fringe_profile(indptr, p.fringe_cols, k_pad)
+    log(f"  reddit-scale fringe: {json.dumps(profile)}")
     record(
         "gather_spmm", "gather_spmm.cu",
         "src/repro/kernels/gather_spmm.py:141",
@@ -900,6 +1046,25 @@ def main() -> int:
         nbytes=nnz_f * 12 + k_pad * n * 4 + nr * n * 4,
         flops=2 * nnz_f * n,
     )
+    c1, c2 = (gather_spmm(p.fringe_rows, p.fringe_cols, p.fringe_vals, bp,
+                          num_rows=nr, indptr=indptr) for _ in range(2))
+    torch.cuda.synchronize()
+    same = bool(torch.equal(c1, c2))
+    log(f"  gather_spmm twice on the reddit-scale fringe: bit-identical "
+        f"{same}")
+    require(same, "gather_spmm differs between two calls")
+    del c1, c2
+    # the card's ceilings for B2's reads: as many 1 KB rows as the fringe
+    # has nonzeros, at random from a set that fits in L2 and from all of B
+    gathered_gb = nnz_f * n * 4 / 1e9
+    for label, set_rows in (("24 MB", 24 * 10 ** 6 // (4 * n)),
+                            ("238 MB", k_pad)):
+        probe_ms = gather_probe(bp, set_rows, nnz_f, timed_ms)
+        log(f"  gather probe, {nnz_f} rows of 1 KB at random from a "
+            f"{label} set: {probe_ms:.3f} ms ({gathered_gb / probe_ms:.3f} "
+            f"TB/s); gather_spmm moves the same {gathered_gb:.2f} GB in "
+            f"{report[-1]['ms']:.3f} ms ({gathered_gb / report[-1]['ms']:.3f}"
+            f" TB/s)")
 
     # B3 once more on the reddit-scale fringe, pushed onto the streaming
     # tier by a budget that holds a bk = 2048 slice stream but not the
@@ -956,8 +1121,9 @@ def main() -> int:
         other_errs=(b3_scale["max_abs_err"],),
     )
 
-    log(f"end-to-end spmm at N={N}: "
-        f"{timed_ms(lambda: sp.spmm(A, b)):.3f} ms (warm)")
+    spmm_ms = timed_ms(lambda: sp.spmm(A, b))
+    log(f"end-to-end spmm at N={N}: {spmm_ms:.3f} ms (warm); "
+        f"{check_cost_line(lambda: sp.spmm(A, b), spmm_ms)}")
 
     # --- phase 5: the pruned-weight paths (the structured lane) ----------
     del A, p, c, cb, bp, b, bb, layer, x_att, A_arxiv, q, c_arxiv, segments

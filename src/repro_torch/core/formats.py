@@ -304,6 +304,40 @@ def pack_bitmap_tiles(
     return words.view(np.int32), packed, row_cap
 
 
+def pack_bitmap_tiles_torch(
+    flat_values: torch.Tensor, min_row_cap: int = 8
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """:func:`pack_bitmap_tiles` on a tensor's own device (for large seeded
+    streams built on the card); the same three results, as tensors."""
+    t, bm, bk = flat_values.shape
+    dev = flat_values.device
+    g = flat_values.to(torch.float32).contiguous()
+    bits = g != 0.0
+    counts = bits.sum(dim=-1)
+    max_cnt = int(counts.max()) if counts.numel() else 0
+    row_cap = max(min_row_cap,
+                  -(-max_cnt // min_row_cap) * min_row_cap)
+    bw = (bk + BITMAP_WORD_BITS - 1) // BITMAP_WORD_BITS
+    padded = torch.zeros((t, bm, bw * BITMAP_WORD_BITS), dtype=torch.int64,
+                         device=dev)
+    padded[:, :, :bk] = bits
+    weights = torch.bitwise_left_shift(
+        torch.ones(BITMAP_WORD_BITS, dtype=torch.int64, device=dev),
+        torch.arange(BITMAP_WORD_BITS, device=dev))
+    words = (padded.reshape(t, bm, bw, BITMAP_WORD_BITS) * weights).sum(-1)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    order = torch.sort((~bits).to(torch.int8), dim=-1, stable=True).indices
+    order = order[..., :row_cap]
+    if row_cap > bk:
+        order = torch.cat([order, order.new_zeros((t, bm, row_cap - bk))],
+                          -1)
+    keep = torch.gather(bits, 2, order)
+    if row_cap > bk:
+        keep[..., bk:] = False
+    packed = torch.where(keep, torch.gather(g, 2, order), 0.0)
+    return words.to(torch.int32), packed, row_cap
+
+
 def unpack_bitmap_tiles(
     bitmap_words: np.ndarray, bitmap_values: np.ndarray, bk: int
 ) -> np.ndarray:

@@ -47,10 +47,17 @@
 // - Offsets into flat_values, B, the partials and out are 64-bit: the
 //   stream can exceed 2^31 elements.  Ragged bm, bk and N are masked; a bk
 //   that is not a multiple of 8 is zero-padded in shared memory.
-// Semantics: the walk skips zeros of A, so where B holds Inf or NaN it
-// gives a finite sum where the TPU kernel's dense product gives NaN; the
-// 3xTF32 split turns an Inf of B into NaN.  Finite inputs agree within
-// fp32 rounding.
+// - Non-finite B.  Neither path gives the TPU kernel's answer where B
+//   holds an Inf or NaN (the walk never multiplies a zero of A, and the
+//   3xTF32 split turns Inf into NaN), so a call first checks B on the
+//   card (tile_core's nonfinite_kernel, one read of B, writing flags):
+//   where B holds an Inf or NaN the tile walk returns at once and
+//   tile_core's every_entry_kernel, launched beside it,
+//   multiplies every tile entry in fp32 FFMAs into the same outputs and
+//   partials, which gives 0 * Inf = NaN and a nonzero times Inf = +-Inf as
+//   the TPU's dense product does (on finite B it is the one that returns
+//   at once).  No host sync: the flag is read on the device only.  Finite
+//   inputs agree with the reference within fp32 rounding.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,6 +82,7 @@ dense_tile_spmm_kernel(const int* __restrict__ order,
                        const int* __restrict__ step_col,
                        const float* __restrict__ flat_values,
                        const float* __restrict__ b,
+                       const int* __restrict__ flags,
                        const int4* __restrict__ chunks,
                        float* __restrict__ out,
                        float* __restrict__ partial,
@@ -95,6 +103,8 @@ dense_tile_spmm_kernel(const int* __restrict__ order,
   const bool vec_a = (bk & 3) == 0 && aligned16(flat_values);
   const bool vec_b = (n & 3) == 0 && aligned16(b);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // B holds an Inf or NaN: every_entry_kernel writes the output instead
+  if (b_nonfinite(flags, kFlagBlocks)) return;
 
   // the cells no copy writes stay zero
   zero_smem(smem, kStages * (kAFloats + kBFloats));
@@ -180,6 +190,15 @@ dense_tile_spmm_kernel(const int* __restrict__ order,
   write_tile(dst, n, rows, cols, (n & 3) == 0, acc_walk, e);
 }
 
+// The dense tile stream's cells, for every_entry_kernel.
+struct DenseCells {
+  const float* values;
+  int bk;
+  __device__ float cell(int64_t row, int c) const {
+    return values[row * bk + c];
+  }
+};
+
 // For each (window, first slot, end slot) of `reduce`: out's window rows =
 // the window's partials summed in slot (chunk) order; zeros if it has none.
 __global__ void __launch_bounds__(256)
@@ -203,14 +222,17 @@ dense_tile_reduce_kernel(const int* __restrict__ reduce, int n_reduce,
 }  // namespace
 
 // order: (T,) tile indices sorted by window; step_col: (T,); flat_values:
-// (T, bm, bk); b: (K, n) row-major; chunks: (n_chunks, 4) int32 (window,
+// (T, bm, bk); b: (k, n) row-major, contiguous; flags: kFlagBlocks ints of
+// scratch on the device (nonfinite_kernel's); chunks: (n_chunks, 4) int32 (window,
 // first, end, slot) over order; reduce: (n_reduce, 3) int32 (window, first
 // slot, end slot); partial: (n_slots, bm, n) scratch; out: (num_windows*bm,
-// n), every element written.  Two launches: the tile walk, then the
-// reduce pass.
+// n), every element written.  Four launches: the check of b, the tile
+// walk and the every-entry kernel (one of these two returns at once, by
+// the check), then the reduce pass.
 extern "C" int dense_tile_spmm_launch(const int* order, const int* step_col,
                                       const float* flat_values,
-                                      const float* b, const int* chunks,
+                                      const float* b, int k, int* flags,
+                                      const int* chunks,
                                       int n_chunks, const int* reduce,
                                       int n_reduce, float* partial,
                                       float* out, int bm, int bk, int n,
@@ -221,13 +243,19 @@ extern "C" int dense_tile_spmm_launch(const int* order, const int* step_col,
   if (n_chunks > 0) {
     cudaError_t err = allow_smem(dense_tile_spmm_kernel, kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
+    err = launch_nonfinite(b, static_cast<int64_t>(k) * n, flags, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(static_cast<unsigned>(n_chunks) * n_tiles,
                     (bm + kRows - 1) / kRows);
     dense_tile_spmm_kernel<<<grid, kThreads, kSmemBytes, st>>>(
-        order, step_col, flat_values, b,
+        order, step_col, flat_values, b, flags,
         reinterpret_cast<const int4*>(chunks), out, partial, n_tiles, bm, bk,
         n);
     err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = launch_every_entry(DenseCells{flat_values, bk}, order, nullptr,
+                             reinterpret_cast<const int4*>(chunks), step_col,
+                             b, flags, out, partial, n_chunks, bm, bk, n, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int64_t count = static_cast<int64_t>(bm) * n;

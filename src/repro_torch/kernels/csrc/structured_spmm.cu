@@ -57,17 +57,34 @@
 // PTX ISA defines the sparse metadata at 1:2 granularity (one of each two
 // consecutive tf32 elements kept), not 2:4, so fp32 2:4 weights have no
 // sparse tensor-core form; 2:4 exists for 16-bit and 8-bit types only.
-// Like dense_tile_spmm's walk, the N:M walk multiplies only the packed
-// slots, so where B holds Inf or NaN it differs from the TPU kernel's dense
-// product (and the 3xTF32 split turns an Inf of B into NaN).  bk is at most
-// tile_core::kSlice (64), one staged slice.  Offsets are 64-bit.
+// bk is at most tile_core::kSlice (64), one staged slice.  Offsets are
+// 64-bit.
 //
-// bitmap_tile_spmm (its first design, to move onto the tile core next):
-// B1's first grid, one block per (window, 64-column n-tile, 128-row chunk);
-// per tile the block stages the B slab and the payload rows in dynamic
-// shared memory (rows padded by one word against bank conflicts), then each
-// thread walks its rows' set bits with __ffs and a running rank: one
-// shared-memory float4 and four FFMAs per nonzero.
+// bitmap_tile_spmm (on the tile core, like nm_tile_spmm): B6's grid and
+// ring; a stage holds the tile's occupancy words, its packed values and
+// the B slab (a bk above 64 is walked as 64-deep k-slices, each staging the
+// tile's whole words and values rows, since a rank counts every earlier
+// column).  The path is chosen per tile on the device, from the popcount of
+// the staged words against the same kMmaMinDensity:
+// - at or above it: decode, then the 3xTF32 product.  Every cell of the
+//   dense (rows, 64) tile is computed in parallel, a lane per column of a
+//   32-bit word: a set bit takes the value at its exclusive rank (the
+//   __popc of the row's words below it), clamped to row_cap - 1 as the
+//   reference's _bitmap_expand clips; a clear bit, or a column past bk,
+//   gives 0.0.  (The first design walked every set bit with __ffs and a
+//   running rank: one shared-memory float4 and four FFMAs per nonzero, 10 %
+//   of its bound at 50 % density.)
+// - below it: the bit walk, the core's walk layout (a warp on 16 rows, a
+//   lane on 4 columns, rows i and i + 8 together), each row's values read
+//   at its running rank, straight from the ring: nothing is decoded.
+//
+// Non-finite B: a call first checks B on the card (tile_core's
+// nonfinite_kernel); both kernels read its flags (b_nonfinite) and return
+// at once where B holds an Inf or NaN; tile_core's every_entry_kernel, launched beside them, then expands
+// every tile as the reference does (NmCells, BitmapCells) and multiplies
+// every entry in fp32 FFMAs, as the TPU kernels' dense product does.  The
+// slot and bit walks multiply only the packed values, and the 3xTF32 split
+// turns an Inf of B into NaN.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,58 +94,6 @@
 #include "tile_core.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = 128;  // output rows per block (16 x TM)
-constexpr int kColsPerBlock = 64;   // output columns per block (16 x TN)
-constexpr int kTM = 8;              // rows per thread: ty + 16*i
-constexpr int kTN = 4;              // adjacent columns per thread: 4*tx + j
-
-// Stage B[b_row0 : +bk, n0 : +64] into b_s (bk x 64), zero past column n.
-__device__ __forceinline__ void stage_b(float* b_s, const float* b,
-                                        int64_t b_row0, int bk, int n,
-                                        int n0) {
-  for (int i = threadIdx.x; i < bk * kColsPerBlock; i += kThreads) {
-    const int kk = i / kColsPerBlock, c = n0 + i % kColsPerBlock;
-    b_s[i] = c < n ? b[(b_row0 + kk) * n + c] : 0.f;
-  }
-}
-
-// Copy `rows` rows of `width` words from src (row stride width) into dst
-// (row stride width + 1).
-template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src, int rows,
-                                           int width) {
-  for (int i = threadIdx.x; i < rows * width; i += kThreads) {
-    const int r = i / width, c = i % width;
-    dst[r * (width + 1) + c] = src[i];
-  }
-}
-
-__device__ __forceinline__ void fma4(float (&acc)[kTN], float v,
-                                     const float* b_row, int tx) {
-  const float4 bv = *reinterpret_cast<const float4*>(b_row + kTN * tx);
-  acc[0] = fmaf(v, bv.x, acc[0]);
-  acc[1] = fmaf(v, bv.y, acc[1]);
-  acc[2] = fmaf(v, bv.z, acc[2]);
-  acc[3] = fmaf(v, bv.w, acc[3]);
-}
-
-__device__ __forceinline__ void write_out(const float (&acc)[kTM][kTN],
-                                          float* out, int w, int bm, int r0,
-                                          int n, int n0, int tx, int ty) {
-  const int64_t out_row0 = static_cast<int64_t>(w) * bm + r0;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = ty + 16 * i;
-    if (r0 + r >= bm) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = n0 + kTN * tx + j;
-      if (c < n) out[(out_row0 + r) * n + c] = acc[i][j];
-    }
-  }
-}
 
 namespace tc = tile_core;
 
@@ -212,6 +177,7 @@ nm_tile_spmm_kernel(const int* __restrict__ order,
                     const float* __restrict__ nm_values,
                     const uint32_t* __restrict__ nm_codes,
                     const float* __restrict__ b,
+                    const int* __restrict__ flags,
                     float* __restrict__ out,
                     int n_tiles, int bm, int bk, int m_pat, int n,
                     int stages) {
@@ -229,6 +195,8 @@ nm_tile_spmm_kernel(const int* __restrict__ order,
   const int rows = min(tc::kRows, bm - r0);
   const int cols = min(tc::kCols, n - n0);
   const bool vec_b = (n & 3) == 0 && tc::aligned16(b);
+  // B holds an Inf or NaN: every_entry_kernel writes the output instead
+  if (tc::b_nonfinite(flags, tc::kFlagBlocks)) return;
 
   // the cells no copy or decode writes stay zero
   tc::zero_smem(smem, nm_smem_floats(MMA, stages, q, gk));
@@ -271,10 +239,7 @@ nm_tile_spmm_kernel(const int* __restrict__ order,
     t_next = t_after;
     c_next = ahead + 1 < s1 ? step_col[t_after] : 0;
     t_after = ahead + 2 < s1 ? order[ahead + 2] : 0;
-    if (stages == 3)
-      tc::cp_async_wait<2>();
-    else
-      tc::cp_async_wait<1>();
+    tc::cp_async_wait_ring(stages);
     __syncthreads();
 
     const int64_t row0 = static_cast<int64_t>(t) * bm + r0;
@@ -306,101 +271,297 @@ nm_tile_spmm_kernel(const int* __restrict__ order,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Floats of one bitmap ring stage: the B slab, then the tile's occupancy
+// words and its packed values (each with room for the shift stage_flat
+// applies, a multiple of 4).
+__host__ __device__ inline int bitmap_words_floats(int n_words) {
+  return (tc::kRows * n_words + 4 + 3) & ~3;
+}
+__host__ __device__ inline int bitmap_stage_floats(int n_words, int row_cap) {
+  return tc::kBFloats + bitmap_words_floats(n_words) +
+         ((tc::kRows * row_cap + 4 + 3) & ~3);
+}
+// Floats of shared memory: the ring, the decoded tile and the block sum.
+__host__ __device__ inline int bitmap_smem_floats(int stages, int n_words,
+                                                  int row_cap) {
+  return stages * bitmap_stage_floats(n_words, row_cap) + tc::kAFloats +
+         tc::kWarps;
+}
+static_assert(tc::kRows * tc::kEStride <= tc::kBFloats + tc::kAFloats,
+              "the epilogue tile reuses one stage and the decoded tile");
+
+// Decode a k-slice of the staged bitmap tile (values v_s, row stride
+// row_cap) into the dense tile a_s, from the occupancy registers of
+// bitmap_walk's layout (lane i < 16 of warp w: row 16*w + i's bits of the
+// slice in occ, masked to its width, and the row's bits before the slice
+// in rank0): warp w writes rows 16*w + [0, 16), a lane per column of each
+// 32-bit half.  A set bit takes the value at its exclusive rank, clamped to
+// row_cap - 1 as the reference clips; a clear bit gives 0.0.  Only the
+// value read touches shared memory before the store, and the 16 rows are
+// independent, so their loads overlap (the first version re-read the words
+// from shared memory for every (row, word): 3 dependent loads a cell row,
+// twice the tile's tensor-core time).
+__device__ __forceinline__ void bitmap_decode(float* a_s, const float* v_s,
+                                              int row_cap, uint64_t occ,
+                                              int rank0) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t below = (1u << lane) - 1u;
+  const int r0 = tc::kWalkRows * warp;
+#pragma unroll
+  for (int i = 0; i < tc::kWalkRows; ++i) {
+    const uint64_t m = __shfl_sync(~0u, occ, i);
+    const int base = __shfl_sync(~0u, rank0, i);
+    const uint32_t lo = static_cast<uint32_t>(m);
+    const uint32_t hi = static_cast<uint32_t>(m >> 32);
+    const float* vr = v_s + (r0 + i) * row_cap;
+    float* ar = a_s + (r0 + i) * tc::kAStride;
+    const int rank_lo = min(base + __popc(lo & below), row_cap - 1);
+    const int rank_hi =
+        min(base + __popc(lo) + __popc(hi & below), row_cap - 1);
+    ar[lane] = (lo >> lane) & 1u ? vr[rank_lo] : 0.f;
+    ar[32 + lane] = (hi >> lane) & 1u ? vr[rank_hi] : 0.f;
+  }
+}
+
+// acc += k-slice `slice` of the staged bitmap tile @ B slab, walking set
+// bits: warp w on rows 16*w + i, rows i and i + 8 together; lane i < 16
+// holds in occ the slice's bits of row 16*w + i and in rank0 the count of
+// that row's bits before the slice.  A value is read at its running rank,
+// clamped to row_cap - 1.
+__device__ __forceinline__ void bitmap_walk(tc::WalkAcc& acc,
+                                            const float* v_s, int row_cap,
+                                            const float* b_s, uint64_t occ,
+                                            int rank0) {
+  const float* vals = v_s + tc::kWalkRows * (threadIdx.x >> 5) * row_cap;
+#pragma unroll
+  for (int i = 0; i < tc::kWalkRows / 2; ++i) {
+    const int j = i + tc::kWalkRows / 2;
+    uint64_t mi = __shfl_sync(~0u, occ, i);
+    uint64_t mj = __shfl_sync(~0u, occ, j);
+    int ki = __shfl_sync(~0u, rank0, i);
+    int kj = __shfl_sync(~0u, rank0, j);
+    const float* vi = vals + i * row_cap;
+    const float* vj = vals + j * row_cap;
+    while (mi | mj) {
+      if (mi) {
+        const int c = __ffsll(mi) - 1;
+        mi &= mi - 1u;
+        tc::fma_row(acc[i], vi[min(ki, row_cap - 1)], b_s + c * tc::kBStride);
+        ++ki;
+      }
+      if (mj) {
+        const int c = __ffsll(mj) - 1;
+        mj &= mj - 1u;
+        tc::fma_row(acc[j], vj[min(kj, row_cap - 1)], b_s + c * tc::kBStride);
+        ++kj;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(tc::kThreads, 1)
 bitmap_tile_spmm_kernel(const int* __restrict__ order,
                         const int* __restrict__ seg,
                         const int* __restrict__ step_col,
                         const uint32_t* __restrict__ words,
                         const float* __restrict__ values,
                         const float* __restrict__ b,
+                        const int* __restrict__ flags,
                         float* __restrict__ out,
                         int n_tiles, int bm, int bk, int n_words,
-                        int row_cap, int n) {
+                        int row_cap, int n, int stages) {
   extern __shared__ float4 smem4[];
-  float* b_s = reinterpret_cast<float*>(smem4);
-  float* v_s = b_s + bk * kColsPerBlock;
-  uint32_t* w_s =
-      reinterpret_cast<uint32_t*>(v_s + kRowsPerBlock * (row_cap + 1));
-  // bits at or past column bk select nothing (the expansion reads only
-  // columns below bk)
-  const uint32_t last_mask =
-      (bk % 32) ? ((1u << (bk % 32)) - 1u) : 0xFFFFFFFFu;
+  float* smem = reinterpret_cast<float*>(smem4);
+  // stage st at smem + st*stage: B slab, occupancy words, packed values
+  const int stage = bitmap_stage_floats(n_words, row_cap);
+  const int w_off = tc::kBFloats, v_off = w_off + bitmap_words_floats(n_words);
+  float* const a_s = smem + stages * stage;  // the decoded tile
+  int* const red = reinterpret_cast<int*>(a_s + tc::kAFloats);
 
   const int w = blockIdx.x / n_tiles;
-  const int n0 = (blockIdx.x % n_tiles) * kColsPerBlock;
-  const int r0 = blockIdx.y * kRowsPerBlock;
-  const int rows_here = min(kRowsPerBlock, bm - r0);
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int n0 = (blockIdx.x % n_tiles) * tc::kCols;
+  const int r0 = blockIdx.y * tc::kRows;
+  const int rows = min(tc::kRows, bm - r0);
+  const int cols = min(tc::kCols, n - n0);
+  const int n_slices = (bk + tc::kSlice - 1) / tc::kSlice;
+  const bool vec_b = (n & 3) == 0 && tc::aligned16(b);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // B holds an Inf or NaN: every_entry_kernel writes the output instead
+  if (tc::b_nonfinite(flags, tc::kFlagBlocks)) return;
 
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  // the cells no copy or decode writes stay zero
+  tc::zero_smem(smem, stages * stage + tc::kAFloats);
+  __syncthreads();
 
-  const int s_end = seg[w + 1];
-  for (int s = seg[w]; s < s_end; ++s) {
-    const int t = order[s];
+  const int s0 = seg[w], s1 = seg[w + 1];
+  const int items = (s1 - s0) * n_slices;
+  // start staging item `it` (tile t, k-slice it % n_slices, B k-block col)
+  // into stage st
+  auto fetch = [&](int it, int st, int t, int col) {
+    const int k0 = (it % n_slices) * tc::kSlice;
+    const int width = min(tc::kSlice, bk - k0);
+    const int kw8 = (width + 7) & ~7;
+    float* base = smem + st * stage;
+    // a narrower last slice: clear what a wider one left in [width, kw8)
+    for (int i = threadIdx.x; i < (kw8 - width) * tc::kBStride;
+         i += tc::kThreads)
+      base[width * tc::kBStride + i] = 0.f;
+    tc::stage_block(base, tc::kBStride,
+                    b + (static_cast<int64_t>(col) * bk + k0) * n + n0, n,
+                    width, cols, vec_b);
     const int64_t row0 = static_cast<int64_t>(t) * bm + r0;
-    stage_b(b_s, b, static_cast<int64_t>(step_col[t]) * bk, bk, n, n0);
-    stage_rows(v_s, values + row0 * row_cap, rows_here, row_cap);
-    stage_rows(w_s, words + row0 * n_words, rows_here, n_words);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int r = ty + 16 * i;
-      if (r >= rows_here) continue;
-      const float* vr = v_s + r * (row_cap + 1);
-      const uint32_t* wr = w_s + r * (n_words + 1);
-      int rank = 0;
-      for (int wd = 0; wd < n_words; ++wd) {
-        uint32_t bits = wr[wd];
-        if (wd == n_words - 1) bits &= last_mask;
-        while (bits) {
-          const int c = wd * 32 + __ffs(bits) - 1;
-          bits &= bits - 1u;
-          fma4(acc[i], vr[min(rank, row_cap - 1)],
-               b_s + c * kColsPerBlock, tx);
-          ++rank;
-        }
-      }
+    tc::stage_flat(reinterpret_cast<uint32_t*>(base + w_off),
+                   words + row0 * n_words, rows * n_words);
+    tc::stage_flat(base + v_off, values + row0 * row_cap, rows * row_cap);
+  };
+  auto tile_of = [&](int it) { return order[s0 + it / n_slices]; };
+
+  tc::MmaAcc acc_mma;
+  tc::WalkAcc acc_walk;
+  tc::zero(acc_mma);
+  tc::zero(acc_walk);
+
+  // fill all stages but one; the tile and k-block of the next item to
+  // stage, and the tile of the one after it, are loaded an iteration ahead
+  for (int it = 0; it < stages - 1; ++it) {
+    if (it < items) {
+      const int t = tile_of(it);
+      fetch(it, it, t, step_col[t]);
     }
-    __syncthreads();
+    tc::cp_async_commit();
   }
-  write_out(acc, out, w, bm, r0, n, n0, tx, ty);
+  int t_next = stages - 1 < items ? tile_of(stages - 1) : 0;
+  int c_next = stages - 1 < items ? step_col[t_next] : 0;
+  int t_after = stages < items ? tile_of(stages) : 0;
+  for (int it = 0; it < items; ++it) {
+    const int st = it % stages;
+    const int ahead = it + stages - 1;
+    if (ahead < items) fetch(ahead, ahead % stages, t_next, c_next);
+    tc::cp_async_commit();
+    const int t = tile_of(it);
+    t_next = t_after;
+    c_next = ahead + 1 < items ? step_col[t_after] : 0;
+    t_after = ahead + 2 < items ? tile_of(ahead + 2) : 0;
+    tc::cp_async_wait_ring(stages);
+    __syncthreads();
+
+    const int slice = it % n_slices;
+    const int width = min(tc::kSlice, bk - slice * tc::kSlice);
+    const int64_t row0 = static_cast<int64_t>(t) * bm + r0;
+    const float* b_stage = smem + st * stage;
+    const uint32_t* w_s =
+        reinterpret_cast<const uint32_t*>(b_stage + w_off) +
+        tc::flat_shift(words + row0 * n_words);
+    const float* v_s =
+        b_stage + v_off + tc::flat_shift(values + row0 * row_cap);
+    // lane i < 16: row 16*warp + i's bits of this slice (columns past
+    // width, hence past bk, masked off) and its bits before the slice
+    uint64_t occ = 0u;
+    int rank0 = 0;
+    const int r = tc::kWalkRows * warp + lane;
+    if (lane < tc::kWalkRows && r < rows) {
+      const uint32_t* wr = w_s + r * n_words;
+      for (int i = 0; i < 2 * slice; ++i) rank0 += __popc(wr[i]);
+      occ = wr[2 * slice];
+      if (2 * slice + 1 < n_words)
+        occ |= static_cast<uint64_t>(wr[2 * slice + 1]) << 32;
+      if (width < 64) occ &= (uint64_t{1} << width) - 1u;
+    }
+    const int count = __reduce_add_sync(~0u, __popcll(occ));
+    if (lane == 0) red[warp] = count;
+    __syncthreads();
+    int total = 0;
+#pragma unroll
+    for (int i = 0; i < tc::kWarps; ++i) total += red[i];
+    if (static_cast<float>(total) >= tc::kMmaMinDensity * rows * width) {
+      bitmap_decode(a_s, v_s, row_cap, occ, rank0);
+      __syncthreads();
+      tc::mma_tile(acc_mma, a_s, b_stage, (width + 7) >> 3);
+    } else {
+      bitmap_walk(acc_walk, v_s, row_cap, b_stage, occ, rank0);
+    }
+    __syncthreads();  // a later iteration refills this stage and a_s
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  // sum the two accumulators through shared memory (the last stage and the
+  // decoded tile, contiguous) and write once
+  float* e = smem + (stages - 1) * stage;
+  tc::store_mma(acc_mma, e);
+  __syncthreads();
+  tc::write_tile(out + (static_cast<int64_t>(w) * bm + r0) * n + n0, n, rows,
+                 cols, (n & 3) == 0, acc_walk, e);
 }
+
+// The N:M stream's cells, for every_entry_kernel: each the sum, in slot
+// order from 0.0, of the slots whose position selects it (nm_decode's).
+struct NmCells {
+  const float* values;
+  const uint32_t* codes;
+  int n_pat, m_pat, gk;
+  __device__ float cell(int64_t row, int c) const {
+    const int g = c / m_pat;
+    const uint32_t x = static_cast<uint32_t>(c - g * m_pat);
+    const uint32_t code = codes[row * gk + g];
+    const float* v = values + row * n_pat * gk + g;
+    float sum = 0.f;
+    for (int j = 0; j < n_pat; ++j)
+      sum += ((code >> (8 * j)) & 0xFFu) == x ? v[j * gk] : 0.f;
+    return sum;
+  }
+};
+
+// The bitmap stream's cells, for every_entry_kernel: a set bit's value at
+// its exclusive rank in the row, clamped to row_cap - 1; else 0.0.
+struct BitmapCells {
+  const uint32_t* words;
+  const float* values;
+  int n_words, row_cap;
+  __device__ float cell(int64_t row, int c) const {
+    const uint32_t* w = words + row * n_words;
+    const uint32_t word = w[c >> 5];
+    const uint32_t bit = c & 31;
+    if (!((word >> bit) & 1u)) return 0.f;
+    int rank = __popc(word & ((1u << bit) - 1u));
+    for (int i = 0; i < (c >> 5); ++i) rank += __popc(w[i]);
+    return values[row * row_cap + min(rank, row_cap - 1)];
+  }
+};
 
 template <int NPAT, bool MMA>
 cudaError_t launch_nm(int num_windows, cudaStream_t stream, const int* order,
                       const int* seg, const int* step_col,
                       const float* nm_values, const uint32_t* nm_codes,
-                      const float* b, float* out, int bm, int bk, int m_pat,
-                      int n) {
+                      const float* b, int k, int* flags, float* out, int bm,
+                      int bk, int m_pat, int n) {
   const int gk = bk / m_pat;
   // three ring stages where they fit in a block's shared memory, else two
-  int dev = 0, max_optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  size_t max_optin = 0;
+  cudaError_t err = tc::smem_optin(max_optin);
   if (err != cudaSuccess) return err;
   int stages = tc::kStages;
   while (stages > 2 &&
          sizeof(float) * nm_smem_floats(MMA, stages, NPAT * gk, gk) >
-             static_cast<size_t>(max_optin))
+             max_optin)
     --stages;
   const size_t smem =
       sizeof(float) * nm_smem_floats(MMA, stages, NPAT * gk, gk);
   err = tc::allow_smem(nm_tile_spmm_kernel<NPAT, MMA>, smem);
   if (err != cudaSuccess) return err;
+  err = tc::launch_nonfinite(b, static_cast<int64_t>(k) * n, flags, stream);
+  if (err != cudaSuccess) return err;
   const int n_tiles = (n + tc::kCols - 1) / tc::kCols;
   const dim3 grid(static_cast<unsigned>(n_tiles) * num_windows,
                   (bm + tc::kRows - 1) / tc::kRows);
   nm_tile_spmm_kernel<NPAT, MMA><<<grid, tc::kThreads, smem, stream>>>(
-      order, seg, step_col, nm_values, nm_codes, b, out, n_tiles, bm, bk,
-      m_pat, n, stages);
-  return cudaGetLastError();
+      order, seg, step_col, nm_values, nm_codes, b, flags, out, n_tiles, bm,
+      bk, m_pat, n, stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return tc::launch_every_entry(NmCells{nm_values, nm_codes, NPAT, m_pat, gk},
+                                order, seg, nullptr, step_col, b, flags, out,
+                                nullptr, num_windows, bm, bk, n, stream);
 }
 
 template <int NPAT>
@@ -408,29 +569,32 @@ cudaError_t launch_nm_path(int num_windows, cudaStream_t stream,
                            const int* order, const int* seg,
                            const int* step_col, const float* nm_values,
                            const uint32_t* nm_codes, const float* b,
-                           float* out, int bm, int bk, int m_pat, int n) {
+                           int k, int* flags, float* out, int bm, int bk,
+                           int m_pat, int n) {
   // n/m at or above the tile core's density threshold: decode + 3xTF32
   if (static_cast<float>(NPAT) >= tc::kMmaMinDensity * m_pat)
     return launch_nm<NPAT, true>(num_windows, stream, order, seg, step_col,
-                                 nm_values, nm_codes, b, out, bm, bk, m_pat,
-                                 n);
+                                 nm_values, nm_codes, b, k, flags, out, bm, bk,
+                                 m_pat, n);
   return launch_nm<NPAT, false>(num_windows, stream, order, seg, step_col,
-                                nm_values, nm_codes, b, out, bm, bk, m_pat,
-                                n);
+                                nm_values, nm_codes, b, k, flags, out, bm, bk,
+                                m_pat, n);
 }
 
 }  // namespace
 
 // order: (T,) tile indices sorted by window; seg: (num_windows+1,) segment
 // offsets into order; step_col: (T,); nm_values: (T, bm, n_pat*bk/m_pat);
-// nm_codes: (T, bm, bk/m_pat); b: (K, n) row-major; out:
+// nm_codes: (T, bm, bk/m_pat); b: (k, n) row-major, contiguous; flags:
+// kFlagBlocks ints of scratch on the device (nonfinite_kernel's); out:
 // (num_windows*bm, n), every element written.  1 <= n_pat <= 4, m_pat
 // dividing bk and bk <= 64, else cudaErrorInvalidValue.
 extern "C" int nm_tile_spmm_launch(const int* order, const int* seg,
                                    const int* step_col,
                                    const float* nm_values,
                                    const int* nm_codes, const float* b,
-                                   float* out, int num_windows, int bm,
+                                   int k, int* flags, float* out,
+                                   int num_windows, int bm,
                                    int bk, int n, int n_pat, int m_pat,
                                    void* stream) {
   if (m_pat <= 0 || bk % m_pat || bk > tc::kSlice)
@@ -442,19 +606,23 @@ extern "C" int nm_tile_spmm_launch(const int* order, const int* seg,
   switch (n_pat) {
     case 1:
       err = launch_nm_path<1>(num_windows, st, order, seg, step_col,
-                              nm_values, codes, b, out, bm, bk, m_pat, n);
+                              nm_values, codes, b, k, flags, out, bm, bk, m_pat,
+                              n);
       break;
     case 2:
       err = launch_nm_path<2>(num_windows, st, order, seg, step_col,
-                              nm_values, codes, b, out, bm, bk, m_pat, n);
+                              nm_values, codes, b, k, flags, out, bm, bk, m_pat,
+                              n);
       break;
     case 3:
       err = launch_nm_path<3>(num_windows, st, order, seg, step_col,
-                              nm_values, codes, b, out, bm, bk, m_pat, n);
+                              nm_values, codes, b, k, flags, out, bm, bk, m_pat,
+                              n);
       break;
     case 4:
       err = launch_nm_path<4>(num_windows, st, order, seg, step_col,
-                              nm_values, codes, b, out, bm, bk, m_pat, n);
+                              nm_values, codes, b, k, flags, out, bm, bk, m_pat,
+                              n);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -464,27 +632,44 @@ extern "C" int nm_tile_spmm_launch(const int* order, const int* seg,
 
 // words: (T, bm, n_words) with n_words = ceil(bk/32); values:
 // (T, bm, row_cap); the other arguments as for nm_tile_spmm_launch.
+// cudaErrorInvalidValue where even one ring stage does not fit in a
+// block's shared memory (a row_cap above about 300 at n_words = 2).
 extern "C" int bitmap_tile_spmm_launch(const int* order, const int* seg,
                                        const int* step_col, const int* words,
                                        const float* values, const float* b,
-                                       float* out, int num_windows, int bm,
-                                       int bk, int n, int row_cap,
-                                       void* stream) {
+                                       int k, int* flags, float* out,
+                                       int num_windows, int bm, int bk, int n,
+                                       int row_cap, void* stream) {
   const int n_words = (bk + 31) / 32;
-  if (row_cap <= 0) return cudaErrorInvalidValue;
+  if (row_cap <= 0 || bk <= 0) return cudaErrorInvalidValue;
   if (num_windows == 0 || n == 0) return 0;
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(bk) * kColsPerBlock +
-                       static_cast<size_t>(kRowsPerBlock) * (row_cap + 1) +
-                       static_cast<size_t>(kRowsPerBlock) * (n_words + 1));
-  cudaError_t err = tile_core::allow_smem(bitmap_tile_spmm_kernel, smem);
+  // three ring stages where they fit in a block's shared memory, else fewer
+  size_t max_optin = 0;
+  cudaError_t err = tc::smem_optin(max_optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = (n + kColsPerBlock - 1) / kColsPerBlock;
+  int stages = tc::kStages;
+  while (stages > 1 &&
+         sizeof(float) * bitmap_smem_floats(stages, n_words, row_cap) >
+             max_optin)
+    --stages;
+  const size_t smem =
+      sizeof(float) * bitmap_smem_floats(stages, n_words, row_cap);
+  err = tc::allow_smem(bitmap_tile_spmm_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = tc::launch_nonfinite(b, static_cast<int64_t>(k) * n, flags, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_tiles = (n + tc::kCols - 1) / tc::kCols;
   const dim3 grid(static_cast<unsigned>(n_tiles) * num_windows,
-                  (bm + kRowsPerBlock - 1) / kRowsPerBlock);
-  bitmap_tile_spmm_kernel<<<grid, kThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+                  (bm + tc::kRows - 1) / tc::kRows);
+  bitmap_tile_spmm_kernel<<<grid, tc::kThreads, smem, st>>>(
       order, seg, step_col, reinterpret_cast<const uint32_t*>(words), values,
-      b, out, n_tiles, bm, bk, n_words, row_cap, n);
-  return static_cast<int>(cudaGetLastError());
+      b, flags, out, n_tiles, bm, bk, n_words, row_cap, n, stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tc::launch_every_entry(
+      BitmapCells{reinterpret_cast<const uint32_t*>(words), values, n_words,
+                  row_cap},
+      order, seg, nullptr, step_col, b, flags, out, nullptr, num_windows, bm,
+      bk, n, st));
 }

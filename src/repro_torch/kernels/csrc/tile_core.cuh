@@ -1,8 +1,9 @@
 // Shared tile core of the matrix-engine kernels on Hopper (device code
 // only): staging of a tile's A data and B slab with cp.async into a
 // ring of kStages stages, a 3xTF32 tensor-core product of a dense A tile
-// held in shared memory, and a zero-skipping walk over the tile's
-// nonzeros.  dense_tile_spmm.cu and structured_spmm.cu include it.
+// held in shared memory, a zero-skipping walk over the tile's nonzeros,
+// and the every-entry FFMA products that B holding an Inf or NaN calls
+// for.  dense_tile_spmm.cu and structured_spmm.cu include it.
 //
 // A block covers kRows output rows and kCols output columns with kThreads
 // threads (8 warps), in one of two register layouts:
@@ -18,6 +19,24 @@
 // lo*lo term is ~2^-22 relative), where plain TF32 keeps about three
 // decimal digits.
 //
+// Non-finite B.  The reference multiplies every entry of a dense tile, so
+// where B holds an Inf or NaN, 0 * Inf gives NaN and a stored nonzero
+// times Inf gives +-Inf.  Neither the zero-skipping walk (it never meets
+// the zeros) nor the split product (Inf - Inf = NaN in lo, and the cross
+// term lo(A) * hi(B) is 0 * Inf = NaN wherever A is exact in tf32, every
+// 1.0 of an adjacency matrix, so setting lo = 0 would not do) gives that.
+// So each call first runs nonfinite_kernel, which writes one flag per
+// block of its grid (one read of B, never read on the host), and then two
+// kernels that read those flags (b_nonfinite): the fast kernel returns at
+// once where one is set, and every_entry_kernel returns at once where none
+// is, and otherwise multiplies every entry of every tile in fp32 FFMAs
+// (walk_all): IEEE products, the reference's answer.  The slow path lives
+// in its own kernel so that the fast kernels keep their registers (on the
+// H100, sharing one kernel cost B1's tensor-core path 4 % and the N:M slot
+// walk 60 %, from one block per SM where two fitted), and it runs as a
+// persistent grid of a few blocks per SM, so that its launch costs
+// microseconds on finite B.
+//
 // The staged A slice is row-major with row stride kAStride (kSlice + 4:
 // the fragment loads of one warp hit 32 distinct banks); the B slab is
 // row-major with row stride kBStride (kCols + 8, likewise).  Cells that no
@@ -28,6 +47,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 namespace tile_core {
@@ -86,6 +106,17 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 // A ring of kStages stages: up to kStages - 1 tiles are in flight while one
 // computes.
 constexpr int kStages = 3;
+
+// Wait for the stage about to compute in a ring of `stages` (1 to 3)
+// stages, with stages - 1 groups allowed still in flight.
+__device__ __forceinline__ void cp_async_wait_ring(int stages) {
+  if (stages >= 3)
+    cp_async_wait<2>();
+  else if (stages == 2)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+}
 
 // Start copying a rows x cols block of 4-byte words (source row stride
 // src_ld) into shared memory (row stride dst_ld).  vec: 16-byte copies,
@@ -304,8 +335,9 @@ __device__ __forceinline__ int occupancy(const float* a_s, int width,
 
 // acc += the staged A slice (masks from occupancy) @ B slab, one B slab row
 // and four FFMAs a lane per nonzero; rows i and i + 8 are walked together
-// for two independent chains of loads.  Zeros are skipped, so an Inf or
-// NaN of B meets no zero of A (the dense product would give NaN there).
+// for two independent chains of loads.  Zeros are skipped, which is exact
+// for finite B only: where B holds an Inf or NaN, every_entry_kernel runs
+// instead (see b_nonfinite).
 __device__ __forceinline__ void walk_tile(WalkAcc& acc, const float* a_s,
                                           const float* b_s, uint64_t occ) {
   const int warp = threadIdx.x >> 5;
@@ -366,22 +398,218 @@ __device__ __forceinline__ void write_tile(float* dst, int64_t ld, int rows,
   }
 }
 
-// Raise the dynamic shared-memory limit of `kernel` to `bytes` (past the
-// default 48 KB only by opting in); cudaErrorInvalidValue past the card's
-// per-block maximum.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
+// ---- every entry: the path for non-finite B --------------------------------
+
+// Blocks of nonfinite_kernel, hence flags a call writes; the wrappers
+// allocate this many ints (kernels/dense_tile_spmm.py NONFINITE_FLAGS).
+constexpr int kFlagBlocks = 512;
+
+__device__ __forceinline__ bool finite4(float4 x) {
+  return fabsf(x.x) <= FLT_MAX && fabsf(x.y) <= FLT_MAX &&
+         fabsf(x.z) <= FLT_MAX && fabsf(x.w) <= FLT_MAX;
+}
+
+// flags[blockIdx.x] = 1 where this block's grid-stride share of the `count`
+// floats of b holds an Inf or a NaN, else 0: one read of b, 16-byte loads
+// where b is aligned, four in flight a thread.  Launched with kFlagBlocks
+// blocks of kThreads.
+__global__ void __launch_bounds__(kThreads)
+nonfinite_kernel(const float* __restrict__ b, int64_t count,
+                 int* __restrict__ flags) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  bool ok = true;
+  int64_t tail = 0;
+  if (aligned16(b)) {
+    const float4* b4 = reinterpret_cast<const float4*>(b);
+    const int64_t n4 = count / 4;
+    int64_t i = tid;
+    for (; i + 3 * stride < n4; i += 4 * stride) {
+      const float4 x0 = __ldg(b4 + i), x1 = __ldg(b4 + i + stride);
+      const float4 x2 = __ldg(b4 + i + 2 * stride);
+      const float4 x3 = __ldg(b4 + i + 3 * stride);
+      ok = ok && finite4(x0) && finite4(x1) && finite4(x2) && finite4(x3);
+    }
+    for (; i < n4; i += stride) ok = ok && finite4(__ldg(b4 + i));
+    tail = 4 * n4;
+  }
+  for (int64_t j = tail + tid; j < count; j += stride)
+    ok = ok && fabsf(__ldg(b + j)) <= FLT_MAX;
+  const int bad = __syncthreads_or(!ok);
+  if (threadIdx.x == 0) flags[blockIdx.x] = bad != 0;
+}
+
+// True where B holds an Inf or a NaN: any of nonfinite_kernel's n_flags
+// flags set (written by the launch before this one on the stream).  Every
+// thread of the block must call it (a block-wide OR); uniform across the
+// grid.
+__device__ __forceinline__ bool b_nonfinite(const int* flags, int n_flags) {
+  int bad = 0;
+  for (int i = threadIdx.x; i < n_flags; i += blockDim.x)
+    bad |= __ldg(flags + i);
+  return __syncthreads_or(bad) != 0;
+}
+
+// acc += the staged A slice (width columns) @ B slab in the walk layout,
+// every entry multiplied, zeros included: fp32 FFMAs, so 0 * Inf = NaN as
+// in the reference's dense product.
+__device__ __forceinline__ void walk_all(WalkAcc& acc, const float* a_s,
+                                         const float* b_s, int width) {
+  const float* rows = a_s + kWalkRows * (threadIdx.x >> 5) * kAStride;
+  for (int c = 0; c < width; ++c) {
+    const float4 bv = *reinterpret_cast<const float4*>(
+        b_s + c * kBStride + 4 * (threadIdx.x & 31));
+#pragma unroll
+    for (int i = 0; i < kWalkRows; ++i) {
+      const float v = rows[i * kAStride + c];
+      acc[i][0] = fmaf(v, bv.x, acc[i][0]);
+      acc[i][1] = fmaf(v, bv.y, acc[i][1]);
+      acc[i][2] = fmaf(v, bv.z, acc[i][2]);
+      acc[i][3] = fmaf(v, bv.w, acc[i][3]);
+    }
+  }
+}
+
+// ---- launch helpers and the every-entry kernel ----------------------------
+
+// The most dynamic shared memory a block may opt in to on this device.
+inline cudaError_t smem_optin(size_t& bytes) {
   int dev = 0, max_optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&max_optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  bytes = static_cast<size_t>(max_optin);
+  return err;
+}
+
+// Raise the dynamic shared-memory limit of `kernel` to `bytes` (past the
+// default 48 KB only by opting in); cudaErrorInvalidValue past the card's
+// per-block maximum.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  size_t max_optin = 0;
+  cudaError_t err = smem_optin(max_optin);
   if (err != cudaSuccess) return err;
-  if (bytes > static_cast<size_t>(max_optin)) return cudaErrorInvalidValue;
+  if (bytes > max_optin) return cudaErrorInvalidValue;
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// Where B holds an Inf or NaN (else every block returns at once): the
+// packed (num_windows*bm, n) product with every tile entry multiplied.
+// Cells is the payload's decoder: cells.cell(row, c) is the dense value of
+// tile row `row` (t*bm + r, 64-bit) at column c < bk, as the reference
+// expands it.  The work is the fast kernel's: one unit per (segment, 128-
+// column n-tile, 128-row chunk), a segment being a window's
+// [seg[w], seg[w+1]) of order (chunks == nullptr; written to out) or a
+// chunk (window, first, end, slot) of dense_tile_spmm (written to out or to
+// partial slot `slot`).  A persistent grid walks the units; per tile and
+// 64-deep k-slice the block fills the dense slice and the B slab with
+// plain loads, then walk_all.  Slow, and only for input the result of
+// which is NaN or +-Inf somewhere.
+template <class Cells>
+__global__ void __launch_bounds__(kThreads)
+every_entry_kernel(Cells cells, const int* __restrict__ order,
+                   const int* __restrict__ seg,
+                   const int4* __restrict__ chunks,
+                   const int* __restrict__ step_col,
+                   const float* __restrict__ b,
+                   const int* __restrict__ flags, int n_flags,
+                   float* __restrict__ out, float* __restrict__ partial,
+                   int n_segments, int bm, int bk, int n) {
+  if (!b_nonfinite(flags, n_flags)) return;
+  extern __shared__ float4 smem4[];
+  float* const a_s = reinterpret_cast<float*>(smem4);
+  float* const b_s = a_s + kAFloats;
+  const int n_tiles = (n + kCols - 1) / kCols;
+  const int row_chunks = (bm + kRows - 1) / kRows;
+  const int n_slices = (bk + kSlice - 1) / kSlice;
+  const int64_t units =
+      static_cast<int64_t>(n_segments) * n_tiles * row_chunks;
+  for (int64_t u = blockIdx.x; u < units; u += gridDim.x) {
+    const int sgm = static_cast<int>(u / (n_tiles * row_chunks));
+    const int n0 = static_cast<int>((u / row_chunks) % n_tiles) * kCols;
+    const int r0 = static_cast<int>(u % row_chunks) * kRows;
+    const int rows = min(kRows, bm - r0), cols = min(kCols, n - n0);
+    int first, end;
+    float* dst;
+    if (chunks != nullptr) {
+      const int4 ch = chunks[sgm];
+      first = ch.y;
+      end = ch.z;
+      dst = ch.w < 0 ? out + (static_cast<int64_t>(ch.x) * bm + r0) * n + n0
+                     : partial + (static_cast<int64_t>(ch.w) * bm + r0) * n +
+                           n0;
+    } else {
+      first = seg[sgm];
+      end = seg[sgm + 1];
+      dst = out + (static_cast<int64_t>(sgm) * bm + r0) * n + n0;
+    }
+    WalkAcc acc;
+    zero(acc);
+    for (int s = first; s < end; ++s) {
+      const int t = order[s];
+      const int64_t row0 = static_cast<int64_t>(t) * bm + r0;
+      const float* b_blk = b + static_cast<int64_t>(step_col[t]) * bk * n;
+      for (int sl = 0; sl < n_slices; ++sl) {
+        const int k0 = sl * kSlice, width = min(kSlice, bk - k0);
+        __syncthreads();  // the last product has read a_s and b_s
+        for (int i = threadIdx.x; i < kRows * kSlice; i += kThreads) {
+          const int r = i / kSlice, c = i % kSlice;
+          a_s[r * kAStride + c] =
+              r < rows && c < width ? cells.cell(row0 + r, k0 + c) : 0.f;
+        }
+        for (int i = threadIdx.x; i < kSlice * kCols; i += kThreads) {
+          const int k = i / kCols, c = i % kCols;
+          b_s[k * kBStride + c] =
+              k < width && c < cols
+                  ? b_blk[static_cast<int64_t>(k0 + k) * n + n0 + c]
+                  : 0.f;
+        }
+        __syncthreads();
+        walk_all(acc, a_s, b_s, width);
+      }
+    }
+    write_tile(dst, n, rows, cols, (n & 3) == 0, acc, nullptr);
+  }
+}
+
+// Launch nonfinite_kernel on `stream`: kFlagBlocks flags for the count
+// floats of b (contiguous).
+inline cudaError_t launch_nonfinite(const float* b, int64_t count, int* flags,
+                                    cudaStream_t stream) {
+  nonfinite_kernel<<<kFlagBlocks, kThreads, 0, stream>>>(b, count, flags);
+  return cudaGetLastError();
+}
+
+// Launch every_entry_kernel on `stream` over n_segments segments (seg) or
+// chunks (chunks): a persistent grid of at most two blocks per SM.
+template <class Cells>
+cudaError_t launch_every_entry(const Cells& cells, const int* order,
+                               const int* seg, const int4* chunks,
+                               const int* step_col, const float* b,
+                               const int* flags, float* out, float* partial,
+                               int n_segments, int bm, int bk, int n,
+                               cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (kAFloats + kBFloats);
+  cudaError_t err = allow_smem(every_entry_kernel<Cells>, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int64_t units = static_cast<int64_t>(n_segments) *
+                        ((n + kCols - 1) / kCols) * ((bm + kRows - 1) / kRows);
+  if (units == 0) return cudaSuccess;
+  const int grid = static_cast<int>(units < 2 * sms ? units : 2 * sms);
+  every_entry_kernel<Cells><<<grid, kThreads, smem, stream>>>(
+      cells, order, seg, chunks, step_col, b, flags, kFlagBlocks, out,
+      partial, n_segments, bm, bk, n);
+  return cudaGetLastError();
 }
 
 }  // namespace tile_core

@@ -6,8 +6,9 @@ dense core of A arrives as a stream of active (window, k-block) tiles;
 
 On a CUDA tensor the wrapper launches the hand-written Hopper kernels in
 ``csrc/dense_tile_spmm.cu`` (design notes there): the tile walk over
-chunks of each window's segment (:func:`window_chunks`), then the pass
-that sums a split window's partials; on a CPU tensor it runs the plain
+chunks of each window's segment (:func:`window_chunks`), beside it the
+every-entry kernel that takes over where B holds an Inf or NaN, then the
+pass that sums a split window's partials; on a CPU tensor it runs the plain
 version, :func:`repro_torch.kernels.ref.ref_block_stream_spmm`.  There is
 no other path: a CUDA call launches the kernels or raises.
 """
@@ -25,7 +26,8 @@ from .ref import ref_block_stream_spmm
 NAME = "dense_tile_spmm"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P)
+_ARGTYPES = (_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+             _P)
 
 # the chunk table aims at this many chunks per SM (the kernel runs one
 # block of a chunk per SM at a time, so several waves), and never cuts a
@@ -33,6 +35,20 @@ _ARGTYPES = (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P)
 # split, and costs no partial
 CHUNKS_PER_SM = 4
 MIN_CHUNK_TILES = 64
+
+
+# ints of scratch a matrix-path call hands its kernels for the check of B
+# (tile_core::kFlagBlocks): one flag per block of the check, set where that
+# block's share of B holds an Inf or a NaN, read on the device only
+NONFINITE_FLAGS = 512
+
+
+def nonfinite_flags(b: torch.Tensor) -> torch.Tensor:
+    """Scratch for the check of ``b`` that every matrix-path call makes on
+    the card before its tile kernel: where ``b`` holds an Inf or a NaN the
+    kernels multiply every entry of every tile, as the TPU kernels' dense
+    product does (0 * Inf = NaN)."""
+    return torch.empty(NONFINITE_FLAGS, dtype=torch.int32, device=b.device)
 
 
 def window_segments(
@@ -148,9 +164,10 @@ def dense_tile_spmm(
 
     ``segments`` is :func:`window_segments` of ``step_window`` and
     ``chunks`` :func:`window_chunks` of its offsets, when the caller has
-    them cached (plans keep both in ``plan.derived``).  One call is two
-    kernel launches (the tile walk and the reduce pass), counted once in
-    ``launches``.
+    them cached (plans keep both in ``plan.derived``).  One call is four
+    kernel launches (the check of ``b``, the tile walk and the every-entry
+    kernel, one of which returns at once, then the reduce pass), counted
+    once in ``launches``.
     """
     if b.device.type == "cpu":
         return ref_block_stream_spmm(step_window, step_col, flat_values, b,
@@ -164,9 +181,10 @@ def dense_tile_spmm(
                       device=b.device)
     partial = torch.empty((chunks.n_slots, bm, n), dtype=torch.float32,
                           device=b.device)
+    flags = nonfinite_flags(b)
     status = fn(order.data_ptr(), step_col.data_ptr(),
-                flat_values.data_ptr(), b.data_ptr(),
-                chunks.table.data_ptr(), chunks.table.shape[0],
+                flat_values.data_ptr(), b.data_ptr(), b.shape[0],
+                flags.data_ptr(), chunks.table.data_ptr(), chunks.table.shape[0],
                 chunks.reduce.data_ptr(), chunks.reduce.shape[0],
                 partial.data_ptr(), out.data_ptr(), bm, bk, n,
                 torch.cuda.current_stream(b.device).cuda_stream)

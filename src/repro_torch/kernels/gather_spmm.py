@@ -16,6 +16,7 @@ wrappers launch the hand-written Hopper kernels in ``csrc/gather_spmm.cu``
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -43,6 +44,45 @@ def csr_indptr(sorted_rows: torch.Tensor, num_rows: int) -> torch.Tensor:
                          device=sorted_rows.device)
     indptr[1:] = torch.cumsum(counts[:num_rows], 0)
     return indptr.to(torch.int32)
+
+
+# the shares of B's rows whose nonzeros fringe_profile reports (hottest
+# first), and the row length above which it counts a row as long
+HOT_ROW_SHARES = (0.001, 0.01, 0.10)
+LONG_ROW = 1024
+
+
+def fringe_profile(indptr: torch.Tensor, cols: torch.Tensor,
+                   num_b_rows: int) -> dict:
+    """What bounds the row walk on one packed fringe, from its row offsets
+    ``indptr`` and columns ``cols`` (B rows ``[0, num_b_rows)``), on their
+    device: the row lengths (``max``, ``p50``, ``p99``, linear quantiles as
+    numpy's) and the share of nonzeros in rows longer than ``LONG_ROW``;
+    the share of nonzeros whose column is among the hottest
+    ``HOT_ROW_SHARES`` of B's rows (``ceil(share * num_b_rows)`` rows, by
+    nonzero count).  Plain floats (one host read)."""
+    lengths = (indptr[1:] - indptr[:-1]).to(torch.float64)
+    nnz = max(int(cols.numel()), 1)
+    qs = (torch.quantile(lengths, torch.tensor([0.5, 0.99], device=
+                                               lengths.device,
+                                               dtype=torch.float64)).tolist()
+          if lengths.numel() else [0.0, 0.0])
+    freq = torch.sort(torch.bincount(cols.long(), minlength=num_b_rows),
+                      descending=True).values
+    top = torch.cumsum(freq, 0)
+    hot = {}
+    for share in HOT_ROW_SHARES:
+        count = min(max(1, math.ceil(round(share * num_b_rows, 6))),
+                    top.numel())
+        hot[f"{share:g}"] = (float(top[count - 1]) / nnz if top.numel()
+                             else 0.0)
+    return {
+        "rows": int(lengths.numel()), "nnz": int(cols.numel()),
+        "max": float(lengths.max()) if lengths.numel() else 0.0,
+        "p50": qs[0], "p99": qs[1],
+        "long_share": float(lengths[lengths > LONG_ROW].sum()) / nnz,
+        "hot_share": hot,
+    }
 
 
 def kbucket_row_order(

@@ -135,6 +135,51 @@ def ref_nm_stream_spmm(
     return out.reshape(num_windows * bm, n)
 
 
+def expand_nm_tiles(
+    nm_values: torch.Tensor,  # (T, bm, n*gk) fp32 slot-major packed values
+    nm_codes: torch.Tensor,   # (T, bm, gk) int32, 8-bit positions per slot
+    n_pat: int,
+    m_pat: int,
+    bk: int,
+) -> torch.Tensor:
+    """Re-expand an N:M payload to the dense (T, bm, bk) fp32 stream as the
+    TPU kernel's ``_nm_expand`` does: each cell the sum, in slot order from
+    0.0, of the slots whose position selects it."""
+    t, bm, _ = nm_values.shape
+    gk = bk // m_pat
+    offs = torch.arange(bk, device=nm_values.device) % m_pat
+    group = torch.arange(bk, device=nm_values.device) // m_pat
+    dense = torch.zeros((t, bm, bk), dtype=torch.float32,
+                        device=nm_values.device)
+    for j in range(n_pat):
+        pos = ((nm_codes >> (8 * j)) & 0xFF)[:, :, group]
+        val = nm_values[:, :, j * gk:(j + 1) * gk].to(torch.float32)
+        dense = dense + torch.where(pos == offs, val[:, :, group], 0.0)
+    return dense
+
+
+def ref_nm_stream_spmm_dense(
+    step_window: torch.Tensor,  # (T,) int32
+    step_col: torch.Tensor,     # (T,) int32
+    nm_values: torch.Tensor,    # (T, bm, n*gk) fp32 slot-major packed values
+    nm_codes: torch.Tensor,     # (T, bm, gk) int32
+    b: torch.Tensor,            # (K, N) — K a multiple of bk
+    num_windows: int,
+    n_pat: int,
+    m_pat: int,
+    bk: int,
+    tile_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """The N:M tile stream as the TPU kernel computes it: expand every tile,
+    then the general streaming product (every tile entry multiplied).  With
+    finite B it equals :func:`ref_nm_stream_spmm` within fp32 rounding;
+    where B holds an Inf or NaN a zero cell gives NaN here and nothing in
+    the gather form.  Returns packed (num_windows*bm, N) fp32."""
+    flat_values = expand_nm_tiles(nm_values, nm_codes, n_pat, m_pat, bk)
+    return ref_block_stream_spmm(step_window, step_col, flat_values, b,
+                                 num_windows, tile_chunk=tile_chunk)
+
+
 def expand_bitmap_tiles(
     bitmap_words: torch.Tensor,   # (T, bm, ceil(bk/32)) int32 occupancy bits
     bitmap_values: torch.Tensor,  # (T, bm, row_cap) fp32 packed row values

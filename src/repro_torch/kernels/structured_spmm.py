@@ -14,11 +14,19 @@ Both return the packed (num_windows*bm, N) fp32 product.  On CUDA tensors
 the wrappers launch the hand-written Hopper kernels in
 ``csrc/structured_spmm.cu`` (design notes there): the N:M kernel decodes
 each tile for a tensor-core product where n/m is dense enough and walks
-the packed slots otherwise, the bitmap kernel walks the set bits; on CPU
-tensors they run the plain versions,
-:func:`~repro_torch.kernels.ref.ref_nm_stream_spmm` and
+the packed slots otherwise; the bitmap kernel chooses per tile on the
+device, decoding dense tiles for the tensor cores and walking the set bits
+of sparse ones.  On CPU tensors they run the plain versions,
+:func:`~repro_torch.kernels.ref.ref_nm_stream_spmm_dense` and
 :func:`~repro_torch.kernels.ref.ref_bitmap_stream_spmm`.  A CUDA call
 launches its kernel or raises.
+
+Where B holds an Inf or NaN the kernels multiply every tile entry, as the
+TPU kernels' dense product does (see :func:`~repro_torch.kernels.
+dense_tile_spmm.nonfinite_flags`), and so do both plain versions.  The ``"torch"``
+impl runs :func:`~repro_torch.kernels.ref.ref_nm_stream_spmm` instead, the
+reference's gather form (its ``"xla"`` oracle), which multiplies only the
+packed slots: with finite B the two agree within fp32 rounding.
 """
 from __future__ import annotations
 
@@ -28,14 +36,14 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .dense_tile_spmm import window_segments
-from .ref import ref_bitmap_stream_spmm, ref_nm_stream_spmm
+from .dense_tile_spmm import nonfinite_flags, window_segments
+from .ref import ref_bitmap_stream_spmm, ref_nm_stream_spmm_dense
 
 NAME = "structured_spmm"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES_NM = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
-_ARGTYPES_BITMAP = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_ARGTYPES_NM = (_P,) * 6 + (_I, _P, _P) + (_I,) * 6 + (_P,)
+_ARGTYPES_BITMAP = (_P,) * 6 + (_I, _P, _P) + (_I,) * 5 + (_P,)
 # the N:M kernel stages a whole tile as one slice of the tile core
 # (tile_core::kSlice)
 NM_MAX_BK = 64
@@ -79,8 +87,9 @@ def nm_tile_spmm(
     caller has it cached (plans keep it in ``plan.derived``).
     """
     if b.device.type == "cpu":
-        return ref_nm_stream_spmm(step_window, step_col, nm_values, nm_codes,
-                                  b, num_windows, n_pat, m_pat, bk)
+        return ref_nm_stream_spmm_dense(step_window, step_col, nm_values,
+                                        nm_codes, b, num_windows, n_pat,
+                                        m_pat, bk)
     if (not 1 <= n_pat <= 4 or m_pat <= 0 or bk % m_pat or bk > NM_MAX_BK
             or b.ndim != 2 or b.shape[0] % bk):
         raise ValueError(
@@ -101,10 +110,11 @@ def nm_tile_spmm(
     out = torch.empty((num_windows * bm, n), dtype=torch.float32,
                       device=b.device)
     fn = _build.function(NAME, "nm_tile_spmm_launch", _ARGTYPES_NM)
+    flags = nonfinite_flags(b)
     status = fn(order.data_ptr(), seg.data_ptr(), step_col.data_ptr(),
                 nm_values.data_ptr(), nm_codes.data_ptr(), b.data_ptr(),
-                out.data_ptr(), num_windows, bm, bk, n, n_pat, m_pat,
-                _stream(b))
+                b.shape[0], flags.data_ptr(), out.data_ptr(), num_windows,
+                bm, bk, n, n_pat, m_pat, _stream(b))
     _build.check_status(status, "nm_tile_spmm")
     nm_tile_spmm.launches += 1
     return out
@@ -146,10 +156,11 @@ def bitmap_tile_spmm(
     out = torch.empty((num_windows * bm, n), dtype=torch.float32,
                       device=b.device)
     fn = _build.function(NAME, "bitmap_tile_spmm_launch", _ARGTYPES_BITMAP)
+    flags = nonfinite_flags(b)
     status = fn(order.data_ptr(), seg.data_ptr(), step_col.data_ptr(),
                 bitmap_words.data_ptr(), bitmap_values.data_ptr(),
-                b.data_ptr(), out.data_ptr(), num_windows, bm, bk, n,
-                row_cap, _stream(b))
+                b.data_ptr(), b.shape[0], flags.data_ptr(), out.data_ptr(),
+                num_windows, bm, bk, n, row_cap, _stream(b))
     _build.check_status(status, "bitmap_tile_spmm")
     bitmap_tile_spmm.launches += 1
     return out

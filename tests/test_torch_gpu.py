@@ -10,6 +10,8 @@ Tolerance: max |kernel - plain| <= 1e-4 * max(1, max|plain|); both sides
 are fp32 summed in different orders (the kernels' tensor-core path is
 3xTF32, about fp32 accuracy; no TF32 switch is set).
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -383,3 +385,228 @@ def test_execute_structured_cuda_matches_plain(cuda, name, hint, fmt):
     bb = rng.randn(2, spec.k, 40).astype(np.float32)
     _close(api.execute(p_cuda, torch.from_numpy(bb).to(cuda)),
            api.execute(p_cpu, torch.from_numpy(bb)).to(cuda))
+
+
+def _close_nan(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Equal NaN and +-Inf positions (with their signs), finite cells within
+    the tolerance: torch.allclose(..., equal_nan=True) with the scale of
+    the finite cells."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    _close(got[fin], want[fin])
+
+
+def _with_nonfinite(rng, b):
+    """b with +Inf, -Inf and NaN at three seeded cells each."""
+    b = b.copy()
+    k, n = b.shape
+    for value in (np.inf, -np.inf, np.nan):
+        b[rng.randint(0, k, 3), rng.randint(0, n, 3)] = value
+    return b
+
+
+def _bitmap_stream(rng, t, bm, bk, density, row_cap=None):
+    """Seeded tiles at the given densities, packed as bitmaps; with
+    ``row_cap`` the values are cut to that many per row (rows with more set
+    bits read their last value again, as the reference clamps), and bits
+    past bk are set in the last word (they select nothing)."""
+    from repro_torch.core.formats import pack_bitmap_tiles
+
+    flat = _sparse_tiles(rng, t, bm, bk, density)
+    words, values, cap = pack_bitmap_tiles(flat)
+    if row_cap is not None:
+        values = np.ascontiguousarray(values[:, :, :row_cap])
+        cap = row_cap
+    if bk % 32:
+        junk = rng.randint(0, 2 ** 31, words.shape[:2]).astype(np.int64)
+        junk &= ~((1 << (bk % 32)) - 1)
+        words[:, :, -1] |= junk.astype(np.int32)
+    return words, values, cap
+
+
+@pytest.mark.parametrize("density,bk,n,row_cap", [
+    ((0.02, 0.5), 64, 256, None),    # walk and decode + 3xTF32 in one call
+    ((0.02, 0.5), 64, 2048, None),   # the pruned-weight paths' N
+    ((0.01,), 64, 200, None),        # walk only, N not a multiple of 128
+    ((0.6,), 64, 90, 24),            # rows past row_cap (clamped ranks)
+    ((0.03, 0.4), 72, 130, None),    # two k-slices, bits past bk
+    ((0.5,), 40, 64, 16),            # one narrow slice, bits past bk
+])
+def test_bitmap_tile_spmm_paths_match_plain(cuda, density, bk, n, row_cap):
+    rng = np.random.RandomState(bk + n + int(100 * density[0]))
+    nw, nkb, t, bm = 7, 6, 120, 128
+    sw, sc = _window_sorted_stream(rng, t, nw, nkb, empty=(3,))
+    words, values, cap = _bitmap_stream(rng, t, bm, bk, density, row_cap)
+    if row_cap is not None:
+        counts = np.unpackbits(words.view(np.uint8), axis=-1).sum(-1)
+        assert counts.max() > cap   # the clamp is exercised
+    b = rng.randn(nkb * bk, n).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda)
+            for x in (sw, sc, words, values, b)]
+    kw = dict(num_windows=nw, bm=bm, bk=bk, row_cap=cap)
+    before = bitmap_tile_spmm.launches
+    got = bitmap_tile_spmm(*args, **kw)
+    again = bitmap_tile_spmm(*args, **kw)
+    assert bitmap_tile_spmm.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, ref.ref_bitmap_stream_spmm(*args, nw, bk))
+    assert not got.reshape(nw, bm, n)[3].any()
+
+
+def test_bitmap_tile_spmm_row_cap_too_wide_raises(cuda):
+    """A payload whose one ring stage does not fit in shared memory is
+    refused at launch, never run."""
+    from repro_torch.errors import DispatchError
+
+    t, bm, bk, cap = 2, 128, 64, 4096
+    zeros = dict(device=cuda)
+    with pytest.raises(DispatchError):
+        bitmap_tile_spmm(
+            torch.zeros(t, dtype=torch.int32, **zeros),
+            torch.zeros(t, dtype=torch.int32, **zeros),
+            torch.zeros((t, bm, 2), dtype=torch.int32, **zeros),
+            torch.zeros((t, bm, cap), **zeros), torch.zeros((bk, 8), **zeros),
+            num_windows=1, bm=bm, bk=bk, row_cap=cap)
+
+
+@pytest.mark.parametrize("n", [1, 3, 130, 256, 600])
+def test_gather_spmm_rows_match_plain(cuda, n):
+    """A row of 5,000 nonzeros, empty rows, rows of one nonzero, and every
+    ragged edge of N; two calls agree bit for bit."""
+    rng = np.random.RandomState(n)
+    k = 3000
+    lengths = rng.randint(0, 40, 400)
+    lengths[::7] = 0
+    lengths[1::7] = 1
+    lengths[5] = 5000
+    rows = np.repeat(np.arange(lengths.size), lengths).astype(np.int32)
+    cols = rng.randint(0, k, rows.size).astype(np.int32)
+    vals = rng.randn(rows.size).astype(np.float32)
+    b = rng.randn(k, n).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda) for x in (rows, cols, vals, b)]
+    before = gather_spmm.launches
+    got = gather_spmm(*args, num_rows=lengths.size)
+    again = gather_spmm(*args, num_rows=lengths.size)
+    assert gather_spmm.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, ref.ref_gather_spmm(*args, num_rows=lengths.size))
+    assert not got[lengths == 0].any()
+
+
+def test_gather_spmm_variants_match_plain(cuda):
+    """Every slice width and unroll depth of the sweep's entry point
+    computes the same product."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gather_spmm import csr_indptr
+
+    rng = np.random.RandomState(11)
+    num_rows, k, nnz, n = 300, 2000, 20000, 256
+    rows = np.sort(rng.randint(0, num_rows, nnz)).astype(np.int32)
+    cols = rng.randint(0, k, nnz).astype(np.int32)
+    vals = rng.randn(nnz).astype(np.float32)
+    b = rng.randn(k, n).astype(np.float32)
+    r, c, v, bb = (torch.from_numpy(x).to(cuda) for x in (rows, cols, vals, b))
+    indptr = csr_indptr(r, num_rows)
+    want = ref.ref_gather_spmm(r, c, v, bb, num_rows)
+    fn = _build.function("gather_spmm", "gather_spmm_variant_launch",
+                         (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
+                         + (ctypes.c_void_p,))
+    stream = torch.cuda.current_stream().cuda_stream
+    for slice_cols, unroll in ((16, 2), (16, 4), (32, 2), (32, 4), (32, 8),
+                               (64, 2), (64, 4), (64, 8), (128, 2), (128, 4),
+                               (128, 8), (256, 2), (256, 4), (256, 8)):
+        out = torch.empty((num_rows, n), device=cuda)
+        status = fn(indptr.data_ptr(), c.data_ptr(), v.data_ptr(),
+                    bb.data_ptr(), out.data_ptr(), num_rows, n, slice_cols,
+                    unroll, stream)
+        assert status == 0, (slice_cols, unroll)
+        _close(out, want)
+
+
+@pytest.mark.parametrize("density", [(0.02,), (0.5,), (0.02, 0.5)])
+def test_dense_tile_spmm_nonfinite_b_matches_plain(cuda, density):
+    """+Inf, -Inf and NaN in B: every tile entry is multiplied, as in the
+    plain (dense) product: 0 * Inf = NaN, a nonzero times Inf = +-Inf."""
+    rng = np.random.RandomState(int(100 * density[-1]))
+    nw, nkb, t, bm, bk, n = 5, 6, 80, 128, 64, 256
+    sw = rng.randint(0, nw, t).astype(np.int32)
+    sc = rng.randint(0, nkb, t).astype(np.int32)
+    fv = _sparse_tiles(rng, t, bm, bk, density)
+    b = _with_nonfinite(rng, rng.randn(nkb * bk, n).astype(np.float32))
+    args = [torch.from_numpy(x).to(cuda) for x in (sw, sc, fv, b)]
+    got = dense_tile_spmm(*args, num_windows=nw, bm=bm, bk=bk)
+    want = ref.ref_block_stream_spmm(*args, num_windows=nw)
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    _close_nan(got, want)
+    # finite B on the same tiles keeps the fast paths' answer
+    args[3] = torch.from_numpy(rng.randn(nkb * bk, n).astype(np.float32)).to(
+        cuda)
+    _close(dense_tile_spmm(*args, num_windows=nw, bm=bm, bk=bk),
+           ref.ref_block_stream_spmm(*args, num_windows=nw))
+
+
+@pytest.mark.parametrize("n_pat,m_pat", [(2, 4), (1, 32)])
+def test_nm_tile_spmm_nonfinite_b_matches_dense_plain(cuda, n_pat, m_pat):
+    """Both N:M paths (decode + 3xTF32 at 2:4, the slot walk at 1:32) give
+    the TPU kernel's dense-tile answer with Inf and NaN in B."""
+    from repro_torch.core.formats import pack_nm_tiles
+
+    rng = np.random.RandomState(m_pat)
+    nw, nkb, t, bm, bk, n = 5, 6, 60, 128, 64, 256
+    sw, sc = _window_sorted_stream(rng, t, nw, nkb, empty=(2,))
+    g = rng.randn(t, bm, bk // m_pat, m_pat).astype(np.float32)
+    keep = np.argsort(rng.rand(*g.shape), axis=-1) < n_pat
+    vals, codes = pack_nm_tiles(
+        np.where(keep, g, 0.0).astype(np.float32).reshape(t, bm, bk),
+        n_pat, m_pat)
+    b = _with_nonfinite(rng, rng.randn(nkb * bk, n).astype(np.float32))
+    args = [torch.from_numpy(x).to(cuda) for x in (sw, sc, vals, codes, b)]
+    got = nm_tile_spmm(*args, num_windows=nw, bm=bm, bk=bk, n_pat=n_pat,
+                       m_pat=m_pat)
+    want = ref.ref_nm_stream_spmm_dense(*args, nw, n_pat, m_pat, bk)
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    _close_nan(got, want)
+
+
+@pytest.mark.parametrize("density", [(0.02,), (0.5,), (0.02, 0.5)])
+def test_bitmap_tile_spmm_nonfinite_b_matches_plain(cuda, density):
+    rng = np.random.RandomState(int(1000 * density[0]))
+    nw, nkb, t, bm, bk, n = 5, 6, 60, 128, 64, 200
+    sw, sc = _window_sorted_stream(rng, t, nw, nkb, empty=(2,))
+    words, values, cap = _bitmap_stream(rng, t, bm, bk, density)
+    b = _with_nonfinite(rng, rng.randn(nkb * bk, n).astype(np.float32))
+    args = [torch.from_numpy(x).to(cuda)
+            for x in (sw, sc, words, values, b)]
+    got = bitmap_tile_spmm(*args, num_windows=nw, bm=bm, bk=bk, row_cap=cap)
+    want = ref.ref_bitmap_stream_spmm(*args, nw, bk)
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    _close_nan(got, want)
+
+
+@pytest.mark.parametrize("where", [0, -1])
+def test_nonfinite_check_covers_unaligned_b_and_its_tail(cuda, where):
+    """The check of B reads every element: B one float off 16-byte
+    alignment, N = 3, a NaN in its first or its last element."""
+    rng = np.random.RandomState(3)
+    nw, nkb, t, bm, bk, n = 3, 4, 20, 128, 64, 3
+    sw = rng.randint(0, nw, t).astype(np.int32)
+    sc = np.arange(t, dtype=np.int32) % nkb
+    fv = _sparse_tiles(rng, t, bm, bk, (0.05,))
+    flat = torch.from_numpy(
+        rng.randn(nkb * bk * n + 1).astype(np.float32)).to(cuda)
+    b = flat[1:].view(nkb * bk, n)
+    assert b.data_ptr() % 16 != 0
+    b.view(-1)[where] = float("nan")
+    args = [torch.from_numpy(x).to(cuda) for x in (sw, sc, fv)] + [b]
+    got = dense_tile_spmm(*args, num_windows=nw, bm=bm, bk=bk)
+    want = ref.ref_block_stream_spmm(*args, num_windows=nw)
+    assert torch.isnan(want).any()
+    _close_nan(got, want)
+

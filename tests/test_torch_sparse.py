@@ -143,7 +143,7 @@ def test_failed_structured_build_raises(tmp_path, monkeypatch):
     def plain(*args, **kwargs):
         raise AssertionError("the plain version ran for a non-CPU operand")
 
-    monkeypatch.setattr(ss, "ref_nm_stream_spmm", plain)
+    monkeypatch.setattr(ss, "ref_nm_stream_spmm_dense", plain)
     monkeypatch.setattr(ss, "ref_bitmap_stream_spmm", plain)
     # tensors on the "meta" device: not on the CPU, and no card needed
     meta = dict(device="meta")
