@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The sweep that chose gather_spmm's design constants (kDefaultSlice,
-kDefaultUnroll and kDefaultStream in
-``src/repro_torch/kernels/csrc/gather_spmm.cu``) on one NVIDIA GPU.
+"""The sweep that chose gather_spmm's design constants (kDefaultSlice and
+kDefaultUnroll in ``src/repro_torch/kernels/csrc/gather_spmm.cu``) on one
+NVIDIA GPU, with gather_spmm_ksharded's two forms beside them.
 
     python3 bench_torch/gather_sweep.py [--out build/gather_sweep.json]
 
@@ -16,6 +16,11 @@ events, it times
 - ``gather_spmm`` as committed, and every (slice width, unroll depth) of
   VARIANTS through ``gather_spmm_variant_launch``, each held against the
   plain version (1e-4 * max(1, max|plain|));
+- ``gather_spmm_ksharded`` on the same fringe bucketed for the k-sharded
+  tier (bk = 2048, chunks of 8, as ``prepare`` pads them): as committed
+  (its values gathered into the row-major order by its own kernel, then
+  the walk), and with that gather done by PyTorch's ``index_select``
+  instead; each held against ``ref_gather_spmm_kblocked``;
 - ``torch.sparse.mm`` on the CSR of the same fringe (the library call);
 - the gather-bandwidth probe (``gather_probe_launch``): as many 1 KB rows
   as the fringe has nonzeros, read at random from the first 23,437 rows of
@@ -112,8 +117,10 @@ def main() -> int:
         print("gather_sweep.py: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build, ref
+    from repro_torch.core.plan_ir import bucket_fringe_kblocks
     from repro_torch.kernels.gather_spmm import (
-        csr_indptr, fringe_profile, gather_spmm,
+        csr_indptr, fringe_profile, gather_spmm, gather_spmm_ksharded,
+        kbucket_row_order,
     )
 
     dev = torch.device("cuda")
@@ -180,6 +187,28 @@ def main() -> int:
             return out
         record(kernel="gather_spmm", slice=s, unroll=u, ms=timed_ms(run),
                max_abs_err=check(run(), want))
+    # the k-sharded tier's two forms on the same fringe
+    bk = 2048
+    kb = bucket_fringe_kblocks(rows_np, cols_np, vals.cpu().numpy(),
+                               -(-K // bk) * bk, bk, 8)
+    kbc, kbr, kbcol, kbv = (torch.from_numpy(x).to(dev) for x in kb[:4])
+    del kb
+    order = kbucket_row_order(kbc, kbr, kbcol, num_rows, bk)
+    want_kb = ref.ref_gather_spmm_kblocked(kbc, kbr, kbcol, kbv, b,
+                                           num_rows, bk, step=1 << 21)
+    for form, run in (
+            ("committed",
+             lambda: gather_spmm_ksharded(kbc, kbr, kbcol, kbv, b,
+                                          num_rows=num_rows, bk=bk,
+                                          row_order=order)),
+            ("values gathered by index_select, then the walk",
+             lambda: gather_spmm(order.cols, order.cols,
+                                 kbv.index_select(0, order.perm), b,
+                                 num_rows=num_rows, indptr=order.indptr))):
+        record(kernel="gather_spmm_ksharded", form=form, bk=bk,
+               entries=kbr.numel(), ms=timed_ms(run),
+               max_abs_err=check(run(), want_kb))
+    del kbc, kbr, kbcol, kbv, order, want_kb
     crow = indptr.long()
     csr = torch.sparse_csr_tensor(crow, cols.long(), vals, (num_rows, K))
     record(kernel="torch.sparse.mm (CSR)", ms=timed_ms(

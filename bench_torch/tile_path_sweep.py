@@ -131,6 +131,9 @@ def main() -> int:
             torch.where(keep, vals, torch.zeros((), device=dev)))
         del vals, keep
 
+    # every tile value above is finite: the flag a plan would hold for them
+    # (plan_ir.unsplittable_flag), so no call reads its tiles to find it
+    finite = torch.zeros(1, dtype=torch.int32, device=dev)
     src = _build.CSRC
     records = []
     for build, threshold in (("as is", None), ("walk", "2.0"),
@@ -155,7 +158,7 @@ def main() -> int:
                 return dts.dense_tile_spmm(sw, sc, fv, b1_b, num_windows=nw,
                                            bm=128, bk=64,
                                            segments=b1_segments,
-                                           chunks=b1_chunks)
+                                           chunks=b1_chunks, a_flag=finite)
             err = check(kern(), ref.ref_block_stream_spmm(
                 sw, sc, fv, b1_b, nw, tile_chunk=512))
             records.append({"kernel": "dense_tile_spmm", "build": build,
@@ -167,7 +170,7 @@ def main() -> int:
                 return ss.nm_tile_spmm(nm_sw, nm_sc, vals, codes, nm_b,
                                        num_windows=86, bm=128, bk=64,
                                        n_pat=n_pat, m_pat=m_pat,
-                                       segments=nm_segments)
+                                       segments=nm_segments, a_flag=finite)
             err = check(kern(), ref.ref_nm_stream_spmm(
                 nm_sw, nm_sc, vals, codes, nm_b, 86, n_pat, m_pat, 64,
                 tile_chunk=16))
@@ -180,7 +183,8 @@ def main() -> int:
             def kern():
                 return ss.bitmap_tile_spmm(nm_sw, nm_sc, words, values, nm_b,
                                            num_windows=86, bm=128, bk=64,
-                                           row_cap=cap, segments=nm_segments)
+                                           row_cap=cap, segments=nm_segments,
+                                           a_flag=finite)
             err = check(kern(), ref.ref_bitmap_stream_spmm(
                 nm_sw, nm_sc, words, values, nm_b, 86, 64, tile_chunk=128))
             records.append({"kernel": "bitmap_tile_spmm", "build": build,

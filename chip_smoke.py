@@ -42,7 +42,10 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    plain version, one PyTorch library call computing the same function,
    and its bound on the card, and prints them as one JSON line.
    gather_spmm_ksharded is also held and timed on the Reddit-scale fringe,
-   pushed onto the k-sharded tier (printed on its own line).
+   pushed onto the k-sharded tier (printed on its own line), and on both
+   streams with an Inf in the first B row of a padded k-block, whose
+   padding entries must give NaN in row 0 as the plain version does.
+   dense_tile_sddmm runs twice at reddit scale, bit-identical.
    dense_tile_spmm runs twice on the reddit-scale plan, and the two results
    must be bit-identical; then it and bitmap_tile_spmm are timed on one
    4,096-tile stream at each tile density of SWEEP_DENSITIES (one JSON
@@ -144,6 +147,7 @@ def density_sweep(kernel, sparse_tiles, timed_ms, operand, log):
     import torch
 
     from repro_torch.core.formats import pack_bitmap_tiles_torch
+    from repro_torch.core.plan_ir import unsplittable_flag
     from repro_torch.kernels.dense_tile_spmm import (
         window_chunks, window_segments,
     )
@@ -161,15 +165,16 @@ def density_sweep(kernel, sparse_tiles, timed_ms, operand, log):
     rows, rows_b7 = [], []
     for density in SWEEP_DENSITIES:
         fv = sparse_tiles(nw * per, (density,))
+        flag = unsplittable_flag(fv)   # as a plan holds it
         ms = timed_ms(lambda: kernel(sw, sc, fv, b, num_windows=nw, bm=128,
                                      bk=64, segments=segments,
-                                     chunks=chunks))
+                                     chunks=chunks, a_flag=flag))
         path = "mma" if density >= threshold else "walk"
         rows.append({"density": density, "ms": ms, "path": path})
         words, values, cap = pack_bitmap_tiles_torch(fv)
         ms = timed_ms(lambda: bitmap_tile_spmm(
             sw, sc, words, values, b, num_windows=nw, bm=128, bk=64,
-            row_cap=cap, segments=segments))
+            row_cap=cap, segments=segments, a_flag=flag))
         rows_b7.append({"density": density, "ms": ms, "path": path,
                         "row_cap": cap})
         del fv, words, values
@@ -210,12 +215,28 @@ def check_cost_line(fn, spmm_ms):
             f"{ms:.4f} ms = {100 * ms / spmm_ms:.2f} % of it")
 
 
+# values the 3xTF32 split cannot carry: cvt.rna.tf32 rounds |x| from
+# 3.401993e38 up to Inf
+BIG = 3.402e38
+# the non-finite phase's cases: (label, operand, values planted in it)
+NONFINITE_CASES = (
+    ("B with +Inf, -Inf and NaN", "b",
+     (float("inf"),) * 3 + (-float("inf"),) * 3 + (float("nan"),) * 3),
+    ("A with +Inf, -Inf, NaN and +-3.402e38", "a",
+     (float("inf"), -float("inf"), float("nan"), BIG, -BIG)),
+    ("B with +-3.402e38", "b", (BIG, -BIG, BIG, -BIG)),
+)
+
+
 def nonfinite_phase(ctx):
-    """B1, B6 (2:4 and 1:32) and B7 on stand-ins with +Inf, -Inf and NaN
-    in B, each against its plain (dense-tile) version: NaN and +-Inf in the
-    same cells, with the same signs, and the finite cells within the
-    tolerance.  B1 and B7 take tiles alternating 2 % and 50 % (both of
-    their paths in one launch)."""
+    """B1, B6 (2:4 and 1:32) and B7 on stand-ins with values the 3xTF32
+    split cannot carry (NONFINITE_CASES: +Inf, -Inf and NaN in B; the same
+    and +-3.402e38 in A's stored values; +-3.402e38 in B), each against its
+    plain (dense-tile) version: NaN and +-Inf in the same cells, with the
+    same signs, and the finite cells within the tolerance.  B1 and B7 take
+    tiles alternating 2 % and 50 % (both of their paths in one launch).
+    A's values reach the kernels' routing through the flag a plan keeps
+    (the wrappers compute it from the tile values here)."""
     import numpy as np
     import torch
 
@@ -230,53 +251,104 @@ def nonfinite_phase(ctx):
     sw = torch.arange(nw, device=dev, dtype=torch.int32).repeat_interleave(
         per)
     sc = torch.arange(nw * per, device=dev, dtype=torch.int32) % per
-    b = ctx.operand(per * 64, n)
-    cells = torch.randint(0, b.numel(), (9,), generator=ctx.gen, device=dev)
-    b.view(-1)[cells] = torch.tensor([np.inf] * 3 + [-np.inf] * 3
-                                     + [np.nan] * 3, device=dev)
-    fv = ctx.sparse_tiles(nw * per, (0.02, 0.5))
-    words, values, cap = pack_bitmap_tiles_torch(fv)
+    fv0 = ctx.sparse_tiles(nw * per, (0.02, 0.5))
+    b0 = ctx.operand(per * 64, n)
     rng = np.random.RandomState(15)
-    runs = [
-        ("dense_tile_spmm",
-         lambda: dense_tile_spmm(sw, sc, fv, b, num_windows=nw, bm=128,
-                                 bk=64),
-         lambda: ref.ref_block_stream_spmm(sw, sc, fv, b, nw)),
-        ("bitmap_tile_spmm",
-         lambda: bitmap_tile_spmm(sw, sc, words, values, b, num_windows=nw,
-                                  bm=128, bk=64, row_cap=cap),
-         lambda: ref.ref_bitmap_stream_spmm(sw, sc, words, values, b, nw,
-                                            64)),
-    ]
+    nm_flat = {}
     for n_pat, m_pat in ((2, 4), (1, 32)):
         g = rng.randn(nw * per, 128, 64 // m_pat, m_pat).astype(np.float32)
         keep = np.argsort(rng.rand(*g.shape), axis=-1) < n_pat
-        vals, codes = (torch.from_numpy(x).to(dev) for x in pack_nm_tiles(
-            np.where(keep, g, 0.0).reshape(nw * per, 128, 64), n_pat, m_pat))
-        runs.append((
-            f"nm_tile_spmm {n_pat}:{m_pat}",
-            lambda v=vals, c=codes, np_=n_pat, mp=m_pat: nm_tile_spmm(
-                sw, sc, v, c, b, num_windows=nw, bm=128, bk=64, n_pat=np_,
-                m_pat=mp),
-            lambda v=vals, c=codes, np_=n_pat, mp=m_pat:
-                ref.ref_nm_stream_spmm_dense(sw, sc, v, c, b, nw, np_, mp,
-                                             64)))
-    for label, kern, plain in runs:
-        got, want = kern(), plain()
+        nm_flat[n_pat, m_pat] = np.where(keep, g, 0.0).reshape(nw * per, 128,
+                                                               64)
+    for case, operand, values in NONFINITE_CASES:
+        b, fv = b0.clone(), fv0.clone()
+        flats = {key: f.copy() for key, f in nm_flat.items()}
+        if operand == "b":
+            # distinct columns: no output cell sums two +-3.402e38 terms,
+            # whose overflow would depend on the order of the sum
+            cols = torch.randperm(n, generator=ctx.gen, device=dev)[
+                :len(values)]
+            rows = torch.randint(0, b.shape[0], (len(values),),
+                                 generator=ctx.gen, device=dev)
+            b[rows, cols] = torch.tensor(values, device=dev)
+        else:
+            # one value per row of tile 1 (50 % dense), on a stored cell
+            for r, v in enumerate(values):
+                fv[1, r, int(torch.nonzero(fv[1, r])[0])] = v
+                for f in flats.values():
+                    f[1, r, np.flatnonzero(f[1, r])[0]] = v
+        words, vals_b, cap = pack_bitmap_tiles_torch(fv)
+        runs = [
+            ("dense_tile_spmm",
+             lambda: dense_tile_spmm(sw, sc, fv, b, num_windows=nw, bm=128,
+                                     bk=64),
+             lambda: ref.ref_block_stream_spmm(sw, sc, fv, b, nw)),
+            ("bitmap_tile_spmm",
+             lambda: bitmap_tile_spmm(sw, sc, words, vals_b, b,
+                                      num_windows=nw, bm=128, bk=64,
+                                      row_cap=cap),
+             lambda: ref.ref_bitmap_stream_spmm(sw, sc, words, vals_b, b, nw,
+                                                64)),
+        ]
+        for (n_pat, m_pat), flat in flats.items():
+            vals, codes = (torch.from_numpy(x).to(dev)
+                           for x in pack_nm_tiles(flat, n_pat, m_pat))
+            runs.append((
+                f"nm_tile_spmm {n_pat}:{m_pat}",
+                lambda v=vals, c=codes, np_=n_pat, mp=m_pat: nm_tile_spmm(
+                    sw, sc, v, c, b, num_windows=nw, bm=128, bk=64,
+                    n_pat=np_, m_pat=mp),
+                lambda v=vals, c=codes, np_=n_pat, mp=m_pat:
+                    ref.ref_nm_stream_spmm_dense(sw, sc, v, c, b, nw, np_,
+                                                 mp, 64)))
+        for label, kern, plain in runs:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            nan, inf = torch.isnan(want), torch.isinf(want)
+            ctx.require(bool(nan.any()) or bool(inf.any()),
+                        (label, case, "vacuous"))
+            ctx.require(torch.equal(torch.isnan(got), nan),
+                        (label, case, "NaN cells"))
+            ctx.require(torch.equal(torch.isinf(got), inf)
+                        and torch.equal(got[inf], want[inf]),
+                        (label, case, "Inf cells"))
+            fin = torch.isfinite(want)
+            err = (got[fin] - want[fin]).abs().max().item()
+            scale = max(1.0, want[fin].abs().max().item())
+            ctx.require(err <= TOL * scale, (label, case, err, scale))
+            ctx.log(f"  {label}, {case}: {int(nan.sum())} NaN and "
+                    f"{int(inf.sum())} +-Inf cells as in the plain version; "
+                    f"finite cells max |diff| {err:.3e}")
+        del b, fv, words, vals_b, runs
+
+
+def grad_guard_phase(ctx, a):
+    """A "cuda" spmm and sddmm on plan ``a`` whose operand requires grad
+    raise the typed error (the kernels have no backward yet); the same
+    calls under torch.no_grad() run."""
+    import torch
+
+    from repro_torch.errors import NotPortedError
+
+    m, k = a.shape
+    b = torch.randn(k, 16, device=ctx.dev, requires_grad=True)
+    x = torch.randn(m, 8, device=ctx.dev, requires_grad=True)
+    y = torch.randn(8, k, device=ctx.dev)
+    for label, call in (("spmm", lambda: ctx.sp.spmm(a, b)),
+                        ("sddmm", lambda: ctx.sp.sddmm(a, x, y))):
+        try:
+            call()
+        except NotPortedError as err:
+            ctx.require("SpMMOperator" in str(err), (label, str(err)))
+        else:
+            ctx.require(False, f"{label} with a grad operand did not raise")
+        with torch.no_grad():
+            out = call()
         torch.cuda.synchronize()
-        nan, inf = torch.isnan(want), torch.isinf(want)
-        ctx.require(bool(nan.any()) and bool(inf.any()), (label, "vacuous"))
-        ctx.require(torch.equal(torch.isnan(got), nan), (label, "NaN cells"))
-        ctx.require(torch.equal(torch.isinf(got), inf)
-                    and torch.equal(got[inf], want[inf]),
-                    (label, "Inf cells"))
-        fin = torch.isfinite(want)
-        err = (got[fin] - want[fin]).abs().max().item()
-        scale = max(1.0, want[fin].abs().max().item())
-        ctx.require(err <= TOL * scale, (label, err, scale))
-        ctx.log(f"  {label}, B with +Inf, -Inf and NaN: {int(nan.sum())} "
-                f"NaN and {int(inf.sum())} +-Inf cells as in the plain "
-                f"version; finite cells max |diff| {err:.3e}")
+        ctx.require(bool(torch.isfinite(out).all())
+                    and not out.requires_grad, label)
+    ctx.log("  a grad-requiring operand on impl='cuda': spmm and sddmm "
+            "raise NotPortedError; under no_grad both run")
 
 
 def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
@@ -369,7 +441,7 @@ def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
                 return nm_tile_spmm(
                     p.step_window, p.step_col, p.nm_values, p.nm_codes, b,
                     num_windows=nw, bm=cfgp.bm, bk=cfgp.bk, n_pat=n_pat,
-                    m_pat=m_pat, segments=segs)
+                    m_pat=m_pat, segments=segs, a_flag=p.a_unsplittable)
 
             def plain():
                 return ref.ref_nm_stream_spmm(
@@ -382,7 +454,8 @@ def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
                 return bitmap_tile_spmm(
                     p.step_window, p.step_col, p.bitmap_words,
                     p.bitmap_values, b, num_windows=nw, bm=cfgp.bm,
-                    bk=cfgp.bk, row_cap=p.format_params[1], segments=segs)
+                    bk=cfgp.bk, row_cap=p.format_params[1], segments=segs,
+                    a_flag=p.a_unsplittable)
 
             def plain():
                 return ref.ref_bitmap_stream_spmm(
@@ -401,10 +474,12 @@ def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
         e_b1 = ctx.err_bound(
             dense_tile_spmm(p.step_window, p.step_col, p.flat_values, b,
                             num_windows=nw, bm=cfgp.bm, bk=cfgp.bk,
-                            segments=segs, chunks=chunks), out)
+                            segments=segs, chunks=chunks,
+                            a_flag=p.a_unsplittable), out)
         b1_ms = ctx.timed_ms(lambda: dense_tile_spmm(
             p.step_window, p.step_col, p.flat_values, b, num_windows=nw,
-            bm=cfgp.bm, bk=cfgp.bk, segments=segs, chunks=chunks))
+            bm=cfgp.bm, bk=cfgp.bk, segments=segs, chunks=chunks,
+            a_flag=p.a_unsplittable))
         w = torch.zeros((m, k), device=dev)
         w[torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)] = (
             torch.from_numpy(vals).to(dev))
@@ -468,7 +543,9 @@ def main() -> int:
         csr_indptr, fringe_profile, gather_spmm, gather_spmm_ksharded,
         kbucket_row_order,
     )
-    from repro_torch.kernels.sddmm import dense_tile_sddmm, gather_sddmm
+    from repro_torch.kernels.sddmm import (
+        dense_tile_sddmm, gather_sddmm, sampled_index,
+    )
     from repro_torch.kernels.structured_spmm import (
         bitmap_tile_spmm, nm_tile_spmm,
     )
@@ -542,13 +619,32 @@ def main() -> int:
 
     def sddmm_inputs(plan, x, y):
         """The tensors the SDDMM body hands each kernel for x @ y: the
-        window-gathered X panel, the permuted and K-padded Y, Y^T and the
-        extraction maps."""
+        window-gathered X panel, Y^T with its rows permuted and K-padded,
+        Y^T as it is, and the extraction maps."""
         cfg = plan.config
         xp = gather_rows(x, plan.core_row_map).contiguous()
-        yp = permute_pad_b(y.t(), plan.col_perm, cfg.reorder_cols, cfg.bk)
-        return (xp, yp.t().contiguous(), y.t().contiguous(),
-                build_sddmm_maps(plan))
+        ypt = permute_pad_b(y.t(), plan.col_perm, cfg.reorder_cols, cfg.bk)
+        return xp, ypt, y.t().contiguous(), build_sddmm_maps(plan)
+
+    def sampled(plan, xp, ypt, smaps, index=None):
+        """dense_tile_sddmm and its plain version on one plan: the values
+        at the core slots, written into a fresh (nnz,) buffer of 0s."""
+        cfg = plan.config
+
+        buf = torch.zeros(smaps.nnz, device=dev)  # non-core entries stay 0
+
+        def kern():
+            return dense_tile_sddmm(
+                plan.step_window, plan.step_col, smaps.core_lin, xp, ypt,
+                buf, bm=cfg.bm, bk=cfg.bk, index=index)
+
+        def plain():
+            return ref.ref_tile_sddmm_at_slots(
+                plan.step_window, plan.step_col, smaps.core_lin, xp, ypt,
+                torch.zeros(smaps.nnz, device=dev), cfg.bm, cfg.bk,
+                tile_chunk=2048)
+
+        return kern, plain
 
     # --- phase 2: kernels against their plain versions on the stand-ins ----
     standin_err = {}
@@ -590,14 +686,9 @@ def main() -> int:
                     p.fringe_bk),
             ))
         xs = operand(spec.m, N)
-        xp, yp, yt, smaps = sddmm_inputs(p, xs, operand(N, spec.k))
+        xp, ypt, yt, smaps = sddmm_inputs(p, xs, operand(N, spec.k))
         pairs += [(
-            "dense_tile_sddmm",
-            lambda: dense_tile_sddmm(p.step_window, p.step_col, xp, yp,
-                                     bm=p.config.bm, bk=p.config.bk),
-            lambda: ref.ref_tile_sddmm(p.step_window, p.step_col, xp, yp,
-                                       p.config.bm, p.config.bk),
-        ), (
+            "dense_tile_sddmm", *sampled(p, xp, ypt, smaps)), (
             "gather_sddmm",
             lambda: gather_sddmm(smaps.f_rows, smaps.f_cols, xs, yt),
             lambda: ref.ref_gather_sddmm(smaps.f_rows, smaps.f_cols, xs, yt),
@@ -606,7 +697,7 @@ def main() -> int:
             e = err_bound(kern(), plain())
             standin_err[kname] = max(standin_err.get(kname, 0.0), e)
             log(f"  {kname}: max |kernel - plain| = {e:.3e}")
-        del a, p, bp, xp, yp, yt, smaps, xs
+        del a, p, bp, xp, ypt, yt, smaps, xs
     # the structured lane's kernels on the DLMC stand-ins (4096 x 4096)
     for name, hint in (("dlmc-nm-1-32", None), ("dlmc-nm-2-32", None),
                        ("dlmc-unstr", "bitmap")):
@@ -704,6 +795,11 @@ def main() -> int:
     nonfinite_phase(types.SimpleNamespace(
         dev=dev, gen=gen, operand=operand, sparse_tiles=sparse_tiles,
         require=require, log=log))
+    spec = PAPER_DATASETS["cora"]
+    grad_guard_phase(types.SimpleNamespace(dev=dev, sp=sp, require=require,
+                                           log=log),
+                     sp.from_coo(*generate(spec), (spec.m, spec.k),
+                                 device=dev))
     require(set(standin_err) == {"dense_tile_spmm", "gather_spmm",
                                  "gather_spmm_ksharded", "dense_tile_sddmm",
                                  "gather_sddmm", "nm_tile_spmm",
@@ -834,6 +930,20 @@ def main() -> int:
                           torch.from_numpy(cols).to(dev), spec.m, spec.k)
     s_ref = torch.sparse.sampled_addmm(pattern, q, yk, beta=0.0).values()
     e_sddmm = err_bound(sp.sddmm(A, q, k_att.t()), s_ref)
+    # device memory of the SDDMM step alone (warm: its index arrays are in
+    # plan.derived), above what the path holds before it; the previous
+    # dense_tile_sddmm allocated the whole (T, bm, bk) fp32 stream
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    s_port = sp.sddmm(A, q, k_att.t())
+    torch.cuda.synchronize()
+    sddmm_peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    stream_gb = A.plan.flat_values.numel() * 4 / 1e9
+    log(f"  sddmm step: peak device memory {sddmm_peak_gb:.3f} GB above the "
+        f"{held / 1e9:.2f} GB held (the (T, bm, bk) stream the previous "
+        f"kernel wrote would be {stream_gb:.3f} GB)")
+    del s_port
     seg = torch.repeat_interleave(
         torch.arange(spec.m, device=dev), pattern.crow_indices().diff())
     e = s_ref / D_HEAD ** 0.5
@@ -899,6 +1009,35 @@ def main() -> int:
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
+    def padding_nan_check(label, kbc, kbr, kbcol, kbv, bmat, nr, bk, order):
+        """B3 with an Inf in the first B row of a k-block whose bucket is
+        padded: its padding entries (row 0, value 0) add 0 * Inf = NaN, as
+        in the plain version and the TPU kernel; NaN and Inf cells equal,
+        the rest within the tolerance."""
+        chunk = kbr.numel() // kbc.numel()
+        pad_kb = torch.repeat_interleave(kbc, chunk)[kbv == 0]
+        require(pad_kb.numel() > 0, (label, "no padding entries"))
+        b_inf = bmat.clone()
+        b_inf[int(pad_kb[0]) * bk, 3] = float("inf")
+        got = gather_spmm_ksharded(kbc, kbr, kbcol, kbv, b_inf, num_rows=nr,
+                                   bk=bk, row_order=order)
+        want = ref.ref_gather_spmm_kblocked(kbc, kbr, kbcol, kbv, b_inf, nr,
+                                            bk, step=1 << 21)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        require(bool(nan[0, 3]), (label, "padding entries gave no NaN"))
+        require(torch.equal(torch.isnan(got), nan)
+                and torch.equal(torch.isinf(got), torch.isinf(want)),
+                (label, "NaN/Inf cells"))
+        fin = torch.isfinite(want)
+        err = (got[fin] - want[fin]).abs().max().item()
+        require(err <= TOL * max(1.0, want[fin].abs().max().item()),
+                (label, err))
+        log(f"  gather_spmm_ksharded, {label}, an Inf in B row "
+            f"{int(pad_kb[0]) * bk} (a padded k-block's first): "
+            f"{int(nan.sum())} NaN cells as in the plain version, row 0's "
+            f"included; finite cells max |diff| {err:.3e}")
+
     def record(name, src, replaces, *args, other_errs=(), **kwargs):
         m = measure(name, *args, **kwargs)
         report.append({
@@ -950,7 +1089,8 @@ def main() -> int:
         "src/repro/kernels/dense_tile_spmm.py:65",
         lambda: dense_tile_spmm(p.step_window, p.step_col, p.flat_values, bp,
                                 num_windows=nw, bm=cfg.bm, bk=cfg.bk,
-                                segments=segments, chunks=chunks),
+                                segments=segments, chunks=chunks,
+                                a_flag=p.a_unsplittable),
         lambda: ref.ref_block_stream_spmm(p.step_window, p.step_col,
                                           p.flat_values, bp, nw,
                                           tile_chunk=2048),
@@ -964,7 +1104,8 @@ def main() -> int:
     # in chunk order, no atomics) must agree bit for bit
     c1, c2 = (dense_tile_spmm(p.step_window, p.step_col, p.flat_values, bp,
                               num_windows=nw, bm=cfg.bm, bk=cfg.bk,
-                              segments=segments, chunks=chunks)
+                              segments=segments, chunks=chunks,
+                              a_flag=p.a_unsplittable)
               for _ in range(2))
     torch.cuda.synchronize()
     same = bool(torch.equal(c1, c2))
@@ -976,16 +1117,16 @@ def main() -> int:
     density_sweep(dense_tile_spmm, sparse_tiles, timed_ms, operand, log)
 
     # B4 and B5 at the graph-attention path's shapes: X = q, Y = k^T, D=256
-    xp, yp, yt, smaps = sddmm_inputs(p, q, k_att.t())
+    xp, ypt, yt, smaps = sddmm_inputs(p, q, k_att.t())
     d = q.shape[1]
     # the library's SDDMM on the core tiles: the BSR above (square bk x bk
     # blocks) where the installed PyTorch takes a BSR input, else a CSR of
     # the core nonzeros in the original coordinates
     try:
-        torch.sparse.sampled_addmm(bsr, xp, yp, beta=0.0)
+        torch.sparse.sampled_addmm(bsr, xp, ypt.t(), beta=0.0)
         torch.cuda.synchronize()
         lib_b4_form = f"BSR {cfg.bk}x{cfg.bk} blocks of the tile stream"
-        lib_b4 = lambda: torch.sparse.sampled_addmm(bsr, xp, yp, beta=0.0)  # noqa: E731
+        lib_b4 = lambda: torch.sparse.sampled_addmm(bsr, xp, ypt.t(), beta=0.0)  # noqa: E731
     except (RuntimeError, NotImplementedError, ValueError, TypeError) as err:
         core = smaps.core_lin >= 0
         core_csr = pattern_csr(torch.from_numpy(rows).to(dev)[core],
@@ -996,18 +1137,29 @@ def main() -> int:
         lib_b4 = lambda: torch.sparse.sampled_addmm(core_csr, q, yk, beta=0.0)  # noqa: E731
     log(f"  library call for dense_tile_sddmm: torch.sparse.sampled_addmm on "
         f"{lib_b4_form}")
+    # the sampled product as the attention path calls it once warm: the
+    # index arrays plan.derived holds
+    index_b4 = sampled_index(p.step_window, p.step_col, smaps.core_lin,
+                             bm=cfg.bm, bk=cfg.bk)
+    n_core = index_b4.pos.numel()
+    kern_b4, plain_b4 = sampled(p, xp, ypt, smaps, index_b4)
     record(
         "dense_tile_sddmm", "sddmm.cu", "src/repro/kernels/sddmm.py:74",
-        lambda: dense_tile_sddmm(p.step_window, p.step_col, xp, yp,
-                                 bm=cfg.bm, bk=cfg.bk),
-        lambda: ref.ref_tile_sddmm(p.step_window, p.step_col, xp, yp,
-                                   cfg.bm, cfg.bk, tile_chunk=2048),
-        lib_b4,
-        nbytes=(t_steps * 8 + xp.numel() * 4 + yp.numel() * 4
-                + t_steps * cfg.bm * cfg.bk * 4),
-        flops=2 * tile_nnz * d,
+        kern_b4, plain_b4, lib_b4,
+        # each byte once: X's window panel, Y^T, three int32 per core
+        # nonzero and the segment table, one fp32 output per core nonzero
+        nbytes=(xp.numel() * 4 + ypt.numel() * 4 + n_core * 16
+                + index_b4.seg_kb.numel() * 8),
+        flops=2 * n_core * d,
     )
-    del bsr, lib_b4
+    first = kern_b4().clone()
+    second = kern_b4()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(first, second))
+    log(f"  dense_tile_sddmm twice at reddit scale ({n_core} core nonzeros, "
+        f"{index_b4.seg_kb.numel()} segments): bit-identical {same}")
+    require(same, "dense_tile_sddmm differs between two calls")
+    del bsr, lib_b4, first, second, kern_b4, plain_b4, index_b4
     nnz_fs = smaps.nnz_f
     f_pattern = pattern_csr(smaps.f_rows, smaps.f_cols, spec.m, spec.k)
     record(
@@ -1019,7 +1171,7 @@ def main() -> int:
         nbytes=nnz_fs * 12 + q.numel() * 4 + yt.numel() * 4,
         flops=2 * nnz_fs * d,
     )
-    del xp, yp, yt, f_pattern, q, k_att, yk
+    del xp, ypt, yt, f_pattern, q, k_att, yk
 
     def fringe_csr(plan, k_cols):
         nr = plan.fringe_row_ids.shape[0]
@@ -1082,7 +1234,7 @@ def main() -> int:
         k_pad, bk_s, ops.effective_chunk(cfg.fringe_chunk))
     kbc, kbr, kbcol, kbv = (torch.from_numpy(x).to(dev) for x in kb[:4])
     del kb
-    order_s = kbucket_row_order(kbr, nr)
+    order_s = kbucket_row_order(kbc, kbr, kbcol, nr, bk_s)
     log(f"reddit-scale fringe on the streaming tier: bk={bk_s}, "
         f"{kbc.numel()} chunks, {kbr.numel()} entries (bucketed in "
         f"{time.perf_counter() - t0:.1f} s)")
@@ -1097,13 +1249,19 @@ def main() -> int:
         + nr * n * 4,
         flops=2 * nnz_f * n,
     )
+    padding_nan_check("reddit-scale fringe", kbc, kbr, kbcol, kbv, bp, nr,
+                      bk_s, order_s)
     del kbc, kbr, kbcol, kbv, order_s, f_csr
 
     q = A_arxiv.plan
     bq, st_q = kernel_inputs(q, b_arxiv)
     nr_q = q.fringe_row_ids.shape[0]
     q_csr = fringe_csr(q, bq.shape[0])
-    row_order = kbucket_row_order(q.fringe_kb_rows, nr_q)
+    row_order = kbucket_row_order(q.fringe_kb_chunk, q.fringe_kb_rows,
+                                  q.fringe_kb_cols, nr_q, q.fringe_bk)
+    padding_nan_check("ogbn-arxiv stand-in", q.fringe_kb_chunk,
+                      q.fringe_kb_rows, q.fringe_kb_cols, q.fringe_kb_vals,
+                      bq, nr_q, q.fringe_bk, row_order)
     record(
         "gather_spmm_ksharded", "gather_spmm.cu",
         "src/repro/kernels/gather_spmm.py:213",

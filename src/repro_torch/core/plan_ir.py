@@ -20,7 +20,9 @@ as tensors on one device, in the same order and with the same contents:
 the device (window segment offsets and their chunk table, CSR row offsets,
 the row-major order of the k-bucketed stream, the SDDMM maps), built once
 on first use, never part of the leaf set, and shared by the plans a value
-update makes.
+update makes.  And it carries ``a_unsplittable``, a device flag computed
+from the matrix-path values themselves (:func:`unsplittable_flag`), which
+a value update recomputes.
 """
 from __future__ import annotations
 
@@ -214,6 +216,31 @@ def build_key_index(
     return key[order], order
 
 
+# fp32 magnitudes (as bits, sign cleared) from which the kernels' 3xTF32
+# split cannot carry a value: cvt.rna.tf32 rounds |x| >= 3.401993e38
+# (0x7f7ff000, half way past the largest tf32) to Inf, and Inf and NaN
+# (above 0x7f800000) have no finite low part either
+TF32_SPLIT_LIMIT_BITS = 0x7F7FF000
+# elements read per step by unsplittable_flag (bounds its temporaries)
+_FLAG_CHUNK = 1 << 24
+
+
+def unsplittable_flag(values: torch.Tensor) -> torch.Tensor:
+    """(1,) int32 on ``values``' device: 1 where ``values`` (fp32) holds a
+    value the 3xTF32 split cannot carry (an Inf, a NaN, or |x| >=
+    3.401993e38), else 0.  The matrix-path kernels read it on the device
+    and then multiply every tile entry in fp32, as the reference does.
+    Device ops only, in chunks: no host synchronisation."""
+    flat = values.detach().reshape(-1)
+    if flat.dtype != torch.float32:
+        raise PlanBuildError(f"values must be float32, got {flat.dtype}")
+    top = torch.zeros(1, dtype=torch.int32, device=flat.device)
+    for s in range(0, flat.numel(), _FLAG_CHUNK):
+        bits = flat[s:s + _FLAG_CHUNK].view(torch.int32) & 0x7FFFFFFF
+        top = torch.maximum(top, bits.max().reshape(1))
+    return (top >= TF32_SPLIT_LIMIT_BITS).to(torch.int32)
+
+
 # the 19 plan leaves, in NeutronPlan field order
 LEAF_NAMES = (
     "step_window", "step_col", "flat_values", "core_row_map",
@@ -266,6 +293,10 @@ class NeutronPlan:
     update_maps: Optional[UpdateMaps] = None
     # kernel-side index arrays derived from leaves on first use (not leaves)
     derived: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # unsplittable_flag(flat_values): (1,) int32 on the plan's device, read
+    # by the matrix-path kernels; not a leaf, and not in ``derived``, which
+    # value updates share (update_values recomputes it)
+    a_unsplittable: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -376,6 +407,7 @@ def plan_from_leaves(
         format_params=tuple(int(x) for x in meta.get("format_params",
                                                      (0, 0))),
         update_maps=meta.get("update_maps"),
+        a_unsplittable=unsplittable_flag(tensors["flat_values"]),
     )
 
 

@@ -11,6 +11,10 @@ indices, so the updated plan is bit-identical to a fresh ``prepare`` of the
 new values.  (A scatter that adds value deltas on the device would not be:
 ``a + (b - a) != b`` in fp32.)
 
+Where the core values change, the plan's ``a_unsplittable`` flag is
+computed again from the new tile stream (it lives on the plan, not in the
+shared ``derived``).
+
 The update is functional: the touched tensors are copied first, and the
 original plan is left as it was.  At Reddit scale that copy of
 ``flat_values`` is 5.85 GB of device memory for as long as both plans live.
@@ -33,7 +37,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..core.plan_ir import PATH_FRINGE, NeutronPlan, UpdateMaps
+from ..core.plan_ir import (
+    PATH_FRINGE, NeutronPlan, UpdateMaps, unsplittable_flag,
+)
 from ..errors import PlanBuildError
 
 
@@ -154,6 +160,8 @@ def update_values(plan: NeutronPlan, indices, new_values) -> NeutronPlan:
     if core_ids.size:
         touched, sums = _recompute_core_slots(maps, core_ids, cur)
         replacements["flat_values"] = _set(plan.flat_values, touched, sums)
+        replacements["a_unsplittable"] = unsplittable_flag(
+            replacements["flat_values"])
         if plan.matrix_format != "general":
             # the scatter stales the packed payload: demote to the (always
             # current) general leaves instead of re-packing per update

@@ -22,6 +22,10 @@ Category map (who raises what):
   ``exec.health`` table while the dispatch falls back.
 - :class:`DispatchError`       — an executor dispatch was rejected
   (operand/plan mismatch) or failed on *every* tier, fallback included.
+- :class:`NotPortedError`      — a :class:`DispatchError` for a call the
+  port does not carry yet: a gradient through a ``"cuda"`` operator (its
+  backward, ``SpMMOperator``, is not ported), ``SparseMatrix @
+  SparseMatrix`` (``spspmm``).  It names the missing piece.
 - :class:`CompactionError`     — background sidecar folds failed; carries
   every per-matrix failure in ``.errors`` (ExceptionGroup-style).
 - :class:`RegistryError`       — a persistent-registry entry is missing,
@@ -52,6 +56,11 @@ class KernelLoweringError(ReproError, RuntimeError):
 
 class DispatchError(ReproError, ValueError):
     """An executor dispatch was rejected or failed on every tier."""
+
+
+class NotPortedError(DispatchError):
+    """The call needs a part of the reference the port does not carry
+    yet; the message names it."""
 
 
 class CompactionError(ReproError, RuntimeError):

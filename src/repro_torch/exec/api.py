@@ -5,6 +5,14 @@ and calls it on the plan's leaves: one call runs both engine paths and the
 merge.  ``execute_sddmm(plan, x, y)`` does the same for SDDMM over the
 plan's pattern.  There is no degrade tier in this port: a ``"cuda"`` plan
 launches its kernels or raises.
+
+The ``"cuda"`` operators have no backward yet (the reference's
+``SpMMOperator``, a ``jax.custom_vjp``): their kernels write outputs that
+carry no autograd graph.  So a ``"cuda"`` call made in grad mode with an
+operand that requires grad raises :class:`~repro_torch.errors.
+NotPortedError` (:func:`check_no_grad`) instead of returning a result
+whose gradient would silently be missing.  ``"torch"`` calls keep
+PyTorch's graph through the plain versions.
 """
 from __future__ import annotations
 
@@ -16,7 +24,7 @@ from ..core.plan_ir import (
     NeutronPlan, SpmmConfig, build_sddmm_maps, plan_leaves,
     sddmm_body_leaves, tag_op, validate_rhs,
 )
-from ..errors import DispatchError
+from ..errors import DispatchError, NotPortedError
 from . import cache as _cache
 from .cache import (  # noqa: F401  (re-exported test hooks)
     dispatch_count, fused_trace_count, set_executor_cache_capacity,
@@ -37,6 +45,21 @@ def _check_device(plan: NeutronPlan, *operands: torch.Tensor) -> None:
                 f"{plan.device}; move it there first")
 
 
+def check_no_grad(impl: str, op: str, *operands) -> None:
+    """Raise where ``impl`` is ``"cuda"``, grad mode is on and an operand
+    requires grad: the kernels would drop the gradient."""
+    if impl != "cuda" or not torch.is_grad_enabled():
+        return
+    if any(isinstance(x, torch.Tensor) and x.requires_grad
+           for x in operands):
+        raise NotPortedError(
+            f"{op} on impl='cuda' has no backward yet (SpMMOperator, a "
+            f"torch.autograd.Function over the kernels, is not ported): "
+            f"an operand requires grad, and the kernels would drop its "
+            f"gradient.  Call it under torch.no_grad() or on detached "
+            f"operands, or use impl='torch' on the CPU.")
+
+
 def execute(plan: NeutronPlan, b: torch.Tensor) -> torch.Tensor:
     """Coordinated SpMM: C = A @ B in original row order, fp32.
 
@@ -45,11 +68,13 @@ def execute(plan: NeutronPlan, b: torch.Tensor) -> torch.Tensor:
     """
     validate_rhs(b, plan.shape)
     _check_device(plan, b)
+    check_no_grad(plan.config.impl, "spmm", b)
     _apply_cache_capacity(plan.config)
     batch = int(b.shape[0]) if b.ndim == 3 else None
     fn = build_executor(plan.signature(), batch=batch)
     _cache.record_dispatch("fused" if batch is None else "batched")
-    return fn(*plan_leaves(plan), b, derived=plan.derived)
+    return fn(*plan_leaves(plan), b, derived=plan.derived,
+              a_flag=plan.a_unsplittable)
 
 
 def validate_sddmm_operands(
@@ -101,6 +126,7 @@ def execute_sddmm(plan: NeutronPlan, x: torch.Tensor,
     smaps = build_sddmm_maps(plan)
     batch = validate_sddmm_operands(x, y, plan.shape)
     _check_device(plan, x, y)
+    check_no_grad(plan.config.impl, "sddmm", x, y)
     _apply_cache_capacity(plan.config)
     if smaps.nnz == 0:
         shape = (0,) if batch is None else (batch, 0)
@@ -109,4 +135,4 @@ def execute_sddmm(plan: NeutronPlan, x: torch.Tensor,
                  plan.config.fringe_vmem_budget)
     fn = build_executor(sig, batch=batch)
     _cache.record_dispatch("sddmm")
-    return fn(*sddmm_body_leaves(plan, smaps), x, y)
+    return fn(*sddmm_body_leaves(plan, smaps), x, y, derived=plan.derived)

@@ -13,9 +13,9 @@ signature's matrix format picks the matrix-path payload: the N:M or bitmap
 encoding on a structured plan, the flat tile stream otherwise.
 
 A signature tagged with ``plan_ir.tag_op(sig, "sddmm", ...)`` selects the
-SDDMM body instead, on the same plan structure: dense tiles on the matrix
-path with values extracted at ``core_lin``, per-nonzero dots on the vector
-path, merged in the input COO order.
+SDDMM body instead, on the same plan structure: the values at the plan's
+core slots (``core_lin``) on the matrix path, per-nonzero dots on the
+vector path, merged in the input COO order.
 
 Executors live in the bounded LRU ``exec.cache.EXECUTOR_CACHE`` keyed by
 (signature, batch); a tagged signature never equals an untagged one, so an
@@ -39,8 +39,9 @@ from .cache import EXECUTOR_CACHE, record_build
 def _fused_body(sig: Tuple):
     """Fused executor body for a plan signature.
 
-    Returns ``run(*plan_leaves, b, derived=None)`` for a single (K, N)
-    operand; ``derived`` is the plan's cache of kernel-side index arrays.
+    Returns ``run(*plan_leaves, b, derived=None, a_flag=None)`` for a
+    single (K, N) operand; ``derived`` is the plan's cache of kernel-side
+    index arrays and ``a_flag`` its ``a_unsplittable``.
     """
     (_version, shape, bm, bk, _bn, impl, reorder_cols, fringe_chunk,
      num_windows, _num_steps, _nnz_f, n_fringe_rows, has_core, has_fringe,
@@ -52,7 +53,8 @@ def _fused_body(sig: Tuple):
             fringe_vals, col_perm, gsrc_m, gsrc_v,
             kb_chunk, kb_rows, kb_cols, kb_vals,
             nm_values, nm_codes, bitmap_words, bitmap_values, b,
-            derived: Optional[Dict[str, Any]] = None):
+            derived: Optional[Dict[str, Any]] = None,
+            a_flag: Optional[torch.Tensor] = None):
         n = b.shape[1]
         bp = permute_pad_b(b, col_perm, reorder_cols, bk)
         c = None
@@ -64,20 +66,20 @@ def _fused_body(sig: Tuple):
                 packed_m = ops.nm_stream_spmm(
                     step_window, step_col, nm_values, nm_codes, bp,
                     num_windows=num_windows, bm=bm, bk=bk, n_pat=n_pat,
-                    m_pat=m_pat, impl=impl, derived=derived,
+                    m_pat=m_pat, impl=impl, derived=derived, a_flag=a_flag,
                 )
             elif matrix_format == "bitmap":
                 _n_words, row_cap = format_params
                 packed_m = ops.bitmap_stream_spmm(
                     step_window, step_col, bitmap_words, bitmap_values, bp,
                     num_windows=num_windows, bm=bm, bk=bk, row_cap=row_cap,
-                    impl=impl, derived=derived,
+                    impl=impl, derived=derived, a_flag=a_flag,
                 )
             else:
                 packed_m = ops.block_stream_spmm(
                     step_window, step_col, flat_values, bp,
                     num_windows=num_windows, bm=bm, bk=bk, impl=impl,
-                    derived=derived,
+                    derived=derived, a_flag=a_flag,
                 )
             c = gather_rows(packed_m, gsrc_m)
         if has_fringe:
@@ -101,46 +103,44 @@ def _sddmm_body(sig: Tuple):
     """SDDMM body for an op-tagged plan signature.
 
     Returns ``run(step_window, step_col, core_row_map, col_perm, core_lin,
-    f_idx, f_rows, f_cols, x, y)`` for one
-    (M, D) x and (D, K) y; the output is (nnz,) fp32 in the plan's input
-    COO order.  Unlike the reference, whose ``"xla"`` impl skips the tile
-    path and gathers every nonzero, both impls run both paths here:
-    ``"torch"`` with the plain versions, so the CPU tests cover the
-    extraction and the merge the card runs.
+    f_idx, f_rows, f_cols, x, y, derived=None)`` for one (M, D) x and
+    (D, K) y; the output is (nnz,) fp32 in the plan's input COO order.
+    The fringe dots are gathered into it first, then the matrix path
+    writes the core positions over them.  Unlike the reference, whose
+    ``"xla"`` impl skips the tile path and gathers every nonzero, both
+    impls run both paths here: ``"torch"`` with the plain versions, so the
+    CPU tests cover the placement and the merge the card runs.
     """
     (_version, _shape, bm, bk, _bn, impl, reorder_cols, fringe_chunk,
      _num_windows, _num_steps, _nnz_f, _n_fringe_rows, has_core, has_fringe,
      _fringe_tier, _fringe_bk, _n_chunks, _nnz_kb,
      _matrix_format, _format_params) = untag_sig(sig)
-    _nnz, _nnz_fs, vmem_budget = op_extra(sig)
+    nnz, _nnz_fs, vmem_budget = op_extra(sig)
 
     def run(step_window, step_col, core_row_map, col_perm,
-            core_lin, f_idx, f_rows, f_cols, x, y):
+            core_lin, f_idx, f_rows, f_cols, x, y,
+            derived: Optional[Dict[str, Any]] = None):
         x = x.to(torch.float32).contiguous()
         y = y.to(torch.float32)
-        core_vals = None
-        if has_core:
-            # matrix path: window-gathered X rows x the Y panel, its
-            # columns permuted and padded as SpMM permutes and pads B's rows
-            xp = gather_rows(x, core_row_map).contiguous()
-            yp = permute_pad_b(y.t(), col_perm, reorder_cols, bk).t()
-            tiles = ops.sddmm_block_stream(step_window, step_col, xp,
-                                           yp.contiguous(), bm=bm, bk=bk,
-                                           impl=impl)
-            core_vals = tiles.reshape(-1)[core_lin.clamp(min=0)]
-            del tiles
-        fringe_vals = None
+        out = None
         if has_fringe:
             yt = y.t().contiguous()  # (K, D): both gathers address rows
             fv = ops.sddmm_gather(f_rows, f_cols, x, yt, impl=impl,
                                   chunk=fringe_chunk,
                                   vmem_budget=vmem_budget)
-            fringe_vals = fv[f_idx.long().clamp(min=0)]
-        if core_vals is None:
-            return fringe_vals
-        if fringe_vals is None:
-            return core_vals
-        return torch.where(core_lin >= 0, core_vals, fringe_vals)
+            # core positions hold junk here until the matrix path below
+            out = fv[f_idx.long().clamp(min=0)]
+        if has_core:
+            if out is None:
+                out = torch.empty(nnz, dtype=torch.float32, device=x.device)
+            # matrix path: window-gathered X rows, and Y^T with its rows
+            # permuted and padded as SpMM permutes and pads B's rows
+            xp = gather_rows(x, core_row_map).contiguous()
+            ypt = permute_pad_b(y.t(), col_perm, reorder_cols, bk)
+            ops.sddmm_block_stream(step_window, step_col, core_lin, xp, ypt,
+                                   out, bm=bm, bk=bk, impl=impl,
+                                   derived=derived)
+        return out
 
     return run
 
@@ -149,9 +149,10 @@ def _batched_sddmm(run):
     """(batch, M, D) and (batch, D, K) operands: one SDDMM per item,
     stacked to (batch, nnz)."""
 
-    def run_batched(*args):
+    def run_batched(*args, derived=None):
         *leaves, x, y = args
-        return torch.stack([run(*leaves, xi, yi) for xi, yi in zip(x, y)])
+        return torch.stack([run(*leaves, xi, yi, derived=derived)
+                            for xi, yi in zip(x, y)])
 
     return run_batched
 
@@ -159,11 +160,11 @@ def _batched_sddmm(run):
 def _batched(run):
     """Fold a (batch, K, N) operand into (K, batch*N), run once, unfold."""
 
-    def run_batched(*args, derived=None):
+    def run_batched(*args, derived=None, a_flag=None):
         *leaves, b = args
         batch, k, n = b.shape
         folded = b.permute(1, 0, 2).reshape(k, batch * n)
-        out = run(*leaves, folded, derived=derived)
+        out = run(*leaves, folded, derived=derived, a_flag=a_flag)
         return out.reshape(out.shape[0], batch, n).permute(1, 0, 2)
 
     return run_batched
@@ -185,9 +186,10 @@ def build_executor(sig: Tuple, *, batch: Optional[int] = None):
     """Build (or fetch) the executor for one plan structure and operator.
 
     For an SpMM signature the returned callable takes ``(*plan_leaves, b,
-    derived=None)`` with the 17 leaves of ``plan_ir.plan_leaves``; ``b`` is
-    (K, N), or (batch, K, N) when ``batch`` is set.  For an SDDMM-tagged
-    signature it takes ``(*plan_ir.sddmm_body_leaves(...), x, y)``, batched
+    derived=None, a_flag=None)`` with the 17 leaves of
+    ``plan_ir.plan_leaves``; ``b`` is (K, N), or (batch, K, N) when
+    ``batch`` is set.  For an SDDMM-tagged signature it takes
+    ``(*plan_ir.sddmm_body_leaves(...), x, y, derived=None)``, batched
     along a leading axis of both operands when ``batch`` is set.
     """
     return EXECUTOR_CACHE.get_or_build(

@@ -47,11 +47,13 @@
 // - Offsets into flat_values, B, the partials and out are 64-bit: the
 //   stream can exceed 2^31 elements.  Ragged bm, bk and N are masked; a bk
 //   that is not a multiple of 8 is zero-padded in shared memory.
-// - Non-finite B.  Neither path gives the TPU kernel's answer where B
+// - Non-finite input.  Neither path gives the TPU kernel's answer where B
 //   holds an Inf or NaN (the walk never multiplies a zero of A, and the
-//   3xTF32 split turns Inf into NaN), so a call first checks B on the
-//   card (tile_core's nonfinite_kernel, one read of B, writing flags):
-//   where B holds an Inf or NaN the tile walk returns at once and
+//   3xTF32 split turns Inf into NaN), nor where A holds one or a value of
+//   |x| >= 3.401993e38 (the split turns it into NaN), so a call first
+//   checks B on the card (tile_core's nonfinite_kernel, one read of B,
+//   writing flags, with A's flag from the plan copied after them): where
+//   either is set the tile walk returns at once and
 //   tile_core's every_entry_kernel, launched beside it,
 //   multiplies every tile entry in fp32 FFMAs into the same outputs and
 //   partials, which gives 0 * Inf = NaN and a nonzero times Inf = +-Inf as
@@ -103,8 +105,9 @@ dense_tile_spmm_kernel(const int* __restrict__ order,
   const bool vec_a = (bk & 3) == 0 && aligned16(flat_values);
   const bool vec_b = (n & 3) == 0 && aligned16(b);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // B holds an Inf or NaN: every_entry_kernel writes the output instead
-  if (b_nonfinite(flags, kFlagBlocks)) return;
+  // A or B holds a value the split cannot carry: every_entry_kernel
+  // writes the output instead
+  if (route_every_entry(flags)) return;
 
   // the cells no copy writes stay zero
   zero_smem(smem, kStages * (kAFloats + kBFloats));
@@ -222,8 +225,10 @@ dense_tile_reduce_kernel(const int* __restrict__ reduce, int n_reduce,
 }  // namespace
 
 // order: (T,) tile indices sorted by window; step_col: (T,); flat_values:
-// (T, bm, bk); b: (k, n) row-major, contiguous; flags: kFlagBlocks ints of
-// scratch on the device (nonfinite_kernel's); chunks: (n_chunks, 4) int32 (window,
+// (T, bm, bk); b: (k, n) row-major, contiguous; a_flag: one int on the
+// device, nonzero where flat_values holds a value the split cannot carry;
+// flags: kFlagInts ints of scratch on the device (nonfinite_kernel's);
+// chunks: (n_chunks, 4) int32 (window,
 // first, end, slot) over order; reduce: (n_reduce, 3) int32 (window, first
 // slot, end slot); partial: (n_slots, bm, n) scratch; out: (num_windows*bm,
 // n), every element written.  Four launches: the check of b, the tile
@@ -231,7 +236,8 @@ dense_tile_reduce_kernel(const int* __restrict__ reduce, int n_reduce,
 // the check), then the reduce pass.
 extern "C" int dense_tile_spmm_launch(const int* order, const int* step_col,
                                       const float* flat_values,
-                                      const float* b, int k, int* flags,
+                                      const float* b, int k,
+                                      const int* a_flag, int* flags,
                                       const int* chunks,
                                       int n_chunks, const int* reduce,
                                       int n_reduce, float* partial,
@@ -243,7 +249,8 @@ extern "C" int dense_tile_spmm_launch(const int* order, const int* step_col,
   if (n_chunks > 0) {
     cudaError_t err = allow_smem(dense_tile_spmm_kernel, kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch_nonfinite(b, static_cast<int64_t>(k) * n, flags, st);
+    err = launch_nonfinite(b, static_cast<int64_t>(k) * n, a_flag, flags,
+                           st);
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid(static_cast<unsigned>(n_chunks) * n_tiles,
                     (bm + kRows - 1) / kRows);

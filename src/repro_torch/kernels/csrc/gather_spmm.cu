@@ -30,7 +30,8 @@
 // starts: the B columns the card gathers at any time are that slice's,
 // 1/4 of B at N = 256 and 64-column slices, which keeps more of the hot
 // set in the 50 MB L2).  The warp reads 32 of the row's (col, val) pairs
-// at a time, one per lane, and takes them kUnroll at a time by shuffles,
+// at a time, one per lane (the next 32 are loaded while these are summed),
+// and takes them kUnroll at a time by shuffles,
 // so each lane has kUnroll B-row float4 loads in flight before the first
 // FFMA (the first design issued one pair's eight scalar loads, then its
 // FFMAs, then the next pair's: about eight loads in flight a warp).  A
@@ -42,16 +43,24 @@
 // on the card by bench_torch/gather_sweep.py (PERF.md);
 // gather_spmm_variant_launch runs the other choices for it.
 //
-// gather_spmm_ksharded (gather_spmm_kernel<true>, the first design): one
-// warp owns one packed row and a 256-column tile (8 columns per lane,
-// lanes on consecutive columns).  The warp reads 32 (col, val) pairs, one
-// per lane, broadcasts them with shuffles and sums the row in order in
-// registers.  For the k-bucketed stream the wrapper passes a stable
-// row-major permutation of the stream, so each row walks its entries in
-// k-block order (the order in which the TPU's resident output accumulated
-// them), and the kernel adds the k-block offset chunk_kb[i / chunk] * bk
-// to each local column.  Padding entries of that stream (row 0, col 0,
-// value 0) add zero.
+// gather_spmm_ksharded runs the same row walk (gather_spmm_perm_launch).
+// On the card the k-sharded tier buys nothing: its stream is the same
+// product with k-block-local columns.  The wrapper remaps it once, from the
+// structure alone, into a stable row-major order `perm` of the stream
+// (each row's entries stay in k-block order, the order in which the TPU's
+// resident output accumulated them) with global columns chunk_kb[i /
+// chunk] * bk + col, cached with the plan.  The values are not cached (a
+// value update rewrites them): each call first gathers vals[perm] into
+// scratch (gather_vals_kernel, coalesced but for the value reads), then
+// walks.  Reading the values through perm inside the walk instead took
+// 5.36 ms against 4.83 on the H100, on a reddit-shaped fringe (bench_torch/
+// gather_sweep.py, PERF.md): there each value arrives after two dependent
+// loads.  Padding entries (row 0, col 0, value 0) are walked as well:
+// they add 0 * B[kb * bk], NaN where that row holds an Inf or a NaN, as in
+// the TPU kernel; their global column is a real k-block's first, below K,
+// so B is read as it is, unpadded.  (The first design, one warp per row
+// over a 256-column tile with one B-row load in flight per lane, took
+// 10.4 ms on the H100 on the reddit-scale fringe forced onto the tier.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,67 +68,7 @@
 namespace {
 
 constexpr int kWarps = 8;           // rows per block
-constexpr int kLaneCols = 8;        // columns per lane
-constexpr int kTileCols = 32 * kLaneCols;  // 256 columns per warp tile
 constexpr unsigned kFull = 0xffffffffu;
-
-template <bool kBucketed>
-__global__ void __launch_bounds__(32 * kWarps)
-gather_spmm_kernel(const int* __restrict__ indptr,
-                   const int* __restrict__ perm,
-                   const int* __restrict__ cols,
-                   const float* __restrict__ vals,
-                   const int* __restrict__ chunk_kb,
-                   int chunk, int bk,
-                   const float* __restrict__ b,
-                   float* __restrict__ out,
-                   int num_rows, int n) {
-  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= num_rows) return;  // uniform across the warp
-  const int c0 = blockIdx.y * kTileCols + lane;
-
-  float acc[kLaneCols];
-#pragma unroll
-  for (int q = 0; q < kLaneCols; ++q) acc[q] = 0.f;
-
-  const int beg = indptr[row];
-  const int end = indptr[row + 1];
-  for (int base = beg; base < end; base += 32) {
-    const int e = base + lane;
-    int my_col = 0;
-    float my_val = 0.f;
-    if (e < end) {
-      const int i = kBucketed ? perm[e] : e;
-      my_val = vals[i];
-      my_col = cols[i];
-      if (kBucketed) my_col += chunk_kb[i / chunk] * bk;
-    }
-    const int cnt = min(32, end - base);
-    for (int j = 0; j < cnt; ++j) {
-      const int c = __shfl_sync(kFull, my_col, j);
-      const float v = __shfl_sync(kFull, my_val, j);
-      const float* brow = b + static_cast<int64_t>(c) * n;
-#pragma unroll
-      for (int q = 0; q < kLaneCols; ++q) {
-        const int col = c0 + 32 * q;
-        if (col < n) acc[q] = fmaf(v, brow[col], acc[q]);
-      }
-    }
-  }
-
-  float* orow = out + static_cast<int64_t>(row) * n;
-#pragma unroll
-  for (int q = 0; q < kLaneCols; ++q) {
-    const int col = c0 + 32 * q;
-    if (col < n) orow[col] = acc[q];
-  }
-}
-
-dim3 grid_for(int num_rows, int n) {
-  return dim3((num_rows + kWarps - 1) / kWarps,
-              (n + kTileCols - 1) / kTileCols);
-}
 
 // ---- gather_spmm: the row walk -------------------------------------------
 
@@ -185,29 +134,41 @@ gather_rows_kernel(const int* __restrict__ indptr,
 
   const int beg = indptr[row];
   const int end = indptr[row + 1];
+  // the (col, val) pair of each lane, one batch of 32 ahead: its loads
+  // are in flight while a batch is summed
+  int nx_col = 0;
+  float nx_val = 0.f;
+  if (beg + lane < end) {
+    nx_col = __ldg(cols + beg + lane);
+    nx_val = __ldg(vals + beg + lane);
+  }
   for (int base = beg; base < end; base += 32) {
-    const int e = base + lane;
-    int my_col = 0;
-    float my_val = 0.f;
+    const int my_col = nx_col;
+    const float my_val = nx_val;
+    const int e = base + 32 + lane;
     if (e < end) {
-      my_col = __ldg(cols + e);
-      my_val = __ldg(vals + e);
+      nx_col = __ldg(cols + e);
+      nx_val = __ldg(vals + e);
     }
     const int cnt = min(32, end - base);
     for (int j0 = 0; j0 < cnt; j0 += kStep) {
       float v[kUnroll];
       float4 bv[kUnroll][kVecs];
+      // every B-row load is issued before the values are shuffled
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int j = j0 + kGroups * u + grp;
         const int c = __shfl_sync(kFull, my_col, j);
-        const float x = __shfl_sync(kFull, my_val, j);
-        const bool ok = j < cnt;
-        v[u] = ok ? x : 0.f;
         const float* brow = b + static_cast<int64_t>(c) * n;
 #pragma unroll
         for (int f = 0; f < kVecs; ++f)
-          bv[u][f] = load_b4<kVec>(brow, c0 + 4 * kLanes * f, n, ok);
+          bv[u][f] = load_b4<kVec>(brow, c0 + 4 * kLanes * f, n, j < cnt);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int j = j0 + kGroups * u + grp;
+        const float x = __shfl_sync(kFull, my_val, j);
+        v[u] = j < cnt ? x : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
@@ -248,6 +209,17 @@ cudaError_t launch_rows(const int* indptr, const int* cols, const float* vals,
       <<<grid, 32 * kWarps, 0, stream>>>(indptr, cols, vals, b, out,
                                          num_rows, n);
   return cudaGetLastError();
+}
+
+// dst[i] = vals[perm[i]] for i < nnz: the k-bucketed stream's values in
+// its row-major order.
+__global__ void __launch_bounds__(256)
+gather_vals_kernel(const int* __restrict__ perm,
+                   const float* __restrict__ vals, float* __restrict__ dst,
+                   int nnz) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < nnz; i += stride)
+    dst[i] = __ldg(vals + __ldg(perm + i));
 }
 
 bool vec_ok(const float* b, const float* out, int n) {
@@ -310,19 +282,50 @@ gather_probe_kernel(const float* __restrict__ b, int n, int set_rows,
 // indptr: (num_rows+1,) CSR offsets of the row-sorted packed fringe;
 // cols, vals: (nnz,); b: (K, n) row-major; out: (num_rows, n), every
 // element written.
+namespace {
+
+int launch_default(const int* indptr, const int* cols, const float* vals,
+                   const float* b, float* out, int num_rows, int n,
+                   cudaStream_t stream) {
+  if (vec_ok(b, out, n))
+    return static_cast<int>(
+        launch_rows<true, kDefaultSlice, kDefaultUnroll>(
+            indptr, cols, vals, b, out, num_rows, n, stream));
+  return static_cast<int>(
+      launch_rows<false, kDefaultSlice, kDefaultUnroll>(
+          indptr, cols, vals, b, out, num_rows, n, stream));
+}
+
+}  // namespace
+
 extern "C" int gather_spmm_launch(const int* indptr, const int* cols,
                                   const float* vals, const float* b,
                                   float* out, int num_rows, int n,
                                   void* stream) {
   if (num_rows == 0 || n == 0) return 0;
+  return launch_default(indptr, cols, vals, b, out, num_rows, n,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// gather_spmm_ksharded: indptr (num_rows+1,) offsets into the row-major
+// order perm (nnz,) of the k-bucketed stream; cols (nnz,) the global
+// column of entry perm[e] at e, each below K; vals (nnz,) in stream order;
+// scratch (nnz,) floats; b: (K, n) row-major; out: (num_rows, n), every
+// element written.  Two launches: the gather of the values, the walk.
+extern "C" int gather_spmm_perm_launch(const int* indptr, const int* cols,
+                                       const int* perm, const float* vals,
+                                       float* scratch, int nnz,
+                                       const float* b, float* out,
+                                       int num_rows, int n, void* stream) {
+  if (num_rows == 0 || n == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec_ok(b, out, n))
-    return static_cast<int>(
-        launch_rows<true, kDefaultSlice, kDefaultUnroll>(
-            indptr, cols, vals, b, out, num_rows, n, st));
-  return static_cast<int>(
-      launch_rows<false, kDefaultSlice, kDefaultUnroll>(
-          indptr, cols, vals, b, out, num_rows, n, st));
+  if (nnz > 0) {
+    const int blocks = (nnz + 255) / 256 < 4096 ? (nnz + 255) / 256 : 4096;
+    gather_vals_kernel<<<blocks, 256, 0, st>>>(perm, vals, scratch, nnz);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return launch_default(indptr, cols, scratch, b, out, num_rows, n, st);
 }
 
 // The same product with another slice width (16, 32, 64, 128 or 256
@@ -340,8 +343,8 @@ extern "C" int gather_spmm_variant_launch(const int* indptr, const int* cols,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_GATHER_VARIANT(S, U)                                  \
   if (slice == S && unroll == U)                                    \
-    return static_cast<int>(launch_rows<true, S, U>(indptr, cols, vals, \
-                                                    b, out, num_rows, n, st));
+    return static_cast<int>(launch_rows<true, S, U>(                \
+        indptr, cols, vals, b, out, num_rows, n, st));
   REPRO_GATHER_VARIANT(16, 2)
   REPRO_GATHER_VARIANT(16, 4)
   REPRO_GATHER_VARIANT(32, 2)
@@ -371,21 +374,5 @@ extern "C" int gather_probe_launch(const float* b, int n, int set_rows,
     return cudaErrorInvalidValue;
   gather_probe_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       b, n, set_rows, reads, static_cast<uint32_t>(seed), sink);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// perm: (nnz,) stable row-major order of the k-bucketed stream; indptr:
-// (num_rows+1,) offsets into perm; cols: k-block-local columns; chunk_kb:
-// (nnz/chunk,) k-block of each chunk; b: (K_pad, n), K_pad a multiple of bk.
-extern "C" int gather_spmm_ksharded_launch(const int* indptr, const int* perm,
-                                           const int* cols, const float* vals,
-                                           const int* chunk_kb, int chunk,
-                                           int bk, const float* b, float* out,
-                                           int num_rows, int n,
-                                           void* stream) {
-  if (num_rows == 0 || n == 0) return 0;
-  gather_spmm_kernel<true><<<grid_for(num_rows, n), 32 * kWarps, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      indptr, perm, cols, vals, chunk_kb, chunk, bk, b, out, num_rows, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,35 +6,47 @@
 //     tile t of the plan's stream,
 //       tiles[t] = Xp[w[t]*bm : +bm, :] @ Yp[:, c[t]*bk : +bk]
 //     on a sequential grid with the X row panel and the Y column slab in
-//     VMEM, returning the fp32 stream (T, bm, bk);
+//     VMEM, returning the fp32 stream (T, bm, bk), of which the caller
+//     reads the plan's core slots only;
 //   - gather_sddmm (vector path): out[i] = X[rows[i]] . Yt[cols[i]] for
 //     every fringe nonzero, in input order, with both dense panels resident
 //     in VMEM and one dot per lane of a 128-lane output row.
 //
+// dense_tile_sddmm on the card computes only what the caller reads: the
+// value at each core nonzero's slot, written straight to its position in
+// the SDDMM output.  One SDDMM cell depends on its own row of X and its own
+// column of Y only, so this gives the same values as the whole tile
+// product, Inf and NaN included; the (T, bm, bk) stream (5.85 GB at
+// Reddit scale, 2.46 % of it read) is never built.
+//
 // What bounds them on the H100:
-//   - dense_tile_sddmm must write the whole tile stream (4*bm*bk bytes a
-//     tile) and, as the reference defines it, multiplies every tile entry:
-//     2*D flops per output element.  At D = 256 that is 128 flops per byte
-//     written, above the card's fp32 ridge (67 TFLOP/s / 3.35 TB/s = 20
-//     flops/byte), so the kernel as written is bound by fp32 operations.
-//     The sampled product needs a dot only per nonzero; where the tiles
-//     are mostly zeros (2.5 % dense at Reddit scale, see PERF.md) its least
-//     time is the write of the stream, bytes.
+//   - dense_tile_sddmm: 2*D flops per core nonzero, one X row (4*D bytes)
+//     and one Y^T row per nonzero, each read once in the bound; at D = 256
+//     the bound is the fp32 operations (PERF.md).  What it moves in fact is
+//     an X row per nonzero through L2 (X's window panel, 6.4 MB at Reddit
+//     scale and D = 256, stays in the 50 MB L2), while each Y^T row is read
+//     from device memory about once.
 //   - gather_sddmm does 2*D flops per nonzero for two gathered D-wide rows
 //     (8*D bytes): 0.25 flops/byte, bound by memory traffic.  The traffic
 //     that counts is the rows fetched through the 50 MB L2 from device
 //     memory, not the once-each input bytes.
 //
 // Design:
-//   - dense_tile_sddmm: tiles are independent, so one block per (tile,
-//     128-row chunk, 64-column chunk) stages a 32-deep slice of the X row
-//     panel (transposed, one pad column against bank conflicts) and of the
-//     Y column slab in shared memory and runs an outer-product FFMA loop
-//     over D, 8x4 outputs a thread; each output is written once.  No
-//     atomics and no window order: the result is deterministic.  The
-//     reference's lane padding of D to 128 and rows to 8 is TPU layout and
-//     is dropped: the kernel masks its ragged edges.  Offsets into Xp, Yp
-//     and the stream are 64-bit (the stream can exceed 2^31 elements).
+//   - dense_tile_sddmm (sampled_sddmm_kernel): the host orders the core
+//     nonzeros by k-block (then by tile slot) once, from the structure
+//     alone, and cuts each k-block's run into segments of at most a few
+//     thousand nonzeros (kernels/sddmm.py sampled_index).  One block per
+//     segment stages its k-block's bk rows of Y^T (permuted and padded as
+//     SpMM pads B; 64 KB at bk = 64, D = 256) in shared memory, d_chunk
+//     columns at a time where D is wider than the stage.  Its warps take
+//     32 nonzeros at a time, a (X row, Y^T row, position) triple per lane,
+//     and kNz of them at once by shuffles: each lane loads its float4s of
+//     the kNz X rows from L2 (kNz * D/128 loads in flight a lane), dots
+//     them against the staged rows in a fixed order, and a butterfly
+//     reduction in a fixed order finishes each dot; the lane that owns the
+//     nonzero writes it once (a D chunk past the first adds to it).  No
+//     atomics, so two calls are bit-identical.  D not a multiple of 4, or
+//     panels not 16-byte aligned, take the same walk with 4-byte loads.
 //   - gather_sddmm: one warp per nonzero reads both rows with coalesced
 //     float4 loads (a scalar loop where D is not a multiple of 4 or a row
 //     is not 16-byte aligned), each lane sums its elements in order and a
@@ -42,91 +54,123 @@
 //     writes it once.  The TPU's "both panels resident" premise does not
 //     hold in 227 KB of shared memory and is not needed: rows come through
 //     L2, so the panels have no size ceiling (the H100 SDDMM tier rule).
-//   Simple and right first: no tensor cores, no cp.async/TMA yet.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = 128;  // tile rows per block (16 x kTM)
-constexpr int kColsPerBlock = 64;   // tile columns per block (16 x kTN)
-constexpr int kDepth = 32;          // D-slice staged per step
-constexpr int kTM = 8;              // rows per thread
-constexpr int kTN = 4;              // columns per thread
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-dense_tile_sddmm_kernel(const int* __restrict__ step_window,
-                        const int* __restrict__ step_col,
-                        const float* __restrict__ xp,
-                        const float* __restrict__ yp,
-                        float* __restrict__ tiles,
-                        int bm, int bk, int d, int64_t k) {
-  __shared__ float x_s[kDepth][kRowsPerBlock + 1];
-  __shared__ float y_s[kDepth][kColsPerBlock];
+// ---- dense_tile_sddmm: the sampled product --------------------------------
 
-  const int64_t t = blockIdx.x;
-  const int r0 = blockIdx.y * kRowsPerBlock;
-  const int c0 = blockIdx.z * kColsPerBlock;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns tx + 16*j
-  const int ty = tid / 16;  // rows ty + 16*i
-  const int64_t x_row0 = static_cast<int64_t>(step_window[t]) * bm;
-  const int64_t y_col0 = static_cast<int64_t>(step_col[t]) * bk;
+constexpr int kSThreads = 256;
+constexpr int kSWarps = kSThreads / 32;
+constexpr int kNz = 4;  // nonzeros a warp dots at once
+// shared memory a block stages Y^T rows in (3 blocks fit on an SM at 64 KB)
+constexpr int kStageBytes = 96 * 1024;
 
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+template <bool kVec>
+__global__ void __launch_bounds__(kSThreads)
+sampled_sddmm_kernel(const int* __restrict__ seg_kb,
+                     const int* __restrict__ seg_ptr,
+                     const int* __restrict__ x_row,
+                     const int* __restrict__ y_row,
+                     const int* __restrict__ pos,
+                     const float* __restrict__ xp,
+                     const float* __restrict__ ypt,
+                     float* __restrict__ out, int bk, int d, int d_chunk) {
+  extern __shared__ float4 smem4[];
+  float* const ys = reinterpret_cast<float*>(smem4);
+  const int y0 = seg_kb[blockIdx.x] * bk;
+  const int beg = seg_ptr[blockIdx.x];
+  const int end = seg_ptr[blockIdx.x + 1];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  for (int d0 = 0; d0 < d; d0 += kDepth) {
-    // X: consecutive threads read consecutive d of one row (coalesced)
-    for (int i = tid; i < kRowsPerBlock * kDepth; i += kThreads) {
-      const int mm = i / kDepth, dd = i % kDepth;
-      const int r = r0 + mm, dx = d0 + dd;
-      x_s[dd][mm] = (r < bm && dx < d)
-                        ? xp[(x_row0 + r) * d + dx] : 0.f;
-    }
-    // Y: consecutive threads read consecutive columns of one row of Yp
-    for (int i = tid; i < kDepth * kColsPerBlock; i += kThreads) {
-      const int dd = i / kColsPerBlock, nn = i % kColsPerBlock;
-      const int dx = d0 + dd, c = c0 + nn;
-      y_s[dd][nn] = (dx < d && c < bk)
-                        ? yp[static_cast<int64_t>(dx) * k + y_col0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int dd = 0; dd < kDepth; ++dd) {
-      float xv[kTM], yv[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) xv[i] = x_s[dd][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) yv[j] = y_s[dd][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(xv[i], yv[j], acc[i][j]);
+  for (int dc = 0; dc < d; dc += d_chunk) {
+    const int w = min(d_chunk, d - dc);
+    __syncthreads();  // the last chunk's dots have read ys
+    // this k-block's rows [y0, y0 + bk) of Y^T, columns [dc, dc + w)
+    if constexpr (kVec) {
+      const int w4 = w / 4;
+      for (int i = threadIdx.x; i < bk * w4; i += kSThreads) {
+        const int r = i / w4, c = i % w4;
+        reinterpret_cast<float4*>(ys + r * d_chunk)[c] = __ldg(
+            reinterpret_cast<const float4*>(
+                ypt + static_cast<int64_t>(y0 + r) * d + dc) + c);
+      }
+    } else {
+      for (int i = threadIdx.x; i < bk * w; i += kSThreads) {
+        const int r = i / w, c = i % w;
+        ys[r * d_chunk + c] =
+            __ldg(ypt + static_cast<int64_t>(y0 + r) * d + dc + c);
+      }
     }
     __syncthreads();
-  }
 
-  float* out = tiles + t * bm * bk;
+    for (int base = beg + 32 * warp; base < end; base += 32 * kSWarps) {
+      const int e = base + lane;
+      const bool mine = e < end;
+      // lanes past the end take row 0 of both: valid addresses, unused dots
+      int my_x = 0, my_y = 0;
+      if (mine) {
+        my_x = __ldg(x_row + e);
+        my_y = __ldg(y_row + e) - y0;
+      }
+      const int cnt = min(32, end - base);
+      float my_dot = 0.f;
+      for (int j0 = 0; j0 < cnt; j0 += kNz) {
+        const float* xr[kNz];
+        const float* yr[kNz];
+        float acc[kNz];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= bm) continue;
+        for (int u = 0; u < kNz; ++u) {
+          const int xi = __shfl_sync(kFull, my_x, j0 + u);
+          const int yi = __shfl_sync(kFull, my_y, j0 + u);
+          xr[u] = xp + static_cast<int64_t>(xi) * d + dc;
+          yr[u] = ys + yi * d_chunk;
+          acc[u] = 0.f;
+        }
+        if constexpr (kVec) {
+#pragma unroll 2
+          for (int q = 4 * lane; q < w; q += 128) {
+            float4 xv[kNz];
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < bk) out[static_cast<int64_t>(r) * bk + c] = acc[i][j];
+            for (int u = 0; u < kNz; ++u)
+              xv[u] = __ldg(reinterpret_cast<const float4*>(xr[u] + q));
+#pragma unroll
+            for (int u = 0; u < kNz; ++u) {
+              const float4 yv = *reinterpret_cast<const float4*>(yr[u] + q);
+              acc[u] = fmaf(xv[u].x, yv.x, acc[u]);
+              acc[u] = fmaf(xv[u].y, yv.y, acc[u]);
+              acc[u] = fmaf(xv[u].z, yv.z, acc[u]);
+              acc[u] = fmaf(xv[u].w, yv.w, acc[u]);
+            }
+          }
+        } else {
+          for (int q = lane; q < w; q += 32) {
+#pragma unroll
+            for (int u = 0; u < kNz; ++u)
+              acc[u] = fmaf(__ldg(xr[u] + q), yr[u][q], acc[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kNz; ++u) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            acc[u] += __shfl_xor_sync(kFull, acc[u], off);
+          if (lane == j0 + u) my_dot = acc[u];
+        }
+      }
+      if (mine) {
+        const int p = __ldg(pos + e);
+        out[p] = dc == 0 ? my_dot : out[p] + my_dot;
+      }
     }
   }
 }
 
 constexpr int kWarps = 8;  // nonzeros per block, one per warp
-constexpr unsigned kFull = 0xffffffffu;
 
 template <bool kVec4>
 __global__ void __launch_bounds__(32 * kWarps)
@@ -165,20 +209,42 @@ gather_sddmm_kernel(const int* __restrict__ rows,
 
 }  // namespace
 
-// step_window, step_col: (T,); xp: (num_windows*bm, d) row-major; yp: (d, k)
-// row-major, k a multiple of bk; tiles: (T, bm, bk), every element written.
-extern "C" int dense_tile_sddmm_launch(const int* step_window,
-                                       const int* step_col, const float* xp,
-                                       const float* yp, float* tiles,
-                                       int64_t num_tiles, int bm, int bk,
-                                       int d, int64_t k, void* stream) {
-  if (num_tiles == 0) return 0;
-  const dim3 grid(static_cast<unsigned>(num_tiles),
-                  (bm + kRowsPerBlock - 1) / kRowsPerBlock,
-                  (bk + kColsPerBlock - 1) / kColsPerBlock);
-  dense_tile_sddmm_kernel<<<grid, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      step_window, step_col, xp, yp, tiles, bm, bk, d, k);
+// seg_kb, seg_ptr: n_segments segments of the index arrays, segment s
+// holding entries [seg_ptr[s], seg_ptr[s+1]) of k-block seg_kb[s]; x_row,
+// y_row, pos: per core nonzero, its row in xp, its row in ypt (in its
+// segment's k-block) and its position in out; xp: (rows, d) and ypt:
+// (k, d) row-major; out: written at every pos.  vec4 != 0 asks for float4
+// loads: d a multiple of 4 and both panels 16-byte aligned.
+// cudaErrorInvalidValue where not even 4 columns of bk rows fit the stage.
+extern "C" int dense_tile_sddmm_launch(const int* seg_kb, const int* seg_ptr,
+                                       int n_segments, const int* x_row,
+                                       const int* y_row, const int* pos,
+                                       const float* xp, const float* ypt,
+                                       float* out, int bk, int d, int vec4,
+                                       void* stream) {
+  if (n_segments == 0 || d == 0) return 0;
+  int d_chunk = kStageBytes / (4 * bk);
+  if (vec4) d_chunk &= ~3;
+  if (bk <= 0 || d_chunk < 4) return cudaErrorInvalidValue;
+  if (d_chunk > d) d_chunk = d;
+  const size_t smem = sizeof(float) * static_cast<size_t>(bk) * d_chunk;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (vec4) {
+    err = cudaFuncSetAttribute(sampled_sddmm_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kStageBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sampled_sddmm_kernel<true><<<n_segments, kSThreads, smem, s>>>(
+        seg_kb, seg_ptr, x_row, y_row, pos, xp, ypt, out, bk, d, d_chunk);
+  } else {
+    err = cudaFuncSetAttribute(sampled_sddmm_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kStageBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sampled_sddmm_kernel<false><<<n_segments, kSThreads, smem, s>>>(
+        seg_kb, seg_ptr, x_row, y_row, pos, xp, ypt, out, bk, d, d_chunk);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

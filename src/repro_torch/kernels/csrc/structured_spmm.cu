@@ -78,13 +78,15 @@
 //   lane on 4 columns, rows i and i + 8 together), each row's values read
 //   at its running rank, straight from the ring: nothing is decoded.
 //
-// Non-finite B: a call first checks B on the card (tile_core's
-// nonfinite_kernel); both kernels read its flags (b_nonfinite) and return
-// at once where B holds an Inf or NaN; tile_core's every_entry_kernel, launched beside them, then expands
-// every tile as the reference does (NmCells, BitmapCells) and multiplies
-// every entry in fp32 FFMAs, as the TPU kernels' dense product does.  The
-// slot and bit walks multiply only the packed values, and the 3xTF32 split
-// turns an Inf of B into NaN.
+// Non-finite input: a call first checks B on the card (tile_core's
+// nonfinite_kernel, which also copies A's flag from the plan); both
+// kernels read its flags (route_every_entry) and return at once where B
+// holds an Inf or NaN, or A or B a value the 3xTF32 split cannot carry
+// (an Inf, a NaN, |x| >= 3.401993e38); tile_core's every_entry_kernel,
+// launched beside them, then expands every tile as the reference does
+// (NmCells, BitmapCells) and multiplies every entry in fp32 FFMAs, as the
+// TPU kernels' dense product does.  The slot and bit walks multiply only
+// the packed values, and the 3xTF32 split turns such a value into NaN.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -195,8 +197,9 @@ nm_tile_spmm_kernel(const int* __restrict__ order,
   const int rows = min(tc::kRows, bm - r0);
   const int cols = min(tc::kCols, n - n0);
   const bool vec_b = (n & 3) == 0 && tc::aligned16(b);
-  // B holds an Inf or NaN: every_entry_kernel writes the output instead
-  if (tc::b_nonfinite(flags, tc::kFlagBlocks)) return;
+  // A or B holds a value the split cannot carry: every_entry_kernel
+  // writes the output instead
+  if (tc::route_every_entry(flags)) return;
 
   // the cells no copy or decode writes stay zero
   tc::zero_smem(smem, nm_smem_floats(MMA, stages, q, gk));
@@ -386,8 +389,9 @@ bitmap_tile_spmm_kernel(const int* __restrict__ order,
   const int n_slices = (bk + tc::kSlice - 1) / tc::kSlice;
   const bool vec_b = (n & 3) == 0 && tc::aligned16(b);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // B holds an Inf or NaN: every_entry_kernel writes the output instead
-  if (tc::b_nonfinite(flags, tc::kFlagBlocks)) return;
+  // A or B holds a value the split cannot carry: every_entry_kernel
+  // writes the output instead
+  if (tc::route_every_entry(flags)) return;
 
   // the cells no copy or decode writes stay zero
   tc::zero_smem(smem, stages * stage + tc::kAFloats);
@@ -533,7 +537,7 @@ template <int NPAT, bool MMA>
 cudaError_t launch_nm(int num_windows, cudaStream_t stream, const int* order,
                       const int* seg, const int* step_col,
                       const float* nm_values, const uint32_t* nm_codes,
-                      const float* b, int k, int* flags, float* out, int bm,
+                      const float* b, const int* flags, float* out, int bm,
                       int bk, int m_pat, int n) {
   const int gk = bk / m_pat;
   // three ring stages where they fit in a block's shared memory, else two
@@ -548,8 +552,6 @@ cudaError_t launch_nm(int num_windows, cudaStream_t stream, const int* order,
   const size_t smem =
       sizeof(float) * nm_smem_floats(MMA, stages, NPAT * gk, gk);
   err = tc::allow_smem(nm_tile_spmm_kernel<NPAT, MMA>, smem);
-  if (err != cudaSuccess) return err;
-  err = tc::launch_nonfinite(b, static_cast<int64_t>(k) * n, flags, stream);
   if (err != cudaSuccess) return err;
   const int n_tiles = (n + tc::kCols - 1) / tc::kCols;
   const dim3 grid(static_cast<unsigned>(n_tiles) * num_windows,
@@ -569,15 +571,15 @@ cudaError_t launch_nm_path(int num_windows, cudaStream_t stream,
                            const int* order, const int* seg,
                            const int* step_col, const float* nm_values,
                            const uint32_t* nm_codes, const float* b,
-                           int k, int* flags, float* out, int bm, int bk,
+                           const int* flags, float* out, int bm, int bk,
                            int m_pat, int n) {
   // n/m at or above the tile core's density threshold: decode + 3xTF32
   if (static_cast<float>(NPAT) >= tc::kMmaMinDensity * m_pat)
     return launch_nm<NPAT, true>(num_windows, stream, order, seg, step_col,
-                                 nm_values, nm_codes, b, k, flags, out, bm, bk,
+                                 nm_values, nm_codes, b, flags, out, bm, bk,
                                  m_pat, n);
   return launch_nm<NPAT, false>(num_windows, stream, order, seg, step_col,
-                                nm_values, nm_codes, b, k, flags, out, bm, bk,
+                                nm_values, nm_codes, b, flags, out, bm, bk,
                                 m_pat, n);
 }
 
@@ -585,47 +587,49 @@ cudaError_t launch_nm_path(int num_windows, cudaStream_t stream,
 
 // order: (T,) tile indices sorted by window; seg: (num_windows+1,) segment
 // offsets into order; step_col: (T,); nm_values: (T, bm, n_pat*bk/m_pat);
-// nm_codes: (T, bm, bk/m_pat); b: (k, n) row-major, contiguous; flags:
-// kFlagBlocks ints of scratch on the device (nonfinite_kernel's); out:
+// nm_codes: (T, bm, bk/m_pat); b: (k, n) row-major, contiguous; a_flag:
+// one int on the device, nonzero where the tile values hold a value the
+// split cannot carry; flags: kFlagInts ints of scratch on the device
+// (nonfinite_kernel's); out:
 // (num_windows*bm, n), every element written.  1 <= n_pat <= 4, m_pat
 // dividing bk and bk <= 64, else cudaErrorInvalidValue.
 extern "C" int nm_tile_spmm_launch(const int* order, const int* seg,
                                    const int* step_col,
                                    const float* nm_values,
                                    const int* nm_codes, const float* b,
-                                   int k, int* flags, float* out,
+                                   int k, const int* a_flag, int* flags,
+                                   float* out,
                                    int num_windows, int bm,
                                    int bk, int n, int n_pat, int m_pat,
                                    void* stream) {
-  if (m_pat <= 0 || bk % m_pat || bk > tc::kSlice)
+  if (n_pat < 1 || n_pat > 4 || m_pat <= 0 || bk % m_pat || bk > tc::kSlice)
     return cudaErrorInvalidValue;
   if (num_windows == 0 || n == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* codes = reinterpret_cast<const uint32_t*>(nm_codes);
-  cudaError_t err;
+  cudaError_t err =
+      tc::launch_nonfinite(b, static_cast<int64_t>(k) * n, a_flag, flags, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   switch (n_pat) {
     case 1:
       err = launch_nm_path<1>(num_windows, st, order, seg, step_col,
-                              nm_values, codes, b, k, flags, out, bm, bk, m_pat,
+                              nm_values, codes, b, flags, out, bm, bk, m_pat,
                               n);
       break;
     case 2:
       err = launch_nm_path<2>(num_windows, st, order, seg, step_col,
-                              nm_values, codes, b, k, flags, out, bm, bk, m_pat,
+                              nm_values, codes, b, flags, out, bm, bk, m_pat,
                               n);
       break;
     case 3:
       err = launch_nm_path<3>(num_windows, st, order, seg, step_col,
-                              nm_values, codes, b, k, flags, out, bm, bk, m_pat,
+                              nm_values, codes, b, flags, out, bm, bk, m_pat,
                               n);
       break;
-    case 4:
+    default:  // n_pat == 4
       err = launch_nm_path<4>(num_windows, st, order, seg, step_col,
-                              nm_values, codes, b, k, flags, out, bm, bk, m_pat,
+                              nm_values, codes, b, flags, out, bm, bk, m_pat,
                               n);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
@@ -637,9 +641,10 @@ extern "C" int nm_tile_spmm_launch(const int* order, const int* seg,
 extern "C" int bitmap_tile_spmm_launch(const int* order, const int* seg,
                                        const int* step_col, const int* words,
                                        const float* values, const float* b,
-                                       int k, int* flags, float* out,
-                                       int num_windows, int bm, int bk, int n,
-                                       int row_cap, void* stream) {
+                                       int k, const int* a_flag, int* flags,
+                                       float* out, int num_windows, int bm,
+                                       int bk, int n, int row_cap,
+                                       void* stream) {
   const int n_words = (bk + 31) / 32;
   if (row_cap <= 0 || bk <= 0) return cudaErrorInvalidValue;
   if (num_windows == 0 || n == 0) return 0;
@@ -657,7 +662,8 @@ extern "C" int bitmap_tile_spmm_launch(const int* order, const int* seg,
   err = tc::allow_smem(bitmap_tile_spmm_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = tc::launch_nonfinite(b, static_cast<int64_t>(k) * n, flags, st);
+  err = tc::launch_nonfinite(b, static_cast<int64_t>(k) * n, a_flag, flags,
+                             st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_tiles = (n + tc::kCols - 1) / tc::kCols;
   const dim3 grid(static_cast<unsigned>(n_tiles) * num_windows,

@@ -19,23 +19,28 @@
 // lo*lo term is ~2^-22 relative), where plain TF32 keeps about three
 // decimal digits.
 //
-// Non-finite B.  The reference multiplies every entry of a dense tile, so
-// where B holds an Inf or NaN, 0 * Inf gives NaN and a stored nonzero
-// times Inf gives +-Inf.  Neither the zero-skipping walk (it never meets
-// the zeros) nor the split product (Inf - Inf = NaN in lo, and the cross
-// term lo(A) * hi(B) is 0 * Inf = NaN wherever A is exact in tf32, every
-// 1.0 of an adjacency matrix, so setting lo = 0 would not do) gives that.
-// So each call first runs nonfinite_kernel, which writes one flag per
-// block of its grid (one read of B, never read on the host), and then two
-// kernels that read those flags (b_nonfinite): the fast kernel returns at
-// once where one is set, and every_entry_kernel returns at once where none
-// is, and otherwise multiplies every entry of every tile in fp32 FFMAs
+// Non-finite input.  The reference multiplies every entry of a dense
+// tile, so where B holds an Inf or NaN, 0 * Inf gives NaN and a stored
+// nonzero times Inf gives +-Inf; where A holds one, it meets every B
+// value of its row (+-Inf, or NaN against a 0).  Neither the zero-
+// skipping walk (it never meets the zeros) nor the split product gives
+// that: for x an Inf, a NaN or |x| >= 3.401993e38 (which cvt.rna rounds
+// to Inf), lo = tf32(x - hi) is NaN, and setting lo = 0 would not do (the
+// cross term lo(A) * hi(B) is 0 * Inf = NaN wherever A is exact in tf32,
+// every 1.0 of an adjacency matrix).  So each call first runs
+// nonfinite_kernel, which writes one flag per block of its grid (one read
+// of B: a value the split cannot carry) and copies A's flag (computed from
+// A's values when the plan is built, repro_torch.core.plan_ir.
+// unsplittable_flag) after them, never read on the host; then two kernels
+// read those flags (route_every_entry): the fast kernel returns at once
+// where one is set, and every_entry_kernel returns at once where none is,
+// and otherwise multiplies every entry of every tile in fp32 FFMAs
 // (walk_all): IEEE products, the reference's answer.  The slow path lives
 // in its own kernel so that the fast kernels keep their registers (on the
 // H100, sharing one kernel cost B1's tensor-core path 4 % and the N:M slot
 // walk 60 %, from one block per SM where two fitted), and it runs as a
 // persistent grid of a few blocks per SM, so that its launch costs
-// microseconds on finite B.
+// microseconds on finite input.
 //
 // The staged A slice is row-major with row stride kAStride (kSlice + 4:
 // the fragment loads of one warp hit 32 distinct banks); the B slab is
@@ -47,7 +52,6 @@
 #pragma once
 
 #include <cuda_runtime.h>
-#include <float.h>
 #include <stdint.h>
 
 namespace tile_core {
@@ -337,7 +341,7 @@ __device__ __forceinline__ int occupancy(const float* a_s, int width,
 // and four FFMAs a lane per nonzero; rows i and i + 8 are walked together
 // for two independent chains of loads.  Zeros are skipped, which is exact
 // for finite B only: where B holds an Inf or NaN, every_entry_kernel runs
-// instead (see b_nonfinite).
+// instead (see route_every_entry).
 __device__ __forceinline__ void walk_tile(WalkAcc& acc, const float* a_s,
                                           const float* b_s, uint64_t occ) {
   const int warp = threadIdx.x >> 5;
@@ -398,24 +402,37 @@ __device__ __forceinline__ void write_tile(float* dst, int64_t ld, int rows,
   }
 }
 
-// ---- every entry: the path for non-finite B --------------------------------
+// ---- every entry: the path for non-finite input ----------------------------
 
-// Blocks of nonfinite_kernel, hence flags a call writes; the wrappers
-// allocate this many ints (kernels/dense_tile_spmm.py NONFINITE_FLAGS).
+// Blocks of nonfinite_kernel, hence flags of B a call writes; A's flag
+// follows them, so the wrappers allocate kFlagInts ints
+// (kernels/dense_tile_spmm.py NONFINITE_FLAGS).
 constexpr int kFlagBlocks = 512;
+constexpr int kFlagInts = kFlagBlocks + 1;
 
-__device__ __forceinline__ bool finite4(float4 x) {
-  return fabsf(x.x) <= FLT_MAX && fabsf(x.y) <= FLT_MAX &&
-         fabsf(x.z) <= FLT_MAX && fabsf(x.w) <= FLT_MAX;
+// |x| as bits from which the split cannot carry x: 0x7f7ff000 is
+// 3.401993e38, which cvt.rna.tf32 rounds to Inf; Inf and NaN lie above it
+// (repro_torch.core.plan_ir.TF32_SPLIT_LIMIT_BITS).
+constexpr uint32_t kSplitLimitBits = 0x7f7ff000u;
+
+__device__ __forceinline__ bool splittable(float x) {
+  return (__float_as_uint(x) & 0x7fffffffu) < kSplitLimitBits;
+}
+
+__device__ __forceinline__ bool splittable4(float4 x) {
+  return splittable(x.x) && splittable(x.y) && splittable(x.z) &&
+         splittable(x.w);
 }
 
 // flags[blockIdx.x] = 1 where this block's grid-stride share of the `count`
-// floats of b holds an Inf or a NaN, else 0: one read of b, 16-byte loads
-// where b is aligned, four in flight a thread.  Launched with kFlagBlocks
-// blocks of kThreads.
+// floats of b holds a value the split cannot carry (an Inf, a NaN or
+// |x| >= 3.401993e38), else 0: one read of b, 16-byte loads where b is
+// aligned, four in flight a thread.  Block 0 also copies A's flag *a_flag
+// to flags[kFlagBlocks].  Launched with kFlagBlocks blocks of kThreads.
 __global__ void __launch_bounds__(kThreads)
 nonfinite_kernel(const float* __restrict__ b, int64_t count,
-                 int* __restrict__ flags) {
+                 const int* __restrict__ a_flag, int* __restrict__ flags) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) flags[kFlagBlocks] = *a_flag;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   bool ok = true;
@@ -428,24 +445,25 @@ nonfinite_kernel(const float* __restrict__ b, int64_t count,
       const float4 x0 = __ldg(b4 + i), x1 = __ldg(b4 + i + stride);
       const float4 x2 = __ldg(b4 + i + 2 * stride);
       const float4 x3 = __ldg(b4 + i + 3 * stride);
-      ok = ok && finite4(x0) && finite4(x1) && finite4(x2) && finite4(x3);
+      ok = ok && splittable4(x0) && splittable4(x1) && splittable4(x2) &&
+           splittable4(x3);
     }
-    for (; i < n4; i += stride) ok = ok && finite4(__ldg(b4 + i));
+    for (; i < n4; i += stride) ok = ok && splittable4(__ldg(b4 + i));
     tail = 4 * n4;
   }
   for (int64_t j = tail + tid; j < count; j += stride)
-    ok = ok && fabsf(__ldg(b + j)) <= FLT_MAX;
+    ok = ok && splittable(__ldg(b + j));
   const int bad = __syncthreads_or(!ok);
   if (threadIdx.x == 0) flags[blockIdx.x] = bad != 0;
 }
 
-// True where B holds an Inf or a NaN: any of nonfinite_kernel's n_flags
-// flags set (written by the launch before this one on the stream).  Every
-// thread of the block must call it (a block-wide OR); uniform across the
-// grid.
-__device__ __forceinline__ bool b_nonfinite(const int* flags, int n_flags) {
+// True where A or B holds a value the split cannot carry: any of the
+// kFlagInts flags nonfinite_kernel wrote (the launch before this one on
+// the stream) set.  Every thread of the block must call it (a block-wide
+// OR); uniform across the grid.
+__device__ __forceinline__ bool route_every_entry(const int* flags) {
   int bad = 0;
-  for (int i = threadIdx.x; i < n_flags; i += blockDim.x)
+  for (int i = threadIdx.x; i < kFlagInts; i += blockDim.x)
     bad |= __ldg(flags + i);
   return __syncthreads_or(bad) != 0;
 }
@@ -498,7 +516,8 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Where B holds an Inf or NaN (else every block returns at once): the
+// Where A or B holds a value the split cannot carry (else every block
+// returns at once): the
 // packed (num_windows*bm, n) product with every tile entry multiplied.
 // Cells is the payload's decoder: cells.cell(row, c) is the dense value of
 // tile row `row` (t*bm + r, 64-bit) at column c < bk, as the reference
@@ -517,10 +536,10 @@ every_entry_kernel(Cells cells, const int* __restrict__ order,
                    const int4* __restrict__ chunks,
                    const int* __restrict__ step_col,
                    const float* __restrict__ b,
-                   const int* __restrict__ flags, int n_flags,
+                   const int* __restrict__ flags,
                    float* __restrict__ out, float* __restrict__ partial,
                    int n_segments, int bm, int bk, int n) {
-  if (!b_nonfinite(flags, n_flags)) return;
+  if (!route_every_entry(flags)) return;
   extern __shared__ float4 smem4[];
   float* const a_s = reinterpret_cast<float*>(smem4);
   float* const b_s = a_s + kAFloats;
@@ -578,10 +597,12 @@ every_entry_kernel(Cells cells, const int* __restrict__ order,
 }
 
 // Launch nonfinite_kernel on `stream`: kFlagBlocks flags for the count
-// floats of b (contiguous).
-inline cudaError_t launch_nonfinite(const float* b, int64_t count, int* flags,
+// floats of b (contiguous), then A's flag *a_flag, in kFlagInts ints.
+inline cudaError_t launch_nonfinite(const float* b, int64_t count,
+                                    const int* a_flag, int* flags,
                                     cudaStream_t stream) {
-  nonfinite_kernel<<<kFlagBlocks, kThreads, 0, stream>>>(b, count, flags);
+  nonfinite_kernel<<<kFlagBlocks, kThreads, 0, stream>>>(b, count, a_flag,
+                                                         flags);
   return cudaGetLastError();
 }
 
@@ -607,8 +628,8 @@ cudaError_t launch_every_entry(const Cells& cells, const int* order,
   if (units == 0) return cudaSuccess;
   const int grid = static_cast<int>(units < 2 * sms ? units : 2 * sms);
   every_entry_kernel<Cells><<<grid, kThreads, smem, stream>>>(
-      cells, order, seg, chunks, step_col, b, flags, kFlagBlocks, out,
-      partial, n_segments, bm, bk, n);
+      cells, order, seg, chunks, step_col, b, flags, out, partial,
+      n_segments, bm, bk, n);
   return cudaGetLastError();
 }
 

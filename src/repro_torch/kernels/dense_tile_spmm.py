@@ -7,7 +7,8 @@ dense core of A arrives as a stream of active (window, k-block) tiles;
 On a CUDA tensor the wrapper launches the hand-written Hopper kernels in
 ``csrc/dense_tile_spmm.cu`` (design notes there): the tile walk over
 chunks of each window's segment (:func:`window_chunks`), beside it the
-every-entry kernel that takes over where B holds an Inf or NaN, then the
+every-entry kernel that takes over where B holds an Inf or NaN or A or B a
+value the 3xTF32 split cannot carry, then the
 pass that sums a split window's partials; on a CPU tensor it runs the plain
 version, :func:`repro_torch.kernels.ref.ref_block_stream_spmm`.  There is
 no other path: a CUDA call launches the kernels or raises.
@@ -20,14 +21,15 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.plan_ir import unsplittable_flag
 from . import _build
 from .ref import ref_block_stream_spmm
 
 NAME = "dense_tile_spmm"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I,
-             _P)
+_ARGTYPES = (_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I,
+             _I, _P)
 
 # the chunk table aims at this many chunks per SM (the kernel runs one
 # block of a chunk per SM at a time, so several waves), and never cuts a
@@ -37,18 +39,36 @@ CHUNKS_PER_SM = 4
 MIN_CHUNK_TILES = 64
 
 
-# ints of scratch a matrix-path call hands its kernels for the check of B
-# (tile_core::kFlagBlocks): one flag per block of the check, set where that
-# block's share of B holds an Inf or a NaN, read on the device only
-NONFINITE_FLAGS = 512
+# ints of scratch a matrix-path call hands its kernels for the check of its
+# operands (tile_core::kFlagInts): one flag per block of the check of B,
+# set where that block's share of B holds a value the 3xTF32 split cannot
+# carry (an Inf, a NaN, |x| >= 3.401993e38), then A's flag; read on the
+# device only
+NONFINITE_FLAGS = 513
 
 
 def nonfinite_flags(b: torch.Tensor) -> torch.Tensor:
-    """Scratch for the check of ``b`` that every matrix-path call makes on
-    the card before its tile kernel: where ``b`` holds an Inf or a NaN the
-    kernels multiply every entry of every tile, as the TPU kernels' dense
-    product does (0 * Inf = NaN)."""
+    """Scratch for the check that every matrix-path call makes on the card
+    before its tile kernel: where ``b`` or A holds an Inf or a NaN (or a
+    value the split cannot carry) the kernels multiply every entry of every
+    tile in fp32, as the TPU kernels' dense product does (0 * Inf = NaN)."""
     return torch.empty(NONFINITE_FLAGS, dtype=torch.int32, device=b.device)
+
+
+def a_flag_of(values: torch.Tensor,
+              a_flag: Optional[torch.Tensor]) -> torch.Tensor:
+    """``a_flag`` where the caller has it (plans keep
+    :func:`~repro_torch.core.plan_ir.unsplittable_flag` of their tile values
+    as ``plan.a_unsplittable``), else computed from ``values`` (one read of
+    them on the device)."""
+    if a_flag is None:
+        return unsplittable_flag(values)
+    if (a_flag.dtype != torch.int32 or a_flag.numel() != 1
+            or a_flag.device != values.device):
+        raise ValueError(
+            f"a_flag must be one int32 on {values.device}, got "
+            f"{a_flag.dtype} {tuple(a_flag.shape)} on {a_flag.device}")
+    return a_flag
 
 
 def window_segments(
@@ -159,12 +179,15 @@ def dense_tile_spmm(
     bk: int,
     segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     chunks: Optional[WindowChunks] = None,
+    a_flag: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Packed fp32 output (num_windows*bm, N).
 
     ``segments`` is :func:`window_segments` of ``step_window`` and
     ``chunks`` :func:`window_chunks` of its offsets, when the caller has
-    them cached (plans keep both in ``plan.derived``).  One call is four
+    them cached (plans keep both in ``plan.derived``); ``a_flag`` is
+    :func:`~repro_torch.core.plan_ir.unsplittable_flag` of ``flat_values``
+    (a plan's ``a_unsplittable``), computed here when not given.  One call is four
     kernel launches (the check of ``b``, the tile walk and the every-entry
     kernel, one of which returns at once, then the reduce pass), counted
     once in ``launches``.
@@ -182,9 +205,11 @@ def dense_tile_spmm(
     partial = torch.empty((chunks.n_slots, bm, n), dtype=torch.float32,
                           device=b.device)
     flags = nonfinite_flags(b)
+    a_flag = a_flag_of(flat_values, a_flag)
     status = fn(order.data_ptr(), step_col.data_ptr(),
                 flat_values.data_ptr(), b.data_ptr(), b.shape[0],
-                flags.data_ptr(), chunks.table.data_ptr(), chunks.table.shape[0],
+                a_flag.data_ptr(), flags.data_ptr(), chunks.table.data_ptr(),
+                chunks.table.shape[0],
                 chunks.reduce.data_ptr(), chunks.reduce.shape[0],
                 partial.data_ptr(), out.data_ptr(), bm, bk, n,
                 torch.cuda.current_stream(b.device).cuda_stream)

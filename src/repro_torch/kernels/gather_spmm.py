@@ -9,18 +9,20 @@ Port of ``repro.kernels.gather_spmm`` (the two Pallas TPU fringe kernels):
   local to the k-block ``chunk_kb`` names for their chunk).
 
 Both return the packed (num_rows, N) fp32 output.  On CUDA tensors the
-wrappers launch the hand-written Hopper kernels in ``csrc/gather_spmm.cu``
-(design notes there); on CPU tensors they run the plain versions from
+wrappers launch the hand-written Hopper kernel in ``csrc/gather_spmm.cu``
+(design notes there), the row walk: the k-bucketed stream is remapped once,
+from its structure alone, into a row-major order with global columns
+(:func:`kbucket_row_order`), and each call gathers its values into that
+order, then walks.  On CPU tensors they run the plain versions from
 :mod:`repro_torch.kernels.ref`.  A CUDA call launches its kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from . import _build
 from .ref import ref_gather_spmm, ref_gather_spmm_kblocked
@@ -30,7 +32,7 @@ NAME_KSHARDED = "gather_spmm_ksharded"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _P)
-_ARGTYPES_KSHARDED = (_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P)
+_ARGTYPES_PERM = (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P)
 
 
 def csr_indptr(sorted_rows: torch.Tensor, num_rows: int) -> torch.Tensor:
@@ -85,14 +87,33 @@ def fringe_profile(indptr: torch.Tensor, cols: torch.Tensor,
     }
 
 
+class KBucketRowOrder(NamedTuple):
+    """The k-bucketed stream in row-major order, from its structure alone.
+
+    ``perm`` (nnz,) int32: a stable row-major order of the stream (each
+    row's entries stay in k-block order, padding entries included, in row
+    0); ``indptr`` (num_rows+1,) int32: row offsets into it; ``cols``
+    (nnz,) int32: the global column ``chunk_kb[i // chunk] * bk + col`` of
+    entry ``perm[j]`` at position j.  The values are not here: a value
+    update rewrites them, so each call gathers ``vals[perm]`` first.
+    """
+    perm: torch.Tensor
+    indptr: torch.Tensor
+    cols: torch.Tensor
+
+
 def kbucket_row_order(
-    kb_rows: torch.Tensor, num_rows: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(perm, indptr)``: a stable row-major order of the k-bucketed
-    stream (each row's entries stay in k-block order) and the row offsets
-    into it."""
-    perm = torch.argsort(kb_rows, stable=True)
-    return perm.to(torch.int32), csr_indptr(kb_rows[perm], num_rows)
+    chunk_kb: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+    num_rows: int, bk: int,
+) -> KBucketRowOrder:
+    """:class:`KBucketRowOrder` of a k-bucketed stream, on its device
+    (one host read: plans cache it in ``plan.derived``)."""
+    perm = torch.argsort(rows, stable=True)
+    chunk = rows.shape[0] // max(chunk_kb.shape[0], 1)
+    gcols = (torch.repeat_interleave(chunk_kb, chunk) * bk + cols)[perm]
+    return KBucketRowOrder(perm.to(torch.int32),
+                           csr_indptr(rows[perm], num_rows),
+                           gcols.to(torch.int32).contiguous())
 
 
 def _check(b: torch.Tensor, **tensors) -> None:
@@ -152,10 +173,18 @@ def gather_spmm_ksharded(
     *,
     num_rows: int,
     bk: int,
-    row_order: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    row_order: Optional[KBucketRowOrder] = None,
 ) -> torch.Tensor:
     """K-sharded streaming tier.  ``row_order`` is
-    :func:`kbucket_row_order` of ``rows`` when the caller has it cached."""
+    :func:`kbucket_row_order` of the stream when the caller has it cached.
+
+    On the card it is two launches, counted once: the gather of the
+    values into the row-major order, then the walk of :func:`gather_spmm`.
+    B is read as it is, K rows: every global column of the stream, padding
+    entries' included (``chunk_kb * bk``, the first column of a k-block
+    that holds a real entry), is below K.  A padding entry adds ``0 *
+    B[chunk_kb * bk]``, as the TPU kernel does: NaN where that row of B
+    holds an Inf or a NaN."""
     num_chunks = chunk_kb.shape[0]
     if num_chunks < 1 or rows.shape[0] % num_chunks:
         raise ValueError(
@@ -166,18 +195,16 @@ def gather_spmm_ksharded(
                                         num_rows, bk)
     _check(b, chunk_kb=(chunk_kb, torch.int32), rows=(rows, torch.int32),
            cols=(cols, torch.int32), vals=(vals, torch.float32))
-    k, n = b.shape
-    k_pad = ((k + bk - 1) // bk) * bk
-    if k_pad != k:
-        b = F.pad(b, (0, 0, 0, k_pad - k))
-    perm, indptr = row_order or kbucket_row_order(rows, num_rows)
+    order = row_order or kbucket_row_order(chunk_kb, rows, cols, num_rows,
+                                           bk)
+    n = b.shape[1]
     out = torch.empty((num_rows, n), dtype=torch.float32, device=b.device)
-    fn = _build.function(NAME, "gather_spmm_ksharded_launch",
-                         _ARGTYPES_KSHARDED)
-    status = fn(indptr.data_ptr(), perm.data_ptr(), cols.data_ptr(),
-                vals.data_ptr(), chunk_kb.data_ptr(),
-                rows.shape[0] // num_chunks, bk, b.data_ptr(),
-                out.data_ptr(), num_rows, n, _stream(b))
+    scratch = torch.empty_like(vals)
+    fn = _build.function(NAME, "gather_spmm_perm_launch", _ARGTYPES_PERM)
+    status = fn(order.indptr.data_ptr(), order.cols.data_ptr(),
+                order.perm.data_ptr(), vals.data_ptr(), scratch.data_ptr(),
+                vals.shape[0], b.data_ptr(), out.data_ptr(), num_rows, n,
+                _stream(b))
     _build.check_status(status, NAME_KSHARDED)
     gather_spmm_ksharded.launches += 1
     return out

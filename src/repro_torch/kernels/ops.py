@@ -24,7 +24,7 @@ from .dense_tile_spmm import dense_tile_spmm, window_chunks, window_segments
 from .gather_spmm import (
     csr_indptr, gather_spmm, gather_spmm_ksharded, kbucket_row_order,
 )
-from .sddmm import dense_tile_sddmm, gather_sddmm
+from .sddmm import dense_tile_sddmm, gather_sddmm, sampled_index
 from .structured_spmm import bitmap_tile_spmm, nm_tile_spmm
 
 IMPLS = ("cuda", "torch")
@@ -95,12 +95,14 @@ def block_stream_spmm(
     bk: int,
     impl: str,
     derived: Optional[Dict[str, Any]] = None,
+    a_flag: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Matrix-engine path; returns packed (num_windows*bm, N) fp32.
 
     The tile stream must hold each (window, k-block) pair once, as
     ``prepare`` emits it: the plain densified form scatters tiles without
-    summing duplicates.
+    summing duplicates.  ``a_flag`` is the plan's ``a_unsplittable`` (the
+    kernels then skip computing it from the tile values).
     """
     if b.ndim != 2:
         raise ValueError(
@@ -123,7 +125,7 @@ def block_stream_spmm(
                      lambda: window_chunks(segments[1]))
     return dense_tile_spmm(step_window, step_col, flat_values, b,
                            num_windows=num_windows, bm=bm, bk=bk,
-                           segments=segments, chunks=chunks)
+                           segments=segments, chunks=chunks, a_flag=a_flag)
 
 
 def nm_stream_spmm(
@@ -140,6 +142,7 @@ def nm_stream_spmm(
     m_pat: int,
     impl: str,
     derived: Optional[Dict[str, Any]] = None,
+    a_flag: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Matrix-engine path over the N:M-packed tile stream; returns packed
     (num_windows*bm, N) fp32.  ``impl="torch"`` runs the reference's gather
@@ -158,7 +161,7 @@ def nm_stream_spmm(
                        lambda: window_segments(step_window, num_windows))
     return nm_tile_spmm(step_window, step_col, nm_values, nm_codes, b,
                         num_windows=num_windows, bm=bm, bk=bk, n_pat=n_pat,
-                        m_pat=m_pat, segments=segments)
+                        m_pat=m_pat, segments=segments, a_flag=a_flag)
 
 
 def bitmap_stream_spmm(
@@ -174,6 +177,7 @@ def bitmap_stream_spmm(
     row_cap: int,
     impl: str,
     derived: Optional[Dict[str, Any]] = None,
+    a_flag: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Matrix-engine path over the bitmap-packed tile stream; returns packed
     (num_windows*bm, N) fp32.  ``impl="torch"`` expands the tiles and runs
@@ -193,7 +197,8 @@ def bitmap_stream_spmm(
                        lambda: window_segments(step_window, num_windows))
     return bitmap_tile_spmm(step_window, step_col, bitmap_words,
                             bitmap_values, b, num_windows=num_windows, bm=bm,
-                            bk=bk, row_cap=row_cap, segments=segments)
+                            bk=bk, row_cap=row_cap, segments=segments,
+                            a_flag=a_flag)
 
 
 def fringe_spmm(
@@ -216,9 +221,10 @@ def fringe_spmm(
     """Vector-engine path; returns packed (num_rows, N) fp32.
 
     ``impl="torch"`` runs the reference gather on the packed fringe
-    whatever the tier.  ``impl="cuda"`` runs the streaming kernel on the
-    k-bucketed stream for tier "ksharded", and the row-walk kernel on the
-    packed fringe otherwise: a plan carried over from the JAX package may
+    whatever the tier.  ``impl="cuda"`` runs the row-walk kernel: over the
+    k-bucketed stream (remapped once to row-major order with global
+    columns, cached in ``derived``) for tier "ksharded", over the packed
+    fringe otherwise: a plan carried over from the JAX package may
     still say "xla", and on the card that means the row walk (the H100
     tier rule of ``core.cost_model.select_fringe_tier``).
     """
@@ -237,7 +243,8 @@ def fringe_spmm(
                 "tier='ksharded' needs the k-bucketed stream (kb_chunk/"
                 "kb_rows/kb_cols/kb_vals) and its bk")
         order = _cached(derived, "kbucket_row_order",
-                        lambda: kbucket_row_order(kb_rows, num_rows))
+                        lambda: kbucket_row_order(kb_chunk, kb_rows, kb_cols,
+                                                  num_rows, bk))
         return gather_spmm_ksharded(kb_chunk, kb_rows, kb_cols, kb_vals, b,
                                     num_rows=num_rows, bk=bk,
                                     row_order=order)
@@ -250,21 +257,33 @@ def fringe_spmm(
 def sddmm_block_stream(
     step_window: torch.Tensor,
     step_col: torch.Tensor,
+    core_lin: torch.Tensor,
     xp: torch.Tensor,
-    yp: torch.Tensor,
+    ypt: torch.Tensor,
+    out: torch.Tensor,
     *,
     bm: int,
     bk: int,
     impl: str,
+    derived: Optional[Dict[str, Any]] = None,
 ) -> torch.Tensor:
-    """SDDMM matrix path; returns the fp32 tile stream (T, bm, bk).
+    """SDDMM matrix path: writes the fp32 value of ``X @ Y`` at each core
+    nonzero into ``out`` ((nnz,), input COO order) at its position
+    (``core_lin >= 0``), and returns ``out``.
 
     ``xp`` is the window-gathered X row panel (num_windows*bm, D) and
-    ``yp`` the column-permuted, K-padded Y operand (D, K).  The caller
-    extracts per-nonzero values at the plan's ``core_lin`` slots.
+    ``ypt`` Y^T with its rows permuted and padded as SpMM permutes and pads
+    B's, (K, D).  The kernel's index arrays come from the structure alone
+    and are cached in ``derived``.
     """
-    _check_impl(impl, yp)
-    return dense_tile_sddmm(step_window, step_col, xp, yp, bm=bm, bk=bk)
+    _check_impl(impl, ypt)
+    index = None
+    if impl == "cuda":
+        index = _cached(derived, "sddmm_sampled_index",
+                        lambda: sampled_index(step_window, step_col, core_lin,
+                                              bm=bm, bk=bk))
+    return dense_tile_sddmm(step_window, step_col, core_lin, xp, ypt, out,
+                            bm=bm, bk=bk, index=index)
 
 
 def sddmm_gather(

@@ -296,6 +296,28 @@ def ref_tile_sddmm(
     return out
 
 
+def ref_tile_sddmm_at_slots(
+    step_window: torch.Tensor,  # (T,) int32
+    step_col: torch.Tensor,     # (T,) int32
+    core_lin: torch.Tensor,     # (nnz,) int64 flat tile slot, -1 elsewhere
+    xp: torch.Tensor,           # (num_windows*bm, D)
+    ypt: torch.Tensor,          # (K, D) — Y^T, K a multiple of bk
+    out: torch.Tensor,          # (nnz,) float32, written where core_lin >= 0
+    bm: int,
+    bk: int,
+    tile_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """The SDDMM matrix path as the caller reads it: the tile stream of
+    :func:`ref_tile_sddmm`, then ``out[i] = tiles.flat[core_lin[i]]`` for
+    every ``i`` with ``core_lin[i] >= 0``; the other entries of ``out``
+    are left as they are.  Returns ``out``."""
+    tiles = ref_tile_sddmm(step_window, step_col, xp, ypt.t(), bm, bk,
+                           tile_chunk=tile_chunk)
+    sel = torch.nonzero(core_lin >= 0).squeeze(1)
+    out[sel] = tiles.reshape(-1)[core_lin[sel]]
+    return out
+
+
 def ref_gather_sddmm(
     rows: torch.Tensor,  # (nnz,) int32 row ids into x
     cols: torch.Tensor,  # (nnz,) int32 row ids into yt

@@ -21,9 +21,10 @@ of sparse ones.  On CPU tensors they run the plain versions,
 :func:`~repro_torch.kernels.ref.ref_bitmap_stream_spmm`.  A CUDA call
 launches its kernel or raises.
 
-Where B holds an Inf or NaN the kernels multiply every tile entry, as the
-TPU kernels' dense product does (see :func:`~repro_torch.kernels.
-dense_tile_spmm.nonfinite_flags`), and so do both plain versions.  The ``"torch"``
+Where B holds an Inf or NaN, or A or B a value the 3xTF32 split cannot
+carry, the kernels multiply every tile entry, as the TPU kernels' dense
+product does (see :func:`~repro_torch.kernels.dense_tile_spmm.
+nonfinite_flags`), and so do both plain versions.  The ``"torch"``
 impl runs :func:`~repro_torch.kernels.ref.ref_nm_stream_spmm` instead, the
 reference's gather form (its ``"xla"`` oracle), which multiplies only the
 packed slots: with finite B the two agree within fp32 rounding.
@@ -36,14 +37,14 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .dense_tile_spmm import nonfinite_flags, window_segments
+from .dense_tile_spmm import a_flag_of, nonfinite_flags, window_segments
 from .ref import ref_bitmap_stream_spmm, ref_nm_stream_spmm_dense
 
 NAME = "structured_spmm"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES_NM = (_P,) * 6 + (_I, _P, _P) + (_I,) * 6 + (_P,)
-_ARGTYPES_BITMAP = (_P,) * 6 + (_I, _P, _P) + (_I,) * 5 + (_P,)
+_ARGTYPES_NM = (_P,) * 6 + (_I, _P, _P, _P) + (_I,) * 6 + (_P,)
+_ARGTYPES_BITMAP = (_P,) * 6 + (_I, _P, _P, _P) + (_I,) * 5 + (_P,)
 # the N:M kernel stages a whole tile as one slice of the tile core
 # (tile_core::kSlice)
 NM_MAX_BK = 64
@@ -80,11 +81,14 @@ def nm_tile_spmm(
     n_pat: int,
     m_pat: int,
     segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    a_flag: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Packed fp32 output (num_windows*bm, N) of the N:M tile stream.
 
     ``segments`` is :func:`window_segments` of ``step_window``, when the
-    caller has it cached (plans keep it in ``plan.derived``).
+    caller has it cached (plans keep it in ``plan.derived``); ``a_flag``
+    as for :func:`~repro_torch.kernels.dense_tile_spmm.dense_tile_spmm`
+    (computed here from ``nm_values`` when not given).
     """
     if b.device.type == "cpu":
         return ref_nm_stream_spmm_dense(step_window, step_col, nm_values,
@@ -111,9 +115,11 @@ def nm_tile_spmm(
                       device=b.device)
     fn = _build.function(NAME, "nm_tile_spmm_launch", _ARGTYPES_NM)
     flags = nonfinite_flags(b)
+    a_flag = a_flag_of(nm_values, a_flag)
     status = fn(order.data_ptr(), seg.data_ptr(), step_col.data_ptr(),
                 nm_values.data_ptr(), nm_codes.data_ptr(), b.data_ptr(),
-                b.shape[0], flags.data_ptr(), out.data_ptr(), num_windows,
+                b.shape[0], a_flag.data_ptr(), flags.data_ptr(),
+                out.data_ptr(), num_windows,
                 bm, bk, n, n_pat, m_pat, _stream(b))
     _build.check_status(status, "nm_tile_spmm")
     nm_tile_spmm.launches += 1
@@ -132,8 +138,11 @@ def bitmap_tile_spmm(
     bk: int,
     row_cap: int,
     segments: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    a_flag: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Packed fp32 output (num_windows*bm, N) of the bitmap tile stream."""
+    """Packed fp32 output (num_windows*bm, N) of the bitmap tile stream;
+    ``segments`` and ``a_flag`` as for :func:`nm_tile_spmm` (``a_flag``
+    computed here from ``bitmap_values`` when not given)."""
     if b.device.type == "cpu":
         return ref_bitmap_stream_spmm(step_window, step_col, bitmap_words,
                                       bitmap_values, b, num_windows, bk)
@@ -157,9 +166,11 @@ def bitmap_tile_spmm(
                       device=b.device)
     fn = _build.function(NAME, "bitmap_tile_spmm_launch", _ARGTYPES_BITMAP)
     flags = nonfinite_flags(b)
+    a_flag = a_flag_of(bitmap_values, a_flag)
     status = fn(order.data_ptr(), seg.data_ptr(), step_col.data_ptr(),
                 bitmap_words.data_ptr(), bitmap_values.data_ptr(),
-                b.data_ptr(), b.shape[0], flags.data_ptr(), out.data_ptr(),
+                b.data_ptr(), b.shape[0], a_flag.data_ptr(), flags.data_ptr(),
+                out.data_ptr(),
                 num_windows, bm, bk, n, row_cap, _stream(b))
     _build.check_status(status, "bitmap_tile_spmm")
     bitmap_tile_spmm.launches += 1

@@ -16,6 +16,9 @@
 
 The subset of ``repro.sparse`` this port carries: static single-device
 plans (general, N:M and bitmap payloads), SpMM, SDDMM and value updates.
+``A @ A`` on two sparse handles (the reference's ``spspmm``) raises
+:class:`~repro_torch.errors.NotPortedError`, and so does a ``"cuda"``
+call in grad mode whose operand requires grad (no backward yet).
 ``sddmm`` returns values in the input COO order of the pattern, the order
 ``with_values`` takes, so GAT-style attention is three calls: ``sddmm``
 -> ``with_values`` -> ``spmm``.  Entry points run on the card unless the caller passes
@@ -32,7 +35,7 @@ import torch
 from .core import spmm as core_spmm
 from .core.plan_ir import NeutronPlan, SpmmConfig
 from .dynamic import update_values
-from .errors import PlanBuildError
+from .errors import NotPortedError, PlanBuildError
 from .exec import api as _exec
 
 __all__ = ["SparseMatrix", "from_coo", "from_plan", "spmm", "bspmm",
@@ -106,6 +109,10 @@ class SparseMatrix:
         return SparseMatrix(update_values(self.plan, np.arange(nnz), values))
 
     def __matmul__(self, other):
+        if isinstance(other, (SparseMatrix, NeutronPlan)):
+            raise NotPortedError(
+                "SparseMatrix @ SparseMatrix is spspmm, which the port does "
+                "not carry yet; multiply by a dense operand (spmm)")
         return spmm(self, other)
 
     def __repr__(self) -> str:

@@ -163,7 +163,12 @@ def test_gather_spmm_rejects_unsorted_rows(cuda):
 
 @pytest.mark.parametrize("k,bk", [(2048, 512), (1000, 256)])
 def test_gather_spmm_ksharded_matches_plain(cuda, k, bk):
+    """The row walk over the remapped k-bucketed stream, on B as it is
+    (K ragged against bk where k = 1000): the plain version on the same
+    stream, one launch; with an Inf in the first B row of a padded k-block
+    its padding entries give NaN in row 0 as the plain version does."""
     from repro_torch.core.plan_ir import bucket_fringe_kblocks
+    from repro_torch.kernels.gather_spmm import kbucket_row_order
 
     rng = np.random.RandomState(k)
     num_rows, nnz, n = 300, 5000, 256
@@ -176,10 +181,21 @@ def test_gather_spmm_ksharded_matches_plain(cuda, k, bk):
     kbc, kbr, kbcol, kbv, _ = bucket_fringe_kblocks(pr, pc, pv, k_pad, bk, 8)
     b = rng.randn(k, n).astype(np.float32)
     args = [torch.from_numpy(x).to(cuda) for x in (kbc, kbr, kbcol, kbv, b)]
+    before = gather_spmm_ksharded.launches
     got = gather_spmm_ksharded(*args, num_rows=num_rows, bk=bk)
-    b_pad = torch.nn.functional.pad(args[-1], (0, 0, 0, k_pad - k))
-    want = ref.ref_gather_spmm_kblocked(*args[:-1], b_pad, num_rows, bk)
+    assert gather_spmm_ksharded.launches == before + 1
+    want = ref.ref_gather_spmm_kblocked(*args, num_rows, bk)
     _close(got, want)
+    order = kbucket_row_order(*args[:3], num_rows, bk)
+    assert torch.equal(gather_spmm_ksharded(*args, num_rows=num_rows, bk=bk,
+                                            row_order=order), got)
+    pad_kb = np.unique(np.repeat(kbc, 8)[kbv == 0])
+    b[pad_kb[0] * bk, 7] = np.inf
+    args[-1] = torch.from_numpy(b).to(cuda)
+    want = ref.ref_gather_spmm_kblocked(*args, num_rows, bk)
+    assert torch.isnan(want[0, 7])
+    _close_nan(gather_spmm_ksharded(*args, num_rows=num_rows, bk=bk,
+                                    row_order=order), want)
 
 
 @pytest.mark.parametrize("name,budget", [
@@ -209,22 +225,70 @@ def test_execute_cuda_matches_plain(cuda, name, budget):
 
 @pytest.mark.parametrize("bm,bk,d", [
     (128, 64, 256),   # the main path's tile shape and head width
-    (128, 64, 45),    # D not a multiple of the 32-deep slice
-    (200, 40, 70),    # bm above one row chunk, bk below one column chunk
+    (128, 64, 45),    # D not a multiple of 4: 4-byte loads
+    (200, 40, 70),    # bm above 128, bk not a power of two
     (16, 8, 3),
+    (128, 64, 602),   # D wider than the stage: two D chunks
+    (64, 128, 512),   # bk = 128: three D chunks of float4s
 ])
 def test_dense_tile_sddmm_matches_plain(cuda, bm, bk, d):
+    """The sampled product: the plain tile stream read at the core slots,
+    written at their positions (the rest of out untouched), a duplicate
+    slot included; two calls bit-identical; k-blocks cut into segments."""
+    from repro_torch.kernels.sddmm import sampled_index
+
     rng = np.random.RandomState(bm + bk + d)
     nw, nkb, t = 7, 5, 50
     sw = rng.randint(0, nw, t).astype(np.int32)
     sc = rng.randint(0, nkb, t).astype(np.int32)
     xp = rng.randn(nw * bm, d).astype(np.float32)
-    yp = rng.randn(d, nkb * bk).astype(np.float32)
-    args = [torch.from_numpy(a).to(cuda) for a in (sw, sc, xp, yp)]
+    ypt = rng.randn(nkb * bk, d).astype(np.float32)
+    slots = rng.choice(t * bm * bk, 3000, replace=False)
+    lin = np.concatenate([slots, slots[:1], np.full(500, -1)])
+    lin = lin[rng.permutation(lin.size)].astype(np.int64)
+    args = [torch.from_numpy(a).to(cuda) for a in (sw, sc, lin, xp, ypt)]
+    want = ref.ref_tile_sddmm_at_slots(
+        *args, torch.full((lin.size,), 7.25, device=cuda), bm, bk)
     before = dense_tile_sddmm.launches
-    got = dense_tile_sddmm(*args, bm=bm, bk=bk)
+    got = dense_tile_sddmm(*args, torch.full((lin.size,), 7.25,
+                                             device=cuda), bm=bm, bk=bk)
     assert dense_tile_sddmm.launches == before + 1
-    _close(got, ref.ref_tile_sddmm(*args, bm, bk))
+    _close(got, want)
+    index = sampled_index(*args[:3], bm=bm, bk=bk, seg_nnz=100)
+    assert index.seg_kb.numel() > nkb
+    again = dense_tile_sddmm(*args, torch.full((lin.size,), 7.25,
+                                               device=cuda), bm=bm, bk=bk,
+                             index=index)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+def test_dense_tile_sddmm_empty_and_nonfinite(cuda):
+    """No core slot: out untouched and no launch.  An Inf in X or a NaN in
+    Y^T reaches exactly its own row's or column's cells."""
+    bm, bk, d, nw, nkb = 128, 64, 256, 3, 4
+    rng = np.random.RandomState(4)
+    sw = np.arange(6, dtype=np.int32) % nw
+    sc = np.arange(6, dtype=np.int32) % nkb
+    xp = rng.randn(nw * bm, d).astype(np.float32)
+    ypt = rng.randn(nkb * bk, d).astype(np.float32)
+    tens = [torch.from_numpy(a).to(cuda) for a in (sw, sc)]
+    none = torch.full((9,), -1, dtype=torch.int64, device=cuda)
+    out = torch.full((9,), 7.25, device=cuda)
+    before = dense_tile_sddmm.launches
+    dense_tile_sddmm(*tens, none, torch.from_numpy(xp).to(cuda),
+                     torch.from_numpy(ypt).to(cuda), out, bm=bm, bk=bk)
+    assert dense_tile_sddmm.launches == before and bool((out == 7.25).all())
+    xp[5, 3] = np.inf
+    ypt[bk + 2, 9] = np.nan
+    lin = torch.from_numpy(rng.choice(6 * bm * bk, 4000, replace=False)
+                           .astype(np.int64)).to(cuda)
+    args = tens + [lin] + [torch.from_numpy(a).to(cuda) for a in (xp, ypt)]
+    got = dense_tile_sddmm(*args, bm=bm, bk=bk)
+    want = ref.ref_tile_sddmm_at_slots(*args, torch.zeros(4000, device=cuda),
+                                       bm, bk)
+    assert torch.isnan(want).any() or torch.isinf(want).any()
+    _close_nan(got, want)
 
 
 @pytest.mark.parametrize("d,offset", [(256, 0), (602, 0), (33, 0), (64, 1)])
@@ -609,4 +673,164 @@ def test_nonfinite_check_covers_unaligned_b_and_its_tail(cuda, where):
     want = ref.ref_block_stream_spmm(*args, num_windows=nw)
     assert torch.isnan(want).any()
     _close_nan(got, want)
+
+
+BIG = 3.402e38  # above 3.401993e38: cvt.rna.tf32 rounds it to Inf
+
+
+def _plant_a(tiles, values=(np.inf, -np.inf, np.nan, BIG, -BIG)):
+    """Each value at one cell of tile 0, rows 0, 1, ..."""
+    for r, v in enumerate(values):
+        tiles[0, r, 3 + 7 * r] = v
+    return tiles
+
+
+def _plant_b(rng, b, values=(BIG, -BIG, BIG, -BIG)):
+    """Each value at a seeded cell of b, in distinct columns."""
+    cols = rng.permutation(b.shape[1])[:len(values)]
+    b[rng.randint(0, b.shape[0], len(values)), cols] = values
+    return b
+
+
+def _unique_stream(nw, nkb, empty=()):
+    """Window-sorted tiles, each (window, k-block) pair once, as prepare
+    emits them: with +-3.402e38 in distinct columns of B, no output cell
+    then sums more than one term of that size (three or more overflow or
+    not depending on the order of the sum, which the kernel and the plain
+    version do not share)."""
+    sw, sc = np.divmod(np.arange(nw * nkb), nkb)
+    keep = ~np.isin(sw, empty)
+    return sw[keep].astype(np.int32), sc[keep].astype(np.int32)
+
+
+@pytest.mark.parametrize("density", [(0.02,), (0.5,), (0.02, 0.5)])
+@pytest.mark.parametrize("where", ["a", "b"])
+def test_dense_tile_spmm_unsplittable_matches_plain(cuda, density, where):
+    """Inf, NaN and +-3.402e38 in A's values (``where="a"``), or +-3.402e38
+    in B: every tile entry is multiplied in fp32, as in the plain version
+    (the 3xTF32 split would turn them into NaN).  The flag from the plan's
+    own computation gives the same answer as the wrapper's."""
+    from repro_torch.core.plan_ir import unsplittable_flag
+
+    rng = np.random.RandomState(int(100 * density[-1]) + len(where))
+    nw, nkb, bm, bk, n = 5, 6, 128, 64, 256
+    sw, sc = _unique_stream(nw, nkb)
+    perm = rng.permutation(sw.size)   # the kernel takes any tile order
+    sw, sc = sw[perm], sc[perm]
+    fv = _sparse_tiles(rng, sw.size, bm, bk, density)
+    b = rng.randn(nkb * bk, n).astype(np.float32)
+    if where == "a":
+        fv = _plant_a(fv)
+    else:
+        b = _plant_b(rng, b)
+    args = [torch.from_numpy(x).to(cuda) for x in (sw, sc, fv, b)]
+    want = ref.ref_block_stream_spmm(*args, num_windows=nw)
+    assert not torch.isfinite(want).all()
+    _close_nan(dense_tile_spmm(*args, num_windows=nw, bm=bm, bk=bk), want)
+    _close_nan(dense_tile_spmm(*args, num_windows=nw, bm=bm, bk=bk,
+                               a_flag=unsplittable_flag(args[2])), want)
+
+
+@pytest.mark.parametrize("n_pat,m_pat", [(2, 4), (1, 32)])
+@pytest.mark.parametrize("where", ["a", "b"])
+def test_nm_tile_spmm_unsplittable_matches_dense_plain(cuda, n_pat, m_pat,
+                                                       where):
+    from repro_torch.core.formats import pack_nm_tiles
+
+    rng = np.random.RandomState(m_pat + len(where))
+    nw, nkb, bm, bk, n = 5, 6, 128, 64, 256
+    sw, sc = _unique_stream(nw, nkb, empty=(2,))
+    t = sw.size
+    g = rng.randn(t, bm, bk // m_pat, m_pat).astype(np.float32)
+    keep = np.argsort(rng.rand(*g.shape), axis=-1) < n_pat
+    flat = np.where(keep, g, 0.0).astype(np.float32).reshape(t, bm, bk)
+    b = rng.randn(nkb * bk, n).astype(np.float32)
+    if where == "a":
+        rows = np.flatnonzero(flat[0].any(axis=1))[:5]
+        for r, v in zip(rows, (np.inf, -np.inf, np.nan, BIG, -BIG)):
+            flat[0, r, np.flatnonzero(flat[0, r])[0]] = v
+    else:
+        b = _plant_b(rng, b)
+    vals, codes = pack_nm_tiles(flat, n_pat, m_pat)
+    args = [torch.from_numpy(x).to(cuda) for x in (sw, sc, vals, codes, b)]
+    got = nm_tile_spmm(*args, num_windows=nw, bm=bm, bk=bk, n_pat=n_pat,
+                       m_pat=m_pat)
+    want = ref.ref_nm_stream_spmm_dense(*args, nw, n_pat, m_pat, bk)
+    assert not torch.isfinite(want).all()
+    _close_nan(got, want)
+
+
+@pytest.mark.parametrize("density", [(0.02,), (0.5,)])
+@pytest.mark.parametrize("where", ["a", "b"])
+def test_bitmap_tile_spmm_unsplittable_matches_plain(cuda, density, where):
+    from repro_torch.core.formats import pack_bitmap_tiles
+
+    rng = np.random.RandomState(int(1000 * density[0]) + len(where))
+    nw, nkb, bm, bk, n = 5, 6, 128, 64, 200
+    sw, sc = _unique_stream(nw, nkb, empty=(2,))
+    flat = _sparse_tiles(rng, sw.size, bm, bk, density)
+    b = rng.randn(nkb * bk, n).astype(np.float32)
+    if where == "a":
+        flat = _plant_a(flat)
+    else:
+        b = _plant_b(rng, b)
+    words, values, cap = pack_bitmap_tiles(flat)
+    args = [torch.from_numpy(x).to(cuda)
+            for x in (sw, sc, words, values, b)]
+    got = bitmap_tile_spmm(*args, num_windows=nw, bm=bm, bk=bk, row_cap=cap)
+    want = ref.ref_bitmap_stream_spmm(*args, nw, bk)
+    assert not torch.isfinite(want).all()
+    _close_nan(got, want)
+
+
+def test_execute_cuda_with_inf_in_a_matches_plain(cuda):
+    """Through the entry points: a plan whose core holds an Inf routes the
+    card's matrix path to every-entry products (the plan's flag, read on
+    the device), and a value update that removes it returns to the fast
+    path; each against the CPU plan."""
+    from repro_torch import sparse as sp
+    from repro_torch.core.plan_ir import PATH_CORE
+
+    spec = PAPER_DATASETS["cora"]
+    rows, cols, vals = generate(spec)
+    shape = (spec.m, spec.k)
+    a_cpu = sp.from_coo(rows, cols, vals, shape, device="cpu")
+    core = np.flatnonzero(a_cpu.plan.update_maps.path == PATH_CORE)
+    assert core.size
+    vals = vals.copy()
+    vals[core[0]] = np.inf
+    a_cpu = sp.from_coo(rows, cols, vals, shape, device="cpu")
+    a_cuda = sp.from_coo(rows, cols, vals, shape, device=cuda)
+    assert int(a_cuda.plan.a_unsplittable) == 1
+    b = np.random.RandomState(0).randn(spec.k, 64).astype(np.float32)
+    want = sp.spmm(a_cpu, torch.from_numpy(b))
+    assert torch.isinf(want).any()
+    _close_nan(sp.spmm(a_cuda, b), want.to(cuda))
+    fixed = vals.copy()
+    fixed[core[0]] = 1.0
+    a2 = a_cuda.with_values(fixed)
+    assert int(a2.plan.a_unsplittable) == 0
+    _close(sp.spmm(a2, b),
+           sp.spmm(a_cpu.with_values(fixed), torch.from_numpy(b)).to(cuda))
+
+
+def test_cuda_calls_with_grad_operands_raise(cuda):
+    """A "cuda" spmm or sddmm in grad mode with an operand that requires
+    grad raises the typed error; under no_grad the same calls run."""
+    from repro_torch import sparse as sp
+    from repro_torch.errors import NotPortedError
+
+    spec = PAPER_DATASETS["cora"]
+    rows, cols, vals = generate(spec)
+    a = sp.from_coo(rows, cols, vals, (spec.m, spec.k), device=cuda)
+    b = torch.randn(spec.k, 16, device=cuda, requires_grad=True)
+    x = torch.randn(spec.m, 8, device=cuda, requires_grad=True)
+    y = torch.randn(8, spec.k, device=cuda)
+    with pytest.raises(NotPortedError, match="SpMMOperator"):
+        sp.spmm(a, b)
+    with pytest.raises(NotPortedError, match="SpMMOperator"):
+        sp.sddmm(a, x, y)
+    with torch.no_grad():
+        assert sp.spmm(a, b).shape == (spec.m, 16)
+        assert sp.sddmm(a, x, y).shape == (rows.size,)
 

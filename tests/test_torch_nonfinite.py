@@ -13,6 +13,12 @@ same cells (Inf with its sign), finite cells within the stated tolerance.
 
 - The flat tile stream and the bitmap stream: the port's plain versions
   equal both the reference's oracles and its Pallas kernels.
+- Inf, NaN and values the kernels' 3xTF32 split cannot carry (|x| >=
+  3.401993e38) in A's stored values, with finite B: the general, N:M and
+  bitmap plain versions equal the reference's oracles and its Pallas
+  kernels cell for cell; the plan's ``a_unsplittable`` flag, which routes
+  the card's kernels to every-entry products, is set by ``prepare`` and
+  follows ``update_values``.
 - The N:M stream: the reference has two forms that differ here.  Its
   Pallas kernel expands each tile (every cell multiplied); its ``"xla"``
   oracle, ``ref_nm_stream_spmm``, multiplies only the packed slots.  The
@@ -215,6 +221,151 @@ def test_nm_stream_gather_nonfinite_matches_reference_oracle(values, n_pat,
                ref.ref_nm_stream_spmm_dense(*targs, NW, n_pat, m_pat, bk))
 
 
+# values in A that the 3xTF32 split cannot carry: Inf, NaN, and finite
+# magnitudes from 3.401993e38 up (cvt.rna rounds them to Inf)
+BIG = np.float32(3.402e38)
+A_VALUES = [(np.inf,), (-np.inf,), (np.nan,), (BIG,), (-BIG,),
+            (np.inf, -np.inf, np.nan, BIG, -BIG)]
+
+
+def _plant(tiles, values, cols):
+    """Each of ``values`` at one cell of tile 0, in rows 0, 1, ... (one per
+    output row, so no row sums two of them in an order-dependent way)."""
+    for r, (v, c) in enumerate(zip(values, cols)):
+        tiles[0, r, c] = v
+    return tiles
+
+
+def _b_finite(rng, bk):
+    return rng.randn(NKB * bk, N).astype(np.float32)
+
+
+@pytest.mark.parametrize("values", A_VALUES)
+@pytest.mark.parametrize("density", [0.03, 0.5])
+def test_block_stream_unsplittable_a_matches_reference(values, density):
+    rng = np.random.RandomState(int(100 * density) + 7 * len(values))
+    bk, t = 64, 16
+    sw, sc = _meta(rng, t)
+    fv = _plant(_tiles(rng, t, bk, density), values, [3, 9, 17, 40, 63])
+    b = _b_finite(rng, bk)
+    targs = tuple(map(torch.from_numpy, (sw, sc, fv, b)))
+    got = ref.ref_block_stream_spmm(*targs, NW)
+    assert not np.isfinite(_np(got)).all() or np.isfinite(values).all()
+    jargs = tuple(map(jnp.asarray, (sw, sc, fv, b)))
+    _equal_nan(got, jax_ref.ref_block_stream_spmm(*jargs, NW))
+    _equal_nan(got, jax_dense_tile_spmm(*jargs, num_windows=NW, bm=BM,
+                                        bk=bk, bn=N, interpret=True),
+               _visited(sw))
+    _equal_nan(dense_tile_spmm(*targs, num_windows=NW, bm=BM, bk=bk), got)
+
+
+@pytest.mark.parametrize("values", A_VALUES)
+@pytest.mark.parametrize("density,bk", [(0.03, 64), (0.5, 96)])
+def test_bitmap_stream_unsplittable_a_matches_reference(values, density,
+                                                         bk):
+    rng = np.random.RandomState(int(100 * density) + bk + 7 * len(values))
+    t = 12
+    sw, sc = _meta(rng, t)
+    words, packed, cap = formats.pack_bitmap_tiles(_plant(
+        _tiles(rng, t, bk, density), values, [1, 30, 31, 32, bk - 1]))
+    b = _b_finite(rng, bk)
+    targs = tuple(map(torch.from_numpy, (sw, sc, words, packed, b)))
+    got = ref.ref_bitmap_stream_spmm(*targs, NW, bk)
+    jargs = tuple(map(jnp.asarray, (sw, sc, words, packed, b)))
+    _equal_nan(got, jax_ref.ref_bitmap_stream_spmm(*jargs, NW, bk))
+    _equal_nan(got, jax_bitmap_tile_spmm(*jargs, num_windows=NW, bm=BM,
+                                         bk=bk, bn=N, row_cap=cap,
+                                         interpret=True), _visited(sw))
+    _equal_nan(bitmap_tile_spmm(*targs, num_windows=NW, bm=BM, bk=bk,
+                                row_cap=cap), got)
+
+
+@pytest.mark.parametrize("values", A_VALUES)
+@pytest.mark.parametrize("n_pat,m_pat", [(2, 4), (1, 32)])
+def test_nm_stream_unsplittable_a_matches_reference(values, n_pat, m_pat):
+    """Both N:M forms (the kernel's dense plain version and the ``"torch"``
+    impl's gather form) against the Pallas kernel and the reference's
+    oracle: with finite B the two forms agree, non-finite A included."""
+    rng = np.random.RandomState(n_pat * 10 + m_pat + 7 * len(values))
+    bk, t = 64, 16
+    sw, sc = _meta(rng, t)
+    g = rng.randn(t, BM, bk // m_pat, m_pat).astype(np.float32)
+    keep = np.argsort(rng.rand(*g.shape), axis=-1) < n_pat
+    keep[0, :, 0] = np.arange(m_pat) < n_pat   # position 0 of group 0 kept
+    g[0, :len(values), 0, 0] = values
+    vals, codes = formats.pack_nm_tiles(
+        np.where(keep, g, 0.0).astype(np.float32).reshape(t, BM, bk),
+        n_pat, m_pat)
+    b = _b_finite(rng, bk)
+    targs = tuple(map(torch.from_numpy, (sw, sc, vals, codes, b)))
+    jargs = tuple(map(jnp.asarray, (sw, sc, vals, codes, b)))
+    kw = dict(num_windows=NW, bm=BM, bk=bk, n_pat=n_pat, m_pat=m_pat)
+    dense = ref.ref_nm_stream_spmm_dense(*targs, NW, n_pat, m_pat, bk)
+    _equal_nan(dense, jax_nm_tile_spmm(*jargs, bn=N, interpret=True, **kw),
+               _visited(sw))
+    _equal_nan(nm_tile_spmm(*targs, **kw), dense)
+    gather = ref.ref_nm_stream_spmm(*targs, NW, n_pat, m_pat, bk)
+    _equal_nan(gather, jax_ref.ref_nm_stream_spmm(*jargs, NW, n_pat, m_pat,
+                                                  bk))
+    _equal_nan(gather, dense)
+
+
+def _core_plan(value):
+    """A CPU plan of a matrix with dense rows (so it has a core), its first
+    core nonzero set to ``value``; returns (plan, that nonzero's index)."""
+    import repro_torch.sparse as sp
+    from conftest import make_sparse
+    from repro_torch.core.plan_ir import PATH_CORE
+
+    rng = np.random.RandomState(5)
+    _, rows, cols, vals = make_sparse(rng, 150, 120, 0.04, n_dense_rows=30)
+    plan = sp.from_coo(rows, cols, vals, (150, 120), device="cpu").plan
+    core = np.flatnonzero(plan.update_maps.path == PATH_CORE)
+    assert core.size
+    vals = vals.copy()
+    vals[core[0]] = value
+    return sp.from_coo(rows, cols, vals, (150, 120), device="cpu").plan, \
+        core[0]
+
+
+@pytest.mark.parametrize("value", [np.inf, -np.inf, np.nan, BIG, -BIG])
+def test_plan_flag_follows_the_values(value):
+    """``prepare`` sets the plan's flag where a core value cannot be split;
+    a value update that removes the value clears it, one that writes it
+    back sets it; a finite plan's flag is 0."""
+    from repro_torch.dynamic import update_values
+
+    plan, i = _core_plan(value)
+    flag = plan.a_unsplittable
+    assert flag.dtype == torch.int32 and flag.shape == (1,)
+    assert int(flag) == 1
+    assert "a_unsplittable" not in plan.derived
+    cleared = update_values(plan, [i], [1.5])
+    assert int(cleared.a_unsplittable) == 0 and int(plan.a_unsplittable) == 1
+    assert int(update_values(cleared, [i], [value]).a_unsplittable) == 1
+    finite, _ = _core_plan(np.float32(3.4019e38))   # just below the limit
+    assert int(finite.a_unsplittable) == 0
+
+
+def test_plan_flag_is_the_kernels_threshold():
+    """The flag reads bits: 0x7f7ff000 (3.401993e38) and up, either sign,
+    and every NaN payload; the largest float below it is splittable."""
+    from repro_torch.core.plan_ir import (
+        TF32_SPLIT_LIMIT_BITS, unsplittable_flag,
+    )
+
+    limit = np.array([TF32_SPLIT_LIMIT_BITS], np.int32).view(np.float32)[0]
+    assert np.isclose(limit, 3.401993e38, rtol=1e-7)
+    below = np.nextafter(limit, np.float32(0))
+    nan2 = np.array([0x7FC00001, -1], np.int32).view(np.float32)
+    for v, want in ((below, 0), (-below, 0), (limit, 1), (-limit, 1),
+                    (nan2[0], 1), (nan2[1], 1), (np.float32(0), 0)):
+        arr = np.zeros(70, np.float32)
+        arr[-1] = v
+        assert int(unsplittable_flag(torch.from_numpy(arr))) == want, v
+    assert int(unsplittable_flag(torch.zeros(0))) == 0
+
+
 @pytest.mark.parametrize("n_pat,m_pat", [(1, 4), (2, 4), (3, 8), (1, 32)])
 def test_expand_nm_tiles_matches_reference_expand(n_pat, m_pat):
     """Bit-equal to the TPU kernel's _nm_expand, tile by tile, including an
@@ -238,17 +389,23 @@ def test_expand_nm_tiles_matches_reference_expand(n_pat, m_pat):
 
 
 def test_nonfinite_flags_match_the_check_kernel():
-    """The wrappers allocate as many flags as the check of B writes (one
-    per block of tile_core's nonfinite_kernel), as int32 on B's device."""
+    """The wrappers allocate as many flags as the check writes (one per
+    block of tile_core's nonfinite_kernel, then A's flag), as int32 on B's
+    device, and the check's threshold is the plan flag's."""
     import re
     from pathlib import Path
 
+    from repro_torch.core.plan_ir import TF32_SPLIT_LIMIT_BITS
     from repro_torch.kernels import _build
     from repro_torch.kernels.dense_tile_spmm import NONFINITE_FLAGS
 
     header = (Path(_build.CSRC) / "tile_core.cuh").read_text()
     blocks = int(re.search(r"kFlagBlocks\s*=\s*(\d+);", header).group(1))
-    assert blocks == NONFINITE_FLAGS
+    assert re.search(r"kFlagInts\s*=\s*kFlagBlocks\s*\+\s*1;", header)
+    assert blocks + 1 == NONFINITE_FLAGS
+    limit = int(re.search(r"kSplitLimitBits\s*=\s*(0x[0-9a-f]+)u;",
+                          header).group(1), 16)
+    assert limit == TF32_SPLIT_LIMIT_BITS
     flags = nonfinite_flags(torch.zeros(3, 2))
     assert flags.shape == (NONFINITE_FLAGS,) and flags.dtype == torch.int32
     assert flags.device.type == "cpu"

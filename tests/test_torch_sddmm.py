@@ -4,7 +4,9 @@
   ``repro.kernels.ref`` and, for the tile path, against the Pallas
   ``dense_tile_sddmm`` in interpret mode (the Pallas ``gather_sddmm`` does
   not run on this jax, so the gather is held against the reference's
-  plain version only);
+  plain version only); the port's ``dense_tile_sddmm``, whose contract is
+  the values at the plan's core slots, against the Pallas kernel's tile
+  stream read at the same slots;
 - the SDDMM tier rule against ``repro.core.cost_model``;
 - ``build_sddmm_maps`` value for value against the reference's, on the
   port's own plan and on a plan carried over from the JAX package;
@@ -106,16 +108,67 @@ def test_ref_tile_sddmm_matches_reference_and_pallas(bm, bk, d, tile_chunk):
     pallas = pallas_tile_sddmm(*map(jnp.asarray, (sw, sc, xp, yp)), bm=bm,
                                bk=bk, interpret=True)
     _close(got, pallas)
-    # the wrapper on CPU tensors is the plain version
-    assert torch.equal(dense_tile_sddmm(
-        *map(torch.from_numpy, (sw, sc, xp, yp)), bm=bm, bk=bk),
-        ref.ref_tile_sddmm(*map(torch.from_numpy, (sw, sc, xp, yp)), bm, bk))
+    # the port's dense_tile_sddmm (on CPU tensors, its plain version): the
+    # Pallas stream read at the core slots, the rest of out untouched
+    _slots_match_pallas(sw, sc, xp, yp, bm, bk, pallas)
+
+
+# entries of out a dense_tile_sddmm call must leave as they are
+_UNTOUCHED = 7.25
+
+
+def _core_lin(rng, t, bm, bk, n_core, n_other):
+    """(nnz,) int64 slots: n_core distinct cells of the stream (one of them
+    twice, as a duplicate COO entry reads its shared slot) and n_other
+    entries off the core (-1), shuffled."""
+    slots = rng.choice(t * bm * bk, n_core, replace=False)
+    lin = np.concatenate([slots, slots[:1], np.full(n_other, -1)])
+    return lin[rng.permutation(lin.size)].astype(np.int64)
+
+
+def _slots_match_pallas(sw, sc, xp, yp, bm, bk, pallas):
+    rng = np.random.RandomState(bm * bk + xp.shape[1])
+    t = sw.shape[0]
+    lin = _core_lin(rng, t, bm, bk, min(40, t * bm * bk), 9)
+    out = torch.full((lin.size,), _UNTOUCHED)
+    got = dense_tile_sddmm(*map(torch.from_numpy, (sw, sc, lin, xp)),
+                           torch.from_numpy(np.ascontiguousarray(yp.T)), out,
+                           bm=bm, bk=bk)
+    assert got is out
+    core = lin >= 0
+    _close(got[torch.from_numpy(core)],
+            np.asarray(pallas).reshape(-1)[lin[core]])
+    assert bool((got[torch.from_numpy(~core)] == _UNTOUCHED).all())
+
+
+@pytest.mark.parametrize("bm,bk,d", [
+    (8, 128, 7),    # D not a multiple of 4
+    (16, 128, 1),
+])
+def test_dense_tile_sddmm_at_slots_matches_pallas(bm, bk, d):
+    sw, sc, xp, yp = _tile_inputs(bm + d, 11, 4, 3, bm, bk, d)
+    pallas = pallas_tile_sddmm(*map(jnp.asarray, (sw, sc, xp, yp)), bm=bm,
+                               bk=bk, interpret=True)
+    _slots_match_pallas(sw, sc, xp, yp, bm, bk, pallas)
 
 
 def test_ref_tile_sddmm_of_an_empty_stream():
     sw, sc, xp, yp = _tile_inputs(0, 0, 2, 3, 8, 16, 5)
     out = ref.ref_tile_sddmm(*map(torch.from_numpy, (sw, sc, xp, yp)), 8, 16)
     assert out.shape == (0, 8, 16)
+    # no core slot: dense_tile_sddmm leaves out as it was
+    lin = torch.full((4,), -1, dtype=torch.int64)
+    out = torch.full((4,), _UNTOUCHED)
+    got = dense_tile_sddmm(*map(torch.from_numpy, (sw, sc)), lin,
+                           torch.from_numpy(xp),
+                           torch.from_numpy(np.ascontiguousarray(yp.T)), out,
+                           bm=8, bk=16)
+    assert bool((got == _UNTOUCHED).all())
+    # and with no out it returns zeros of the COO's length
+    assert torch.equal(dense_tile_sddmm(
+        *map(torch.from_numpy, (sw, sc)), lin, torch.from_numpy(xp),
+        torch.from_numpy(np.ascontiguousarray(yp.T)), bm=8, bk=16),
+        torch.zeros(4))
 
 
 @pytest.mark.parametrize("chunk", [None, 1, 64, 1000, 5000])
@@ -139,14 +192,20 @@ def test_ref_gather_sddmm_matches_reference(chunk):
 
 
 def test_sddmm_wrappers_reject_mismatched_operands():
+    lin = torch.zeros(3, dtype=torch.int64)
     with pytest.raises(ValueError, match="multiple of 16"):
         dense_tile_sddmm(torch.zeros(1, dtype=torch.int32),
-                         torch.zeros(1, dtype=torch.int32),
-                         torch.zeros(8, 4), torch.zeros(4, 20), bm=8, bk=16)
+                         torch.zeros(1, dtype=torch.int32), lin,
+                         torch.zeros(8, 4), torch.zeros(20, 4), bm=8, bk=16)
     with pytest.raises(ValueError, match="step_col"):
         dense_tile_sddmm(torch.zeros(1, dtype=torch.int32),
-                         torch.zeros(2, dtype=torch.int32),
-                         torch.zeros(8, 4), torch.zeros(4, 16), bm=8, bk=16)
+                         torch.zeros(2, dtype=torch.int32), lin,
+                         torch.zeros(8, 4), torch.zeros(16, 4), bm=8, bk=16)
+    with pytest.raises(ValueError, match="out must be"):
+        dense_tile_sddmm(torch.zeros(1, dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32), lin,
+                         torch.zeros(8, 4), torch.zeros(16, 4),
+                         torch.zeros(2), bm=8, bk=16)
     with pytest.raises(ValueError, match="index"):
         gather_sddmm(torch.zeros(2, dtype=torch.int32),
                      torch.zeros(1, dtype=torch.int32),
