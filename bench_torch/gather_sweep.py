@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """The sweep that chose gather_spmm's design constants (kDefaultSlice and
-kDefaultUnroll in ``src/repro_torch/kernels/csrc/gather_spmm.cu``) on one
-NVIDIA GPU, with gather_spmm_ksharded's two forms beside them.
+kDefaultUnroll in ``src/repro_torch/kernels/csrc/gather_spmm.cu``) and
+gather_sddmm's (``SLICE_COLS`` and ``UNROLL`` in
+``src/repro_torch/kernels/sddmm.py``) on one NVIDIA GPU,
+with gather_spmm_ksharded's two forms beside them.
 
     python3 bench_torch/gather_sweep.py [--out build/gather_sweep.json]
 
@@ -22,6 +24,12 @@ events, it times
   the walk), and with that gather done by PyTorch's ``index_select``
   instead; each held against ``ref_gather_spmm_kblocked``;
 - ``torch.sparse.mm`` on the CSR of the same fringe (the library call);
+- ``gather_sddmm`` (the SDDMM fringe's row walk) on the same fringe as
+  the committed kernel, and every (slice width, unroll depth) of
+  SDDMM_VARIANTS, with X (226,821
+  x 256) and Y^T (232,965 x 256) seeded and each dot written at its
+  position in a row-sorted COO whose every entry is on the fringe; each
+  held against the plain version;
 - the gather-bandwidth probe (``gather_probe_launch``): as many 1 KB rows
   as the fringe has nonzeros, read at random from the first 23,437 rows of
   B (24 MB, which fits in L2) and from all of B (238 MB).
@@ -46,6 +54,8 @@ sys.path.insert(0, str(ROOT / "src"))
 VARIANTS = ((16, 2), (16, 4), (32, 2), (32, 4), (32, 8), (64, 2), (64, 4),
             (64, 8), (128, 2), (128, 4), (128, 8), (256, 2), (256, 4),
             (256, 8))
+# (slice width, unroll depth) pairs gather_sddmm_variant_launch builds
+SDDMM_VARIANTS = tuple((s, u) for s in (32, 64, 128, 256) for u in (4, 8))
 TOL = 1e-4
 # the reddit-scale plan (PERF.md section 5)
 M = K = 232965
@@ -103,6 +113,37 @@ def gather_probe(b, set_rows: int, reads: int, timed_ms, seed: int = 1):
         _build.check_status(status, "gather_probe")
 
     return timed_ms(run)
+
+
+def sddmm_records(rows, cols, num_rows, gen, timed_ms, check, record):
+    """Time gather_sddmm as committed and every SDDMM_VARIANTS choice on
+    the fringe ``rows``/``cols`` (row-sorted, on the card), each held
+    against the plain version."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sddmm import fringe_row_order, gather_sddmm
+
+    dev = rows.device
+    nnz = rows.numel()
+    pos = torch.arange(nnz, device=dev, dtype=torch.int32)
+    walk = fringe_row_order(rows, cols, pos, num_rows)
+    x = torch.randn((num_rows, N), generator=gen, device=dev)
+    yt = torch.randn((K, N), generator=gen, device=dev)
+    want = ref.ref_gather_sddmm(rows, cols, pos, x, yt,
+                                torch.empty(nnz, device=dev), chunk=1 << 21)
+    out = torch.empty(nnz, device=dev)
+
+    def committed():
+        return gather_sddmm(*walk, x, yt, out)
+
+    record(kernel="gather_sddmm", variant="committed", d=N,
+           ms=timed_ms(committed), max_abs_err=check(committed(), want))
+    for s, u in SDDMM_VARIANTS:
+        def run(s=s, u=u):
+            return gather_sddmm(*walk, x, yt, out, slice_cols=s, unroll=u)
+        record(kernel="gather_sddmm", slice=s, unroll=u, d=N,
+               ms=timed_ms(run), max_abs_err=check(run(), want))
 
 
 def main() -> int:
@@ -213,6 +254,8 @@ def main() -> int:
     csr = torch.sparse_csr_tensor(crow, cols.long(), vals, (num_rows, K))
     record(kernel="torch.sparse.mm (CSR)", ms=timed_ms(
         lambda: torch.sparse.mm(csr, b)))
+    del csr
+    sddmm_records(rows, cols, num_rows, gen, timed_ms, check, record)
     l2_rows = L2_SET_BYTES // (4 * N)
     for label, set_rows in (("L2 (24 MB set)", l2_rows),
                             ("HBM (238 MB set)", K)):

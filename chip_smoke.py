@@ -20,8 +20,12 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    decode + 3xTF32), with N = 2,048; then the non-finite phase: the same
    stand-ins of dense_tile_spmm, nm_tile_spmm (2:4 and 1:32) and
    bitmap_tile_spmm with +Inf, -Inf and NaN in B, each held against its
-   plain (dense-tile) version with NaN and +-Inf in the same cells;
-3. drives three paths through the user entry points, each with the kernel
+   plain (dense-tile) version with NaN and +-Inf in the same cells; then
+   the gradient phase: on the cora stand-in, "cuda" ``spmm`` (also after
+   ``with_values``) and ``bspmm`` with a grad-requiring B against
+   ``torch.sparse.mm`` on the CSR of the same COO with autograd, and
+   ``sddmm``'s gradients in X and Y against fp64 dense autograd;
+3. drives four paths through the user entry points, each with the kernel
    launch counts set to 0 just before it and read just after it:
    ``from_coo`` + ``spmm`` (N = 256) + ``bspmm`` (batch 4, N = 64) on a
    Reddit-scale graph (232,965 nodes, average degree 492, power-law skew
@@ -33,7 +37,16 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    on seeded features of Reddit's width 602 (``sddmm`` -> edge softmax ->
    ``with_values`` -> ``spmm``), which must launch dense_tile_sddmm,
    gather_sddmm, dense_tile_spmm and gather_spmm and not
-   gather_spmm_ksharded.  ``spmm`` is checked against ``torch.sparse.mm``
+   gather_spmm_ksharded; then the GCN training path: 20 full-batch SGD
+   steps of the reference example's two-layer GCN (``SparseGraphConv``
+   twice, hidden 256) at ogbn-arxiv's size (169,343 nodes, 128 features,
+   40 classes, 2.48 M nonzeros from the example's generator, symmetrised),
+   whose forward must launch dense_tile_spmm and a fringe kernel on A and
+   whose backward the same on the transpose plan; its loss must fall, its
+   step-0 gradients match ``torch.sparse.mm`` with autograd, and its step
+   time (forward, backward, update by CUDA events) is printed beside the
+   library's and the transpose plan's prepare seconds.
+   ``spmm`` is checked against ``torch.sparse.mm``
    on the same COO, ``bspmm`` against four ``spmm`` calls, the attention
    forward against ``torch.sparse.sampled_addmm`` scores, the same edge
    softmax and ``torch.sparse.mm``, and ``sddmm`` against
@@ -45,7 +58,9 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    pushed onto the k-sharded tier (printed on its own line), and on both
    streams with an Inf in the first B row of a padded k-block, whose
    padding entries must give NaN in row 0 as the plain version does.
-   dense_tile_sddmm runs twice at reddit scale, bit-identical.
+   dense_tile_sddmm and gather_sddmm run twice at reddit scale, bit-
+   identical; the SDDMM fringe's row runs in input order and in the
+   walk's order are printed before gather_sddmm is timed.
    dense_tile_spmm runs twice on the reddit-scale plan, and the two results
    must be bit-identical; then it and bitmap_tile_spmm are timed on one
    4,096-tile stream at each tile density of SWEEP_DENSITIES (one JSON
@@ -117,6 +132,15 @@ PRUNED_PATHS = (
      dict(structure_hint="bitmap"), "bitmap_tile_spmm"),
 )
 MATRIX_KERNELS = ("dense_tile_spmm", "nm_tile_spmm", "bitmap_tile_spmm")
+# the GCN training path: ogbn-arxiv's published size (OGB, Hu et al. 2020:
+# 169,343 nodes, 1,166,243 edges, 128 features, 40 classes; symmetrised
+# with self-loops, 2,501,829 nonzeros) from the port's make_graph, whose
+# avg_deg 3.6 gives 2,481,327; hidden width 256 as OGB's GCN baseline; the
+# reference example's learning rate
+ARXIV_GCN = dict(n=169343, avg_deg=3.6, n_classes=40, n_features=128,
+                 symmetric=True, seed=0)
+GCN_HIDDEN, GCN_STEPS, GCN_LR = 256, 20, 2.0
+FRINGE_KERNELS = ("gather_spmm", "gather_spmm_ksharded")
 # tile densities of B1's sweep in phase 4
 SWEEP_DENSITIES = (0.01, 0.025, 0.05, 0.10, 0.25, 0.50)
 
@@ -205,6 +229,30 @@ def check_cost_ms(fn, reps=5):
             total_us += getattr(evt, "device_time_total",
                                 getattr(evt, "cuda_time_total", 0.0))
     return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def device_breakdown(fn, reps=3, top=8):
+    """Device ms per call of ``fn`` by kernel (torch.profiler's kernel
+    records): ``(total, [(name, ms), ...] for the ``top`` largest)``;
+    total None where it records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total",
+                     getattr(evt, "cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((evt.key[:90], us / 1e3 / reps))
+    rows.sort(key=lambda r: -r[1])
+    total = sum(ms for _, ms in rows)
+    return (total if total > 0 else None), rows[:top]
 
 
 def check_cost_line(fn, spmm_ms):
@@ -322,33 +370,212 @@ def nonfinite_phase(ctx):
         del b, fv, words, vals_b, runs
 
 
-def grad_guard_phase(ctx, a):
-    """A "cuda" spmm and sddmm on plan ``a`` whose operand requires grad
-    raise the typed error (the kernels have no backward yet); the same
-    calls under torch.no_grad() run."""
+def gradient_phase(ctx, a, rows, cols, vals):
+    """A "cuda" spmm, bspmm and sddmm on plan ``a`` (COO ``rows``, ``cols``,
+    ``vals``) with grad-requiring operands return gradients: spmm's (on
+    ``a`` and after ``with_values``) and bspmm's held against
+    ``torch.sparse.mm`` on the CSR of the same COO with autograd, sddmm's
+    in X and Y against fp64 dense autograd.  Returns the largest error."""
+    import numpy as np
     import torch
 
-    from repro_torch.errors import NotPortedError
-
     m, k = a.shape
-    b = torch.randn(k, 16, device=ctx.dev, requires_grad=True)
-    x = torch.randn(m, 8, device=ctx.dev, requires_grad=True)
-    y = torch.randn(8, k, device=ctx.dev)
-    for label, call in (("spmm", lambda: ctx.sp.spmm(a, b)),
-                        ("sddmm", lambda: ctx.sp.sddmm(a, x, y))):
-        try:
-            call()
-        except NotPortedError as err:
-            ctx.require("SpMMOperator" in str(err), (label, str(err)))
-        else:
-            ctx.require(False, f"{label} with a grad operand did not raise")
+    rng = np.random.RandomState(17)
+    idx = torch.from_numpy(np.stack([rows, cols])).to(ctx.dev)
+
+    def csr(v):
+        return torch.sparse_coo_tensor(
+            idx, torch.as_tensor(v, dtype=torch.float32, device=ctx.dev),
+            (m, k)).coalesce().to_sparse_csr()
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            ctx.dev)
+
+    errs = {}
+    new_vals = rng.randn(rows.size).astype(np.float32)
+    for label, mat, v in (("spmm", a, vals),
+                          ("spmm after with_values", a.with_values(new_vals),
+                           new_vals)):
+        b, g = randn(k, 16).requires_grad_(True), randn(m, 16)
+        (ctx.sp.spmm(mat, b) * g).sum().backward()
+        b_ref = b.detach().clone().requires_grad_(True)
+        (torch.sparse.mm(csr(v), b_ref) * g).sum().backward()
+        errs[label] = ctx.err_bound(b.grad, b_ref.grad)
+    bb, gb = randn(3, k, 8).requires_grad_(True), randn(3, m, 8)
+    (ctx.sp.bspmm(a, bb) * gb).sum().backward()
+    bb_ref = bb.detach().clone().requires_grad_(True)
+    lib = csr(vals)
+    (torch.stack([torch.sparse.mm(lib, bb_ref[i]) for i in range(3)])
+     * gb).sum().backward()
+    errs["bspmm"] = ctx.err_bound(bb.grad, bb_ref.grad)
+    x, y = randn(m, 8).requires_grad_(True), randn(8, k).requires_grad_(True)
+    gs = randn(rows.size)
+    (ctx.sp.sddmm(a, x, y) * gs).sum().backward()
+    x64, y64 = (t.detach().double().requires_grad_(True) for t in (x, y))
+    r, c = (torch.from_numpy(t).to(ctx.dev) for t in (rows, cols))
+    ((x64 @ y64)[r, c] * gs.double()).sum().backward()
+    errs["sddmm dX"] = ctx.err_bound(x.grad, x64.grad.float())
+    errs["sddmm dY"] = ctx.err_bound(y.grad, y64.grad.float())
+    ctx.log("  gradients on impl='cuda' (cora stand-in) against "
+            "torch.sparse.mm with autograd (spmm, bspmm) and fp64 dense "
+            "(sddmm): " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    return max(errs.values())
+
+
+def gcn_training_path(ctx):
+    """The GCN training path: GCN_STEPS full-batch SGD steps of the
+    reference example's two-layer GCN at ogbn-arxiv size on the card.
+    Step 0 reads the launch counts around its forward and around its
+    backward (which runs on the transpose plan), and holds its gradients
+    of W1 and W2 against the same model on ``torch.sparse.mm`` (CSR) with
+    autograd; steps 1 on are timed with CUDA events (forward, backward,
+    update) with no host synchronisation between them, their counts read
+    after the last.  The library's step is timed the same way.  Returns a
+    dict of what it measured."""
+    import numpy as np
+    import torch
+
+    from repro_torch.examples.gcn_training import GCN, loss_fn, make_graph
+    from repro_torch.exec import api
+    from repro_torch.kernels import ops
+
+    dev = ctx.dev
+    t0 = time.perf_counter()
+    rows, cols, vals, feats, labels, n_classes = make_graph(**ARXIV_GCN)
+    n = feats.shape[0]
+    t1 = time.perf_counter()
+    a = ctx.sp.from_coo(rows, cols, vals, (n, n), device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    # prepared here, not lazily in the first backward, so that its host
+    # seconds are read on their own and every step below is alike
+    plan_t = api.transpose_structure(a.plan)
+    torch.cuda.synchronize()
+    t_plan_t = time.perf_counter() - t2
+    ctx.log(f"GCN training path (ogbn-arxiv size): {n} nodes, {rows.size} "
+            f"nonzeros, {feats.shape[1]} features, {n_classes} classes, "
+            f"hidden {GCN_HIDDEN}, lr {GCN_LR}; graph {t1 - t0:.1f} s, "
+            f"from_coo {t2 - t1:.1f} s, plan_t prepare {t_plan_t:.2f} s")
+    for label, pl in (("A", a.plan), ("plan_t", plan_t)):
+        sd = pl.stats_dict
+        ctx.log(f"  {label}: core_nnz={sd['core_nnz']} fringe_nnz="
+                f"{sd['fringe_nnz']} windows={pl.num_windows} tiles="
+                f"{pl.step_window.shape[0]} tier={pl.fringe_tier}")
+    x = torch.from_numpy(feats).to(dev)
+    y = torch.from_numpy(labels).long().to(dev)
+    model = GCN.init(a, feats.shape[1], GCN_HIDDEN, n_classes,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+    params = list(model.parameters())
+    w0 = [p.detach().clone() for p in params]
+    # the library's model: the generator's COO is sorted and unique, so
+    # its CSR keeps input order
+    crow = np.zeros(n + 1, np.int64)
+    crow[1:] = np.cumsum(np.bincount(rows, minlength=n))
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(crow).to(dev), torch.from_numpy(cols).to(dev),
+        torch.from_numpy(vals).to(dev), (n, n))
+
+    def library_loss(w1, w2):
+        h = torch.relu(torch.sparse.mm(csr, x @ w1))
+        return loss_fn(torch.sparse.mm(csr, h @ w2), y)
+
+    def sgd_update(ws, grads):
         with torch.no_grad():
-            out = call()
-        torch.cuda.synchronize()
-        ctx.require(bool(torch.isfinite(out).all())
-                    and not out.requires_grad, label)
-    ctx.log("  a grad-requiring operand on impl='cuda': spmm and sddmm "
-            "raise NotPortedError; under no_grad both run")
+            for w, g in zip(ws, grads):
+                w -= GCN_LR * g
+
+    # step 0: counts around the forward and around the backward, and the
+    # gradients against the library's
+    model.zero_grad(set_to_none=True)
+    loss0, fwd0 = ctx.drive(lambda: loss_fn(model(x), y))
+    _, bwd0 = ctx.drive(loss0.backward)
+    w_lib = [w.clone().requires_grad_(True) for w in w0]
+    loss_lib = library_loss(*w_lib)
+    g_lib = torch.autograd.grad(loss_lib, w_lib)
+    err_grad = max(ctx.err_bound(p.grad, g) for p, g in zip(params, g_lib))
+    loss0, loss_lib = loss0.detach(), loss_lib.detach()
+    ctx.require(abs(float(loss0) - float(loss_lib))
+                <= ctx.tol * max(1.0, abs(float(loss_lib))),
+                ("step-0 loss", float(loss0), float(loss_lib)))
+    sgd_update(params, [p.grad for p in params])
+    losses = [loss0]
+    # steps 1 on: events only, no synchronisation inside the loop
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+          for _ in range(GCN_STEPS - 1)]
+
+    def steps():
+        for e in ev:
+            model.zero_grad(set_to_none=True)
+            e[0].record()
+            loss = loss_fn(model(x), y)
+            e[1].record()
+            loss.backward()
+            e[2].record()
+            sgd_update(params, [p.grad for p in params])
+            e[3].record()
+            losses.append(loss.detach())
+
+    _, rest = ctx.drive(steps)
+    losses = [float(v) for v in losses]
+
+    def mean_ms(k0, k1):
+        return sum(e[k0].elapsed_time(e[k1]) for e in ev) / len(ev)
+
+    fwd_ms, bwd_ms, upd_ms, step_ms = (mean_ms(0, 1), mean_ms(1, 2),
+                                       mean_ms(2, 3), mean_ms(0, 3))
+    # the library's step, timed the same way from the same weights
+    w_lib = [w.clone().requires_grad_(True) for w in w0]
+    lev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+           for _ in range(6)]
+    for e in lev:
+        e[0].record()
+        loss = library_loss(*w_lib)
+        e[1].record()
+        grads = torch.autograd.grad(loss, w_lib)
+        e[2].record()
+        sgd_update(w_lib, grads)
+        e[3].record()
+    torch.cuda.synchronize()
+    lev = lev[1:]  # the first is a warm-up
+    lib_fwd, lib_bwd, lib_step = (
+        sum(e[k0].elapsed_time(e[k1]) for e in lev) / len(lev)
+        for k0, k1 in ((0, 1), (1, 2), (0, 3)))
+    launches = {k: fwd0[k] + bwd0[k] + rest[k] for k in fwd0}
+
+    def one_step():
+        model.zero_grad(set_to_none=True)
+        loss_fn(model(x), y).backward()
+        sgd_update(params, [p.grad for p in params])
+
+    busy_ms, by_kernel = device_breakdown(one_step)
+    ctx.log(f"  step 0 launches: forward {fwd0}; backward (plan_t) {bwd0}")
+    ctx.log(f"  launches over the {GCN_STEPS} steps: {launches}")
+    ctx.log(f"  loss: step 0 {losses[0]:.6f} (library {float(loss_lib):.6f})"
+            f", step {GCN_STEPS - 1} {losses[-1]:.6f}; step-0 gradients of "
+            f"W1 and W2 against torch.sparse.mm with autograd: max |diff| "
+            f"{err_grad:.3e}")
+    ctx.log(f"  step (mean of steps 1-{GCN_STEPS - 1}, CUDA events): "
+            f"{step_ms:.3f} ms = forward {fwd_ms:.3f} + backward "
+            f"{bwd_ms:.3f} + update {upd_ms:.3f}; the same step on "
+            f"torch.sparse.mm (CSR): {lib_step:.3f} ms (forward "
+            f"{lib_fwd:.3f}, backward {lib_bwd:.3f})")
+    if busy_ms is not None:
+        ctx.log(f"  device time of one step (torch.profiler, kernels): "
+                f"{busy_ms:.3f} ms of the {step_ms:.3f} ms step (idle share "
+                f"{1 - busy_ms / step_ms:.2f}); largest: "
+                + "; ".join(f"{name} {ms:.3f}" for name, ms in by_kernel))
+    ctx.require(losses[-1] < losses[0], ("loss did not fall", losses))
+    ctx.require(all(np.isfinite(losses)), losses)
+    for label, counts in (("forward", fwd0), ("backward", bwd0)):
+        ctx.require(counts["dense_tile_spmm"] > 0
+                    and sum(counts[k] for k in FRINGE_KERNELS) > 0,
+                    (label, counts))
+    return {"launches": launches, "err": err_grad, "step_ms": step_ms,
+            "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "library_step_ms": lib_step, "library_forward_ms": lib_fwd,
+            "library_backward_ms": lib_bwd, "device_busy_ms": busy_ms,
+            "plan_t_s": t_plan_t, "losses": (losses[0], losses[-1])}
 
 
 def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
@@ -544,7 +771,7 @@ def main() -> int:
         kbucket_row_order,
     )
     from repro_torch.kernels.sddmm import (
-        dense_tile_sddmm, gather_sddmm, sampled_index,
+        SLICE_COLS, dense_tile_sddmm, gather_sddmm, sampled_index,
     )
     from repro_torch.kernels.structured_spmm import (
         bitmap_tile_spmm, nm_tile_spmm,
@@ -619,12 +846,32 @@ def main() -> int:
 
     def sddmm_inputs(plan, x, y):
         """The tensors the SDDMM body hands each kernel for x @ y: the
-        window-gathered X panel, Y^T with its rows permuted and K-padded,
-        Y^T as it is, and the extraction maps."""
+        window-gathered X panel, Y^T with its rows permuted and K-padded
+        (both paths read it), and the extraction maps."""
         cfg = plan.config
         xp = gather_rows(x, plan.core_row_map).contiguous()
         ypt = permute_pad_b(y.t(), plan.col_perm, cfg.reorder_cols, cfg.bk)
-        return xp, ypt, y.t().contiguous(), build_sddmm_maps(plan)
+        return xp, ypt, build_sddmm_maps(plan)
+
+    def walked(walk, x, ypt, chunk=None):
+        """gather_sddmm and its plain version on one row walk: the fringe
+        dots written at their positions into fresh buffers of 0s (the core
+        positions stay 0)."""
+        n_out = int(walk.pos.max()) + 1 if walk.pos.numel() else 0
+        rows_w = torch.repeat_interleave(
+            torch.arange(x.shape[0], device=dev),
+            (walk.indptr[1:] - walk.indptr[:-1]).long())
+        buf = torch.zeros(n_out, device=dev)
+
+        def kern():
+            return gather_sddmm(*walk, x, ypt, buf)
+
+        def plain():
+            return ref.ref_gather_sddmm(rows_w, walk.cols, walk.pos, x, ypt,
+                                        torch.zeros(n_out, device=dev),
+                                        chunk=chunk)
+
+        return kern, plain
 
     def sampled(plan, xp, ypt, smaps, index=None):
         """dense_tile_sddmm and its plain version on one plan: the values
@@ -686,18 +933,16 @@ def main() -> int:
                     p.fringe_bk),
             ))
         xs = operand(spec.m, N)
-        xp, ypt, yt, smaps = sddmm_inputs(p, xs, operand(N, spec.k))
-        pairs += [(
-            "dense_tile_sddmm", *sampled(p, xp, ypt, smaps)), (
-            "gather_sddmm",
-            lambda: gather_sddmm(smaps.f_rows, smaps.f_cols, xs, yt),
-            lambda: ref.ref_gather_sddmm(smaps.f_rows, smaps.f_cols, xs, yt),
-        )]
+        xp, ypt, smaps = sddmm_inputs(p, xs, operand(N, spec.k))
+        pairs += [
+            ("dense_tile_sddmm", *sampled(p, xp, ypt, smaps)),
+            ("gather_sddmm", *walked(smaps.walk, xs, ypt)),
+        ]
         for kname, kern, plain in pairs:
             e = err_bound(kern(), plain())
             standin_err[kname] = max(standin_err.get(kname, 0.0), e)
             log(f"  {kname}: max |kernel - plain| = {e:.3e}")
-        del a, p, bp, xp, ypt, yt, smaps, xs
+        del a, p, bp, xp, ypt, smaps, xs
     # the structured lane's kernels on the DLMC stand-ins (4096 x 4096)
     for name, hint in (("dlmc-nm-1-32", None), ("dlmc-nm-2-32", None),
                        ("dlmc-unstr", "bitmap")):
@@ -796,10 +1041,10 @@ def main() -> int:
         dev=dev, gen=gen, operand=operand, sparse_tiles=sparse_tiles,
         require=require, log=log))
     spec = PAPER_DATASETS["cora"]
-    grad_guard_phase(types.SimpleNamespace(dev=dev, sp=sp, require=require,
-                                           log=log),
-                     sp.from_coo(*generate(spec), (spec.m, spec.k),
-                                 device=dev))
+    cora = generate(spec)
+    gradient_phase(types.SimpleNamespace(dev=dev, sp=sp, log=log,
+                                         err_bound=err_bound),
+                   sp.from_coo(*cora, (spec.m, spec.k), device=dev), *cora)
     require(set(standin_err) == {"dense_tile_spmm", "gather_spmm",
                                  "gather_spmm_ksharded", "dense_tile_sddmm",
                                  "gather_sddmm", "nm_tile_spmm",
@@ -960,6 +1205,12 @@ def main() -> int:
         f"sampled_addmm + softmax + sparse.mm: {e_att:.3e}")
     del pattern, att, seg, e, e_max, pe, denom, s_ref, h, v
 
+    # the GCN training path: forward SpMMs on A, backward SpMMs on plan_t
+    gcn = gcn_training_path(types.SimpleNamespace(
+        dev=dev, sp=sp, log=log, require=require, drive=drive,
+        err_bound=err_bound, tol=TOL))
+    log(f"  {json.dumps({'gcn_training': gcn})}")
+
     # each kernel's count from the path that runs it
     launches = {
         "dense_tile_spmm": launches_reddit["dense_tile_spmm"],
@@ -1117,7 +1368,7 @@ def main() -> int:
     density_sweep(dense_tile_spmm, sparse_tiles, timed_ms, operand, log)
 
     # B4 and B5 at the graph-attention path's shapes: X = q, Y = k^T, D=256
-    xp, ypt, yt, smaps = sddmm_inputs(p, q, k_att.t())
+    xp, ypt, smaps = sddmm_inputs(p, q, k_att.t())
     d = q.shape[1]
     # the library's SDDMM on the core tiles: the BSR above (square bk x bk
     # blocks) where the installed PyTorch takes a BSR input, else a CSR of
@@ -1160,18 +1411,43 @@ def main() -> int:
         f"{index_b4.seg_kb.numel()} segments): bit-identical {same}")
     require(same, "dense_tile_sddmm differs between two calls")
     del bsr, lib_b4, first, second, kern_b4, plain_b4, index_b4
-    nnz_fs = smaps.nnz_f
-    f_pattern = pattern_csr(smaps.f_rows, smaps.f_cols, spec.m, spec.k)
+    # B5: the fringe's rows in input order (runs of one row, which the
+    # previous one-warp-per-nonzero kernel saw) and in the walk's order
+    walk = smaps.walk
+    f_rows_in, f_cols_in = (t.to(dev) for t in (smaps.f_rows, smaps.f_cols))
+    nnz_fs = int(walk.cols.numel())
+    change = torch.ones(nnz_fs, dtype=torch.bool, device=dev)
+    change[1:] = f_rows_in[1:] != f_rows_in[:-1]
+    runs = torch.cat([torch.nonzero(change).squeeze(1),
+                      torch.tensor([nnz_fs], device=dev)]).to(torch.int32)
+    log(f"  reddit-scale SDDMM fringe, row runs in input order: "
+        f"{json.dumps(fringe_profile(runs, f_cols_in, spec.k))}")
+    log(f"  the same in the walk's row order: "
+        f"{json.dumps(fringe_profile(walk.indptr, walk.cols, spec.k))}")
+    f_pattern = pattern_csr(f_rows_in, f_cols_in, spec.m, spec.k)
+    del change, runs, f_rows_in, f_cols_in
+    kern_b5, plain_b5 = walked(walk, q, ypt, chunk=1 << 19)
     record(
         "gather_sddmm", "sddmm.cu", "src/repro/kernels/sddmm.py:150",
-        lambda: gather_sddmm(smaps.f_rows, smaps.f_cols, q, yt),
-        lambda: ref.ref_gather_sddmm(smaps.f_rows, smaps.f_cols, q, yt,
-                                     chunk=1 << 19),
+        kern_b5, plain_b5,
         lambda: torch.sparse.sampled_addmm(f_pattern, q, yk, beta=0.0),
-        nbytes=nnz_fs * 12 + q.numel() * 4 + yt.numel() * 4,
+        # each byte once: X, the padded Y^T panel, the row offsets, two
+        # int32 in and one fp32 out per fringe nonzero
+        nbytes=(nnz_fs * 12 + walk.indptr.numel() * 4 + q.numel() * 4
+                + ypt.numel() * 4),
         flops=2 * nnz_fs * d,
     )
-    del xp, ypt, yt, f_pattern, q, k_att, yk
+    first = kern_b5().clone()
+    second = kern_b5()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(first, second))
+    log(f"  gather_sddmm twice at reddit scale ({nnz_fs} fringe nonzeros, "
+        f"{-(-d // SLICE_COLS)} passes of {SLICE_COLS} columns): "
+        f"bit-identical {same}; "
+        f"the one-warp-per-nonzero kernel it replaces took 10.818 ms here "
+        f"(PERF.md)")
+    require(same, "gather_sddmm differs between two calls")
+    del xp, ypt, f_pattern, q, k_att, yk, first, second, kern_b5, plain_b5
 
     def fringe_csr(plan, k_cols):
         nr = plan.fringe_row_ids.shape[0]

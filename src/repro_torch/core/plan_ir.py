@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..errors import PlanBuildError
+from ..kernels.sddmm import FringeRowOrder, fringe_row_order
 
 PLAN_FORMAT_VERSION = 2
 
@@ -613,30 +614,35 @@ def build_update_maps(
 
 @dataclasses.dataclass(frozen=True)
 class SddmmMaps:
-    """Index maps for SDDMM over a plan's pattern, on the plan's device.
+    """Index maps for SDDMM over a plan's pattern.
 
     The matrix path computes dense ``X_window @ Y_kblock`` tiles for exactly
     the (window, k-block) pairs of the plan's tile stream, and per-nonzero
     values are extracted from the flat tile stream at the slots ``prepare``
     scattered values into (``UpdateMaps.core_lin``).  Fringe nonzeros take
-    one dot product each by row gather.  Output order is the plan's input
-    COO order, the order :func:`repro_torch.dynamic.update_values` takes.
+    one dot product each, walked in row order (``walk``), each written at
+    its position in the output.  Output order is the plan's input COO
+    order, the order :func:`repro_torch.dynamic.update_values` takes.
     Extraction is duplicate-safe: duplicate COO entries share a tile slot
     and read the same dot product.
 
-    ``core_lin`` is int64: a Reddit-scale tile stream has 1.46e9 slots, too
-    close to the int32 limit to keep there.
+    ``core_lin`` and ``walk`` are on the plan's device; ``f_idx``,
+    ``f_rows`` and ``f_cols``, the fringe subset in input order as the
+    reference's maps hold it, stay on the host (CPU tensors): no kernel
+    reads them.  ``core_lin`` is int64: a Reddit-scale tile stream has
+    1.46e9 slots, too close to the int32 limit to keep there.
     """
 
     core_lin: torch.Tensor  # (nnz,) int64 flat tile slot, -1 on the fringe
     f_idx: torch.Tensor     # (nnz,) int32 index into the fringe subset, -1 core
     f_rows: torch.Tensor    # (nnz_f,) int32 fringe-subset rows (>= 1, padded)
     f_cols: torch.Tensor    # (nnz_f,) int32 fringe-subset cols
+    walk: FringeRowOrder    # the fringe subset in row order, Y^T rows of ypt
     nnz: int
     nnz_f: int              # padded fringe-subset length
 
     def leaves(self) -> Tuple[torch.Tensor, ...]:
-        return (self.core_lin, self.f_idx, self.f_rows, self.f_cols)
+        return (self.core_lin,) + tuple(self.walk)
 
 
 def sddmm_body_leaves(
@@ -648,11 +654,25 @@ def sddmm_body_leaves(
     ) + maps.leaves()
 
 
+def _inverse_col_perm(plan: NeutronPlan) -> Optional[torch.Tensor]:
+    """Column ``c``'s row in the Y^T panel the SDDMM body builds
+    (``permute_pad_b`` of Y^T, whose row ``j`` is Y's column
+    ``col_perm[j]``), or None where the panel is not permuted."""
+    if not plan.config.reorder_cols:
+        return None
+    perm = plan.col_perm.long()
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.numel(), device=perm.device)
+    return inv
+
+
 def build_sddmm_maps(plan: NeutronPlan) -> SddmmMaps:
     """Invert a plan's update maps into SDDMM extraction indices.
 
     Built once per pattern and kept in ``plan.derived``, which plans made
-    by a value update share: the maps depend on the structure only.
+    by a value update share: the maps depend on the structure only.  The
+    fringe walk is the fringe subset stable-sorted by row, its columns
+    mapped to rows of the permuted, padded Y^T panel.
     """
     maps = plan.update_maps
     if maps is None:
@@ -669,17 +689,24 @@ def build_sddmm_maps(plan: NeutronPlan) -> SddmmMaps:
     f_idx[f_sel] = np.arange(f_sel.size)
     f_rows = maps.rows[f_sel]
     f_cols = maps.cols[f_sel]
-    if f_rows.size == 0:  # keep the gather operand nonempty for the kernels
-        f_rows = np.zeros(1, np.int64)
-        f_cols = np.zeros(1, np.int64)
 
     def dev(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
             plan.device)
 
+    walk = fringe_row_order(dev(f_rows, np.int64), dev(f_cols, np.int64),
+                            dev(f_sel, np.int64), plan.shape[0],
+                            col_map=_inverse_col_perm(plan))
+    if f_rows.size == 0:  # the reference keeps its gather operand nonempty
+        f_rows = np.zeros(1, np.int64)
+        f_cols = np.zeros(1, np.int64)
+
+    def host(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32))
+
     built = SddmmMaps(
-        core_lin=dev(maps.core_lin, np.int64), f_idx=dev(f_idx, np.int32),
-        f_rows=dev(f_rows, np.int32), f_cols=dev(f_cols, np.int32),
+        core_lin=dev(maps.core_lin, np.int64), f_idx=host(f_idx),
+        f_rows=host(f_rows), f_cols=host(f_cols), walk=walk,
         nnz=maps.nnz, nnz_f=int(f_rows.shape[0]),
     )
     plan.derived["sddmm_maps"] = built

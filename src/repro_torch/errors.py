@@ -23,9 +23,8 @@ Category map (who raises what):
 - :class:`DispatchError`       — an executor dispatch was rejected
   (operand/plan mismatch) or failed on *every* tier, fallback included.
 - :class:`NotPortedError`      — a :class:`DispatchError` for a call the
-  port does not carry yet: a gradient through a ``"cuda"`` operator (its
-  backward, ``SpMMOperator``, is not ported), ``SparseMatrix @
-  SparseMatrix`` (``spspmm``).  It names the missing piece.
+  port does not carry yet: ``SparseMatrix @ SparseMatrix`` (``spspmm``).
+  It names the missing piece.
 - :class:`CompactionError`     — background sidecar folds failed; carries
   every per-matrix failure in ``.errors`` (ExceptionGroup-style).
 - :class:`RegistryError`       — a persistent-registry entry is missing,

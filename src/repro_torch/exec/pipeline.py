@@ -103,13 +103,15 @@ def _sddmm_body(sig: Tuple):
     """SDDMM body for an op-tagged plan signature.
 
     Returns ``run(step_window, step_col, core_row_map, col_perm, core_lin,
-    f_idx, f_rows, f_cols, x, y, derived=None)`` for one (M, D) x and
+    w_indptr, w_cols, w_pos, x, y, derived=None)`` for one (M, D) x and
     (D, K) y; the output is (nnz,) fp32 in the plan's input COO order.
-    The fringe dots are gathered into it first, then the matrix path
-    writes the core positions over them.  Unlike the reference, whose
-    ``"xla"`` impl skips the tile path and gathers every nonzero, both
-    impls run both paths here: ``"torch"`` with the plain versions, so the
-    CPU tests cover the placement and the merge the card runs.
+    Both paths read one Y^T panel, permuted and padded as SpMM permutes
+    and pads B's rows: the fringe walk (``w_*``, ``SddmmMaps.walk``) writes
+    each fringe dot at its position, the matrix path each core value at
+    its.  Unlike the reference, whose ``"xla"`` impl skips the tile path
+    and gathers every nonzero, both impls run both paths here:
+    ``"torch"`` with the plain versions, so the CPU tests cover the
+    placement the card runs.
     """
     (_version, _shape, bm, bk, _bn, impl, reorder_cols, fringe_chunk,
      _num_windows, _num_steps, _nnz_f, _n_fringe_rows, has_core, has_fringe,
@@ -118,25 +120,18 @@ def _sddmm_body(sig: Tuple):
     nnz, _nnz_fs, vmem_budget = op_extra(sig)
 
     def run(step_window, step_col, core_row_map, col_perm,
-            core_lin, f_idx, f_rows, f_cols, x, y,
+            core_lin, w_indptr, w_cols, w_pos, x, y,
             derived: Optional[Dict[str, Any]] = None):
         x = x.to(torch.float32).contiguous()
-        y = y.to(torch.float32)
-        out = None
+        ypt = permute_pad_b(y.t(), col_perm, reorder_cols, bk)  # (K, D)
+        out = torch.empty(nnz, dtype=torch.float32, device=x.device)
         if has_fringe:
-            yt = y.t().contiguous()  # (K, D): both gathers address rows
-            fv = ops.sddmm_gather(f_rows, f_cols, x, yt, impl=impl,
-                                  chunk=fringe_chunk,
-                                  vmem_budget=vmem_budget)
-            # core positions hold junk here until the matrix path below
-            out = fv[f_idx.long().clamp(min=0)]
+            ops.sddmm_gather(w_indptr, w_cols, w_pos, x, ypt, out,
+                             impl=impl, chunk=fringe_chunk,
+                             vmem_budget=vmem_budget)
         if has_core:
-            if out is None:
-                out = torch.empty(nnz, dtype=torch.float32, device=x.device)
-            # matrix path: window-gathered X rows, and Y^T with its rows
-            # permuted and padded as SpMM permutes and pads B's rows
+            # matrix path: window-gathered X rows against the same panel
             xp = gather_rows(x, core_row_map).contiguous()
-            ypt = permute_pad_b(y.t(), col_perm, reorder_cols, bk)
             ops.sddmm_block_stream(step_window, step_col, core_lin, xp, ypt,
                                    out, bm=bm, bk=bk, impl=impl,
                                    derived=derived)

@@ -10,7 +10,8 @@
 //     reads the plan's core slots only;
 //   - gather_sddmm (vector path): out[i] = X[rows[i]] . Yt[cols[i]] for
 //     every fringe nonzero, in input order, with both dense panels resident
-//     in VMEM and one dot per lane of a 128-lane output row.
+//     in VMEM and one dot per lane of a 128-lane output row; the caller
+//     then gathers the dots into the SDDMM output.
 //
 // dense_tile_sddmm on the card computes only what the caller reads: the
 // value at each core nonzero's slot, written straight to its position in
@@ -28,8 +29,9 @@
 //     from device memory about once.
 //   - gather_sddmm does 2*D flops per nonzero for two gathered D-wide rows
 //     (8*D bytes): 0.25 flops/byte, bound by memory traffic.  The traffic
-//     that counts is the rows fetched through the 50 MB L2 from device
-//     memory, not the once-each input bytes.
+//     that counts is the Y^T rows fetched through the 50 MB L2 from device
+//     memory, not the once-each input bytes: at Reddit scale and D = 256
+//     the fringe gathers 35.5 GB of Y^T row slices from a 238.6 MB panel.
 //
 // Design:
 //   - dense_tile_sddmm (sampled_sddmm_kernel): the host orders the core
@@ -47,13 +49,35 @@
 //     nonzero writes it once (a D chunk past the first adds to it).  No
 //     atomics, so two calls are bit-identical.  D not a multiple of 4, or
 //     panels not 16-byte aligned, take the same walk with 4-byte loads.
-//   - gather_sddmm: one warp per nonzero reads both rows with coalesced
-//     float4 loads (a scalar loop where D is not a multiple of 4 or a row
-//     is not 16-byte aligned), each lane sums its elements in order and a
-//     butterfly shuffle reduction in a fixed order finishes the dot; lane 0
-//     writes it once.  The TPU's "both panels resident" premise does not
-//     hold in 227 KB of shared memory and is not needed: rows come through
-//     L2, so the panels have no size ceiling (the H100 SDDMM tier rule).
+//   - gather_sddmm (sddmm_rows_kernel), the row walk of gather_spmm's B2
+//     turned into dots: the host sorts the fringe by row once, from the
+//     structure alone (kernels/sddmm.py fringe_row_order: per row a CSR
+//     offset, per entry its Y^T row and its position in the SDDMM output).
+//     A warp takes one row and one column slice of kSlice columns of D.  It
+//     holds the X row's slice in registers (read once per row), gathers the
+//     Y^T row slices of 32 nonzeros at a time, 16 bytes a lane, with
+//     min(32, kSlice/4) lanes on one nonzero (so one load instruction
+//     fetches 512 bytes, as in gather_spmm's walk) and kUnroll loads in
+//     flight a lane, while the next 32 (col, pos) pairs load.  It finishes
+//     the 32 dots with one transpose reduction over each nonzero's lanes
+//     (31 shuffle-adds a lane where 32 lanes share a nonzero, 15 where 16
+//     do; after it each lane holds one dot), where the TPU layout's one dot
+//     per lane took five shuffles per dot.  Each dot is written at its
+//     final position; a later pass reads what is there at the start of the
+//     batch, behind the gathers.  The slices are ordered passes, one
+//     launch each on the stream: the first writes, each later one adds its
+//     slice's part, so a dot is summed in a fixed order, no atomics, and
+//     two calls are bit-identical.  Slices keep the live panel small: at
+//     D = 256 the Y^T columns gathered at a time are a kSlice-wide strip,
+//     29.8 MB of the 238.6 MB at 32 columns (fits the L2), 59.6 MB at 64.
+//     D not a multiple of 4, or panels not 16-byte aligned, take the same
+//     walk with 4-byte loads.  The slice width and unroll depth are launch
+//     arguments: kernels/sddmm.py holds the choice made on the card by
+//     bench_torch/gather_sweep.py (PERF.md), which runs the others.  (The
+//     first design, one warp per nonzero in input order with two float4
+//     loads in flight a lane and a 5-step reduction per dot, took 10.8 ms
+//     at Reddit scale, at the card's ceiling for random 1 KB rows from
+//     device memory.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -170,41 +194,189 @@ sampled_sddmm_kernel(const int* __restrict__ seg_kb,
   }
 }
 
-constexpr int kWarps = 8;  // nonzeros per block, one per warp
+// ---- gather_sddmm: the row walk -------------------------------------------
 
-template <bool kVec4>
-__global__ void __launch_bounds__(32 * kWarps)
-gather_sddmm_kernel(const int* __restrict__ rows,
-                    const int* __restrict__ cols,
-                    const float* __restrict__ x,
-                    const float* __restrict__ yt,
-                    float* __restrict__ out,
-                    int64_t nnz, int d) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kWarps
-                    + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (i >= nnz) return;  // uniform across the warp
-  const float* xr = x + static_cast<int64_t>(rows[i]) * d;
-  const float* yr = yt + static_cast<int64_t>(cols[i]) * d;
-  float acc = 0.f;
-  if (kVec4) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-    const float4* y4 = reinterpret_cast<const float4*>(yr);
-    for (int q = lane; q < d / 4; q += 32) {
-      const float4 a = x4[q];
-      const float4 b = y4[q];
-      acc = fmaf(a.x, b.x, acc);
-      acc = fmaf(a.y, b.y, acc);
-      acc = fmaf(a.z, b.z, acc);
-      acc = fmaf(a.w, b.w, acc);
-    }
+constexpr int kRowWarps = 8;  // rows per block, one per warp
+
+// 4 consecutive floats of a row at column col (zeros past d, or where !ok):
+// one 16-byte load (kVec: d a multiple of 4, rows 16-byte aligned), else
+// guarded 4-byte loads.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* row, int col, int d,
+                                        bool ok) {
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (kVec) {
+    if (ok && col < d) r = __ldg(reinterpret_cast<const float4*>(row + col));
   } else {
-    for (int q = lane; q < d; q += 32) acc = fmaf(xr[q], yr[q], acc);
+    if (ok && col < d) r.x = __ldg(row + col);
+    if (ok && col + 1 < d) r.y = __ldg(row + col + 1);
+    if (ok && col + 2 < d) r.z = __ldg(row + col + 2);
+    if (ok && col + 3 < d) r.w = __ldg(row + col + 3);
   }
+  return r;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// One step of the transpose reduction at width W: p[0, 2W) holds this
+// lane's parts of 2W dots; the lane keeps the half its lane bit W selects
+// and adds its partner's parts of them (p[0, W) after the step), in a fixed
+// order.
+template <int W, int N>
+__device__ __forceinline__ void transpose_step(float (&p)[N], int lane) {
+  const bool upper = (lane & W) != 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(kFull, acc, off);
-  if (lane == 0) out[i] = acc;
+  for (int i = 0; i < W; ++i) {
+    const float send = upper ? p[i] : p[i + W];
+    const float keep = upper ? p[i + W] : p[i];
+    p[i] = keep + __shfl_xor_sync(kFull, send, W);
+  }
+}
+
+// p[0, N) over the N lanes of an aligned group: after it, lane i of the
+// group holds in p[0] the sum over the group of everyone's p[i].
+template <int N>
+__device__ __forceinline__ void transpose_reduce(float (&p)[N], int lane) {
+  if constexpr (N >= 32) transpose_step<16>(p, lane);
+  if constexpr (N >= 16) transpose_step<8>(p, lane);
+  if constexpr (N >= 8) transpose_step<4>(p, lane);
+  if constexpr (N >= 4) transpose_step<2>(p, lane);
+  if constexpr (N >= 2) transpose_step<1>(p, lane);
+}
+
+// One pass: columns [c_base, c_base + kSlice) of every dot.  first: the
+// pass starts each dot, else adds its part to the earlier passes' sum;
+// last: the pass writes the dots to out at their positions.  Between
+// passes the sums live in acc, in the walk's order (a batch's 32 sums are
+// 128 contiguous bytes; keeping them in out instead, at the positions,
+// took 0.1-0.3 ms more at Reddit scale and more registers).  At most 64
+// registers a thread up to 64-column slices, so that 4 blocks fit an SM:
+// the walk's loads in flight come from its warps.
+// A nonzero's slice is read by kLanes lanes, 16 bytes each, so one load
+// instruction of the warp fetches kGroups nonzeros' slices (512 bytes), as
+// gather_spmm's walk does.
+template <bool kVec, int kSlice, int kUnroll>
+__global__ void __launch_bounds__(32 * kRowWarps, kSlice <= 64 ? 4 : 2)
+sddmm_rows_kernel(const int* __restrict__ indptr,
+                  const int* __restrict__ cols,
+                  const int* __restrict__ pos,
+                  const float* __restrict__ x,
+                  const float* __restrict__ yt,
+                  float* __restrict__ out,
+                  float* __restrict__ acc,
+                  int num_rows, int d, int c_base, int first, int last) {
+  // lanes per nonzero, nonzeros side by side, float4s per lane and
+  // nonzero, load steps per batch of 32 nonzeros (= a lane's partial dots)
+  constexpr int kLanes = kSlice / 4 < 32 ? kSlice / 4 : 32;
+  constexpr int kGroups = 32 / kLanes;
+  constexpr int kVecs = kSlice / (4 * kLanes);
+  constexpr int kSteps = 32 / kGroups;
+  static_assert(kVecs >= 1 && kSteps % kUnroll == 0, "slice and unroll");
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= num_rows) return;  // uniform across the warp
+  const int beg = __ldg(indptr + row);
+  const int end = __ldg(indptr + row + 1);
+  if (beg == end) return;
+  const int grp = lane / kLanes;
+  const int sub = lane % kLanes;
+  const int c0 = c_base + 4 * sub;
+  float4 xv[kVecs];
+  const float* xrow = x + static_cast<int64_t>(row) * d;
+#pragma unroll
+  for (int f = 0; f < kVecs; ++f)
+    xv[f] = load4<kVec>(xrow, c0 + 4 * kLanes * f, d, true);
+  // the dot this lane ends up holding: nonzero sub * kGroups + grp
+  const int j_out = sub * kGroups + grp;
+
+  // the (col, pos) pair of each lane, one batch of 32 ahead: its loads are
+  // in flight while a batch is dotted.  The index, the sums and the dots
+  // are read and written once a pass with the streaming hint (evict
+  // first), so that they push less of the Y^T strip out of L2: 6.45 ->
+  // 6.24 ms at Reddit scale (PERF.md).
+  int nx_col = 0, nx_pos = 0;
+  if (beg + lane < end) {
+    nx_col = __ldcs(cols + beg + lane);
+    if (last) nx_pos = __ldcs(pos + beg + lane);
+  }
+  for (int base = beg; base < end; base += 32) {
+    const int my_col = nx_col;
+    const int my_pos = nx_pos;
+    const int e = base + 32 + lane;
+    if (e < end) {
+      nx_col = __ldcs(cols + e);
+      if (last) nx_pos = __ldcs(pos + e);
+    }
+    const int cnt = min(32, end - base);
+    // where this lane's dot goes, and (a later pass) the earlier passes'
+    // sum: read now, so that its latency hides behind the gathers
+    const int o_pos = __shfl_sync(kFull, my_pos, j_out);
+    const bool o_ok = j_out < cnt;
+    float* const sum_at = acc + base + j_out;
+    const float prev = (!first && o_ok) ? __ldcs(sum_at) : 0.f;
+    // p[s]: this lane's part of dot s * kGroups + grp of the batch
+    float p[kSteps];
+#pragma unroll
+    for (int s0 = 0; s0 < kSteps; s0 += kUnroll) {
+      if (s0 * kGroups < cnt) {  // uniform across the warp
+        float4 yv[kUnroll][kVecs];
+        // every Y^T load of the group is issued before the first FFMA
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int j = (s0 + u) * kGroups + grp;
+          const int c = __shfl_sync(kFull, my_col, j);
+          const float* yrow = yt + static_cast<int64_t>(c) * d;
+#pragma unroll
+          for (int f = 0; f < kVecs; ++f)
+            yv[u][f] = load4<kVec>(yrow, c0 + 4 * kLanes * f, d, j < cnt);
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          float acc = 0.f;
+#pragma unroll
+          for (int f = 0; f < kVecs; ++f) acc = dot4(xv[f], yv[u][f], acc);
+          p[s0 + u] = acc;
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) p[s0 + u] = 0.f;
+      }
+    }
+    // after it, lane (grp, sub) holds dot sub * kGroups + grp = j_out
+    transpose_reduce<kSteps>(p, lane);
+    if (o_ok) {
+      const float sum = first ? p[0] : prev + p[0];
+      if (last) __stcs(out + o_pos, sum);
+      else __stcs(sum_at, sum);
+    }
+  }
+}
+
+template <bool kVec, int kSlice, int kUnroll>
+cudaError_t launch_sddmm_rows(const int* indptr, const int* cols,
+                              const int* pos, const float* x, const float* yt,
+                              float* out, float* acc, int num_rows, int d,
+                              cudaStream_t stream) {
+  const unsigned blocks = (num_rows + kRowWarps - 1) / kRowWarps;
+  for (int c = 0; c < d; c += kSlice) {
+    sddmm_rows_kernel<kVec, kSlice, kUnroll>
+        <<<blocks, 32 * kRowWarps, 0, stream>>>(
+            indptr, cols, pos, x, yt, out, acc, num_rows, d, c, c == 0,
+            c + kSlice >= d);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+bool vec_ok(const float* x, const float* yt, int d) {
+  return (d & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15u) == 0 &&
+         (reinterpret_cast<uintptr_t>(yt) & 15u) == 0;
 }
 
 }  // namespace
@@ -248,21 +420,36 @@ extern "C" int dense_tile_sddmm_launch(const int* seg_kb, const int* seg_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// rows, cols: (nnz,); x: (M, d) and yt: (K, d) row-major; out: (nnz,).
-// vec4 != 0 asks for float4 loads: d a multiple of 4 and both panels
-// 16-byte aligned.
-extern "C" int gather_sddmm_launch(const int* rows, const int* cols,
-                                   const float* x, const float* yt,
-                                   float* out, int64_t nnz, int d, int vec4,
+// indptr: (num_rows+1,) offsets of each X row's entries; cols, pos:
+// (nnz,) per entry its row in yt and its position in out; x: (num_rows, d)
+// and yt: (K, d) row-major; out[pos[e]] written for every entry, nothing
+// else; acc: (nnz,) floats of scratch for the sums between passes (read
+// only where d > slice).  One launch per slice columns of d, in order on
+// the stream.  slice: 32, 64, 128 or 256 columns; unroll: 4 or 8 loads in
+// flight a lane; another choice is cudaErrorInvalidValue.
+extern "C" int gather_sddmm_launch(const int* indptr, const int* cols,
+                                   const int* pos, const float* x,
+                                   const float* yt, float* out, float* acc,
+                                   int num_rows, int d, int slice, int unroll,
                                    void* stream) {
-  if (nnz == 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((nnz + kWarps - 1) / kWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4)
-    gather_sddmm_kernel<true><<<blocks, 32 * kWarps, 0, s>>>(
-        rows, cols, x, yt, out, nnz, d);
-  else
-    gather_sddmm_kernel<false><<<blocks, 32 * kWarps, 0, s>>>(
-        rows, cols, x, yt, out, nnz, d);
-  return static_cast<int>(cudaGetLastError());
+  if (num_rows == 0 || d == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = vec_ok(x, yt, d);
+#define REPRO_SDDMM_WALK(S, U)                                          \
+  if (slice == S && unroll == U)                                        \
+    return static_cast<int>(                                            \
+        vec ? launch_sddmm_rows<true, S, U>(indptr, cols, pos, x, yt,   \
+                                            out, acc, num_rows, d, st)  \
+            : launch_sddmm_rows<false, S, U>(indptr, cols, pos, x, yt,  \
+                                             out, acc, num_rows, d, st));
+  REPRO_SDDMM_WALK(32, 4)
+  REPRO_SDDMM_WALK(32, 8)
+  REPRO_SDDMM_WALK(64, 4)
+  REPRO_SDDMM_WALK(64, 8)
+  REPRO_SDDMM_WALK(128, 4)
+  REPRO_SDDMM_WALK(128, 8)
+  REPRO_SDDMM_WALK(256, 4)
+  REPRO_SDDMM_WALK(256, 8)
+#undef REPRO_SDDMM_WALK
+  return cudaErrorInvalidValue;
 }

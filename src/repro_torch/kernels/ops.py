@@ -287,21 +287,26 @@ def sddmm_block_stream(
 
 
 def sddmm_gather(
-    rows: torch.Tensor,
+    indptr: torch.Tensor,
     cols: torch.Tensor,
+    pos: torch.Tensor,
     x: torch.Tensor,
     yt: torch.Tensor,
+    out: torch.Tensor,
     *,
     impl: str,
     chunk: Optional[int] = None,
     vmem_budget: Optional[int] = None,
 ) -> torch.Tensor:
-    """SDDMM vector path: fp32 dots (nnz,) in input order.
+    """SDDMM vector path: writes ``x[r] . yt[cols[e]]`` into ``out`` at
+    ``pos[e]`` for every entry ``e`` of the row walk ``indptr`` (a
+    :class:`~repro_torch.kernels.sddmm.FringeRowOrder`), and returns
+    ``out``.
 
     ``yt`` is Y pre-transposed to (K, D) so both operands gather by row.
     ``impl="torch"`` runs the plain gather whatever the tier;
-    ``impl="cuda"`` runs the gather kernel, the only tier the H100 rule of
-    ``core.cost_model.select_sddmm_tier`` gives it.
+    ``impl="cuda"`` runs the row-walk kernel, the only tier the H100 rule
+    of ``core.cost_model.select_sddmm_tier`` gives it.
     """
     if x.shape[-1] != yt.shape[-1]:
         raise ValueError(
@@ -311,9 +316,12 @@ def sddmm_gather(
         raise ValueError(f"chunk must be a positive nonzero count, got {chunk}")
     _check_impl(impl, x)
     if impl == "torch":
-        return ref.ref_gather_sddmm(rows, cols, x, yt, chunk=chunk)
+        rows = torch.repeat_interleave(
+            torch.arange(x.shape[0], device=x.device),
+            (indptr[1:] - indptr[:-1]).long())
+        return ref.ref_gather_sddmm(rows, cols, pos, x, yt, out, chunk=chunk)
     tier = select_sddmm_tier(x.shape[-1], x.shape[0], yt.shape[0],
                              vmem_budget=vmem_budget, impl=impl)
     if tier != "resident":
         raise ValueError(f"no SDDMM gather kernel for tier {tier!r}")
-    return gather_sddmm(rows, cols, x, yt)
+    return gather_sddmm(indptr, cols, pos, x, yt, out)

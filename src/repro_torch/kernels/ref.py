@@ -319,22 +319,25 @@ def ref_tile_sddmm_at_slots(
 
 
 def ref_gather_sddmm(
-    rows: torch.Tensor,  # (nnz,) int32 row ids into x
-    cols: torch.Tensor,  # (nnz,) int32 row ids into yt
+    rows: torch.Tensor,  # (nnz,) int row ids into x
+    cols: torch.Tensor,  # (nnz,) int row ids into yt
+    pos: torch.Tensor,   # (nnz,) int positions in out
     x: torch.Tensor,     # (M, D)
     yt: torch.Tensor,    # (K, D) — Y pre-transposed
+    out: torch.Tensor,   # (L,) float32, L > max(pos)
     chunk: Optional[int] = None,
 ) -> torch.Tensor:
-    """SDDMM vector path: out[i] = x[rows[i]] . yt[cols[i]], fp32 (nnz,).
+    """SDDMM vector path: ``out[pos[i]] = x[rows[i]] . yt[cols[i]]`` in
+    fp32; the other entries of ``out`` are left as they are.  Returns
+    ``out``.
 
     ``chunk`` bounds the materialized gathers to (chunk, D) per step; None
     is the one-shot form.
     """
     nnz = rows.shape[0]
-    out = torch.empty(nnz, dtype=torch.float32, device=x.device)
     step = nnz if chunk is None or nnz <= chunk else int(chunk)
     for s in range(0, nnz, max(step, 1)):
-        out[s:s + step] = (x[rows[s:s + step].long()].to(torch.float32)
-                           * yt[cols[s:s + step].long()].to(torch.float32)
-                           ).sum(-1)
+        out[pos[s:s + step].long()] = (
+            x[rows[s:s + step].long()].to(torch.float32)
+            * yt[cols[s:s + step].long()].to(torch.float32)).sum(-1)
     return out

@@ -2,10 +2,14 @@
 
 Ports of ``repro.models.layers.SparseGraphConv`` and
 ``SparseGraphAttention`` as ``nn.Module``\\ s.  Each holds a prepared
-:class:`~repro_torch.sparse.SparseMatrix` (the graph) and its weights; the
-weights are buffers, laid out as in the reference ((d_in, d_out), applied
-as ``x @ w``).  The layers run forward only: the sparse operators have no
-backward yet, so training waits with ``gcn_training`` (ROADMAP A13).
+:class:`~repro_torch.sparse.SparseMatrix` (the graph) and its weights,
+laid out as in the reference ((d_in, d_out), applied as ``x @ w``).
+``SparseGraphConv``'s weight is an ``nn.Parameter``: the layer is linear
+in X and its aggregation is differentiable (``sparse.spmm``), so it
+trains, as the reference's composes with ``jax.grad``
+(``repro_torch.examples.gcn_training``).  ``SparseGraphAttention`` keeps
+its weights as buffers: its value swap goes through the host, and the
+reference calls that layer inference/forward oriented.
 
 The projections are plain ``torch.matmul``; the edge softmax is plain
 segment arithmetic (``scatter_reduce`` with amax, ``index_add_``).  The
@@ -39,7 +43,7 @@ class SparseGraphConv(nn.Module):
     def __init__(self, a, w: torch.Tensor):
         super().__init__()
         self.a = _graph(a)
-        self.register_buffer("w", w.to(self.a.device, torch.float32))
+        self.w = nn.Parameter(w.detach().to(self.a.device, torch.float32))
 
     @classmethod
     def init(cls, a, d_in: int, d_out: int,

@@ -16,9 +16,12 @@
 
 The subset of ``repro.sparse`` this port carries: static single-device
 plans (general, N:M and bitmap payloads), SpMM, SDDMM and value updates.
-``A @ A`` on two sparse handles (the reference's ``spspmm``) raises
-:class:`~repro_torch.errors.NotPortedError`, and so does a ``"cuda"``
-call in grad mode whose operand requires grad (no backward yet).
+``spmm``/``bspmm`` are differentiable in B and ``sddmm`` in X and Y, on
+either impl (``exec.api.SpMMFunction`` and ``SDDMMFunction``: the
+backward runs the same executor, on the transpose plan for SpMM); no
+gradient flows to A's values, as in the reference.  ``A @ A`` on two
+sparse handles (the reference's ``spspmm``) raises
+:class:`~repro_torch.errors.NotPortedError`.
 ``sddmm`` returns values in the input COO order of the pattern, the order
 ``with_values`` takes, so GAT-style attention is three calls: ``sddmm``
 -> ``with_values`` -> ``spmm``.  Entry points run on the card unless the caller passes
@@ -171,7 +174,8 @@ def _on_device(x, a: SparseMatrix) -> torch.Tensor:
 def spmm(a, b) -> torch.Tensor:
     """Dense ``C = A @ B`` in fp32.  ``b`` is (K, N) on A's device (a
     numpy array is copied there); batched operands go through
-    :func:`bspmm`."""
+    :func:`bspmm`.  Differentiable in ``b``: its gradient is ``Aᵀ @ g``,
+    run on the transpose plan."""
     a = _as_matrix(a, "spmm")
     return _exec.execute(a.plan, _on_device(b, a))
 
@@ -192,7 +196,9 @@ def sddmm(a, x, y) -> torch.Tensor:
     ``x`` is (M, D) and ``y`` (D, K), or both with a leading batch axis, on
     A's device (numpy arrays are copied there).  Returns (nnz,) fp32 values
     ((batch, nnz) when batched) in the input COO order of ``a``, ready for
-    ``a.with_values``.
+    ``a.with_values``.  Differentiable in ``x`` and ``y``: with ``S_g`` the
+    pattern carrying the incoming gradient, ``dX = S_g @ Yᵀ`` and ``dY =
+    (S_gᵀ @ X)ᵀ``, two SpMMs.
     """
     a = _as_matrix(a, "sddmm")
     return _exec.execute_sddmm(a.plan, _on_device(x, a), _on_device(y, a))

@@ -291,22 +291,101 @@ def test_dense_tile_sddmm_empty_and_nonfinite(cuda):
     _close_nan(got, want)
 
 
-@pytest.mark.parametrize("d,offset", [(256, 0), (602, 0), (33, 0), (64, 1)])
+def _b5_walk(rng, m, k, lengths):
+    """A shuffled (unsorted) COO with the given row lengths, its entries'
+    output positions a permutation of a longer buffer, and its row walk."""
+    rows = np.repeat(np.arange(m), lengths)
+    cols = rng.randint(0, k, rows.size)
+    perm = rng.permutation(rows.size)
+    rows, cols = rows[perm], cols[perm]
+    pos = rng.permutation(rows.size + 7)[:rows.size]
+    return rows, cols, pos
+
+
+@pytest.mark.parametrize("d,offset", [(256, 0), (602, 0), (33, 0), (64, 1),
+                                      (1, 0), (3, 0), (130, 0)])
 def test_gather_sddmm_matches_plain(cuda, d, offset):
-    """Float4 rows where D is a multiple of 4 and the panels are aligned,
-    the scalar loop otherwise (odd D, or a panel one float off)."""
+    """The row walk against its plain version on a shuffled COO with rows
+    of 0, 1 and 5,000 nonzeros: 16- and 8-byte loads where D is a multiple
+    of 4 and the panels are aligned, 4-byte loads otherwise (odd D, or a
+    panel one float off); positions outside the walk are left as they
+    are, and two calls are bit-identical."""
+    from repro_torch.kernels.sddmm import fringe_row_order
+
     rng = np.random.RandomState(d + offset)
-    m, k, nnz = 400, 300, 5000
-    rows = rng.randint(0, m, nnz).astype(np.int32)
-    cols = rng.randint(0, k, nnz).astype(np.int32)
+    m, k = 400, 300
+    lengths = rng.randint(0, 30, m)
+    lengths[:3] = (0, 1, 5000)
+    rows, cols, pos = _b5_walk(rng, m, k, lengths)
     x = torch.from_numpy(rng.randn(m * d + offset).astype(np.float32)).to(
         cuda)[offset:].view(m, d)
     yt = torch.from_numpy(rng.randn(k, d).astype(np.float32)).to(cuda)
-    r, c = (torch.from_numpy(a).to(cuda) for a in (rows, cols))
+    r, c, q = (torch.from_numpy(a).to(cuda) for a in (rows, cols, pos))
+    walk = fringe_row_order(r, c, q, m)
     before = gather_sddmm.launches
-    got = gather_sddmm(r, c, x, yt)
-    assert gather_sddmm.launches == before + 1
-    _close(got, ref.ref_gather_sddmm(r, c, x, yt))
+    got = gather_sddmm(*walk, x, yt, torch.full((pos.size + 7,), 5.0,
+                                                device=cuda))
+    again = gather_sddmm(*walk, x, yt, torch.full((pos.size + 7,), 5.0,
+                                                  device=cuda))
+    assert gather_sddmm.launches == before + 2
+    want = ref.ref_gather_sddmm(r, c, q, x, yt,
+                                torch.full((pos.size + 7,), 5.0, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, want)
+    untouched = np.setdiff1d(np.arange(pos.size + 7), pos)
+    assert bool((got[torch.from_numpy(untouched).to(cuda)] == 5.0).all())
+
+
+def test_gather_sddmm_nonfinite_matches_plain(cuda):
+    """+Inf, -Inf and NaN in X and in Y^T: the dots that read them are NaN
+    or +-Inf in the same cells as the plain version's."""
+    from repro_torch.kernels.sddmm import fringe_row_order
+
+    rng = np.random.RandomState(5)
+    m, k, d = 200, 150, 256
+    lengths = rng.randint(0, 40, m)
+    rows, cols, pos = _b5_walk(rng, m, k, lengths)
+    x = rng.randn(m, d).astype(np.float32)
+    yt = rng.randn(k, d).astype(np.float32)
+    for arr, vals in ((x, (np.inf, -np.inf, np.nan)),
+                      (yt, (np.inf, -np.inf, np.nan, np.inf))):
+        for v in vals:
+            arr[rng.randint(arr.shape[0]), rng.randint(d)] = v
+    args = [torch.from_numpy(a).to(cuda) for a in (rows, cols, pos)]
+    xs, ys = (torch.from_numpy(a).to(cuda) for a in (x, yt))
+    walk = fringe_row_order(*args, m)
+    got = gather_sddmm(*walk, xs, ys, torch.zeros(pos.size + 7, device=cuda))
+    want = ref.ref_gather_sddmm(*args, xs, ys,
+                                torch.zeros(pos.size + 7, device=cuda))
+    assert not torch.isfinite(want).all()
+    _close_nan(got, want)
+
+
+def test_gather_sddmm_variants_match_plain(cuda):
+    """Every slice width and unroll depth the sweep times computes the
+    same dots; an unbuilt choice raises."""
+    from repro_torch.kernels.sddmm import fringe_row_order
+
+    rng = np.random.RandomState(12)
+    m, k, d = 300, 2000, 260
+    lengths = rng.randint(0, 100, m)
+    rows, cols, pos = _b5_walk(rng, m, k, lengths)
+    args = [torch.from_numpy(a).to(cuda) for a in (rows, cols, pos)]
+    x = torch.from_numpy(rng.randn(m, d).astype(np.float32)).to(cuda)
+    yt = torch.from_numpy(rng.randn(k, d).astype(np.float32)).to(cuda)
+    walk = fringe_row_order(*args, m)
+    want = ref.ref_gather_sddmm(*args, x, yt, torch.zeros(pos.size + 7,
+                                                          device=cuda))
+    for slice_cols in (32, 64, 128, 256):
+        for unroll in (4, 8):
+            out = gather_sddmm(*walk, x, yt,
+                               torch.zeros(pos.size + 7, device=cuda),
+                               slice_cols=slice_cols, unroll=unroll)
+            _close(out, want)
+    with pytest.raises(Exception, match="cudaError_t"):
+        gather_sddmm(*walk, x, yt, torch.zeros(pos.size + 7, device=cuda),
+                     slice_cols=48)
 
 
 @pytest.mark.parametrize("name,budget", [("ogbn-arxiv", None), ("cora", 1)])
@@ -814,23 +893,54 @@ def test_execute_cuda_with_inf_in_a_matches_plain(cuda):
            sp.spmm(a_cpu.with_values(fixed), torch.from_numpy(b)).to(cuda))
 
 
-def test_cuda_calls_with_grad_operands_raise(cuda):
-    """A "cuda" spmm or sddmm in grad mode with an operand that requires
-    grad raises the typed error; under no_grad the same calls run."""
+def test_cuda_gradients_match_library(cuda):
+    """A "cuda" spmm, bspmm and sddmm with grad-requiring operands return
+    gradients: spmm's and bspmm's against torch.sparse.mm on the CSR of
+    the same COO with autograd, sddmm's against fp64 dense autograd; and
+    after with_values, against the new values."""
     from repro_torch import sparse as sp
-    from repro_torch.errors import NotPortedError
 
     spec = PAPER_DATASETS["cora"]
     rows, cols, vals = generate(spec)
-    a = sp.from_coo(rows, cols, vals, (spec.m, spec.k), device=cuda)
-    b = torch.randn(spec.k, 16, device=cuda, requires_grad=True)
-    x = torch.randn(spec.m, 8, device=cuda, requires_grad=True)
-    y = torch.randn(8, spec.k, device=cuda)
-    with pytest.raises(NotPortedError, match="SpMMOperator"):
-        sp.spmm(a, b)
-    with pytest.raises(NotPortedError, match="SpMMOperator"):
-        sp.sddmm(a, x, y)
-    with torch.no_grad():
-        assert sp.spmm(a, b).shape == (spec.m, 16)
-        assert sp.sddmm(a, x, y).shape == (rows.size,)
+    shape = (spec.m, spec.k)
+    a = sp.from_coo(rows, cols, vals, shape, device=cuda)
+    rng = np.random.RandomState(17)
+    idx = torch.from_numpy(np.stack([rows, cols])).to(cuda)
 
+    def csr(v):
+        return torch.sparse_coo_tensor(
+            idx, torch.as_tensor(v, dtype=torch.float32, device=cuda),
+            shape).coalesce().to_sparse_csr()
+
+    for m, v in ((a, vals), (a.with_values(rng.randn(rows.size)
+                                           .astype(np.float32)), None)):
+        v = m.val if v is None else v
+        b = torch.from_numpy(rng.randn(spec.k, 16).astype(np.float32)).to(
+            cuda).requires_grad_(True)
+        g = torch.from_numpy(rng.randn(spec.m, 16).astype(np.float32)).to(
+            cuda)
+        (sp.spmm(m, b) * g).sum().backward()
+        b_ref = b.detach().clone().requires_grad_(True)
+        (torch.sparse.mm(csr(v), b_ref) * g).sum().backward()
+        _close(b.grad, b_ref.grad)
+    bb = torch.from_numpy(rng.randn(3, spec.k, 8).astype(np.float32)).to(
+        cuda).requires_grad_(True)
+    gb = torch.from_numpy(rng.randn(3, spec.m, 8).astype(np.float32)).to(
+        cuda)
+    (sp.bspmm(a, bb) * gb).sum().backward()
+    bb_ref = bb.detach().clone().requires_grad_(True)
+    lib = csr(vals)
+    (torch.stack([torch.sparse.mm(lib, bb_ref[i]) for i in range(3)])
+     * gb).sum().backward()
+    _close(bb.grad, bb_ref.grad)
+    x = torch.from_numpy(rng.randn(spec.m, 8).astype(np.float32)).to(
+        cuda).requires_grad_(True)
+    y = torch.from_numpy(rng.randn(8, spec.k).astype(np.float32)).to(
+        cuda).requires_grad_(True)
+    gs = torch.from_numpy(rng.randn(rows.size).astype(np.float32)).to(cuda)
+    (sp.sddmm(a, x, y) * gs).sum().backward()
+    x64, y64 = (t.detach().double().requires_grad_(True) for t in (x, y))
+    r, c = (torch.from_numpy(t).to(cuda) for t in (rows, cols))
+    ((x64 @ y64)[r, c] * gs.double()).sum().backward()
+    _close(x.grad, x64.grad.float())
+    _close(y.grad, y64.grad.float())

@@ -36,7 +36,8 @@ _MAP_FIELDS = [f.name for f in dataclasses.fields(plan_ir.UpdateMaps)]
 
 
 def _close(got, want, tol=TOL):
-    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    got = (got.detach().numpy() if isinstance(got, torch.Tensor)
+           else np.asarray(got))
     want = np.asarray(want)
     assert got.shape == want.shape, (got.shape, want.shape)
     err = float(np.abs(got.astype(np.float64) - want).max())
@@ -125,9 +126,11 @@ def test_graph_conv_init_and_dense_product(graph):
     gen = torch.Generator().manual_seed(1)
     layer = SparseGraphConv.init(ours, feats.shape[1], 12, generator=gen)
     x = torch.from_numpy(feats)
-    want = ours.dense() @ (x @ layer.w).double().numpy()
+    want = ours.dense() @ (x @ layer.w).detach().double().numpy()
     _close(layer(x), want)
-    assert dict(layer.named_buffers()).keys() == {"w"}
+    # the weight trains: a parameter, under the state_dict key "w"
+    assert dict(layer.named_parameters()).keys() == {"w"}
+    assert layer.state_dict().keys() == {"w"}
 
 
 def test_gat_example_runs_on_the_cpu():

@@ -40,7 +40,9 @@ from repro_torch.interop import (  # noqa: E402
     plan_from_arrays, update_maps_from_arrays,
 )
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.sddmm import dense_tile_sddmm, gather_sddmm  # noqa: E402
+from repro_torch.kernels.sddmm import (  # noqa: E402
+    dense_tile_sddmm, fringe_row_order, gather_sddmm,
+)
 from conftest import make_sparse  # noqa: E402
 
 TOL = 1e-5
@@ -173,22 +175,35 @@ def test_ref_tile_sddmm_of_an_empty_stream():
 
 @pytest.mark.parametrize("chunk", [None, 1, 64, 1000, 5000])
 def test_ref_gather_sddmm_matches_reference(chunk):
+    """The plain version writes each dot at its given position: read at
+    those positions, it is the reference's (input order), and the
+    wrapper's CPU form over the row walk of the same entries is it."""
     rng = np.random.RandomState(7)
     m, k, d, nnz = 90, 70, 33, 3001
     rows = rng.randint(0, m, nnz).astype(np.int32)
     cols = rng.randint(0, k, nnz).astype(np.int32)
+    pos = rng.permutation(nnz + 5)[:nnz].astype(np.int32)
     x = rng.randn(m, d).astype(np.float32)
     yt = rng.randn(k, d).astype(np.float32)
-    got = ref.ref_gather_sddmm(*map(torch.from_numpy, (rows, cols, x, yt)),
+    out = torch.full((nnz + 5,), 7.0)
+    got = ref.ref_gather_sddmm(*map(torch.from_numpy, (rows, cols, pos, x,
+                                                       yt)), out,
                                chunk=chunk)
+    assert got is out
     want = jax_ref.ref_gather_sddmm(*map(jnp.asarray, (rows, cols, x, yt)),
                                     chunk=chunk)
-    _close(got, want)
-    _close(got, np.einsum("id,id->i", x[rows].astype(np.float64),
-                          yt[cols].astype(np.float64)))
-    assert torch.equal(gather_sddmm(
-        *map(torch.from_numpy, (rows, cols, x, yt))),
-        ref.ref_gather_sddmm(*map(torch.from_numpy, (rows, cols, x, yt))))
+    _close(got[pos], want)
+    _close(got[pos], np.einsum("id,id->i", x[rows].astype(np.float64),
+                               yt[cols].astype(np.float64)))
+    untouched = np.setdiff1d(np.arange(nnz + 5), pos)
+    assert bool((got[untouched] == 7.0).all())
+    walk = fringe_row_order(*map(torch.from_numpy, (rows, cols, pos)), m)
+    assert torch.equal(
+        gather_sddmm(*walk, torch.from_numpy(x), torch.from_numpy(yt),
+                     torch.full((nnz + 5,), 7.0)),
+        ref.ref_gather_sddmm(*map(torch.from_numpy, (rows, cols, pos, x,
+                                                     yt)),
+                             torch.full((nnz + 5,), 7.0)))
 
 
 def test_sddmm_wrappers_reject_mismatched_operands():
@@ -206,27 +221,30 @@ def test_sddmm_wrappers_reject_mismatched_operands():
                          torch.zeros(1, dtype=torch.int32), lin,
                          torch.zeros(8, 4), torch.zeros(16, 4),
                          torch.zeros(2), bm=8, bk=16)
+    i32 = torch.int32
+    walk = (torch.tensor([0, 1, 1, 1], dtype=i32), torch.zeros(1, dtype=i32),
+            torch.zeros(1, dtype=i32))
     with pytest.raises(ValueError, match="index"):
-        gather_sddmm(torch.zeros(2, dtype=torch.int32),
-                     torch.zeros(1, dtype=torch.int32),
-                     torch.zeros(3, 4), torch.zeros(3, 4))
+        gather_sddmm(walk[0], torch.zeros(2, dtype=i32), walk[2],
+                     torch.zeros(3, 4), torch.zeros(3, 4), torch.zeros(2))
+    with pytest.raises(ValueError, match="index"):  # indptr not (M+1,)
+        gather_sddmm(walk[0][:3], *walk[1:], torch.zeros(3, 4),
+                     torch.zeros(3, 4), torch.zeros(2))
     with pytest.raises(ValueError, match=r"\(K, D\)"):
-        gather_sddmm(torch.zeros(1, dtype=torch.int32),
-                     torch.zeros(1, dtype=torch.int32),
-                     torch.zeros(3, 4), torch.zeros(3, 5))
+        gather_sddmm(*walk, torch.zeros(3, 4), torch.zeros(3, 5),
+                     torch.zeros(2))
+    with pytest.raises(ValueError, match="out float32"):
+        gather_sddmm(*walk, torch.zeros(3, 4), torch.zeros(3, 4),
+                     torch.zeros(2, dtype=torch.float64))
     with pytest.raises(ValueError, match="disagree on D"):
-        ops.sddmm_gather(torch.zeros(1, dtype=torch.int32),
-                         torch.zeros(1, dtype=torch.int32),
-                         torch.zeros(3, 4), torch.zeros(3, 5), impl="torch")
+        ops.sddmm_gather(*walk, torch.zeros(3, 4), torch.zeros(3, 5),
+                         torch.zeros(2), impl="torch")
     with pytest.raises(ValueError, match="chunk"):
-        ops.sddmm_gather(torch.zeros(1, dtype=torch.int32),
-                         torch.zeros(1, dtype=torch.int32),
-                         torch.zeros(3, 4), torch.zeros(3, 4), impl="torch",
-                         chunk=0)
+        ops.sddmm_gather(*walk, torch.zeros(3, 4), torch.zeros(3, 4),
+                         torch.zeros(2), impl="torch", chunk=0)
     with pytest.raises(ValueError, match="does not run"):
-        ops.sddmm_gather(torch.zeros(1, dtype=torch.int32),
-                         torch.zeros(1, dtype=torch.int32),
-                         torch.zeros(3, 4), torch.zeros(3, 4), impl="cuda")
+        ops.sddmm_gather(*walk, torch.zeros(3, 4), torch.zeros(3, 4),
+                         torch.zeros(2), impl="cuda")
 
 
 # --- tier rule ---------------------------------------------------------------

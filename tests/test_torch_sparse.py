@@ -182,30 +182,11 @@ def test_nonzero_launch_status_raises():
         _build.check_status(9, "dense_tile_spmm")
 
 
-def test_cuda_call_with_grad_operand_raises_typed_error():
-    """On impl="cuda" the kernels write outputs with no autograd graph, so
-    a call in grad mode whose operand requires grad raises rather than
-    drop the gradient; under no_grad, on detached operands and on
-    impl="torch" it does not.  Held through the guard (no card here)."""
-    from repro_torch.errors import NotPortedError
-    from repro_torch.exec.api import check_no_grad
-
-    b = torch.zeros(3, 2, requires_grad=True)
-    for op in ("spmm", "sddmm"):
-        with pytest.raises(NotPortedError, match="SpMMOperator") as err:
-            check_no_grad("cuda", op, torch.zeros(2), b)
-        assert isinstance(err.value, DispatchError)
-        assert op in str(err.value)
-        with torch.no_grad():
-            check_no_grad("cuda", op, b)
-        check_no_grad("cuda", op, b.detach())
-        check_no_grad("torch", op, b)
-
-
 @pytest.mark.parametrize("batched", [False, True])
 def test_torch_impl_spmm_gradient_is_at_g(matrix, batched):
-    """On impl="torch" the plain versions keep PyTorch's graph: the
-    gradient of sum(spmm(A, B) * G) in B is A^T G (fp64 dense)."""
+    """On impl="torch" the backward runs the plain versions on the
+    transpose plan: the gradient of sum(spmm(A, B) * G) in B is A^T G
+    (fp64 dense)."""
     a, _, _, _, A = matrix
     rng = np.random.RandomState(3)
     shape = (2, 110, 7) if batched else (110, 7)
