@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The sweep that chose gather_spmm's design constants (kDefaultSlice and
 kDefaultUnroll in ``src/repro_torch/kernels/csrc/gather_spmm.cu``) and
-gather_sddmm's (``SLICE_COLS`` and ``UNROLL`` in
-``src/repro_torch/kernels/sddmm.py``) on one NVIDIA GPU,
+gather_sddmm's (kSliceCols, kUnrollLoads and the streaming cache hint in
+``src/repro_torch/kernels/csrc/sddmm.cu``) on one NVIDIA GPU,
 with gather_spmm_ksharded's two forms beside them.
 
     python3 bench_torch/gather_sweep.py [--out build/gather_sweep.json]
@@ -26,7 +26,8 @@ events, it times
 - ``torch.sparse.mm`` on the CSR of the same fringe (the library call);
 - ``gather_sddmm`` (the SDDMM fringe's row walk) on the same fringe as
   the committed kernel, and every (slice width, unroll depth) of
-  SDDMM_VARIANTS, with X (226,821
+  SDDMM_VARIANTS with and without the streaming hint through
+  ``gather_sddmm_variant_launch``, with X (226,821
   x 256) and Y^T (232,965 x 256) seeded and each dot written at its
   position in a row-sorted COO whose every entry is on the fringe; each
   held against the plain version;
@@ -54,7 +55,8 @@ sys.path.insert(0, str(ROOT / "src"))
 VARIANTS = ((16, 2), (16, 4), (32, 2), (32, 4), (32, 8), (64, 2), (64, 4),
             (64, 8), (128, 2), (128, 4), (128, 8), (256, 2), (256, 4),
             (256, 8))
-# (slice width, unroll depth) pairs gather_sddmm_variant_launch builds
+# (slice width, unroll depth) pairs gather_sddmm_variant_launch builds,
+# each with and without the streaming hint
 SDDMM_VARIANTS = tuple((s, u) for s in (32, 64, 128, 256) for u in (4, 8))
 TOL = 1e-4
 # the reddit-scale plan (PERF.md section 5)
@@ -115,14 +117,24 @@ def gather_probe(b, set_rows: int, reads: int, timed_ms, seed: int = 1):
     return timed_ms(run)
 
 
+def sddmm_variant_fn():
+    """gather_sddmm_variant_launch of the built sddmm library."""
+    from repro_torch.kernels import _build
+
+    return _build.function(
+        "sddmm", "gather_sddmm_variant_launch",
+        (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P))
+
+
 def sddmm_records(rows, cols, num_rows, gen, timed_ms, check, record):
-    """Time gather_sddmm as committed and every SDDMM_VARIANTS choice on
-    the fringe ``rows``/``cols`` (row-sorted, on the card), each held
-    against the plain version."""
+    """Time gather_sddmm as committed and every SDDMM_VARIANTS choice,
+    with and without the streaming hint, on the fringe ``rows``/``cols``
+    (row-sorted, on the card), each held against the plain version."""
     import torch
 
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.sddmm import fringe_row_order, gather_sddmm
+    from repro_torch.core.plan_ir import fringe_row_order
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.sddmm import gather_sddmm
 
     dev = rows.device
     nnz = rows.numel()
@@ -139,11 +151,19 @@ def sddmm_records(rows, cols, num_rows, gen, timed_ms, check, record):
 
     record(kernel="gather_sddmm", variant="committed", d=N,
            ms=timed_ms(committed), max_abs_err=check(committed(), want))
+    fn = sddmm_variant_fn()
+    acc = torch.empty(nnz, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     for s, u in SDDMM_VARIANTS:
-        def run(s=s, u=u):
-            return gather_sddmm(*walk, x, yt, out, slice_cols=s, unroll=u)
-        record(kernel="gather_sddmm", slice=s, unroll=u, d=N,
-               ms=timed_ms(run), max_abs_err=check(run(), want))
+        for hint in (1, 0):
+            def run(s=s, u=u, hint=hint):
+                status = fn(*(t.data_ptr() for t in (*walk, x, yt, out, acc)),
+                            num_rows, N, s, u, hint, stream)
+                _build.check_status(status, "gather_sddmm variant")
+                return out
+            record(kernel="gather_sddmm", slice=s, unroll=u,
+                   streaming_hint=bool(hint), d=N, ms=timed_ms(run),
+                   max_abs_err=check(run(), want))
 
 
 def main() -> int:

@@ -40,12 +40,17 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    gather_spmm_ksharded; then the GCN training path: 20 full-batch SGD
    steps of the reference example's two-layer GCN (``SparseGraphConv``
    twice, hidden 256) at ogbn-arxiv's size (169,343 nodes, 128 features,
-   40 classes, 2.48 M nonzeros from the example's generator, symmetrised),
-   whose forward must launch dense_tile_spmm and a fringe kernel on A and
-   whose backward the same on the transpose plan; its loss must fall, its
-   step-0 gradients match ``torch.sparse.mm`` with autograd, and its step
-   time (forward, backward, update by CUDA events) is printed beside the
-   library's and the transpose plan's prepare seconds.
+   40 classes, 2.48 M nonzeros from the example's generator, symmetrised,
+   row-normalised so that A is not its own transpose), whose forward must
+   launch dense_tile_spmm and a fringe kernel on A and whose backward the
+   same on the transpose plan; step 0's four SpMMs (two on A, two on the
+   transpose plan, each at its N) are held against ``torch.sparse.mm`` on
+   the CSR of A and of Aᵀ, its gradients of W1 and W2 against the same
+   model on ``torch.sparse.mm`` with autograd (both within 1e-4 * max
+   |ref|, no floor of 1), and its loss must fall; its step time (forward,
+   backward, update by CUDA events) is printed beside the library's, the
+   transpose plan's prepare seconds and where the backward's host time
+   goes (cProfile).
    ``spmm`` is checked against ``torch.sparse.mm``
    on the same COO, ``bspmm`` against four ``spmm`` calls, the attention
    forward against ``torch.sparse.sampled_addmm`` scores, the same edge
@@ -84,7 +89,9 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
 
 Tolerance everywhere: max |x - ref| <= 1e-4 * max(1, max |ref|) (fp32 on
 both sides, different summation orders; the kernels' tensor-core path is
-3xTF32, about fp32 accuracy, and PyTorch's TF32 switches stay off).  Any
+3xTF32, about fp32 accuracy, and PyTorch's TF32 switches stay off); the
+GCN path's step-0 SpMMs and gradients, whose entries lie far below 1, are
+held within 1e-4 * max |ref|.  Any
 failure raises and the script exits nonzero without its result line.  The
 last line is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX
 or of the JAX package, and needs no network.
@@ -423,16 +430,40 @@ def gradient_phase(ctx, a, rows, cols, vals):
     return max(errs.values())
 
 
+def host_profile(fn, top=6):
+    """Host ms that a call of ``fn`` takes to return (no synchronisation
+    after it, so a wait for the card inside it counts) and the ``top``
+    functions by their own host time under cProfile: ``(ms, [(name, ms),
+    ...])``."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    prof.disable()
+    ms = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((f"{name} ({Path(file).name}:{line})", tt * 1e3)
+                   for (file, line, name), (_, _, tt, _, _) in stats.items()),
+                  key=lambda r: -r[1])
+    return ms, rows[:top]
+
+
 def gcn_training_path(ctx):
     """The GCN training path: GCN_STEPS full-batch SGD steps of the
-    reference example's two-layer GCN at ogbn-arxiv size on the card.
-    Step 0 reads the launch counts around its forward and around its
-    backward (which runs on the transpose plan), and holds its gradients
-    of W1 and W2 against the same model on ``torch.sparse.mm`` (CSR) with
-    autograd; steps 1 on are timed with CUDA events (forward, backward,
-    update) with no host synchronisation between them, their counts read
-    after the last.  The library's step is timed the same way.  Returns a
-    dict of what it measured."""
+    reference example's two-layer GCN at ogbn-arxiv size on the card, on
+    the row-normalised adjacency D^-1 (A + I), which is not its own
+    transpose.  Step 0 reads the launch counts around its forward and
+    around its backward (which runs on the transpose plan), holds each of
+    its four SpMMs against ``torch.sparse.mm`` on the CSR of A or of Aᵀ
+    (built from the COO, not from the plan), and its gradients of W1 and
+    W2 against the same model on ``torch.sparse.mm`` (CSR) with autograd;
+    steps 1 on are timed with CUDA events (forward, backward, update) with
+    no host synchronisation between them, their counts read after the
+    last.  The library's step is timed the same way.  Returns a dict of
+    what it measured."""
     import numpy as np
     import torch
 
@@ -442,8 +473,11 @@ def gcn_training_path(ctx):
 
     dev = ctx.dev
     t0 = time.perf_counter()
-    rows, cols, vals, feats, labels, n_classes = make_graph(**ARXIV_GCN)
+    rows, cols, _, feats, labels, n_classes = make_graph(**ARXIV_GCN)
     n = feats.shape[0]
+    # row-normalised: every row of A sums to 1, so A differs from Aᵀ and a
+    # backward on A's plan instead of the transpose plan would show
+    vals = (1.0 / np.bincount(rows, minlength=n))[rows].astype(np.float32)
     t1 = time.perf_counter()
     a = ctx.sp.from_coo(rows, cols, vals, (n, n), device=dev)
     torch.cuda.synchronize()
@@ -469,12 +503,26 @@ def gcn_training_path(ctx):
     params = list(model.parameters())
     w0 = [p.detach().clone() for p in params]
     # the library's model: the generator's COO is sorted and unique, so
-    # its CSR keeps input order
+    # its CSR keeps input order; Aᵀ's CSR by the library's own coalesce
     crow = np.zeros(n + 1, np.int64)
     crow[1:] = np.cumsum(np.bincount(rows, minlength=n))
     csr = torch.sparse_csr_tensor(
         torch.from_numpy(crow).to(dev), torch.from_numpy(cols).to(dev),
         torch.from_numpy(vals).to(dev), (n, n))
+    csr_t = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([cols, rows])).to(dev),
+        torch.from_numpy(vals).to(dev), (n, n)).coalesce().to_sparse_csr()
+
+    def rel_err(got, want):
+        """max |got - want| within ctx.tol * max |want| (no floor of 1);
+        returns both."""
+        torch.cuda.synchronize()
+        ctx.require(got.shape == want.shape, (got.shape, want.shape))
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        ctx.require(err <= ctx.tol * scale,
+                    f"max |diff| {err} > {ctx.tol} * {scale}")
+        return err, scale
 
     def library_loss(w1, w2):
         h = torch.relu(torch.sparse.mm(csr, x @ w1))
@@ -485,15 +533,41 @@ def gcn_training_path(ctx):
             for w, g in zip(ws, grads):
                 w -= GCN_LR * g
 
-    # step 0: counts around the forward and around the backward, and the
-    # gradients against the library's
+    # step 0: counts around the forward and around the backward; each SpMM
+    # the executor runs in it is recorded (plan, operand, output) and held
+    # against the library after it
+    spmms = []
+    execute = api._execute
+
+    def recorded(plan, b):
+        out = execute(plan, b)
+        spmms.append((plan, b, out))
+        return out
+
     model.zero_grad(set_to_none=True)
-    loss0, fwd0 = ctx.drive(lambda: loss_fn(model(x), y))
-    _, bwd0 = ctx.drive(loss0.backward)
+    api._execute = recorded
+    try:
+        loss0, fwd0 = ctx.drive(lambda: loss_fn(model(x), y))
+        _, bwd0 = ctx.drive(loss0.backward)
+    finally:
+        api._execute = execute
+    ctx.require(len(spmms) == 4, ("step 0 ran", len(spmms), "SpMMs"))
+    spmm_errs = []
+    for i, (pl, b, out) in enumerate(spmms):
+        forward = i < 2
+        ctx.require((pl is a.plan) == forward,
+                    f"SpMM {i} of step 0 ran on the wrong plan")
+        err, scale = rel_err(out, torch.sparse.mm(csr if forward else csr_t,
+                                                  b))
+        spmm_errs.append({"on": "A" if forward else "plan_t",
+                          "n": int(b.shape[1]), "max_abs_err": err,
+                          "max_abs_ref": scale})
+    del spmms
     w_lib = [w.clone().requires_grad_(True) for w in w0]
     loss_lib = library_loss(*w_lib)
     g_lib = torch.autograd.grad(loss_lib, w_lib)
-    err_grad = max(ctx.err_bound(p.grad, g) for p, g in zip(params, g_lib))
+    grad_errs = [rel_err(p.grad, g) for p, g in zip(params, g_lib)]
+    err_grad = max(e for e, _ in grad_errs)
     loss0, loss_lib = loss0.detach(), loss_lib.detach()
     ctx.require(abs(float(loss0) - float(loss_lib))
                 <= ctx.tol * max(1.0, abs(float(loss_lib))),
@@ -549,12 +623,37 @@ def gcn_training_path(ctx):
         sgd_update(params, [p.grad for p in params])
 
     busy_ms, by_kernel = device_breakdown(one_step)
+    # where the backward's host time goes: one more step, its forward
+    # finished on the card first
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model(x), y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss.backward()
+    bwd_host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model(x), y)
+    torch.cuda.synchronize()
+    bwd_prof_ms, bwd_top = host_profile(loss.backward)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api.transpose_plan(a.plan)
+    transpose_lookup_us = (time.perf_counter() - t0) * 1e6
     ctx.log(f"  step 0 launches: forward {fwd0}; backward (plan_t) {bwd0}")
     ctx.log(f"  launches over the {GCN_STEPS} steps: {launches}")
+    ctx.log("  step-0 SpMMs against torch.sparse.mm on the CSR of A or of "
+            "A^T: " + json.dumps(spmm_errs))
     ctx.log(f"  loss: step 0 {losses[0]:.6f} (library {float(loss_lib):.6f})"
-            f", step {GCN_STEPS - 1} {losses[-1]:.6f}; step-0 gradients of "
-            f"W1 and W2 against torch.sparse.mm with autograd: max |diff| "
-            f"{err_grad:.3e}")
+            f", step {GCN_STEPS - 1} {losses[-1]:.6f}; step-0 gradients "
+            f"against torch.sparse.mm with autograd: " + ", ".join(
+                f"{w} max |diff| {e:.3e} (max |ref| {m:.3e})"
+                for w, (e, m) in zip(("W1", "W2"), grad_errs)))
+    ctx.log(f"  backward host time (to return, no sync after): "
+            f"{bwd_host_ms:.3f} "
+            f"ms; under cProfile {bwd_prof_ms:.3f} ms, by own time: "
+            + "; ".join(f"{name} {ms:.3f}" for name, ms in bwd_top)
+            + f"; transpose_plan lookup {transpose_lookup_us:.1f} us")
     ctx.log(f"  step (mean of steps 1-{GCN_STEPS - 1}, CUDA events): "
             f"{step_ms:.3f} ms = forward {fwd_ms:.3f} + backward "
             f"{bwd_ms:.3f} + update {upd_ms:.3f}; the same step on "
@@ -571,7 +670,9 @@ def gcn_training_path(ctx):
         ctx.require(counts["dense_tile_spmm"] > 0
                     and sum(counts[k] for k in FRINGE_KERNELS) > 0,
                     (label, counts))
-    return {"launches": launches, "err": err_grad, "step_ms": step_ms,
+    return {"launches": launches, "err": err_grad, "spmm_errs": spmm_errs,
+            "grad_errs": grad_errs, "backward_host_ms": bwd_host_ms,
+            "step_ms": step_ms,
             "forward_ms": fwd_ms, "backward_ms": bwd_ms,
             "library_step_ms": lib_step, "library_forward_ms": lib_fwd,
             "library_backward_ms": lib_bwd, "device_busy_ms": busy_ms,
@@ -1414,7 +1515,11 @@ def main() -> int:
     # B5: the fringe's rows in input order (runs of one row, which the
     # previous one-warp-per-nonzero kernel saw) and in the walk's order
     walk = smaps.walk
-    f_rows_in, f_cols_in = (t.to(dev) for t in (smaps.f_rows, smaps.f_cols))
+    um = p.update_maps
+    f_sel = np.flatnonzero(um.core_lin < 0)
+    f_rows_in, f_cols_in = (torch.from_numpy(t[f_sel]).to(dev)
+                            for t in (um.rows, um.cols))
+    del f_sel
     nnz_fs = int(walk.cols.numel())
     change = torch.ones(nnz_fs, dtype=torch.bool, device=dev)
     change[1:] = f_rows_in[1:] != f_rows_in[:-1]

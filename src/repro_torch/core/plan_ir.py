@@ -27,14 +27,13 @@ a value update recomputes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..errors import PlanBuildError
-from ..kernels.sddmm import FringeRowOrder, fringe_row_order
 
 PLAN_FORMAT_VERSION = 2
 
@@ -612,6 +611,43 @@ def build_update_maps(
 # --- SDDMM gather maps -------------------------------------------------------
 
 
+class FringeRowOrder(NamedTuple):
+    """The SDDMM fringe in row order, from the structure alone: the operand
+    layout of ``kernels.sddmm.gather_sddmm``.
+
+    ``indptr`` (M+1,) int32: the entries of X row ``r`` are ``[indptr[r],
+    indptr[r+1])``; per entry (int32), ``cols``: the row of the Y^T panel
+    the walk reads, and ``pos``: its position in the SDDMM output.  Each
+    row's entries keep their input order (a stable sort).
+    """
+    indptr: torch.Tensor
+    cols: torch.Tensor
+    pos: torch.Tensor
+
+
+def fringe_row_order(rows: torch.Tensor, cols: torch.Tensor,
+                     pos: torch.Tensor, num_rows: int,
+                     col_map: Optional[torch.Tensor] = None
+                     ) -> FringeRowOrder:
+    """:class:`FringeRowOrder` of entries ``(rows[i], cols[i])`` at output
+    positions ``pos[i]``, on their device; ``col_map`` (if given) maps a
+    column to its row of the Y^T panel."""
+    if pos.numel() >= 2 ** 31:
+        raise ValueError(f"{pos.numel()} positions do not fit int32")
+    order = torch.argsort(rows, stable=True)
+    r = rows[order].long()
+    c = cols[order].long()
+    if col_map is not None:
+        c = col_map.long()[c]
+    indptr = torch.searchsorted(
+        r, torch.arange(num_rows + 1, device=r.device))
+
+    def i32(x):
+        return x.to(torch.int32).contiguous()
+
+    return FringeRowOrder(i32(indptr), i32(c), i32(pos[order]))
+
+
 @dataclasses.dataclass(frozen=True)
 class SddmmMaps:
     """Index maps for SDDMM over a plan's pattern.
@@ -626,17 +662,13 @@ class SddmmMaps:
     Extraction is duplicate-safe: duplicate COO entries share a tile slot
     and read the same dot product.
 
-    ``core_lin`` and ``walk`` are on the plan's device; ``f_idx``,
-    ``f_rows`` and ``f_cols``, the fringe subset in input order as the
-    reference's maps hold it, stay on the host (CPU tensors): no kernel
-    reads them.  ``core_lin`` is int64: a Reddit-scale tile stream has
-    1.46e9 slots, too close to the int32 limit to keep there.
+    Both are on the plan's device.  ``core_lin`` is int64: a Reddit-scale
+    tile stream has 1.46e9 slots, too close to the int32 limit to keep
+    there.  ``nnz_f`` is the length of the reference's fringe subset
+    (the fringe nonzeros, at least 1).
     """
 
     core_lin: torch.Tensor  # (nnz,) int64 flat tile slot, -1 on the fringe
-    f_idx: torch.Tensor     # (nnz,) int32 index into the fringe subset, -1 core
-    f_rows: torch.Tensor    # (nnz_f,) int32 fringe-subset rows (>= 1, padded)
-    f_cols: torch.Tensor    # (nnz_f,) int32 fringe-subset cols
     walk: FringeRowOrder    # the fringe subset in row order, Y^T rows of ypt
     nnz: int
     nnz_f: int              # padded fringe-subset length
@@ -683,31 +715,17 @@ def build_sddmm_maps(plan: NeutronPlan) -> SddmmMaps:
     cached = plan.derived.get("sddmm_maps")
     if cached is not None:
         return cached
-    core = maps.core_lin >= 0
-    f_sel = np.flatnonzero(~core)
-    f_idx = np.full(maps.nnz, -1, np.int64)
-    f_idx[f_sel] = np.arange(f_sel.size)
-    f_rows = maps.rows[f_sel]
-    f_cols = maps.cols[f_sel]
+    f_sel = np.flatnonzero(maps.core_lin < 0)
 
     def dev(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
             plan.device)
 
-    walk = fringe_row_order(dev(f_rows, np.int64), dev(f_cols, np.int64),
+    walk = fringe_row_order(dev(maps.rows[f_sel], np.int64),
+                            dev(maps.cols[f_sel], np.int64),
                             dev(f_sel, np.int64), plan.shape[0],
                             col_map=_inverse_col_perm(plan))
-    if f_rows.size == 0:  # the reference keeps its gather operand nonempty
-        f_rows = np.zeros(1, np.int64)
-        f_cols = np.zeros(1, np.int64)
-
-    def host(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32))
-
-    built = SddmmMaps(
-        core_lin=dev(maps.core_lin, np.int64), f_idx=host(f_idx),
-        f_rows=host(f_rows), f_cols=host(f_cols), walk=walk,
-        nnz=maps.nnz, nnz_f=int(f_rows.shape[0]),
-    )
+    built = SddmmMaps(core_lin=dev(maps.core_lin, np.int64), walk=walk,
+                      nnz=maps.nnz, nnz_f=max(1, int(f_sel.size)))
     plan.derived["sddmm_maps"] = built
     return built

@@ -17,6 +17,7 @@ gradient flows to A's values, as in the reference.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -140,19 +141,30 @@ def transpose_structure(plan: NeutronPlan) -> NeutronPlan:
         cached = core_spmm.prepare(maps.cols, maps.rows, maps.vals, (k, m),
                                    plan.config, device=plan.device)
         plan.derived["transpose_structure"] = cached
+        # whose values the structure holds: that plan's value array, by
+        # identity (update_values gives every updated plan a new array)
+        plan.derived["transpose_values_of"] = weakref.ref(maps.vals)
     return cached
 
 
 def transpose_plan(plan: NeutronPlan) -> NeutronPlan:
-    """The plan of Aᵀ with ``plan``'s current values: the cached structure
-    (:func:`transpose_structure`) where its values are these, else that
-    structure with these values written in (``update_values``), built anew
-    on each call."""
+    """The plan of Aᵀ with ``plan``'s values.  For the plan whose values
+    the cached structure (:func:`transpose_structure`) holds, that
+    structure; for another, the structure with its values written in
+    (``update_values``), kept for the last such plan in ``plan.derived``
+    so that its next backward builds nothing.  Plans are told apart by
+    the identity of their value arrays, so no call compares values."""
     structure = transpose_structure(plan)
+    derived = plan.derived
     vals = plan.update_maps.vals
-    if np.array_equal(structure.update_maps.vals, vals):
+    if derived["transpose_values_of"]() is vals:
         return structure
-    return update_values(structure, np.arange(vals.shape[0]), vals)
+    last = derived.get("transpose_last")
+    if last is not None and last[0]() is vals:
+        return last[1]
+    own = update_values(structure, np.arange(vals.shape[0]), vals)
+    derived["transpose_last"] = (weakref.ref(vals), own)
+    return own
 
 
 class SpMMFunction(torch.autograd.Function):

@@ -51,7 +51,7 @@
 //     panels not 16-byte aligned, take the same walk with 4-byte loads.
 //   - gather_sddmm (sddmm_rows_kernel), the row walk of gather_spmm's B2
 //     turned into dots: the host sorts the fringe by row once, from the
-//     structure alone (kernels/sddmm.py fringe_row_order: per row a CSR
+//     structure alone (core/plan_ir.py fringe_row_order: per row a CSR
 //     offset, per entry its Y^T row and its position in the SDDMM output).
 //     A warp takes one row and one column slice of kSlice columns of D.  It
 //     holds the X row's slice in registers (read once per row), gathers the
@@ -71,9 +71,12 @@
 //     D = 256 the Y^T columns gathered at a time are a kSlice-wide strip,
 //     29.8 MB of the 238.6 MB at 32 columns (fits the L2), 59.6 MB at 64.
 //     D not a multiple of 4, or panels not 16-byte aligned, take the same
-//     walk with 4-byte loads.  The slice width and unroll depth are launch
-//     arguments: kernels/sddmm.py holds the choice made on the card by
-//     bench_torch/gather_sweep.py (PERF.md), which runs the others.  (The
+//     walk with 4-byte loads.  The index, the sums and the dots are read
+//     and written once a pass with the streaming cache hint (evict first),
+//     so that they push less of the Y^T strip out of L2.  The slice width,
+//     unroll depth and hint (kSliceCols, kUnrollLoads, on) were chosen on
+//     the card by bench_torch/gather_sweep.py (PERF.md), which runs the
+//     others through gather_sddmm_variant_launch.  (The
 //     first design, one warp per nonzero in input order with two float4
 //     loads in flight a lane and a 5-step reduction per dot, took 10.8 ms
 //     at Reddit scale, at the card's ceiling for random 1 KB rows from
@@ -197,6 +200,33 @@ sampled_sddmm_kernel(const int* __restrict__ seg_kb,
 // ---- gather_sddmm: the row walk -------------------------------------------
 
 constexpr int kRowWarps = 8;  // rows per block, one per warp
+// the committed choice of the sweep: 32-column slices (a 29.8 MB strip of
+// a 256-wide Y^T at Reddit scale, which fits the L2) and 4 loads in flight
+// a lane (32 and 64 columns, 4 and 8 loads came within 3 % of each other;
+// 4 take the fewest registers)
+constexpr int kSliceCols = 32;
+constexpr int kUnrollLoads = 4;
+
+// An int of the index, or a float of the sums, read once a pass: with the
+// streaming hint (evict first) where kStream, else through the read-only
+// path (the index) or a plain load (the sums, which the pass rewrites).
+template <bool kStream>
+__device__ __forceinline__ int ld_index(const int* p) {
+  if constexpr (kStream) return __ldcs(p);
+  else return __ldg(p);
+}
+
+template <bool kStream>
+__device__ __forceinline__ float ld_sum(const float* p) {
+  if constexpr (kStream) return __ldcs(p);
+  else return *p;
+}
+
+template <bool kStream>
+__device__ __forceinline__ void st_sum(float* p, float v) {
+  if constexpr (kStream) __stcs(p, v);
+  else *p = v;
+}
 
 // 4 consecutive floats of a row at column col (zeros past d, or where !ok):
 // one 16-byte load (kVec: d a multiple of 4, rows 16-byte aligned), else
@@ -260,7 +290,7 @@ __device__ __forceinline__ void transpose_reduce(float (&p)[N], int lane) {
 // A nonzero's slice is read by kLanes lanes, 16 bytes each, so one load
 // instruction of the warp fetches kGroups nonzeros' slices (512 bytes), as
 // gather_spmm's walk does.
-template <bool kVec, int kSlice, int kUnroll>
+template <bool kVec, int kSlice, int kUnroll, bool kStream>
 __global__ void __launch_bounds__(32 * kRowWarps, kSlice <= 64 ? 4 : 2)
 sddmm_rows_kernel(const int* __restrict__ indptr,
                   const int* __restrict__ cols,
@@ -295,22 +325,19 @@ sddmm_rows_kernel(const int* __restrict__ indptr,
   const int j_out = sub * kGroups + grp;
 
   // the (col, pos) pair of each lane, one batch of 32 ahead: its loads are
-  // in flight while a batch is dotted.  The index, the sums and the dots
-  // are read and written once a pass with the streaming hint (evict
-  // first), so that they push less of the Y^T strip out of L2: 6.45 ->
-  // 6.24 ms at Reddit scale (PERF.md).
+  // in flight while a batch is dotted
   int nx_col = 0, nx_pos = 0;
   if (beg + lane < end) {
-    nx_col = __ldcs(cols + beg + lane);
-    if (last) nx_pos = __ldcs(pos + beg + lane);
+    nx_col = ld_index<kStream>(cols + beg + lane);
+    if (last) nx_pos = ld_index<kStream>(pos + beg + lane);
   }
   for (int base = beg; base < end; base += 32) {
     const int my_col = nx_col;
     const int my_pos = nx_pos;
     const int e = base + 32 + lane;
     if (e < end) {
-      nx_col = __ldcs(cols + e);
-      if (last) nx_pos = __ldcs(pos + e);
+      nx_col = ld_index<kStream>(cols + e);
+      if (last) nx_pos = ld_index<kStream>(pos + e);
     }
     const int cnt = min(32, end - base);
     // where this lane's dot goes, and (a later pass) the earlier passes'
@@ -318,7 +345,7 @@ sddmm_rows_kernel(const int* __restrict__ indptr,
     const int o_pos = __shfl_sync(kFull, my_pos, j_out);
     const bool o_ok = j_out < cnt;
     float* const sum_at = acc + base + j_out;
-    const float prev = (!first && o_ok) ? __ldcs(sum_at) : 0.f;
+    const float prev = (!first && o_ok) ? ld_sum<kStream>(sum_at) : 0.f;
     // p[s]: this lane's part of dot s * kGroups + grp of the batch
     float p[kSteps];
 #pragma unroll
@@ -351,20 +378,19 @@ sddmm_rows_kernel(const int* __restrict__ indptr,
     transpose_reduce<kSteps>(p, lane);
     if (o_ok) {
       const float sum = first ? p[0] : prev + p[0];
-      if (last) __stcs(out + o_pos, sum);
-      else __stcs(sum_at, sum);
+      st_sum<kStream>(last ? out + o_pos : sum_at, sum);
     }
   }
 }
 
-template <bool kVec, int kSlice, int kUnroll>
+template <bool kVec, int kSlice, int kUnroll, bool kStream>
 cudaError_t launch_sddmm_rows(const int* indptr, const int* cols,
                               const int* pos, const float* x, const float* yt,
                               float* out, float* acc, int num_rows, int d,
                               cudaStream_t stream) {
   const unsigned blocks = (num_rows + kRowWarps - 1) / kRowWarps;
   for (int c = 0; c < d; c += kSlice) {
-    sddmm_rows_kernel<kVec, kSlice, kUnroll>
+    sddmm_rows_kernel<kVec, kSlice, kUnroll, kStream>
         <<<blocks, 32 * kRowWarps, 0, stream>>>(
             indptr, cols, pos, x, yt, out, acc, num_rows, d, c, c == 0,
             c + kSlice >= d);
@@ -424,32 +450,54 @@ extern "C" int dense_tile_sddmm_launch(const int* seg_kb, const int* seg_ptr,
 // (nnz,) per entry its row in yt and its position in out; x: (num_rows, d)
 // and yt: (K, d) row-major; out[pos[e]] written for every entry, nothing
 // else; acc: (nnz,) floats of scratch for the sums between passes (read
-// only where d > slice).  One launch per slice columns of d, in order on
-// the stream.  slice: 32, 64, 128 or 256 columns; unroll: 4 or 8 loads in
-// flight a lane; another choice is cudaErrorInvalidValue.
+// only where d > kSliceCols).  One launch per kSliceCols columns of d, in
+// order on the stream.
 extern "C" int gather_sddmm_launch(const int* indptr, const int* cols,
                                    const int* pos, const float* x,
                                    const float* yt, float* out, float* acc,
-                                   int num_rows, int d, int slice, int unroll,
-                                   void* stream) {
+                                   int num_rows, int d, void* stream) {
   if (num_rows == 0 || d == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = vec_ok(x, yt, d);
-#define REPRO_SDDMM_WALK(S, U)                                          \
-  if (slice == S && unroll == U)                                        \
-    return static_cast<int>(                                            \
-        vec ? launch_sddmm_rows<true, S, U>(indptr, cols, pos, x, yt,   \
-                                            out, acc, num_rows, d, st)  \
-            : launch_sddmm_rows<false, S, U>(indptr, cols, pos, x, yt,  \
-                                             out, acc, num_rows, d, st));
-  REPRO_SDDMM_WALK(32, 4)
-  REPRO_SDDMM_WALK(32, 8)
-  REPRO_SDDMM_WALK(64, 4)
-  REPRO_SDDMM_WALK(64, 8)
-  REPRO_SDDMM_WALK(128, 4)
-  REPRO_SDDMM_WALK(128, 8)
-  REPRO_SDDMM_WALK(256, 4)
-  REPRO_SDDMM_WALK(256, 8)
-#undef REPRO_SDDMM_WALK
+  return static_cast<int>(
+      vec_ok(x, yt, d)
+          ? launch_sddmm_rows<true, kSliceCols, kUnrollLoads, true>(
+                indptr, cols, pos, x, yt, out, acc, num_rows, d, st)
+          : launch_sddmm_rows<false, kSliceCols, kUnrollLoads, true>(
+                indptr, cols, pos, x, yt, out, acc, num_rows, d, st));
+}
+
+// The same walk with another slice width (32, 64, 128 or 256 columns),
+// unroll depth (4 or 8 loads in flight a lane) and streaming hint (0: the
+// index through the read-only path, plain loads and stores of the sums and
+// dots), for bench_torch/gather_sweep.py; acc holds nnz floats where d >
+// slice.  d a multiple of 4 with x and yt 16-byte aligned, else
+// cudaErrorInvalidValue, as for a choice it does not build.
+extern "C" int gather_sddmm_variant_launch(const int* indptr, const int* cols,
+                                           const int* pos, const float* x,
+                                           const float* yt, float* out,
+                                           float* acc, int num_rows, int d,
+                                           int slice, int unroll,
+                                           int streaming, void* stream) {
+  if (!vec_ok(x, yt, d)) return cudaErrorInvalidValue;
+  if (num_rows == 0 || d == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_SDDMM_VARIANT(S, U)                                        \
+  if (slice == S && unroll == U)                                         \
+    return static_cast<int>(                                             \
+        streaming ? launch_sddmm_rows<true, S, U, true>(                 \
+                        indptr, cols, pos, x, yt, out, acc, num_rows, d, \
+                        st)                                              \
+                  : launch_sddmm_rows<true, S, U, false>(                \
+                        indptr, cols, pos, x, yt, out, acc, num_rows, d, \
+                        st));
+  REPRO_SDDMM_VARIANT(32, 4)
+  REPRO_SDDMM_VARIANT(32, 8)
+  REPRO_SDDMM_VARIANT(64, 4)
+  REPRO_SDDMM_VARIANT(64, 8)
+  REPRO_SDDMM_VARIANT(128, 4)
+  REPRO_SDDMM_VARIANT(128, 8)
+  REPRO_SDDMM_VARIANT(256, 4)
+  REPRO_SDDMM_VARIANT(256, 8)
+#undef REPRO_SDDMM_VARIANT
   return cudaErrorInvalidValue;
 }

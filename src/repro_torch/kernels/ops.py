@@ -300,7 +300,7 @@ def sddmm_gather(
 ) -> torch.Tensor:
     """SDDMM vector path: writes ``x[r] . yt[cols[e]]`` into ``out`` at
     ``pos[e]`` for every entry ``e`` of the row walk ``indptr`` (a
-    :class:`~repro_torch.kernels.sddmm.FringeRowOrder`), and returns
+    :class:`~repro_torch.core.plan_ir.FringeRowOrder`), and returns
     ``out``.
 
     ``yt`` is Y pre-transposed to (K, D) so both operands gather by row.

@@ -12,9 +12,9 @@ Port of ``repro.kernels.sddmm`` (the two Pallas TPU kernels):
   are the same, Inf and NaN included);
 - :func:`gather_sddmm` — vector path: ``X[r] . Yt[c]`` for every fringe
   nonzero ``(r, c)``.  The TPU kernel returns the dots in input order; the
-  port's walks the fringe in row order (:func:`fringe_row_order`, from the
-  structure alone) and writes each dot at its final position in the SDDMM
-  output, so the caller gathers nothing afterwards.
+  port's walks the fringe in row order (``core.plan_ir.fringe_row_order``,
+  from the structure alone) and writes each dot at its final position in
+  the SDDMM output, so the caller gathers nothing afterwards.
 
 On CUDA tensors the wrappers launch the hand-written Hopper kernels in
 ``csrc/sddmm.cu`` (design notes there); on CPU tensors they run the plain
@@ -29,7 +29,6 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
-from .gather_spmm import csr_indptr
 from .ref import ref_gather_sddmm, ref_tile_sddmm_at_slots
 
 NAME = "sddmm"
@@ -40,14 +39,10 @@ _ARGTYPES_TILE = (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P)
 # with more is cut into segments of this many (each stages the k-block's
 # Y^T rows again), so that no block sets the call's tail
 SEG_NNZ = 8192
-_ARGTYPES_GATHER = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-# the row walk's column slice and loads in flight a lane, chosen on the
-# card by bench_torch/gather_sweep.py (PERF.md): 32, 64 columns and 4, 8
-# loads came within 3 % of each other; the 32-column strip of a 256-wide
-# Y^T at Reddit scale (29.8 MB) fits in L2, and 4 loads take the fewest
-# registers
+_ARGTYPES_GATHER = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P)
+# the row walk's column slice (kSliceCols in csrc/sddmm.cu): a D wider than
+# this takes several passes, whose sums wait in a scratch
 SLICE_COLS = 32
-UNROLL = 4
 
 
 def _check(device: torch.device, **tensors) -> None:
@@ -184,41 +179,6 @@ def dense_tile_sddmm(
 dense_tile_sddmm.launches = 0  # kernel launches (CPU calls do not count)
 
 
-class FringeRowOrder(NamedTuple):
-    """The SDDMM fringe in row order, from the structure alone (plans
-    cache it with their SDDMM maps).
-
-    ``indptr`` (M+1,) int32: the entries of X row ``r`` are ``[indptr[r],
-    indptr[r+1])``; per entry (int32), ``cols``: the row of the Y^T panel
-    the walk reads, and ``pos``: its position in the SDDMM output.  Each
-    row's entries keep their input order (a stable sort).
-    """
-    indptr: torch.Tensor
-    cols: torch.Tensor
-    pos: torch.Tensor
-
-
-def fringe_row_order(rows: torch.Tensor, cols: torch.Tensor,
-                     pos: torch.Tensor, num_rows: int,
-                     col_map: Optional[torch.Tensor] = None
-                     ) -> FringeRowOrder:
-    """:class:`FringeRowOrder` of fringe entries ``(rows[i], cols[i])`` at
-    output positions ``pos[i]``, on their device; ``col_map`` (if given)
-    maps a column to its row of the Y^T panel.  One host read."""
-    if pos.numel() >= 2 ** 31:
-        raise ValueError(f"{pos.numel()} positions do not fit int32")
-    order = torch.argsort(rows, stable=True)
-    c = cols[order].long()
-    if col_map is not None:
-        c = col_map.long()[c]
-
-    def i32(x):
-        return x.to(torch.int32).contiguous()
-
-    return FringeRowOrder(csr_indptr(rows[order], num_rows), i32(c),
-                          i32(pos[order]))
-
-
 def _check_gather(indptr, cols, pos, x, yt, out) -> None:
     if (x.ndim != 2 or yt.ndim != 2 or x.shape[1] != yt.shape[1]
             or indptr.ndim != 1 or indptr.shape[0] != x.shape[0] + 1
@@ -239,22 +199,17 @@ def gather_sddmm(
     x: torch.Tensor,       # (M, D) float32
     yt: torch.Tensor,      # (K, D) float32 — Y pre-transposed
     out: torch.Tensor,     # (L,) float32
-    *,
-    slice_cols: int = SLICE_COLS,
-    unroll: int = UNROLL,
 ) -> torch.Tensor:
     """``out[pos[e]] = x[r] . yt[cols[e]]`` for every entry ``e`` of row
     ``r`` (``indptr[r] <= e < indptr[r+1]``), fp32; the other entries of
     ``out`` are left as they are.  Returns ``out``.
 
-    On the card: the row walk of ``csrc/sddmm.cu``, one launch per
-    ``slice_cols`` columns of D, in order: the first starts each dot, each
+    The index is ``core.plan_ir.fringe_row_order``'s layout.  On the
+    card: the row walk of ``csrc/sddmm.cu``, one launch per
+    ``SLICE_COLS`` columns of D, in order: the first starts each dot, each
     later one adds its part, so two calls are bit-identical.  Between the
     launches the sums live in a scratch of one float per entry, in the
     walk's order.  The launches count once.
-    ``slice_cols`` (32, 64, 128, 256) and ``unroll`` (4, 8) are the
-    committed choice unless ``bench_torch/gather_sweep.py`` asks for
-    another.
     """
     _check_gather(indptr, cols, pos, x, yt, out)
     if x.device.type == "cpu":
@@ -269,12 +224,12 @@ def gather_sddmm(
     d = x.shape[1]
     if d == 0:  # empty dots
         return out.index_fill_(0, pos.long(), 0.0)
-    acc = torch.empty(cols.shape[0] if d > slice_cols else 1,
+    acc = torch.empty(cols.shape[0] if d > SLICE_COLS else 1,
                       dtype=torch.float32, device=x.device)
     fn = _build.function(NAME, "gather_sddmm_launch", _ARGTYPES_GATHER)
     status = fn(indptr.data_ptr(), cols.data_ptr(), pos.data_ptr(),
                 x.data_ptr(), yt.data_ptr(), out.data_ptr(), acc.data_ptr(),
-                x.shape[0], d, slice_cols, unroll, _stream(x))
+                x.shape[0], d, _stream(x))
     _build.check_status(status, "gather_sddmm")
     gather_sddmm.launches += 1
     return out

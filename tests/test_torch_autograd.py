@@ -174,9 +174,16 @@ def test_gradient_after_with_values_uses_the_new_values(matrix):
     B2 = B.with_values(new)
     _close(grad(B2), a2.T @ g)
     _close(grad(B), a.T.astype(np.float64) @ g)
-    # the structure holds the values of the plan that first asked (B2's)
+    # the structure holds the values of the plan that first asked (B2's);
+    # another plan's transpose is built once and kept while it is the last
     assert api.transpose_plan(B2.plan) is api.transpose_structure(B.plan)
-    assert api.transpose_plan(B.plan) is not api.transpose_structure(B.plan)
+    own = api.transpose_plan(B.plan)
+    assert own is not api.transpose_structure(B.plan)
+    assert api.transpose_plan(B.plan) is own
+    # equal values in another array are another plan's: built anew, right
+    B3 = B.with_values(vals.copy())
+    assert api.transpose_plan(B3.plan) is not own
+    _close(grad(B3), a.T.astype(np.float64) @ g)
 
 
 def test_attention_aggregation_gradient_uses_the_attention_weights(matrix):

@@ -310,7 +310,7 @@ def test_gather_sddmm_matches_plain(cuda, d, offset):
     of 4 and the panels are aligned, 4-byte loads otherwise (odd D, or a
     panel one float off); positions outside the walk are left as they
     are, and two calls are bit-identical."""
-    from repro_torch.kernels.sddmm import fringe_row_order
+    from repro_torch.core.plan_ir import fringe_row_order
 
     rng = np.random.RandomState(d + offset)
     m, k = 400, 300
@@ -340,7 +340,7 @@ def test_gather_sddmm_matches_plain(cuda, d, offset):
 def test_gather_sddmm_nonfinite_matches_plain(cuda):
     """+Inf, -Inf and NaN in X and in Y^T: the dots that read them are NaN
     or +-Inf in the same cells as the plain version's."""
-    from repro_torch.kernels.sddmm import fringe_row_order
+    from repro_torch.core.plan_ir import fringe_row_order
 
     rng = np.random.RandomState(5)
     m, k, d = 200, 150, 256
@@ -363,9 +363,11 @@ def test_gather_sddmm_nonfinite_matches_plain(cuda):
 
 
 def test_gather_sddmm_variants_match_plain(cuda):
-    """Every slice width and unroll depth the sweep times computes the
-    same dots; an unbuilt choice raises."""
-    from repro_torch.kernels.sddmm import fringe_row_order
+    """Every slice width, unroll depth and cache hint the sweep times
+    (gather_sddmm_variant_launch) computes the same dots; an unbuilt
+    choice, or a D that is not a multiple of 4, is refused."""
+    from repro_torch.core.plan_ir import fringe_row_order
+    from repro_torch.kernels import _build
 
     rng = np.random.RandomState(12)
     m, k, d = 300, 2000, 260
@@ -377,15 +379,26 @@ def test_gather_sddmm_variants_match_plain(cuda):
     walk = fringe_row_order(*args, m)
     want = ref.ref_gather_sddmm(*args, x, yt, torch.zeros(pos.size + 7,
                                                           device=cuda))
+    fn = _build.function("sddmm", "gather_sddmm_variant_launch",
+                         (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5
+                         + (ctypes.c_void_p,))
+    stream = torch.cuda.current_stream().cuda_stream
+    acc = torch.empty(rows.size, device=cuda)
+
+    def run(slice_cols, unroll, hint, d=d):
+        out = torch.zeros(pos.size + 7, device=cuda)
+        status = fn(*(t.data_ptr() for t in (*walk, x, yt, out, acc)), m, d,
+                    slice_cols, unroll, hint, stream)
+        return status, out
+
     for slice_cols in (32, 64, 128, 256):
         for unroll in (4, 8):
-            out = gather_sddmm(*walk, x, yt,
-                               torch.zeros(pos.size + 7, device=cuda),
-                               slice_cols=slice_cols, unroll=unroll)
-            _close(out, want)
-    with pytest.raises(Exception, match="cudaError_t"):
-        gather_sddmm(*walk, x, yt, torch.zeros(pos.size + 7, device=cuda),
-                     slice_cols=48)
+            for hint in (0, 1):
+                status, out = run(slice_cols, unroll, hint)
+                assert status == 0, (slice_cols, unroll, hint)
+                _close(out, want)
+    assert run(48, 4, 1)[0] != 0
+    assert run(32, 4, 1, d=d - 1)[0] != 0
 
 
 @pytest.mark.parametrize("name,budget", [("ogbn-arxiv", None), ("cora", 1)])

@@ -40,8 +40,9 @@ from repro_torch.interop import (  # noqa: E402
     plan_from_arrays, update_maps_from_arrays,
 )
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.core.plan_ir import fringe_row_order  # noqa: E402
 from repro_torch.kernels.sddmm import (  # noqa: E402
-    dense_tile_sddmm, fringe_row_order, gather_sddmm,
+    dense_tile_sddmm, gather_sddmm,
 )
 from conftest import make_sparse  # noqa: E402
 
@@ -270,13 +271,26 @@ def test_sddmm_tier_rule(d, m, k, budget):
 # --- maps -------------------------------------------------------------------
 
 
-def _maps_equal(ours, theirs):
-    for name in ("core_lin", "f_idx", "f_rows", "f_cols"):
-        got = getattr(ours, name).numpy()
-        want = np.asarray(getattr(theirs, name))
-        assert np.array_equal(got.astype(np.int64), want.astype(np.int64)), name
+def _maps_equal(ours, theirs, plan):
+    """``core_lin`` equal to the reference's; the walk holds exactly the
+    reference's fringe subset (``f_idx``, ``f_rows``, ``f_cols``), each
+    entry at its input position, sorted by row with input order kept in a
+    row, its column as a row of ``plan``'s permuted Y^T panel."""
+    got = ours.core_lin.numpy()
+    assert np.array_equal(got, np.asarray(theirs.core_lin).astype(np.int64))
     assert ours.core_lin.dtype == torch.int64
     assert (ours.nnz, ours.nnz_f) == (theirs.nnz, theirs.nnz_f)
+    indptr, cols, pos = (t.numpy().astype(np.int64) for t in ours.walk)
+    f_idx = np.asarray(theirs.f_idx).astype(np.int64)
+    assert np.array_equal(np.sort(pos), np.flatnonzero(f_idx >= 0))
+    rows = np.repeat(np.arange(indptr.size - 1), np.diff(indptr))
+    sub = f_idx[pos]
+    assert np.array_equal(rows, np.asarray(theirs.f_rows)[sub])
+    if plan.config.reorder_cols:
+        cols = plan.col_perm.numpy()[cols]
+    assert np.array_equal(cols, np.asarray(theirs.f_cols)[sub])
+    same_row = rows[1:] == rows[:-1]
+    assert (pos[1:][same_row] > pos[:-1][same_row]).all()
 
 
 @pytest.mark.parametrize("cfg", [
@@ -288,8 +302,9 @@ def test_sddmm_maps_match_reference(cfg):
     _, rows, cols, vals = make_sparse(rng, 200, 900, 0.01, n_dense_rows=8)
     ours, jplan = _pair(rows, cols, vals, (200, 900), **cfg)
     theirs = jax_plan_ir.build_sddmm_maps(jplan)
-    _maps_equal(plan_ir.build_sddmm_maps(ours), theirs)
-    _maps_equal(plan_ir.build_sddmm_maps(_carried(jplan)), theirs)
+    _maps_equal(plan_ir.build_sddmm_maps(ours), theirs, ours)
+    carried = _carried(jplan)
+    _maps_equal(plan_ir.build_sddmm_maps(carried), theirs, carried)
     # built once per plan
     assert plan_ir.build_sddmm_maps(ours) is plan_ir.build_sddmm_maps(ours)
 
