@@ -51,6 +51,24 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    backward, update by CUDA events) is printed beside the library's, the
    transpose plan's prepare seconds and where the backward's host time
    goes (cProfile).
+   Two more paths, on the plans above: the Reddit-scale per-path phase
+   runs ``execute_matrix_path`` and ``execute_vector_path`` (N = 256) on
+   the first path's plan, which must launch dense_tile_spmm alone and
+   gather_spmm alone, and whose sum must be ``spmm``'s result bit for bit,
+   also with +Inf, -Inf and NaN in B; it times each path by CUDA events,
+   as a synchronised wall time, and the two on two streams from one
+   synchronised start, beside the fused ``spmm``, and prints the skew.
+   The coordination path runs ``NeutronSpMM.run_epoch`` for 10 epochs on
+   the GCN path's graph with a seeded B (N = 256), each epoch's result
+   against ``torch.sparse.mm`` on its CSR, prints the epoch log, each
+   prepare's seconds and the launches per epoch, then times the fused
+   ``execute`` and its two paths at every alpha of the trajectory and at
+   alpha = 1.0 (all fringe) and names the fastest beside the alpha the
+   coordinator ended at.  Telemetry: the same graph's plan prepared with
+   ``telemetry=True`` must give ``execute`` and the two paths bit for bit
+   as with it off, with the same launches, and a roofline row per kind of
+   dispatch; the matrix-path against fringe-path report of
+   ``obs.snapshot()`` (H100 ceilings) is printed.
    ``spmm`` is checked against ``torch.sparse.mm``
    on the same COO, ``bspmm`` against four ``spmm`` calls, the attention
    forward against ``torch.sparse.sampled_addmm`` scores, the same edge
@@ -115,8 +133,6 @@ N = 256
 # one head of the per-head width GAT uses on PPI (Velickovic et al. 2018)
 D_IN = 602
 D_HEAD = 256
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
-FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 # Reddit (Hamilton et al. 2017, GraphSAGE; DGL RedditDataset): 232,965
 # nodes, 114.6M edges; the generator's dedup leaves 70,525,725 nonzeros
 REDDIT = dict(name="reddit-full", m=232965, k=232965, avg_degree=492.0,
@@ -451,7 +467,24 @@ def host_profile(fn, top=6):
     return ms, rows[:top]
 
 
-def gcn_training_path(ctx):
+def arxiv_gcn_graph():
+    """The GCN path's graph at ogbn-arxiv size (ARXIV_GCN), row-normalised:
+    every row of A sums to 1, so A differs from Aᵀ and a backward on A's
+    plan instead of the transpose plan would show.  Returns ``(rows, cols,
+    vals, feats, labels, n_classes, seconds)``."""
+    import numpy as np
+
+    from repro_torch.examples.gcn_training import make_graph
+
+    t0 = time.perf_counter()
+    rows, cols, _, feats, labels, n_classes = make_graph(**ARXIV_GCN)
+    n = feats.shape[0]
+    vals = (1.0 / np.bincount(rows, minlength=n))[rows].astype(np.float32)
+    return (rows, cols, vals, feats, labels, n_classes,
+            time.perf_counter() - t0)
+
+
+def gcn_training_path(ctx, graph):
     """The GCN training path: GCN_STEPS full-batch SGD steps of the
     reference example's two-layer GCN at ogbn-arxiv size on the card, on
     the row-normalised adjacency D^-1 (A + I), which is not its own
@@ -467,17 +500,12 @@ def gcn_training_path(ctx):
     import numpy as np
     import torch
 
-    from repro_torch.examples.gcn_training import GCN, loss_fn, make_graph
+    from repro_torch.examples.gcn_training import GCN, loss_fn
     from repro_torch.exec import api
-    from repro_torch.kernels import ops
 
     dev = ctx.dev
-    t0 = time.perf_counter()
-    rows, cols, _, feats, labels, n_classes = make_graph(**ARXIV_GCN)
+    rows, cols, vals, feats, labels, n_classes, t_graph = graph
     n = feats.shape[0]
-    # row-normalised: every row of A sums to 1, so A differs from Aᵀ and a
-    # backward on A's plan instead of the transpose plan would show
-    vals = (1.0 / np.bincount(rows, minlength=n))[rows].astype(np.float32)
     t1 = time.perf_counter()
     a = ctx.sp.from_coo(rows, cols, vals, (n, n), device=dev)
     torch.cuda.synchronize()
@@ -489,7 +517,7 @@ def gcn_training_path(ctx):
     t_plan_t = time.perf_counter() - t2
     ctx.log(f"GCN training path (ogbn-arxiv size): {n} nodes, {rows.size} "
             f"nonzeros, {feats.shape[1]} features, {n_classes} classes, "
-            f"hidden {GCN_HIDDEN}, lr {GCN_LR}; graph {t1 - t0:.1f} s, "
+            f"hidden {GCN_HIDDEN}, lr {GCN_LR}; graph {t_graph:.1f} s, "
             f"from_coo {t2 - t1:.1f} s, plan_t prepare {t_plan_t:.2f} s")
     for label, pl in (("A", a.plan), ("plan_t", plan_t)):
         sd = pl.stats_dict
@@ -677,6 +705,248 @@ def gcn_training_path(ctx):
             "library_step_ms": lib_step, "library_forward_ms": lib_fwd,
             "library_backward_ms": lib_bwd, "device_busy_ms": busy_ms,
             "plan_t_s": t_plan_t, "losses": (losses[0], losses[-1])}
+
+
+def bitwise(got, want) -> bool:
+    """Equal bit for bit, NaN cells in the same places (and +-Inf, which
+    ``torch.equal`` compares as values)."""
+    import torch
+
+    nan = torch.isnan(want)
+    return (got.shape == want.shape
+            and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], want[~nan]))
+
+
+def wall_ms(fn, reps=7):
+    """Median wall ms of ``fn`` as a synchronised call (synchronise, read
+    the clock, call, synchronise, read the clock) after one warm-up."""
+    import torch
+
+    torch.cuda.synchronize()
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def reddit_per_path(ctx, a, b, c):
+    """The Reddit-scale per-path phase, on the plan of the main path (not
+    prepared again): ``execute_matrix_path`` must launch only
+    dense_tile_spmm and ``execute_vector_path`` only gather_spmm, and
+    their sum must be ``spmm``'s result ``c`` bit for bit, also with +Inf,
+    -Inf and NaN in B.  Each path is timed by CUDA events, as a
+    synchronised wall time, and the two on two streams from one
+    synchronised start to a synchronised end.  Returns what it measured."""
+    import torch
+
+    from repro_torch.exec import api
+
+    plan = a.plan
+    paths = (("matrix", api.execute_matrix_path, "dense_tile_spmm"),
+             ("vector", api.execute_vector_path, "gather_spmm"))
+    outs, launches = {}, {}
+    for label, path, kernel in paths:
+        outs[label], launches[label] = ctx.drive(lambda: path(plan, b))
+        ctx.require(launches[label][kernel] > 0 and all(
+            n == 0 for k, n in launches[label].items() if k != kernel),
+            (label, launches[label]))
+    ctx.require(torch.equal(outs["matrix"] + outs["vector"], c),
+                "matrix path + vector path != spmm bit for bit")
+    del outs
+    events = {label: ctx.timed_ms(lambda: path(plan, b))
+              for label, path, _ in paths}
+    events["spmm"] = ctx.timed_ms(lambda: ctx.sp.spmm(a, b))
+    walls = {label: wall_ms(lambda: path(plan, b))
+             for label, path, _ in paths}
+    walls["spmm"] = wall_ms(lambda: ctx.sp.spmm(a, b))
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+
+    def two_streams():
+        outs = []
+        for stream, (_, path, _) in zip(streams, paths):
+            with torch.cuda.stream(stream):
+                outs.append(path(plan, b))
+        return outs
+
+    walls["two streams"] = wall_ms(two_streams)
+    two = two_streams()
+    torch.cuda.synchronize()
+    ctx.require(torch.equal(two[0] + two[1], c),
+                "the two-stream paths' sum != spmm bit for bit")
+    del two
+    skew = max(walls["matrix"], walls["vector"]) / min(walls["matrix"],
+                                                       walls["vector"])
+    skew_events = max(events["matrix"], events["vector"]) / min(
+        events["matrix"], events["vector"])
+    # +Inf, -Inf and NaN in B rows the matrix path and the fringe read
+    b_nf = b.clone()
+    b_nf[0, 3] = float("inf")
+    b_nf[b.shape[0] // 2, 7] = -float("inf")
+    b_nf[b.shape[0] - 1, 11] = float("nan")
+    fused = ctx.sp.spmm(a, b_nf)
+    both = api.execute_matrix_path(plan, b_nf) + api.execute_vector_path(
+        plan, b_nf)
+    torch.cuda.synchronize()
+    ctx.require(bitwise(both, fused),
+                "with Inf/NaN in B: the paths' sum != spmm bit for bit")
+    n_nan, n_inf = int(torch.isnan(fused).sum()), int(
+        torch.isinf(fused).sum())
+    ctx.require(n_nan > 0 and n_inf > 0, (n_nan, n_inf))
+    del both, fused, b_nf
+    ctx.log(f"reddit-scale per-path (N = {b.shape[1]}, the main path's "
+            f"plan): launches matrix path {launches['matrix']}, vector path "
+            f"{launches['vector']}; sum == spmm bit for bit (also with "
+            f"+-Inf/NaN in B: {n_nan} NaN and {n_inf} Inf cells in the same "
+            f"places)")
+    ctx.log(f"  CUDA events: matrix {events['matrix']:.3f} ms, vector "
+            f"{events['vector']:.3f} ms, spmm {events['spmm']:.3f} ms; "
+            f"synchronised wall: matrix {walls['matrix']:.3f}, vector "
+            f"{walls['vector']:.3f} (serial sum "
+            f"{walls['matrix'] + walls['vector']:.3f}), two streams "
+            f"{walls['two streams']:.3f}, fused spmm {walls['spmm']:.3f} "
+            f"ms; skew {skew:.3f} (wall), {skew_events:.3f} (events)")
+    return {"events_ms": events, "wall_ms": walls, "skew": skew,
+            "skew_events": skew_events, "launches": launches}
+
+
+COORD_EPOCHS = 10
+
+
+def coordination_path(ctx, graph):
+    """The coordination path at ogbn-arxiv size: ``NeutronSpMM.run_epoch``
+    for COORD_EPOCHS epochs on the GCN path's row-normalised graph with a
+    seeded B (N = 256), each epoch's result held against
+    ``torch.sparse.mm`` on the CSR of the same COO; then the warm fused
+    ``execute`` and its two paths (CUDA events) at each distinct alpha of
+    the trajectory (on the plans the loop prepared, the default's first)
+    and at alpha = 1.0 (all fringe).  The sweep prepares no plan below the
+    default alpha: an all-core plan would put nearly every nonzero in its
+    own 32 KB tile.  Returns ``(plans, b, summary)``: the plans by alpha,
+    the operand and what it measured."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.plan_ir import SpmmConfig
+    from repro_torch.core.spmm import prepare
+    from repro_torch.exec import api
+
+    dev = ctx.dev
+    rows, cols, vals, feats, *_ = graph
+    n = feats.shape[0]
+    b = torch.randn((n, N), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(256))
+    crow = np.zeros(n + 1, np.int64)
+    crow[1:] = np.cumsum(np.bincount(rows, minlength=n))
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(crow).to(dev), torch.from_numpy(cols).to(dev),
+        torch.from_numpy(vals).to(dev), (n, n))
+    ref = torch.sparse.mm(csr, b)
+    config = SpmmConfig(impl=ctx.impl)
+    op = api.NeutronSpMM(rows, cols, vals, (n, n), config, device=dev)
+    default_alpha = op._alpha
+    plans = {op._alpha: op.plan}
+    errs, launches = [], []
+    for _ in range(COORD_EPOCHS):
+        out, counts = ctx.drive(lambda: op.run_epoch(b))
+        errs.append(ctx.err_bound(out, ref))
+        launches.append({k: v for k, v in counts.items() if v})
+        plans.setdefault(op._alpha, op.plan)
+    del out
+    ctx.log(f"coordination path (ogbn-arxiv size, {n} nodes, {rows.size} "
+            f"nonzeros, N = {N}): {COORD_EPOCHS} epochs of "
+            f"NeutronSpMM.run_epoch, each against torch.sparse.mm (max "
+            f"|diff| {max(errs):.3e})")
+    for i, (e, cnt) in enumerate(zip(op.epoch_log, launches)):
+        ctx.log(f"  epoch {i}: " + json.dumps(e) + f" launches {cnt}")
+    ctx.log("  prepare seconds (initial, then each re-prepare): "
+            + ", ".join(f"{s:.2f}" for s in op.prepare_seconds))
+    sweep = []
+    if 1.0 not in plans:
+        plans[1.0] = prepare(rows, cols, vals, (n, n),
+                             SpmmConfig(impl=ctx.impl, alpha=1.0),
+                             device=dev)
+    for alpha, plan in sorted(plans.items()):
+        ctx.err_bound(api.execute(plan, b), ref)
+        sd = plan.stats_dict
+        sweep.append({
+            "alpha": alpha, "core_nnz": sd["core_nnz"],
+            "fringe_nnz": sd["fringe_nnz"], "tiles": (
+                int(plan.step_window.shape[0]) if plan.has_core else 0),
+            "tier": plan.fringe_tier,
+            "spmm_ms": ctx.timed_ms(lambda: api.execute(plan, b)),
+            "matrix_ms": ctx.timed_ms(
+                lambda: api.execute_matrix_path(plan, b)),
+            "vector_ms": ctx.timed_ms(
+                lambda: api.execute_vector_path(plan, b)),
+        })
+    best = min(sweep, key=lambda r: r["spmm_ms"])
+    for r in sweep:
+        ctx.log("  sweep (CUDA events): " + json.dumps(r))
+    ctx.log(f"  fastest fused spmm at alpha {best['alpha']} "
+            f"({best['spmm_ms']:.3f} ms); the coordinator ended at alpha "
+            f"{op._alpha} (default {default_alpha})")
+    summary = {"default_alpha": default_alpha, "final_alpha": op._alpha,
+               "best_alpha": best["alpha"], "sweep": sweep,
+               "epoch_log": op.epoch_log, "launches": launches,
+               "prepare_s": op.prepare_seconds, "max_abs_err": max(errs)}
+    return plans, b, summary
+
+
+def telemetry_path(ctx, graph, plan_off, b):
+    """Telemetry on the card: the ogbn-arxiv-size plan prepared with
+    ``telemetry=True`` against ``plan_off`` (the same COO and config with
+    it off): ``execute`` and the two per-path calls bit for bit equal and
+    with the same launches, one roofline row per kind of dispatch, and
+    the matrix-path against fringe-path attribution of
+    ``obs.snapshot()`` against the H100's ceilings; prints the report."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.obs as obs
+    from repro_torch.core.spmm import prepare
+    from repro_torch.exec import api
+
+    rows, cols, vals, feats, *_ = graph
+    n = feats.shape[0]
+    plan_on = prepare(rows, cols, vals, (n, n),
+                      dataclasses.replace(plan_off.config, telemetry=True),
+                      device=ctx.dev)
+    ctx.require(plan_on.signature() == plan_off.signature(),
+                "telemetry changed the signature")
+    obs.PROFILER.reset()
+    obs.TRACES.reset()
+    calls = (("execute", api.execute),
+             ("matrix path", api.execute_matrix_path),
+             ("vector path", api.execute_vector_path))
+    for label, fn in calls:
+        for _ in range(3):
+            off, l_off = ctx.drive(lambda: fn(plan_off, b))
+            on, l_on = ctx.drive(lambda: fn(plan_on, b))
+            ctx.require(torch.equal(on, off),
+                        f"{label}: telemetry on != off bit for bit")
+            ctx.require(l_on == l_off, (label, l_on, l_off))
+    ctx.sp.spmm(ctx.sp.from_plan(plan_on), b)
+    snap = obs.snapshot()
+    attr = snap["roofline"]
+    ops_seen = {r["op"] for r in attr["rows"]}
+    ctx.require(ops_seen == {"spmm", "spmm:matrix_path",
+                             "spmm:vector_path"}, ops_seen)
+    ctx.require([t["name"] for t in snap["traces"]] == ["facade:spmm"],
+                snap["traces"])
+    json.dumps(snap)
+    ctx.log("telemetry on the ogbn-arxiv-size plan (bit-identical on and "
+            "off, same launches; peaks " + json.dumps(
+                attr["rows"][0]["peaks"]) + "):")
+    for line in obs.format_report(attr).splitlines():
+        ctx.log("  " + line)
+    return {p: attr[f"{p}_path"] for p in ("matrix", "fringe")}
 
 
 def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
@@ -1204,6 +1474,11 @@ def main() -> int:
             and launches_reddit["gather_spmm"] > 0
             and launches_reddit["gather_spmm_ksharded"] == 0,
             launches_reddit)
+    ctx3 = types.SimpleNamespace(
+        dev=dev, sp=sp, log=log, require=require, drive=drive,
+        err_bound=err_bound, timed_ms=timed_ms, tol=TOL, impl="cuda")
+    per_path = reddit_per_path(ctx3, A, b, c)
+    log(f"  {json.dumps({'reddit_per_path': per_path})}")
 
     def arxiv_path():
         a = sp.from_coo(a_rows, a_cols, a_vals, (arxiv.m, arxiv.k),
@@ -1307,10 +1582,19 @@ def main() -> int:
     del pattern, att, seg, e, e_max, pe, denom, s_ref, h, v
 
     # the GCN training path: forward SpMMs on A, backward SpMMs on plan_t
-    gcn = gcn_training_path(types.SimpleNamespace(
-        dev=dev, sp=sp, log=log, require=require, drive=drive,
-        err_bound=err_bound, tol=TOL))
+    arxiv_graph = arxiv_gcn_graph()
+    gcn = gcn_training_path(ctx3, arxiv_graph)
     log(f"  {json.dumps({'gcn_training': gcn})}")
+    # the coordination path and telemetry on the same graph
+    t0 = time.perf_counter()
+    coord_plans, b_coord, coord = coordination_path(ctx3, arxiv_graph)
+    log(f"  {json.dumps({'coordination': coord})}")
+    telemetry = telemetry_path(ctx3, arxiv_graph,
+                               coord_plans[coord["default_alpha"]], b_coord)
+    log(f"  {json.dumps({'telemetry_roofline': telemetry})}")
+    log(f"  (coordination and telemetry paths: "
+        f"{time.perf_counter() - t0:.1f} s)")
+    del coord_plans, b_coord, arxiv_graph
 
     # each kernel's count from the path that runs it
     launches = {
@@ -1343,8 +1627,9 @@ def main() -> int:
     report = []
 
     def bound_ms(nbytes, flops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        # the H100 SXM's HBM rate and fp32 rate outside the tensor cores
+        t_bytes = nbytes / cost_model.H100_HBM_BYTES_PER_S * 1e3
+        t_ops = flops / cost_model.H100_FP32_FLOPS_PER_S * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
 

@@ -13,18 +13,23 @@ vector-path tier selection of ``repro.core.cost_model``, with the same
 arithmetic, so plans built from the same COO and config have the same
 leaves.  The deliberate differences are the H100 tier rules in
 :func:`select_fringe_tier` and :func:`select_sddmm_tier`.
+
+Two calibration modes, as in the reference: ``analytic_tpu`` derives the
+rates from the reference's roofline constants, and ``measure`` times the
+two paths on the current device through the synchronised
+``tuner.timed_best_of`` (the paper's microbenchmark dry run).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
 # The reference's TPU constants, kept so that plan leaves match the JAX
 # package's (the split threshold, reuse capacities and fringe tiers are all
 # derived from them).  They do not describe the H100; re-deriving them for
-# it is ROADMAP item A10.
+# it is the ROADMAP item "Tuner and cost model, re-derived for the H100".
 PEAK_FLOPS_BF16 = 197e12  # per chip
 HBM_BW = 819e9  # bytes/s
 ICI_BW = 50e9  # bytes/s/link
@@ -32,6 +37,13 @@ VMEM_BYTES = 16 * 1024 * 1024
 MXU_DIM = 128  # systolic array edge; min efficient tile
 VPU_LANES = 128
 SUBLANES = 8
+
+# The card's ceilings, from NVIDIA's data sheet for the H100 SXM at its
+# 700 W limit: HBM3 bandwidth and the fp32 rate outside the tensor cores.
+# The telemetry roofline (``obs.report``) prices dispatches against them;
+# the split above still runs on the TPU constants.
+H100_HBM_BYTES_PER_S = 3.35e12
+H100_FP32_FLOPS_PER_S = 67e12
 
 
 @dataclasses.dataclass
@@ -74,6 +86,36 @@ class EngineCostModel:
         p_vector = HBM_BW / bytes_per_nnz
         return cls(p_matrix=p_matrix, p_vector=p_vector, r=r, n_cols=n_cols)
 
+    @classmethod
+    def measure(
+        cls,
+        matrix_bench: Callable[[], object],
+        vector_bench: Callable[[], object],
+        matrix_work_elems: float,
+        vector_work_nnz: float,
+        r: float = 1.0,
+        n_cols: int = 256,
+        repeats: int = 3,
+    ) -> "EngineCostModel":
+        """Paper-style microbenchmark calibration (§5.2.1 'dry run').
+
+        ``*_bench`` are zero-arg callables that run one pass of the
+        respective path over a workload of the given size.  A CUDA bench
+        returns once its kernels are queued, so each is timed through the
+        synchronised ``tuner.timed_best_of`` (function-local import, as in
+        the reference).
+        """
+        from .tuner import timed_best_of
+
+        tm = timed_best_of(matrix_bench, repeats=repeats, warmup=1)
+        tv = timed_best_of(vector_bench, repeats=repeats, warmup=1)
+        return cls(
+            p_matrix=matrix_work_elems / tm,
+            p_vector=vector_work_nnz / tv,
+            r=r,
+            n_cols=n_cols,
+        )
+
     # --- Eq. (7): residual split target ---
     def split_residual(
         self, nnz_candidates: np.ndarray, rows_candidates: np.ndarray, k: int
@@ -103,6 +145,10 @@ class EngineCostModel:
     ) -> tuple:
         return select_fringe_tier(k, num_rows, bn, vmem_budget=vmem_budget,
                                   impl=impl)
+
+    def imbalance_threshold(self) -> float:
+        """Max tolerated LPT row imbalance before rhs-sharding wins."""
+        return ROWS_IMBALANCE_THRESHOLD
 
     def select_matrix_format(
         self, *, nm_pattern: Optional[tuple], tile_zero_fraction: float,
@@ -266,3 +312,61 @@ def select_sddmm_tier(
     if impl == "cuda":
         return "resident"
     return "xla"
+
+
+# --- data-parallel shard-axis selection -------------------------------------
+# A sharded executor can distribute work two ways: shard output row-windows
+# (plan state fully distributed; balance limited by how evenly window costs
+# split) or replicate the plan and shard RHS columns (perfectly balanced by
+# construction; plan memory replicated per device).  The estimator prices
+# both and picks per plan.  Host code, as in the reference; the port's
+# sharded executor is a later ROADMAP item.
+ROWS_IMBALANCE_THRESHOLD = 1.25  # max tolerated LPT max/mean before rhs wins
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardAxisDecision:
+    shard_axis: str        # "rows" | "rhs"
+    n_shards: int
+    rows_imbalance: float  # predicted max/mean load of the LPT row split
+    reason: str
+
+
+def select_shard_axis(
+    window_costs: np.ndarray,
+    n_shards: int,
+    imbalance_threshold: float = ROWS_IMBALANCE_THRESHOLD,
+) -> ShardAxisDecision:
+    """Pick the data-parallel axis for a plan with these window costs.
+
+    Runs the LPT assignment (coordinator.balance_row_window_list) the
+    rows-sharded executor would use and measures its max/mean load;
+    row-sharding wins unless the distribution is skewed past the threshold
+    or there are too few costed windows to occupy every shard.
+    """
+    from .coordinator import balance_row_window_list, list_imbalance
+
+    wc = np.asarray(window_costs, np.float64)
+    n_shards = int(n_shards)
+    if n_shards <= 1:
+        return ShardAxisDecision("rows", n_shards, 1.0, "single shard")
+    active = int(np.count_nonzero(wc))
+    if active == 0:
+        # empty matrix: nothing to balance, and rows has no N-divisibility
+        # constraint, so the degenerate case stays on the unconstrained axis
+        return ShardAxisDecision("rows", n_shards, 1.0, "no costed windows")
+    if active < n_shards:
+        return ShardAxisDecision(
+            "rhs", n_shards, float("inf"),
+            f"{active} non-empty windows < {n_shards} shards",
+        )
+    assignment = balance_row_window_list(wc, n_shards)
+    imb = list_imbalance(assignment, wc)
+    if imb > imbalance_threshold:
+        return ShardAxisDecision(
+            "rhs", n_shards, float(imb),
+            f"LPT row imbalance {imb:.2f} > {imbalance_threshold:.2f}",
+        )
+    return ShardAxisDecision(
+        "rows", n_shards, float(imb), f"LPT row imbalance {imb:.2f}"
+    )

@@ -76,8 +76,8 @@ class SpmmConfig:
     seed: int = 0
     # capacity of the process-wide executor cache (repro_torch.exec)
     executor_cache_capacity: Optional[int] = None
-    # measured dispatch decisions are not ported yet (ROADMAP A10): only
-    # False is accepted
+    # measured dispatch decisions are not ported yet (ROADMAP: "Tuner and
+    # cost model, re-derived for the H100"): only False is accepted
     autotune: Any = False
     # structured-sparsity hint for the matrix-path payload format:
     #   None          — detect at prepare time, cost model decides
@@ -87,6 +87,10 @@ class SpmmConfig:
     #                   core stream does not satisfy it
     #   "bitmap"      — force the bitmap payload (unless it would grow)
     structure_hint: Optional[Any] = None
+    # host-side telemetry (repro_torch.obs): per-dispatch roofline profiling
+    # and facade traces.  Never part of signature() or the executor cache
+    # key: toggling it changes no launch and no output bit.
+    telemetry: bool = False
 
 
 # --- operator tagging --------------------------------------------------------

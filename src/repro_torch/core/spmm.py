@@ -13,6 +13,12 @@ N:M or bitmap payload the structured kernels read, as the reference does;
 the general stream always rides along.
 
 Scope of this port: the analytic cost model only (``autotune`` raises).
+
+Execution names (``execute``, the per-path executors, ``neutron_spmm``,
+``NeutronSpMM``, ...) are forwarded lazily to ``repro_torch.exec.api``, as
+the reference's ``_EXEC_FORWARDS`` do, so ``core`` never imports ``exec``
+at import time; each forwarded access warns once per process that the
+``sparse`` facade (or ``exec``) is the place to import them from.
 """
 from __future__ import annotations
 
@@ -36,6 +42,40 @@ _DUMMY_F32 = np.zeros((1, 1, 1), np.float32)
 _DUMMY_I32 = np.zeros((1, 1, 1), np.int32)
 
 
+# execution API lives in repro_torch.exec.api; forwarded lazily so that
+# importing the core layer never pulls the executor in
+_EXEC_FORWARDS = (
+    "execute", "execute_matrix_path", "execute_vector_path", "neutron_spmm",
+    "SpMMOperator", "NeutronSpMM", "fused_trace_count", "dispatch_count",
+)
+
+_WARNED_FORWARD = False  # one DeprecationWarning per process, not per access
+
+
+def __getattr__(name: str):
+    if name in _EXEC_FORWARDS:
+        global _WARNED_FORWARD
+        if not _WARNED_FORWARD:
+            import warnings
+
+            _WARNED_FORWARD = True
+            warnings.warn(
+                "importing execution names from repro_torch.core.spmm is "
+                "deprecated; use the repro_torch.sparse facade (or "
+                "repro_torch.exec) instead",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+        from ..exec import api
+
+        return getattr(api, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXEC_FORWARDS))
+
+
 def prepare_call_count() -> int:
     """Number of ``prepare()`` calls since process start (test hook)."""
     return int(_PREPARES.total())
@@ -44,8 +84,9 @@ def prepare_call_count() -> int:
 def _check_config(config: SpmmConfig) -> None:
     if config.autotune:
         raise PlanBuildError(
-            "autotune is not ported yet (ROADMAP A10): the port prepares "
-            "with the analytic cost model only; pass autotune=False")
+            "autotune is not ported yet (ROADMAP: the tuner and cost "
+            "model, re-derived for the H100): the port prepares with the "
+            "analytic cost model only; pass autotune=False")
 
 
 def _structured_payload(

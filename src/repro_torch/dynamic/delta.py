@@ -27,7 +27,8 @@ old one); later updates keep it.
 
 Scope of this port: single-device plans.  Structural deltas
 (``GraphDelta``, ``DynamicPlan``, compaction) and the registry are not
-ported yet (ROADMAP A9).
+ported yet (ROADMAP: "Dynamic plans, and ``with_values`` on the
+device").
 """
 from __future__ import annotations
 

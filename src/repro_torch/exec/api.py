@@ -14,27 +14,66 @@ two SpMMs over the pattern for SDDMM.  The kernels' outputs carry no graph
 of their own, and on ``"torch"`` the plain versions run under the
 Function too, so the CPU tests cover the backward the card runs.  No
 gradient flows to A's values, as in the reference.
+
+Per-path execution and adaptive coordination (paper §5.3):
+:func:`execute_matrix_path` and :func:`execute_vector_path` run one engine
+path each, through the same ``ops`` calls as the fused body, and
+:class:`NeutronSpMM` is the reference's epoch loop over them, which times
+the two paths and moves the split threshold alpha toward balanced finish
+time (Eq. 7), re-preparing the plan.  On the card each path's time is the
+wall time of a synchronised call, with its CUDA-event device time beside
+it.  Every host clock read in this module goes through :func:`_clock`.
+
+Telemetry (``SpmmConfig.telemetry``): each dispatch of a telemetry-enabled
+plan is timed once, synchronised before and after, and recorded in
+``obs.PROFILER`` with its modeled per-path work against the H100's
+ceilings (:func:`_maybe_profiled`).  With telemetry off nothing is timed
+and nothing synchronises.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 import weakref
+import zlib
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core import spmm as core_spmm
+from ..core import tuner
+from ..core.coordinator import AdaptiveCoordinator
+from ..core.cost_model import (
+    H100_FP32_FLOPS_PER_S, H100_HBM_BYTES_PER_S, default_cost_model,
+    matrix_payload_bytes,
+)
 from ..core.plan_ir import (
-    NeutronPlan, SpmmConfig, build_sddmm_maps, plan_leaves,
-    sddmm_body_leaves, tag_op, validate_rhs,
+    NeutronPlan, SpmmConfig, build_sddmm_maps, gather_rows, permute_pad_b,
+    plan_leaves, sddmm_body_leaves, tag_op, validate_rhs,
 )
 from ..dynamic import update_values
 from ..errors import DispatchError, PlanBuildError
+from ..kernels import _build, ops
+from ..obs import PROFILER
 from . import cache as _cache
 from .cache import (  # noqa: F401  (re-exported test hooks)
     dispatch_count, fused_trace_count, set_executor_cache_capacity,
 )
 from .pipeline import build_executor
+
+# roofline ceilings the telemetry profiler prices modeled work against: the
+# H100 SXM's (NVIDIA data sheet, 700 W), not the TPU constants the split
+# still runs on.  obs never imports the cost model, so they ride on every
+# record.
+_PEAKS = {"flops_per_s": H100_FP32_FLOPS_PER_S,
+          "bytes_per_s": H100_HBM_BYTES_PER_S}
+
+
+def _clock() -> float:
+    """The host clock every timing in this module reads: one seam, so that
+    a test can inject path times."""
+    return time.perf_counter()
 
 
 def _apply_cache_capacity(config: SpmmConfig) -> None:
@@ -50,16 +89,127 @@ def _check_device(plan: NeutronPlan, *operands: torch.Tensor) -> None:
                 f"{plan.device}; move it there first")
 
 
+def _sig_key(sig) -> str:
+    """Short deterministic key for a plan signature (telemetry label)."""
+    return f"{zlib.crc32(repr(sig).encode()):08x}"
+
+
+def _maybe_profiled(fn, *, kind: str, plan: NeutronPlan, sig, prof):
+    """Call ``fn()`` (which builds or fetches its executor, then runs
+    it), measuring it when telemetry asked for it.
+
+    ``prof is None`` (telemetry off) is the production path: ``fn()`` as
+    it is, with no clock read and no synchronisation.  With telemetry on
+    the card is synchronised before and after the one call (so the time
+    covers its work, not earlier queued work or the enqueue), and one
+    :class:`repro_torch.obs.DispatchRecord` joins the measurement with the
+    caller's modeled per-path FLOP and byte terms.  The same single call
+    either way; signatures and cache keys never see the flag.  A call that
+    built an executor or a kernel library is marked ``traced``.
+    """
+    if prof is None:
+        return fn()
+    marks0 = (_cache.fused_trace_count(), _build.resolved_count())
+    tuner.synchronize(plan.device)
+    t0 = _clock()
+    out = tuner.synchronize(fn())
+    measured_us = (_clock() - t0) * 1e6
+    traced = (_cache.fused_trace_count(), _build.resolved_count()) != marks0
+    PROFILER.record(
+        op=prof["op"], tier=plan.config.impl, sig_key=_sig_key(sig),
+        kind=kind, measured_us=measured_us, traced=traced,
+        batch=prof.get("batch"), terms=prof["terms"], peaks=_PEAKS,
+        attrs=prof.get("attrs"),
+    )
+    return out
+
+
+# --- modeled roofline terms (telemetry only) ---------------------------------
+#
+# Modeled FLOPs and bytes are lower bounds on each engine path's work, as
+# in the reference: the matrix path as dense (bm x bk) tile products
+# against streamed B blocks, the fringe path as per-nonzero gathers.
+
+
+def _spmm_prof(plan: NeutronPlan, b: torch.Tensor, op: str = "spmm",
+               paths: Tuple[str, ...] = ("matrix", "fringe")):
+    """The profiler's terms for an SpMM dispatch of ``paths``, or None when
+    the plan's telemetry is off."""
+    config = plan.config
+    if not config.telemetry:
+        return None
+    stats = plan.stats_dict
+    n = int(b.shape[-1])
+    batch = int(b.shape[0]) if b.ndim == 3 else None
+    scale = float(batch or 1)
+    fringe_nnz = int(stats.get("fringe_nnz", 0))
+    num_steps = int(stats.get("num_steps", 0))
+    num_windows = int(stats.get("num_windows", 0))
+    # the matrix path alone streams the general tiles (execute_matrix_path)
+    mfmt = ("general" if paths == ("matrix",)
+            else str(stats.get("matrix_format", "general")))
+    fparams = tuple(stats.get("format_params", (0, 0)))
+    if num_steps:
+        mat_flops = 2.0 * num_steps * config.bm * config.bk * n
+        # the A payload models at the format the dispatch streams: packed
+        # bytes for nm/bitmap, the padded dense tiles for general
+        a_bytes = matrix_payload_bytes(
+            mfmt, num_steps, config.bm, config.bk,
+            nm_pattern=fparams if mfmt == "nm" else None,
+            row_cap=int(fparams[1]) if mfmt == "bitmap" else 0,
+        )
+        mat_bytes = (a_bytes
+                     + (num_steps * config.bk * n
+                        + num_windows * config.bm * n) * 4.0)
+    else:
+        core_nnz = max(int(stats.get("nnz", 0)) - fringe_nnz, 0)
+        mat_flops = 2.0 * core_nnz * n
+        mat_bytes = core_nnz * (12.0 + 4.0 * n)
+    terms = {
+        "matrix": {"flops": mat_flops * scale, "bytes": mat_bytes * scale},
+        "fringe": {"flops": 2.0 * fringe_nnz * n * scale,
+                   "bytes": fringe_nnz * (12.0 + 4.0 * n) * scale},
+    }
+    return {
+        "op": op, "batch": batch,
+        "terms": {p: terms[p] for p in paths},
+        "attrs": {
+            "padding_waste": float(stats.get("padding_waste", 0.0)),
+            "matrix_format": mfmt,
+        },
+    }
+
+
+def _sddmm_prof(config: SpmmConfig, nnz: int, nnz_f: int, d: int, batch):
+    if not config.telemetry:
+        return None
+    scale = float(batch or 1)
+    core = max(int(nnz) - int(nnz_f), 0)
+    return {
+        "op": "sddmm", "batch": batch,
+        "terms": {
+            "matrix": {"flops": 2.0 * core * d * scale,
+                       "bytes": core * (8.0 * d + 4.0) * scale},
+            "fringe": {"flops": 2.0 * int(nnz_f) * d * scale,
+                       "bytes": int(nnz_f) * (8.0 * d + 12.0) * scale},
+        },
+    }
+
+
 def _execute(plan: NeutronPlan, b: torch.Tensor) -> torch.Tensor:
     """:func:`execute` without the autograd Function around it."""
     validate_rhs(b, plan.shape)
     _check_device(plan, b)
     _apply_cache_capacity(plan.config)
     batch = int(b.shape[0]) if b.ndim == 3 else None
-    fn = build_executor(plan.signature(), batch=batch)
-    _cache.record_dispatch("fused" if batch is None else "batched")
-    return fn(*plan_leaves(plan), b, derived=plan.derived,
-              a_flag=plan.a_unsplittable)
+    sig = plan.signature()
+    kind = "fused" if batch is None else "batched"
+    _cache.record_dispatch(kind)
+    return _maybe_profiled(
+        lambda: build_executor(sig, batch=batch)(
+            *plan_leaves(plan), b, derived=plan.derived,
+            a_flag=plan.a_unsplittable),
+        kind=kind, plan=plan, sig=sig, prof=_spmm_prof(plan, b))
 
 
 def validate_sddmm_operands(
@@ -110,9 +260,13 @@ def _execute_sddmm(plan: NeutronPlan, x: torch.Tensor,
         return torch.zeros(shape, dtype=torch.float32, device=plan.device)
     sig = tag_op(plan.signature(), "sddmm", smaps.nnz, smaps.nnz_f,
                  plan.config.fringe_vmem_budget)
-    fn = build_executor(sig, batch=batch)
     _cache.record_dispatch("sddmm")
-    return fn(*sddmm_body_leaves(plan, smaps), x, y, derived=plan.derived)
+    return _maybe_profiled(
+        lambda: build_executor(sig, batch=batch)(
+            *sddmm_body_leaves(plan, smaps), x, y, derived=plan.derived),
+        kind="sddmm", plan=plan, sig=sig,
+        prof=_sddmm_prof(plan.config, smaps.nnz, smaps.nnz_f,
+                         int(x.shape[-1]), batch))
 
 
 # --- the backward: transpose plans and the autograd Functions --------------
@@ -270,3 +424,178 @@ class SpMMOperator:
 
     def __call__(self, b: torch.Tensor) -> torch.Tensor:
         return execute(self.plan, b)
+
+
+# --- per-path execution and adaptive coordination (paper §5.3) --------------
+
+
+def _pad_b(plan: NeutronPlan, b: torch.Tensor) -> torch.Tensor:
+    cfg = plan.config
+    return permute_pad_b(b, plan.col_perm, cfg.reorder_cols, cfg.bk)
+
+
+def _check_path_operand(plan: NeutronPlan, b: torch.Tensor) -> None:
+    validate_rhs(b, plan.shape)
+    if b.ndim != 2:
+        raise ValueError(
+            f"the per-path executors take one (K, N) operand, got shape "
+            f"{tuple(b.shape)}")
+    _check_device(plan, b)
+
+
+def execute_matrix_path(plan: NeutronPlan, b: torch.Tensor) -> torch.Tensor:
+    """Dense-core path only; returns its (M, N) contribution, fp32.
+
+    As in the reference, the matrix path runs ``block_stream_spmm`` (B1)
+    on the plan's general tile stream whatever the plan's
+    ``matrix_format``: an N:M or bitmap plan's structured payload is the
+    fused executor's.  With no core it returns zeros and launches nothing.
+    """
+    _check_path_operand(plan, b)
+    m, n = plan.shape[0], b.shape[1]
+    if not plan.has_core:   # no dispatch at all
+        return torch.zeros((m, n), dtype=torch.float32, device=plan.device)
+    cfg = plan.config
+
+    def run():
+        packed = ops.block_stream_spmm(
+            plan.step_window, plan.step_col, plan.flat_values,
+            _pad_b(plan, b), num_windows=plan.num_windows, bm=cfg.bm,
+            bk=cfg.bk, impl=cfg.impl, derived=plan.derived,
+            a_flag=plan.a_unsplittable,
+        )
+        return gather_rows(packed, plan.gather_src_matrix)
+
+    return _maybe_profiled(
+        run, kind="matrix_path", plan=plan, sig=plan.signature(),
+        prof=_spmm_prof(plan, b, op="spmm:matrix_path", paths=("matrix",)))
+
+
+def execute_vector_path(plan: NeutronPlan, b: torch.Tensor) -> torch.Tensor:
+    """Fringe path only; returns its (M, N) contribution, fp32, on the
+    plan's fringe tier.  With no fringe it returns zeros and launches
+    nothing.  ``execute_matrix_path(plan, b) + execute_vector_path(plan,
+    b)`` is the fused ``execute`` of a general plan, bit for bit: the
+    fused body adds the same two tensors in the same order."""
+    _check_path_operand(plan, b)
+    m, n = plan.shape[0], b.shape[1]
+    if not plan.has_fringe:   # no dispatch at all
+        return torch.zeros((m, n), dtype=torch.float32, device=plan.device)
+    cfg = plan.config
+
+    def run():
+        packed = ops.fringe_spmm(
+            plan.fringe_rows, plan.fringe_cols, plan.fringe_vals,
+            _pad_b(plan, b), num_rows=int(plan.fringe_row_ids.shape[0]),
+            impl=cfg.impl, chunk=cfg.fringe_chunk, tier=plan.fringe_tier,
+            bk=plan.fringe_bk, kb_chunk=plan.fringe_kb_chunk,
+            kb_rows=plan.fringe_kb_rows, kb_cols=plan.fringe_kb_cols,
+            kb_vals=plan.fringe_kb_vals, derived=plan.derived,
+        )
+        return gather_rows(packed, plan.gather_src_vector)
+
+    return _maybe_profiled(
+        run, kind="vector_path", plan=plan, sig=plan.signature(),
+        prof=_spmm_prof(plan, b, op="spmm:vector_path", paths=("fringe",)))
+
+
+def neutron_spmm(rows, cols, vals, shape: Tuple[int, int],
+                 b: torch.Tensor, config: SpmmConfig = SpmmConfig(), *,
+                 device=None) -> torch.Tensor:
+    """One-shot convenience: prepare (on ``device``, by default the one
+    ``config.impl`` runs on) + execute."""
+    plan = core_spmm.prepare(np.asarray(rows), np.asarray(cols),
+                             np.asarray(vals), shape, config, device=device)
+    return execute(plan, b)
+
+
+def _timed_path(path, plan: NeutronPlan, b: torch.Tensor):
+    """``(out, wall seconds, device seconds)`` of one synchronised call of
+    ``path(plan, b)``: synchronise, read the clock, run, synchronise, read
+    the clock (host launch time included, as the reference's
+    ``block_until_ready`` discipline).  On the card, CUDA events around the
+    call give its device time; on the CPU that is None."""
+    dev = plan.device
+    events = None
+    if dev.type == "cuda":
+        stream = torch.cuda.current_stream(dev)
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    tuner.synchronize(dev)
+    t0 = _clock()
+    if events:
+        events[0].record(stream)
+    out = path(plan, b)
+    if events:
+        events[1].record(stream)
+    tuner.synchronize(dev)
+    wall = _clock() - t0
+    device_s = (events[0].elapsed_time(events[1]) / 1e3 if events
+                else None)
+    return out, wall, device_s
+
+
+class NeutronSpMM:
+    """Epoch-loop operator with adaptive AIV-AIC coordination (§5.3).
+
+    Re-prepares the plan, on the plan's device, when the coordinator
+    moves alpha.  Each epoch times the two paths with :func:`_timed_path`
+    (synchronised wall time, the reference's measure, which drives the
+    rebalance) and logs each path's CUDA-event device time beside it
+    (``t_matrix_device``, ``t_vector_device``; None on the CPU).  The
+    first call after each (re-)prepare is a warm-up and is not timed.
+    ``prepare_seconds`` holds the host seconds of every prepare.
+    """
+
+    def __init__(self, rows, cols, vals, shape: Tuple[int, int],
+                 config: SpmmConfig = SpmmConfig(), cost_model=None,
+                 epsilon: float = 0.05, *, device=None):
+        self.rows, self.cols, self.vals = (
+            np.asarray(rows), np.asarray(cols), np.asarray(vals))
+        self.shape = tuple(shape)
+        self.config = config
+        self.cost_model = cost_model or default_cost_model(n_cols=config.bn)
+        self.prepare_seconds: list = []
+        self.plan = self._prepare(config, device)
+        self.epsilon = epsilon
+        self._alpha = self.plan.stats_dict["alpha"]
+        self._needs_warmup = True
+        self.epoch_log: list = []
+
+    def _prepare(self, config: SpmmConfig, device) -> NeutronPlan:
+        t0 = _clock()
+        plan = core_spmm.prepare(self.rows, self.cols, self.vals, self.shape,
+                                 config, self.cost_model, device=device)
+        self.prepare_seconds.append(_clock() - t0)
+        return plan
+
+    def run_epoch(self, b: torch.Tensor) -> torch.Tensor:
+        if self._needs_warmup:   # builds and first launches stay untimed
+            tuner.synchronize(execute_matrix_path(self.plan, b))
+            tuner.synchronize(execute_vector_path(self.plan, b))
+            self._needs_warmup = False
+        cm, t_matrix, d_matrix = _timed_path(execute_matrix_path, self.plan,
+                                             b)
+        cv, t_vector, d_vector = _timed_path(execute_vector_path, self.plan,
+                                             b)
+        skew = AdaptiveCoordinator.skew(t_matrix, t_vector)
+        self.epoch_log.append({
+            "t_matrix": t_matrix, "t_vector": t_vector, "skew": skew,
+            "alpha": self._alpha,
+            "t_matrix_device": d_matrix, "t_vector_device": d_vector,
+        })
+        if skew > 1.0 + self.epsilon and len(self.epoch_log) >= 2:
+            self._rebalance(t_matrix, t_vector)
+        return cm + cv
+
+    def _rebalance(self, t_matrix: float, t_vector: float) -> None:
+        """Nudge alpha toward balanced finish time and re-prepare (Eq. 7)."""
+        ratio = t_matrix / max(t_vector, 1e-12)
+        # matrix slower -> raise alpha (send more to the vector path)
+        new_alpha = float(np.clip(self._alpha * ratio ** 0.5, 1e-6, 1.0))
+        if abs(new_alpha - self._alpha) / max(self._alpha, 1e-12) < 1e-3:
+            return
+        self._alpha = new_alpha
+        cfg = dataclasses.replace(self.config, alpha=new_alpha)
+        self.plan = self._prepare(cfg, self.plan.device)
+        self._needs_warmup = True

@@ -119,6 +119,13 @@ def function(library: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
         return fn
 
 
+def resolved_count() -> int:
+    """Kernel entry points resolved so far: a call that raises it built or
+    loaded a kernel library (the telemetry profiler marks such calls)."""
+    with _LOCK:
+        return len(_FUNCS)
+
+
 def check_status(status: int, kernel: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch."""
     if status != 0:

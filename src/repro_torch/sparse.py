@@ -27,6 +27,10 @@ sparse handles (the reference's ``spspmm``) raises
 -> ``with_values`` -> ``spmm``.  Entry points run on the card unless the caller passes
 ``device="cpu"`` (the plain versions, ``impl="torch"``); with no CUDA
 device and no ``device="cpu"`` they raise rather than carry on on the CPU.
+With ``telemetry=True`` in the config, each ``spmm``/``bspmm``/``sddmm``
+call records a trace with one ``dispatch`` span in ``obs.TRACES`` (and its
+executor dispatch a roofline record in ``obs.PROFILER``); read them with
+``repro_torch.obs.snapshot()``.
 """
 from __future__ import annotations
 
@@ -40,9 +44,31 @@ from .core.plan_ir import NeutronPlan, SpmmConfig
 from .dynamic import update_values
 from .errors import NotPortedError, PlanBuildError
 from .exec import api as _exec
+from .obs import TRACES
 
 __all__ = ["SparseMatrix", "from_coo", "from_plan", "spmm", "bspmm",
            "sddmm"]
+
+
+def _traced_call(name: str, plan: NeutronPlan, attrs, fn):
+    """Run ``fn()``; when the plan opts into telemetry, record an
+    ``obs`` trace with one ``dispatch`` span around it (host-side
+    bookkeeping only: with telemetry off this is the bare call)."""
+    if not plan.config.telemetry:
+        return fn()
+    tr = TRACES.begin(f"facade:{name}", **attrs)
+    t0 = TRACES.now_us()
+    try:
+        out = fn()
+    except BaseException as err:
+        TRACES.add_span(tr, "dispatch", t0, TRACES.now_us())
+        tr.attrs["outcome"] = type(err).__name__
+        TRACES.end(tr)
+        raise
+    TRACES.add_span(tr, "dispatch", t0, TRACES.now_us())
+    tr.attrs["outcome"] = "ok"
+    TRACES.end(tr)
+    return out
 
 
 class SparseMatrix:
@@ -177,7 +203,11 @@ def spmm(a, b) -> torch.Tensor:
     :func:`bspmm`.  Differentiable in ``b``: its gradient is ``Aᵀ @ g``,
     run on the transpose plan."""
     a = _as_matrix(a, "spmm")
-    return _exec.execute(a.plan, _on_device(b, a))
+    b = _on_device(b, a)
+    return _traced_call(
+        "bspmm" if b.ndim == 3 else "spmm", a.plan,
+        {"shape": a.shape, "n": int(b.shape[-1])},
+        lambda: _exec.execute(a.plan, b))
 
 
 def bspmm(a, b) -> torch.Tensor:
@@ -201,4 +231,6 @@ def sddmm(a, x, y) -> torch.Tensor:
     (S_gᵀ @ X)ᵀ``, two SpMMs.
     """
     a = _as_matrix(a, "sddmm")
-    return _exec.execute_sddmm(a.plan, _on_device(x, a), _on_device(y, a))
+    x, y = _on_device(x, a), _on_device(y, a)
+    return _traced_call("sddmm", a.plan, {"shape": a.shape},
+                        lambda: _exec.execute_sddmm(a.plan, x, y))

@@ -34,6 +34,9 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "chip_smoke.py" in names
     assert "src/repro_torch/sparse.py" in names
+    for module in ("core/coordinator.py", "core/tuner.py", "obs/trace.py",
+                   "obs/profile.py", "obs/report.py"):
+        assert f"src/repro_torch/{module}" in names, module
     assert len(names) > 20
 
 

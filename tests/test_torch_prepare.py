@@ -242,16 +242,16 @@ def test_nm_detectable_matrix_raises():
 
 
 @pytest.mark.parametrize("cfg,match", [
-    (dict(autotune=True), "A10"),
+    (dict(autotune=True), "tuner"),
     (dict(structure_hint="bitmap"), "A8"),
     (dict(structure_hint=("nm", 1, 32)), "A8"),
 ])
 def test_unported_options_raise(cfg, match):
-    """autotune (A10) still raises.  The structured hints (A8) are ported:
+    """autotune (the tuner) still raises.  The structured hints (A8) are ported:
     the port builds the reference's plan, or raises its PlanBuildError."""
     rng = np.random.RandomState(0)
     _, rows, cols, vals = make_sparse(rng, 40, 40, 0.1)
-    if match == "A10":
+    if match == "tuner":
         with pytest.raises(PlanBuildError, match=match):
             spmm.prepare(rows, cols, vals, (40, 40),
                          SpmmConfig(impl="torch", **cfg))
