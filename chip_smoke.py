@@ -103,7 +103,28 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    ``bspmm`` of batch 2 on the 2:4 plan; each result is held against
    ``torch.sparse.mm`` on the CSR of the same COO, and the two kernels are
    timed there as in 4, beside dense_tile_spmm on the same plans' general
-   tiles and a dense ``torch.matmul`` of the weight.
+   tiles and a dense ``torch.matmul`` of the weight;
+6. the two-hop path: ``P = A @ A`` through the facade (``spspmm``) on the
+   directed ogbn-arxiv-size graph of the GCN path's generator and seed
+   (169,343 nodes, 1,326,032 nonzeros, 10,451,327 terms, 8,613,042
+   product nonzeros; not cut), whose pattern must equal scipy's
+   ``A @ A``, whose values must lie within 1e-4 * max |ref| of scipy's
+   float64 product and be bit-equal to the port's plain version on the
+   CPU and across two card runs; the host symbolic phase, the numeric
+   phase (CUDA events) and the product's ``from_coo`` are timed beside
+   cuSPARSE's SpGEMM (``torch.sparse.mm`` of A's CSR by itself); then
+   ``spmm`` on P (N = 256) against ``torch.sparse.mm`` on P's CSR, which
+   must launch dense_tile_spmm and a fringe kernel;
+7. health, faults and deadlines on the card, on that A's plan:
+   ``executor_build`` armed once for "cuda" signatures makes a ``bspmm``
+   (batch 5, used by no other path) raise ``KernelLoweringError``, the
+   next dispatch (inside the backoff) raises with no kernel launch, the
+   retry launches and is bit-equal to an unarmed call, and the signature
+   is healthy again with one recovery; ``pallas_lowering`` armed for good
+   (batch 6) raises until the signature is demoted, and once disarmed it
+   still raises with no launch until ``HEALTH.reset()``; ``deadline=0.0``
+   raises ``DeadlineExceeded`` on ``spmm``, ``sddmm`` and ``spspmm``, and
+   ``deadline=120.0`` gives the bits of the call without one.
 
 Tolerance everywhere: max |x - ref| <= 1e-4 * max(1, max |ref|) (fp32 on
 both sides, different summation orders; the kernels' tensor-core path is
@@ -164,6 +185,15 @@ ARXIV_GCN = dict(n=169343, avg_deg=3.6, n_classes=40, n_features=128,
                  symmetric=True, seed=0)
 GCN_HIDDEN, GCN_STEPS, GCN_LR = 256, 20, 2.0
 FRINGE_KERNELS = ("gather_spmm", "gather_spmm_ksharded")
+# the two-hop path: ogbn-arxiv's size from the GCN path's generator and
+# seed, left directed as OGB ships its citation edges (1,156,689 edges
+# against OGB's 1,166,243, plus the self-loops); A @ A is the precomputed
+# two-hop operator of SGC (Wu et al. 2019) and SIGN (Frasca et al. 2020)
+TWO_HOP = dict(n=169343, avg_deg=3.6, n_classes=40, n_features=128,
+               symmetric=False, seed=0)
+# what this generator and seed give: A's nonzeros, A @ A's terms and the
+# product's nonzeros (scipy's A @ A on the same COO)
+TWO_HOP_SIZES = (1326032, 10451327, 8613042)
 # tile densities of B1's sweep in phase 4
 SWEEP_DENSITIES = (0.01, 0.025, 0.05, 0.10, 0.25, 0.50)
 
@@ -1108,6 +1138,305 @@ def pruned_weight_paths(ctx, m=PRUNED_M, k=PRUNED_K, n=PRUNED_N):
     return launches, records
 
 
+
+def bits_equal(got, want) -> bool:
+    """The same fp32 bit patterns, on any devices (-0.0 and 0.0 differ)."""
+    import torch
+
+    got, want = got.cpu().contiguous(), want.cpu().contiguous()
+    return got.shape == want.shape and torch.equal(
+        got.view(torch.int32), want.view(torch.int32))
+
+
+def two_hop_path(ctx):
+    """The two-hop path: ``P = A @ A`` through the facade on the directed
+    ogbn-arxiv-size graph, then ``sp.spmm(P, X)`` at N = 256.
+
+    P's pattern must equal scipy's ``A @ A`` (A's values are positive, so
+    no sum cancels), its values lie within 1e-4 * max |ref| of scipy's
+    float64 product, and they are bit-equal to the port's plain version
+    (the numeric phase on CPU tensors) and across two card runs.  The
+    symbolic phase, the numeric dispatch and the product's ``from_coo``
+    are timed inside the one facade call; the numeric phase alone by CUDA
+    events beside cuSPARSE's SpGEMM (``torch.sparse.mm`` of A's CSR by
+    itself).  ``spmm`` on P is held against ``torch.sparse.mm`` on P's CSR
+    and must launch B1 and a fringe kernel; its device time is split by
+    kernel.  Returns ``(A, P, X, the
+    path's numbers)``."""
+    import numpy as np
+    import scipy.sparse
+    import torch
+
+    from repro_torch.examples.gcn_training import make_graph
+    from repro_torch.exec import api
+    from repro_torch.exec.pipeline import build_executor
+
+    sp, dev, log, require = ctx.sp, ctx.dev, ctx.log, ctx.require
+    t0 = time.perf_counter()
+    rows, cols, vals, feats, _, _ = make_graph(**TWO_HOP)
+    n = feats.shape[0]
+    t_graph = time.perf_counter() - t0
+    require(rows.size == TWO_HOP_SIZES[0], ("A's nonzeros", rows.size))
+    require(bool((vals > 0).all()), "A's values are positive")
+    t0 = time.perf_counter()
+    A = sp.from_coo(rows, cols, vals, (n, n), device="cuda")
+    torch.cuda.synchronize()
+    t_a = time.perf_counter() - t0
+
+    # one facade call, its three stages timed where the facade calls them
+    seen = {}
+    symbolic, execute_spspmm, from_coo = (
+        api.spspmm_symbolic, api.execute_spspmm, sp.from_coo)
+
+    def timed(name, fn, sync=False):
+        def run(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            seen[name] = (time.perf_counter() - t0, out)
+            return out
+        return run
+
+    api.spspmm_symbolic = timed("symbolic", symbolic)
+    api.execute_spspmm = timed("spspmm", execute_spspmm, sync=True)
+    sp.from_coo = timed("from_coo", from_coo, sync=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P, launches_product = ctx.drive(lambda: A @ A)
+        t_facade = time.perf_counter() - t0
+    finally:
+        api.spspmm_symbolic, api.execute_spspmm, sp.from_coo = (
+            symbolic, execute_spspmm, from_coo)
+    t_symbolic, (ae, be, lengths, c_keys) = seen["symbolic"]
+    t_execute, (_, _, vals_card, _) = seen["spspmm"]
+    t_product = seen["from_coo"][0]
+    n_exp, nnz_c = int(ae.size), int(c_keys.size)
+    require((n_exp, nnz_c) == TWO_HOP_SIZES[1:], ("terms, nonzeros",
+                                                  n_exp, nnz_c))
+    require(not any(launches_product.values()),
+            ("the product launches no kernel of the port's",
+             launches_product))
+    log(f"two-hop path (directed ogbn-arxiv size, {n} nodes, A "
+        f"{rows.size} nonzeros, generated in {t_graph:.1f} s, from_coo "
+        f"{t_a:.1f} s): A @ A {n_exp} terms -> {nnz_c} nonzeros; facade "
+        f"{t_facade:.2f} s = symbolic {t_symbolic:.3f} s (host) + upload "
+        f"and numeric {t_execute - t_symbolic:.3f} s + product from_coo "
+        f"{t_product:.2f} s")
+
+    # the pattern and the values against scipy's float64 product
+    a64 = scipy.sparse.csr_matrix((vals.astype(np.float64), (rows, cols)),
+                                  shape=(n, n))
+    a64.sort_indices()
+    t0 = time.perf_counter()
+    ref = (a64 @ a64).tocsr()
+    t_scipy = time.perf_counter() - t0
+    ref.sort_indices()
+    ref_rows = np.repeat(np.arange(n), np.diff(ref.indptr))
+    require(np.array_equal(P.row, ref_rows)
+            and np.array_equal(P.col, ref.indices), "P's pattern is scipy's")
+    err = float(np.abs(P.val.astype(np.float64) - ref.data).max())
+    scale = float(np.abs(ref.data).max())
+    require(err <= ctx.tol * scale, (err, scale))
+    # bits: the plain version on CPU tensors, and a second card run
+    sig = ("spspmm", n_exp, nnz_c)
+    host = (torch.from_numpy(ae.astype(np.int32)),
+            torch.from_numpy(be.astype(np.int32)), torch.from_numpy(lengths),
+            torch.as_tensor(vals, dtype=torch.float32),
+            torch.as_tensor(vals, dtype=torch.float32))
+    card = tuple(t.to(dev) for t in host)
+    numeric = build_executor(sig)
+    t0 = time.perf_counter()
+    plain = numeric(*host)
+    t_plain = time.perf_counter() - t0
+    again = numeric(*card)
+    require(bits_equal(vals_card, plain), "card bits == CPU plain bits")
+    require(bits_equal(vals_card, again), "two card runs bit-equal")
+    require(bits_equal(torch.from_numpy(P.val), plain), "P holds them")
+    numeric_ms = ctx.timed_ms(lambda: numeric(*card))
+    a_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(a64.indptr).long().to(dev),
+        torch.from_numpy(a64.indices).long().to(dev),
+        torch.from_numpy(a64.data.astype(np.float32)).to(dev), (n, n))
+    lib = torch.sparse.mm(a_csr, a_csr)
+    torch.cuda.synchronize()
+    library_ms = ctx.timed_ms(lambda: torch.sparse.mm(a_csr, a_csr))
+    lib_nnz = int(lib._nnz())
+    log(f"  pattern equals scipy's A @ A ({t_scipy:.2f} s on the host); "
+        f"values max |diff| {err:.3e} against the float64 product (max "
+        f"{scale:.3e}); bit-equal to the CPU plain version ({t_plain:.2f} "
+        f"s) and across two card runs")
+    log(f"  numeric phase {numeric_ms:.3f} ms (CUDA events); cuSPARSE "
+        f"SpGEMM torch.sparse.mm(A_csr, A_csr) {library_ms:.3f} ms "
+        f"({lib_nnz} nonzeros)")
+
+    # spmm on the product: B1 and a fringe kernel on P's plan
+    x = torch.randn((n, 256), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(2))
+    c, launches_spmm = ctx.drive(lambda: sp.spmm(P, x))
+    pp = P.plan
+    p_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(np.searchsorted(P.row, np.arange(n + 1))).to(dev),
+        torch.from_numpy(P.col).to(dev), torch.from_numpy(P.val).to(dev),
+        (n, n))
+    e_spmm = ctx.err_bound(c, torch.sparse.mm(p_csr, x))
+    spmm_ms = ctx.timed_ms(lambda: sp.spmm(P, x))
+    spmm_lib_ms = ctx.timed_ms(lambda: torch.sparse.mm(p_csr, x))
+    busy_ms, by_kernel = device_breakdown(lambda: sp.spmm(P, x), top=6)
+    st = pp.stats_dict
+    log(f"  spmm on P (N = 256): {spmm_ms:.3f} ms against torch.sparse.mm "
+        f"on P's CSR {spmm_lib_ms:.3f} ms, max |diff| {e_spmm:.3e}; P's "
+        f"plan: windows {pp.num_windows}, tiles {pp.step_window.shape[0]}, "
+        f"core {st['core_nnz']}, fringe {st['fringe_nnz']} "
+        f"({pp.fringe_tier}); launches {launches_spmm}")
+    log(f"  spmm on P by kernel (torch.profiler, ms per call, device "
+        f"total {busy_ms}): {by_kernel}")
+    require(launches_spmm["dense_tile_spmm"] > 0
+            and launches_spmm["gather_spmm"]
+            + launches_spmm["gather_spmm_ksharded"] > 0, launches_spmm)
+    return A, P, x, {
+        "nnz_a": int(rows.size), "terms": n_exp, "nnz_p": nnz_c,
+        "a_from_coo_s": t_a, "facade_s": t_facade,
+        "symbolic_s": t_symbolic, "upload_numeric_s": t_execute - t_symbolic,
+        "product_from_coo_s": t_product, "numeric_ms": numeric_ms,
+        "library_spgemm_ms": library_ms, "library_nnz": lib_nnz,
+        "max_abs_err": err, "max_abs_ref": scale, "spmm_ms": spmm_ms,
+        "spmm_library_ms": spmm_lib_ms, "spmm_err": e_spmm,
+        "spmm_device_ms": busy_ms, "spmm_by_kernel": by_kernel,
+        "launches_spmm": launches_spmm,
+        "p_plan": {"windows": pp.num_windows,
+                   "tiles": int(pp.step_window.shape[0]),
+                   "core_nnz": int(st["core_nnz"]),
+                   "fringe_nnz": int(st["fringe_nnz"]),
+                   "fringe_tier": pp.fringe_tier},
+    }
+
+
+def health_phase(ctx, A, P):
+    """Health, faults and deadlines on the card, on A's plan.
+
+    Each fault case dispatches ``bspmm`` at a batch size no other path
+    uses, so its (signature, batch) is built afresh and reaches the build
+    seams.  ``executor_build`` armed once for "cuda" signatures: the first
+    dispatch raises ``KernelLoweringError`` and the signature retries; the
+    dispatch inside the backoff raises with no launch; the retry launches
+    and its result is bit-equal to an unarmed call's; the signature is
+    healthy again with one recovery.  ``pallas_lowering`` armed for good:
+    dispatches raise until the signature is demoted; disarmed, it still
+    raises with no launch; ``HEALTH.reset()`` heals it.  Deadlines:
+    ``deadline=0.0`` raises ``DeadlineExceeded`` on ``spmm``, ``sddmm``
+    and ``spspmm``, and ``deadline=120.0`` returns the bits of the call
+    without one."""
+    import torch
+
+    from repro_torch.core.plan_ir import sig_impl
+    from repro_torch.errors import DeadlineExceeded, KernelLoweringError
+    from repro_torch.exec.health import HEALTH
+    from repro_torch.kernels import ops
+    from repro_torch.robust.faults import HARNESS, armed
+
+    sp, dev, log, require = ctx.sp, ctx.dev, ctx.log, ctx.require
+    sig = A.plan.signature()
+    n = A.shape[1]
+    HARNESS.reset()
+    HEALTH.reset()
+
+    def raises(exc, call, what):
+        """``call()`` raises ``exc`` and launches no kernel."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        try:
+            call()
+        except exc as err:
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            require(not any(counts.values()), (what, "launched", counts))
+            return err
+        raise RuntimeError(f"check failed: {what} did not raise "
+                           f"{exc.__name__}")
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x5 = torch.randn((5, n, 32), device=dev, generator=gen)
+    x6 = torch.randn((6, n, 32), device=dev, generator=gen)
+
+    # case 1: one build failure, a refusal inside the backoff, a recovery
+    with armed("executor_build", times=1,
+               match=lambda s: sig_impl(s) == "cuda"):
+        err = raises(KernelLoweringError, lambda: sp.bspmm(A, x5),
+                     "the armed build")
+        require(HEALTH.state(sig) == "retrying", HEALTH.state(sig))
+        refused = raises(KernelLoweringError, lambda: sp.bspmm(A, x5),
+                         "the dispatch inside the backoff")
+        require("next attempt at dispatch 3" in str(refused), str(refused))
+        retry, launches_retry = ctx.drive(lambda: sp.bspmm(A, x5))
+    require(launches_retry["dense_tile_spmm"] > 0, launches_retry)
+    unarmed = sp.bspmm(A, x5)
+    require(bits_equal(retry, unarmed), "the retry is bit-equal to an "
+            "unarmed call")
+    snap = HEALTH.snapshot()
+    require(HEALTH.state(sig) == "healthy" and snap["recoveries"] == 1
+            and snap["failures"] == 1 and snap["fallbacks"] == 0, snap)
+    log(f"health phase (two-hop A's plan): executor_build armed once -> "
+        f"KernelLoweringError ({type(err.__cause__).__name__} chained), "
+        f"state retrying, dispatch 2 refused with no launch, dispatch 3 "
+        f"launched {launches_retry} and is bit-equal to an unarmed call; "
+        f"healthy again: {snap}")
+
+    # case 2: a lowering failure for good, demoted, sticky once disarmed
+    HARNESS.reset()
+    dispatches = 0
+    with armed("pallas_lowering", times=None):
+        while HEALTH.state(sig) != "demoted":
+            raises(KernelLoweringError, lambda: sp.bspmm(A, x6),
+                   "a dispatch under the armed lowering seam")
+            dispatches += 1
+            require(dispatches <= 40, "never demoted")
+    demoted = raises(KernelLoweringError, lambda: sp.bspmm(A, x6),
+                     "the demoted signature, disarmed")
+    require("demoted" in str(demoted), str(demoted))
+    snap = HEALTH.snapshot()
+    HEALTH.reset()
+    healed, launches_healed = ctx.drive(lambda: sp.bspmm(A, x6))
+    require(launches_healed["dense_tile_spmm"] > 0, launches_healed)
+    e_healed = max(ctx.err_bound(healed[i], sp.spmm(A, x6[i]))
+                   for i in range(6))
+    log(f"  pallas_lowering armed for good: demoted after {dispatches} "
+        f"dispatches ({snap}); disarmed, still refused with no launch; "
+        f"HEALTH.reset() heals it: bspmm launched {launches_healed}, "
+        f"against 6 x spmm {e_healed:.3e}")
+
+    # deadlines: post-hoc, after synchronising the result's device
+    b = torch.randn((n, 64), device=dev, generator=gen)
+    x = torch.randn((n, 16), device=dev, generator=gen)
+    y = torch.randn((16, n), device=dev, generator=gen)
+    # (call with a deadline, the bits of the call without one)
+    calls = {
+        "spmm": (lambda **kw: sp.spmm(A, b, **kw), lambda: sp.spmm(A, b)),
+        "sddmm": (lambda **kw: sp.sddmm(A, x, y, **kw),
+                  lambda: sp.sddmm(A, x, y)),
+        "spspmm": (lambda **kw: torch.from_numpy(sp.spspmm(A, A, **kw).val),
+                   lambda: torch.from_numpy(P.val)),
+    }
+    for name, (call, without) in calls.items():
+        try:
+            call(deadline=0.0)
+        except DeadlineExceeded:
+            pass
+        else:
+            raise RuntimeError(f"check failed: {name} with deadline=0.0 "
+                               f"did not raise DeadlineExceeded")
+        require(bits_equal(call(deadline=120.0), without()),
+                (name, "deadline=120.0 changed the bits"))
+    log("  deadline=0.0 raised DeadlineExceeded on spmm, sddmm and spspmm; "
+        "deadline=120.0 gave the same bits as no deadline")
+    return {"launches_retry": launches_retry,
+            "launches_healed": launches_healed,
+            "demoted_after": dispatches}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -1960,6 +2289,18 @@ def main() -> int:
     launches_pruned, records = pruned_weight_paths(ctx)
     launches.update(launches_pruned)
     report.extend(records)
+    torch.cuda.empty_cache()
+
+    # --- phase 6: the two-hop path (spspmm) ---------------------------------
+    ctx6 = types.SimpleNamespace(
+        sp=sp, dev=dev, log=log, require=require, drive=drive,
+        err_bound=err_bound, timed_ms=timed_ms, tol=TOL)
+    A2, P2, _, two_hop = two_hop_path(ctx6)
+    log(f"  {json.dumps({'two_hop': two_hop})}")
+
+    # --- phase 7: health, faults and deadlines --------------------------------
+    health = health_phase(ctx6, A2, P2)
+    log(f"  {json.dumps({'health': health})}")
     require(len(report) == 7 and all(r["launches"] > 0 for r in report),
             [(r["name"], r["launches"]) for r in report])
     print(json.dumps({"kernels": report}), flush=True)

@@ -16,15 +16,15 @@ Category map (who raises what):
   config, malformed COO/``GraphDelta`` input, mutation of absent entries
   (``core`` plan builders keep raising ``ValueError`` directly; the layers
   above — ``exec``/``dynamic``/``serve`` — raise this).
-- :class:`KernelLoweringError` — a pallas kernel failed to lower/compile;
-  raised only when degradation to the XLA tier is disabled
-  (``SpmmConfig.degrade_to_xla=False``), otherwise recorded in the
-  ``exec.health`` table while the dispatch falls back.
+- :class:`KernelLoweringError` — a ``"cuda"`` dispatch failed (a kernel
+  did not build, its library did not resolve, or a launch failed) and was
+  recorded in the ``exec.health`` table, or the table refused the
+  dispatch: the signature waits out its retry backoff or is demoted
+  (quarantined).  The port has no degrade tier, so it always raises.
 - :class:`DispatchError`       — an executor dispatch was rejected
-  (operand/plan mismatch) or failed on *every* tier, fallback included.
-- :class:`NotPortedError`      — a :class:`DispatchError` for a call the
-  port does not carry yet: ``SparseMatrix @ SparseMatrix`` (``spspmm``).
-  It names the missing piece.
+  (operand/plan mismatch, operands on different devices).  A launch that
+  returns an error status raises one too, which reaches the caller as
+  the cause of a :class:`KernelLoweringError`.
 - :class:`CompactionError`     — background sidecar folds failed; carries
   every per-matrix failure in ``.errors`` (ExceptionGroup-style).
 - :class:`RegistryError`       — a persistent-registry entry is missing,
@@ -33,8 +33,9 @@ Category map (who raises what):
   refused by the serving front: bounded queue full under the ``reject``
   policy, shed under ``shed-oldest``, service closed, re-register with
   pending requests.
-- :class:`DeadlineExceeded`    — a per-request deadline expired before its
-  drain, or a total-deadline wait (``drain_compactions``) ran out.
+- :class:`DeadlineExceeded`    — a facade call (``deadline=``) or a
+  per-request deadline finished too late, or a total-deadline wait
+  (``drain_compactions``) ran out.
 """
 from __future__ import annotations
 
@@ -50,16 +51,11 @@ class PlanBuildError(ReproError, ValueError):
 
 
 class KernelLoweringError(ReproError, RuntimeError):
-    """A pallas kernel failed to lower or compile for this plan."""
+    """A ``"cuda"`` dispatch failed or was refused by the health gate."""
 
 
 class DispatchError(ReproError, ValueError):
-    """An executor dispatch was rejected or failed on every tier."""
-
-
-class NotPortedError(DispatchError):
-    """The call needs a part of the reference the port does not carry
-    yet; the message names it."""
+    """An executor dispatch was rejected, or a launch returned an error."""
 
 
 class CompactionError(ReproError, RuntimeError):
@@ -92,4 +88,5 @@ class DeadlineExceeded(ReproError, TimeoutError):
 
 class FaultInjected(ReproError, RuntimeError):
     """Default exception raised by an armed fault-injection seam
-    (``repro.robust.faults``) — never raised outside tests/chaos runs."""
+    (``repro_torch.robust.faults``) — never raised outside tests/chaos
+    runs."""

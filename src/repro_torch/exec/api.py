@@ -3,8 +3,17 @@
 ``execute(plan, b)`` resolves the plan's executor from the bounded cache
 and calls it on the plan's leaves: one call runs both engine paths and the
 merge.  ``execute_sddmm(plan, x, y)`` does the same for SDDMM over the
-plan's pattern.  There is no degrade tier in this port: a ``"cuda"`` plan
-launches its kernels or raises.
+plan's pattern, and ``execute_spspmm(a_plan, b_plan)`` multiplies two
+prepared patterns (a host symbolic phase, then one numeric dispatch).
+
+Health gate (:func:`_guarded_call`, ``exec.health``): every dispatch of a
+``"cuda"`` signature asks ``HEALTH`` first.  There is no degrade tier in
+this port: a ``"cuda"`` plan launches its kernels or raises.  A failed
+build, kernel-library resolution or launch is recorded and re-raised as
+:class:`~repro_torch.errors.KernelLoweringError`; while the signature
+waits out its call-count backoff, or once it is demoted, a dispatch builds
+and launches nothing and raises the same error.  ``"torch"`` signatures
+(the reference's ``"xla"`` path) are not gated.
 
 Both are differentiable in their dense operands on either impl, through
 the port of the reference's ``SpMMOperator`` (a ``jax.custom_vjp``): each
@@ -49,17 +58,19 @@ from ..core.cost_model import (
     matrix_payload_bytes,
 )
 from ..core.plan_ir import (
-    NeutronPlan, SpmmConfig, build_sddmm_maps, gather_rows, permute_pad_b,
-    plan_leaves, sddmm_body_leaves, tag_op, validate_rhs,
+    NeutronPlan, SpmmConfig, UpdateMaps, build_sddmm_maps, gather_rows,
+    permute_pad_b, plan_leaves, sddmm_body_leaves, sig_impl, tag_op,
+    validate_rhs,
 )
 from ..dynamic import update_values
-from ..errors import DispatchError, PlanBuildError
+from ..errors import DispatchError, KernelLoweringError, PlanBuildError
 from ..kernels import _build, ops
 from ..obs import PROFILER
 from . import cache as _cache
 from .cache import (  # noqa: F401  (re-exported test hooks)
     dispatch_count, fused_trace_count, set_executor_cache_capacity,
 )
+from .health import HEALTH
 from .pipeline import build_executor
 
 # roofline ceilings the telemetry profiler prices modeled work against: the
@@ -121,6 +132,62 @@ def _maybe_profiled(fn, *, kind: str, plan: NeutronPlan, sig, prof):
         batch=prof.get("batch"), terms=prof["terms"], peaks=_PEAKS,
         attrs=prof.get("attrs"),
     )
+    return out
+
+
+def _guarded_call(sig, make_fn, args, kind: str, *, plan=None, prof=None,
+                  kwargs=None):
+    """Build + dispatch ``make_fn(sig)(*args, **kwargs)``, with the health
+    gate for ``"cuda"`` signatures.
+
+    ``make_fn(sig) -> fn`` builds (or fetches) the executor; the build and
+    the call run inside the profiling wrapper (:func:`_maybe_profiled`),
+    as in the reference.  A signature whose impl is not ``"cuda"`` (a
+    ``"torch"`` plan, the reference's ``"xla"``; the ``("spspmm", ...)``
+    numeric phase) takes the unguarded path: a fault there propagates as
+    it is, and a failed build is not cached, so the next call builds again.
+
+    A ``"cuda"`` signature is gated by ``HEALTH.should_try_accel``.  Where
+    the reference degrades to XLA, the port raises
+    :class:`KernelLoweringError`:
+
+    - a failure in the build, the kernel library's resolution or the
+      launch is recorded (``HEALTH.record_failure``: call-count backoff,
+      then sticky demotion) and re-raised, chained from its cause;
+    - inside the backoff, or once demoted, the dispatch builds and
+      launches nothing; the message names the state and the last error;
+    - a success inside the retry window records a recovery.
+
+    No plain version ever runs in place of a kernel on the card.  Errors
+    that surface on the device after the launches were queued (a fault in
+    a kernel) are out of scope, as in the reference: such a fault poisons
+    the CUDA context, and no retry could heal it.
+    """
+    kwargs = kwargs or {}
+
+    def dispatch():
+        fn = make_fn(sig)
+        _cache.record_dispatch(kind)
+        return fn(*args, **kwargs)
+
+    if sig_impl(sig) != "cuda":
+        return _maybe_profiled(dispatch, kind=kind, plan=plan, sig=sig,
+                               prof=prof)
+    if not HEALTH.should_try_accel(sig):
+        raise KernelLoweringError(
+            f"impl='cuda' {kind} dispatch refused, nothing built or "
+            f"launched: the signature is {HEALTH.refusal(sig)}; last error: "
+            f"{HEALTH.last_error(sig)}")
+    try:
+        out = _maybe_profiled(dispatch, kind=kind, plan=plan, sig=sig,
+                              prof=prof)
+    except Exception as err:  # noqa: BLE001 — every failure is recorded
+        HEALTH.record_failure(sig, err)
+        raise KernelLoweringError(
+            f"impl='cuda' {kind} dispatch failed and there is no degrade "
+            f"tier; the signature is now {HEALTH.state(sig)} "
+            f"(exec.health.HEALTH): {type(err).__name__}: {err}") from err
+    HEALTH.record_success(sig)
     return out
 
 
@@ -196,20 +263,30 @@ def _sddmm_prof(config: SpmmConfig, nnz: int, nnz_f: int, d: int, batch):
     }
 
 
+def _spspmm_prof(config: SpmmConfig, n_exp: int, nnz_c: int):
+    if not config.telemetry:
+        return None
+    # expansion products + segment sum: pure vector-engine work
+    return {
+        "op": "spspmm", "batch": None,
+        "terms": {
+            "fringe": {"flops": 2.0 * int(n_exp),
+                       "bytes": 12.0 * int(n_exp) + 4.0 * int(nnz_c)},
+        },
+    }
+
+
 def _execute(plan: NeutronPlan, b: torch.Tensor) -> torch.Tensor:
     """:func:`execute` without the autograd Function around it."""
     validate_rhs(b, plan.shape)
     _check_device(plan, b)
     _apply_cache_capacity(plan.config)
     batch = int(b.shape[0]) if b.ndim == 3 else None
-    sig = plan.signature()
-    kind = "fused" if batch is None else "batched"
-    _cache.record_dispatch(kind)
-    return _maybe_profiled(
-        lambda: build_executor(sig, batch=batch)(
-            *plan_leaves(plan), b, derived=plan.derived,
-            a_flag=plan.a_unsplittable),
-        kind=kind, plan=plan, sig=sig, prof=_spmm_prof(plan, b))
+    return _guarded_call(
+        plan.signature(), lambda s: build_executor(s, batch=batch),
+        (*plan_leaves(plan), b), "fused" if batch is None else "batched",
+        plan=plan, prof=_spmm_prof(plan, b),
+        kwargs=dict(derived=plan.derived, a_flag=plan.a_unsplittable))
 
 
 def validate_sddmm_operands(
@@ -260,13 +337,112 @@ def _execute_sddmm(plan: NeutronPlan, x: torch.Tensor,
         return torch.zeros(shape, dtype=torch.float32, device=plan.device)
     sig = tag_op(plan.signature(), "sddmm", smaps.nnz, smaps.nnz_f,
                  plan.config.fringe_vmem_budget)
-    _cache.record_dispatch("sddmm")
-    return _maybe_profiled(
-        lambda: build_executor(sig, batch=batch)(
-            *sddmm_body_leaves(plan, smaps), x, y, derived=plan.derived),
-        kind="sddmm", plan=plan, sig=sig,
+    return _guarded_call(
+        sig, lambda s: build_executor(s, batch=batch),
+        (*sddmm_body_leaves(plan, smaps), x, y), "sddmm", plan=plan,
         prof=_sddmm_prof(plan.config, smaps.nnz, smaps.nnz_f,
-                         int(x.shape[-1]), batch))
+                         int(x.shape[-1]), batch),
+        kwargs=dict(derived=plan.derived))
+
+
+# --- sparse x sparse (spspmm) ----------------------------------------------
+
+
+def spspmm_symbolic(ma: UpdateMaps, mb: UpdateMaps, n: int, bm_b: int):
+    """The host symbolic phase of ``C = A @ B`` on the two plans' COO
+    mirrors (``n`` is B's column count, ``bm_b`` B's row-window height),
+    as the reference computes it: A nonzeros whose column falls in an
+    empty row window of B are dropped, the survivors expand to
+    (A-nonzero, B-nonzero) term pairs by binary search over B's row-sorted
+    order, and the terms are stably sorted by their output cell.
+
+    Returns ``(ae, be, lengths, c_keys)``: term ``t`` multiplies A's
+    nonzero ``ae[t]`` by B's ``be[t]``; output slot ``s`` is cell
+    ``c_keys[s]`` (``row * n + col``, ascending) and sums the next
+    ``lengths[s]`` terms.  None when the product has no term.
+    """
+    ar, ac = ma.rows, ma.cols
+    br, bc = mb.rows, mb.cols
+    if ar.size == 0 or br.size == 0:
+        return None
+    # coarse row-window intersection: a B row window with no nonzeros can
+    # satisfy no A column that lands in it
+    n_win = (mb.shape[0] + bm_b - 1) // bm_b
+    active_win = np.zeros(n_win, bool)
+    active_win[np.unique(br // bm_b)] = True
+    keep = np.flatnonzero(active_win[ac // bm_b])
+    if keep.size == 0:
+        return None
+    ob = np.argsort(br, kind="stable")
+    brs = br[ob]
+    starts = np.searchsorted(brs, ac[keep])
+    deg = np.searchsorted(brs, ac[keep], side="right") - starts
+    n_exp = int(deg.sum())
+    if n_exp == 0:
+        return None
+    ae = np.repeat(keep, deg)
+    cum = np.cumsum(deg) - deg
+    be = ob[np.arange(n_exp) - np.repeat(cum, deg) + np.repeat(starts, deg)]
+    key = ar[ae] * np.int64(n) + bc[be]
+    order = np.argsort(key, kind="stable")
+    ae, be, key = ae[order], be[order], key[order]
+    first = np.flatnonzero(np.concatenate([[True], key[1:] != key[:-1]]))
+    lengths = np.diff(np.append(first, n_exp))
+    return ae, be, lengths, key[first]
+
+
+def execute_spspmm(a_plan: NeutronPlan, b_plan: NeutronPlan):
+    """Sparse x sparse matmul: ``C = A @ B`` from two prepared patterns.
+
+    Two phases, as in the reference.  The symbolic phase runs on the host
+    on the plans' COO mirrors (:func:`spspmm_symbolic`).  The numeric phase
+    is one call on A's plan device, through the executor cache and the
+    dispatch counter: the products ``va[ae] * vb[be]`` in fp32, summed per
+    output slot in term order (``pipeline._spspmm_body``).  Duplicate COO
+    triplets in either input expand independently, so they accumulate as
+    in the dense product.
+
+    Returns ``(rows, cols, vals, shape)``: a COO triple in row-major order
+    with unique cells, ``vals`` fp32 on A's device, ready for
+    ``sparse.from_coo``.  Raises :class:`PlanBuildError` when either plan
+    has no ``update_maps``, ``ValueError`` when the inner dimensions
+    disagree and :class:`DispatchError` when the plans are on different
+    devices.
+    """
+    ma, mb = a_plan.update_maps, b_plan.update_maps
+    if ma is None or mb is None:
+        raise PlanBuildError(
+            "spspmm needs both plans' COO mirrors (update_maps); prepare "
+            "from COO, or carry them with interop.update_maps_from_arrays")
+    m, ka = a_plan.shape
+    kb, n = b_plan.shape
+    if ka != kb:
+        raise ValueError(
+            f"spspmm inner dimensions disagree: A is {a_plan.shape}, "
+            f"B is {b_plan.shape}")
+    dev = a_plan.device
+    if b_plan.device != dev:
+        raise DispatchError(
+            f"spspmm operands live on different devices: A on {dev}, B on "
+            f"{b_plan.device}")
+    _apply_cache_capacity(a_plan.config)
+    terms = spspmm_symbolic(ma, mb, n, b_plan.config.bm)
+    if terms is None:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                torch.zeros(0, dtype=torch.float32, device=dev), (m, n))
+    ae, be, lengths, c_keys = terms
+    n_exp, nnz_c = int(ae.size), int(c_keys.size)
+    args = (
+        torch.from_numpy(ae.astype(np.int32)).to(dev),
+        torch.from_numpy(be.astype(np.int32)).to(dev),
+        torch.from_numpy(lengths).to(dev),
+        torch.as_tensor(ma.vals, dtype=torch.float32).to(dev),
+        torch.as_tensor(mb.vals, dtype=torch.float32).to(dev),
+    )
+    vals = _guarded_call(
+        ("spspmm", n_exp, nnz_c), build_executor, args, "spspmm",
+        plan=a_plan, prof=_spspmm_prof(a_plan.config, n_exp, nnz_c))
+    return c_keys // n, c_keys % n, vals, (m, n)
 
 
 # --- the backward: transpose plans and the autograd Functions --------------

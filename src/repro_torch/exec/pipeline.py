@@ -15,7 +15,14 @@ encoding on a structured plan, the flat tile stream otherwise.
 A signature tagged with ``plan_ir.tag_op(sig, "sddmm", ...)`` selects the
 SDDMM body instead, on the same plan structure: the values at the plan's
 core slots (``core_lin``) on the matrix path, per-nonzero dots on the
-vector path, merged in the input COO order.
+vector path, merged in the input COO order.  A ``("spspmm", n_exp,
+nnz_c)`` signature selects the numeric phase of the sparse x sparse
+product (:func:`_spspmm_body`).
+
+Each build fires the fault seams of ``repro_torch.robust``:
+``executor_build`` for every signature, then ``pallas_lowering`` for a
+``"cuda"`` one, where the reference lowers its Pallas tiers.  A cache hit
+builds nothing and fires neither.
 
 Executors live in the bounded LRU ``exec.cache.EXECUTOR_CACHE`` keyed by
 (signature, batch); a tagged signature never equals an untagged one, so an
@@ -29,10 +36,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..core.plan_ir import (
-    gather_rows, op_extra, permute_pad_b, sig_op, untag_sig,
+    gather_rows, op_extra, permute_pad_b, sig_impl, sig_op, untag_sig,
 )
 from ..errors import PlanBuildError
 from ..kernels import ops
+from ..robust.faults import HARNESS
 from .cache import EXECUTOR_CACHE, record_build
 
 
@@ -165,8 +173,40 @@ def _batched(run):
     return run_batched
 
 
+def _spspmm_body(sig: Tuple):
+    """Numeric SpGEMM body for ``("spspmm", n_exp, nnz_c)`` signatures.
+
+    The symbolic phase (``exec.api.spspmm_symbolic``) gives three index
+    streams: term ``t`` multiplies A's nonzero ``ae[t]`` by B's nonzero
+    ``be[t]``, and the terms are sorted by output slot, slot ``s`` owning
+    the next ``lengths[s]`` of them.  Returns ``run(ae, be, lengths, va,
+    vb)``: the products in fp32, each slot's run summed left to right in
+    term order, as the reference's sorted ``segment_sum``.  The sum is
+    deterministic on either device: an ``(n, 1)`` operand takes
+    ``torch.segment_reduce``'s loop of one thread per segment on the card
+    (a 1-D one goes to a tree reduction, whose order differs), and the
+    CPU's loop is sequential; no atomics.  The reference leaves this to
+    XLA, outside any Pallas kernel, so no kernel of the port's runs here.
+    """
+    _tag, _n_exp, _nnz_c = sig
+
+    def run(ae, be, lengths, va, vb):
+        prod = (torch.index_select(va, 0, ae)
+                * torch.index_select(vb, 0, be))
+        return torch.segment_reduce(prod[:, None], "sum", lengths=lengths,
+                                    axis=0, unsafe=True)[:, 0]
+
+    return run
+
+
 def _build(sig: Tuple, batch: Optional[int]):
+    # fault seams: once per executor *build* (a cache hit skips _build)
+    HARNESS.fire("executor_build", context=sig)
+    if sig_impl(sig) == "cuda":
+        HARNESS.fire("pallas_lowering", context=sig)
     record_build("fused" if batch is None else "batched")
+    if sig[0] == "spspmm":
+        return _spspmm_body(sig)
     op = sig_op(sig)
     if op == "sddmm":
         run = _sddmm_body(sig)
@@ -185,7 +225,9 @@ def build_executor(sig: Tuple, *, batch: Optional[int] = None):
     ``plan_ir.plan_leaves``; ``b`` is (K, N), or (batch, K, N) when
     ``batch`` is set.  For an SDDMM-tagged signature it takes
     ``(*plan_ir.sddmm_body_leaves(...), x, y, derived=None)``, batched
-    along a leading axis of both operands when ``batch`` is set.
+    along a leading axis of both operands when ``batch`` is set.  For a
+    ``("spspmm", ...)`` signature it takes ``(ae, be, lengths, va, vb)``
+    (:func:`_spspmm_body`).
     """
     return EXECUTOR_CACHE.get_or_build(
         (sig, batch), functools.partial(_build, sig, batch))

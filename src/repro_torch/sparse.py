@@ -10,30 +10,37 @@
     C = A @ B
     w = sp.sddmm(A, X, Y)    # (nnz,) values of X @ Y at A's pattern
     A2 = A.with_values(w)    # same pattern, new values, same executor
+    P = sp.spspmm(A, A)      # sparse x sparse, a new SparseMatrix
+    P = A @ A
+    C = sp.spmm(A, B, deadline=0.5)   # DeadlineExceeded if it lands late
 
     W = sp.from_coo(rows, cols, vals, shape, structure_hint=("nm", 2, 4))
     Y = W @ X                # a 2:4-pruned weight on the N:M kernel
 
 The subset of ``repro.sparse`` this port carries: static single-device
-plans (general, N:M and bitmap payloads), SpMM, SDDMM and value updates.
+plans (general, N:M and bitmap payloads), SpMM, SDDMM, sparse x sparse
+products (``spspmm``) and value updates.
 ``spmm``/``bspmm`` are differentiable in B and ``sddmm`` in X and Y, on
 either impl (``exec.api.SpMMFunction`` and ``SDDMMFunction``: the
 backward runs the same executor, on the transpose plan for SpMM); no
-gradient flows to A's values, as in the reference.  ``A @ A`` on two
-sparse handles (the reference's ``spspmm``) raises
-:class:`~repro_torch.errors.NotPortedError`.
+gradient flows to A's values, as in the reference.
 ``sddmm`` returns values in the input COO order of the pattern, the order
 ``with_values`` takes, so GAT-style attention is three calls: ``sddmm``
 -> ``with_values`` -> ``spmm``.  Entry points run on the card unless the caller passes
 ``device="cpu"`` (the plain versions, ``impl="torch"``); with no CUDA
 device and no ``device="cpu"`` they raise rather than carry on on the CPU.
-With ``telemetry=True`` in the config, each ``spmm``/``bspmm``/``sddmm``
-call records a trace with one ``dispatch`` span in ``obs.TRACES`` (and its
+Every operator takes ``deadline=`` (seconds): the call synchronises the
+result's device, then raises :class:`~repro_torch.errors.DeadlineExceeded`
+if it finished later than that after it started (a post-hoc check, as in
+the reference; the work is not cancelled).
+With ``telemetry=True`` in the config, each ``spmm``/``bspmm``/``sddmm``/
+``spspmm`` call records a trace with one ``dispatch`` span in ``obs.TRACES`` (and its
 executor dispatch a roofline record in ``obs.PROFILER``); read them with
 ``repro_torch.obs.snapshot()``.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -42,12 +49,12 @@ import torch
 from .core import spmm as core_spmm
 from .core.plan_ir import NeutronPlan, SpmmConfig
 from .dynamic import update_values
-from .errors import NotPortedError, PlanBuildError
+from .errors import DeadlineExceeded, PlanBuildError
 from .exec import api as _exec
 from .obs import TRACES
 
 __all__ = ["SparseMatrix", "from_coo", "from_plan", "spmm", "bspmm",
-           "sddmm"]
+           "sddmm", "spspmm"]
 
 
 def _traced_call(name: str, plan: NeutronPlan, attrs, fn):
@@ -68,6 +75,24 @@ def _traced_call(name: str, plan: NeutronPlan, attrs, fn):
     TRACES.add_span(tr, "dispatch", t0, TRACES.now_us())
     tr.attrs["outcome"] = "ok"
     TRACES.end(tr)
+    return out
+
+
+def _await(out: torch.Tensor, deadline: Optional[float], t0: float,
+           what: str) -> torch.Tensor:
+    """Post-hoc deadline: synchronise ``out``'s device, then raise if the
+    call landed too late.  The counterpart of the reference's
+    ``jax.block_until_ready``: a clock read without the synchronisation
+    would time only the enqueue."""
+    if deadline is None:
+        return out
+    if out.device.type == "cuda":
+        torch.cuda.synchronize(out.device)
+    elapsed = time.monotonic() - t0
+    if elapsed > deadline:
+        raise DeadlineExceeded(
+            f"{what} finished {elapsed - deadline:.3f}s past its "
+            f"{deadline:.3f}s deadline")
     return out
 
 
@@ -93,6 +118,18 @@ class SparseMatrix:
     @property
     def nnz(self) -> int:
         return self.coo()[0].shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.float32  # the kernels accumulate and emit fp32
+
+    @property
+    def is_dynamic(self) -> bool:
+        return False  # DynamicPlan is not ported yet
+
+    @property
+    def is_sharded(self) -> bool:
+        return False  # sharded plans are not ported yet
 
     @property
     def row(self) -> np.ndarray:
@@ -138,10 +175,8 @@ class SparseMatrix:
         return SparseMatrix(update_values(self.plan, np.arange(nnz), values))
 
     def __matmul__(self, other):
-        if isinstance(other, (SparseMatrix, NeutronPlan)):
-            raise NotPortedError(
-                "SparseMatrix @ SparseMatrix is spspmm, which the port does "
-                "not carry yet; multiply by a dense operand (spmm)")
+        if isinstance(other, SparseMatrix):
+            return spspmm(self, other)
         return spmm(self, other)
 
     def __repr__(self) -> str:
@@ -197,30 +232,34 @@ def _on_device(x, a: SparseMatrix) -> torch.Tensor:
     return torch.from_numpy(x).to(a.device) if isinstance(x, np.ndarray) else x
 
 
-def spmm(a, b) -> torch.Tensor:
+def spmm(a, b, *, deadline: Optional[float] = None) -> torch.Tensor:
     """Dense ``C = A @ B`` in fp32.  ``b`` is (K, N) on A's device (a
     numpy array is copied there); batched operands go through
     :func:`bspmm`.  Differentiable in ``b``: its gradient is ``Aᵀ @ g``,
     run on the transpose plan."""
     a = _as_matrix(a, "spmm")
     b = _on_device(b, a)
+
+    def run():
+        t0 = time.monotonic()
+        return _await(_exec.execute(a.plan, b), deadline, t0, "spmm")
+
     return _traced_call(
         "bspmm" if b.ndim == 3 else "spmm", a.plan,
-        {"shape": a.shape, "n": int(b.shape[-1])},
-        lambda: _exec.execute(a.plan, b))
+        {"shape": a.shape, "n": int(b.shape[-1])}, run)
 
 
-def bspmm(a, b) -> torch.Tensor:
+def bspmm(a, b, *, deadline: Optional[float] = None) -> torch.Tensor:
     """Batched SpMM: ``b`` is (batch, K, N) -> (batch, M, N), one call per
     engine path for the whole batch."""
     if b.ndim != 3:
         raise ValueError(
             f"bspmm wants a (batch, K, N) operand, got ndim={b.ndim} "
             "(use spmm for a single right-hand side)")
-    return spmm(a, b)
+    return spmm(a, b, deadline=deadline)
 
 
-def sddmm(a, x, y) -> torch.Tensor:
+def sddmm(a, x, y, *, deadline: Optional[float] = None) -> torch.Tensor:
     """Sampled dense-dense matmul: the values of ``X @ Y`` at A's pattern.
 
     ``x`` is (M, D) and ``y`` (D, K), or both with a leading batch axis, on
@@ -232,5 +271,35 @@ def sddmm(a, x, y) -> torch.Tensor:
     """
     a = _as_matrix(a, "sddmm")
     x, y = _on_device(x, a), _on_device(y, a)
-    return _traced_call("sddmm", a.plan, {"shape": a.shape},
-                        lambda: _exec.execute_sddmm(a.plan, x, y))
+
+    def run():
+        t0 = time.monotonic()
+        return _await(_exec.execute_sddmm(a.plan, x, y), deadline, t0,
+                      "sddmm")
+
+    return _traced_call("sddmm", a.plan, {"shape": a.shape}, run)
+
+
+def spspmm(a, b, *, deadline: Optional[float] = None) -> SparseMatrix:
+    """Sparse x sparse: ``C = A @ B`` as a new prepared SparseMatrix.
+
+    The symbolic phase runs on the host on the two plans' COO mirrors, the
+    numeric phase is one call on A's device
+    (``exec.api.execute_spspmm``).  The product is prepared by
+    :func:`from_coo` with A's config, on A's device, so it takes the whole
+    operator family at once.  ``deadline`` covers the product's values,
+    not its ``from_coo``.
+    """
+    a = _as_matrix(a, "spspmm")
+    b = _as_matrix(b, "spspmm")
+
+    def run():
+        t0 = time.monotonic()
+        out = _exec.execute_spspmm(a.plan, b.plan)
+        _await(out[2], deadline, t0, "spspmm")
+        return out
+
+    cr, cc, cv, cshape = _traced_call("spspmm", a.plan, {"shape": a.shape},
+                                      run)
+    return from_coo(cr, cc, cv.cpu().numpy(), cshape, device=a.device,
+                    config=a.plan.config)

@@ -957,3 +957,95 @@ def test_cuda_gradients_match_library(cuda):
     ((x64 @ y64)[r, c] * gs.double()).sum().backward()
     _close(x.grad, x64.grad.float())
     _close(y.grad, y64.grad.float())
+
+
+def test_cuda_spspmm_bit_equal_to_plain(cuda):
+    """``A @ A`` on the card: the pattern of the CPU product, values bit
+    for bit (each output slot summed left to right in term order on both
+    devices), again on a second run; operands on two devices raise."""
+    from repro_torch import sparse as sp
+    from repro_torch.errors import DispatchError
+    from repro_torch.exec import execute_spspmm
+
+    spec = PAPER_DATASETS["cora"]
+    rows, cols, vals = generate(spec)
+    shape = (spec.m, spec.k)
+    a_cpu = sp.from_coo(rows, cols, vals, shape, device="cpu")
+    a_cuda = sp.from_coo(rows, cols, vals, shape, device=cuda)
+    p_cpu = execute_spspmm(a_cpu.plan, a_cpu.plan)
+    p_cuda = execute_spspmm(a_cuda.plan, a_cuda.plan)
+    again = execute_spspmm(a_cuda.plan, a_cuda.plan)
+    assert np.array_equal(p_cuda[0], p_cpu[0])
+    assert np.array_equal(p_cuda[1], p_cpu[1])
+    assert p_cuda[2].device.type == "cuda" and p_cuda[2].numel() > 0
+    for got in (p_cuda[2], again[2]):
+        assert torch.equal(got.cpu().view(torch.int32),
+                           p_cpu[2].view(torch.int32))
+    product = a_cuda @ a_cuda
+    assert product.device.type == "cuda"
+    assert product.plan.config == a_cuda.plan.config
+    with pytest.raises(DispatchError, match="different devices"):
+        execute_spspmm(a_cuda.plan, a_cpu.plan)
+
+
+def test_cuda_health_gate_raises_without_launch(cuda):
+    """A failed "cuda" build raises KernelLoweringError and is recorded;
+    the dispatch inside the backoff raises with no launch; the retry
+    launches and is bit-equal to an unarmed call."""
+    from repro_torch import sparse as sp
+    from repro_torch.core.plan_ir import sig_impl
+    from repro_torch.errors import KernelLoweringError
+    from repro_torch.exec.health import HEALTH
+    from repro_torch.kernels import ops
+    from repro_torch.robust.faults import HARNESS, armed
+
+    spec = PAPER_DATASETS["cora"]
+    rows, cols, vals = generate(spec)
+    a = sp.from_coo(rows, cols, vals, (spec.m, spec.k), device=cuda)
+    sig = a.plan.signature()
+    b = torch.from_numpy(np.random.RandomState(9).randn(
+        7, spec.k, 8).astype(np.float32)).to(cuda)
+    HARNESS.reset()
+    HEALTH.reset()
+    try:
+        with armed("executor_build", times=1,
+                   match=lambda s: sig_impl(s) == "cuda"):
+            with pytest.raises(KernelLoweringError):
+                sp.bspmm(a, b)
+            assert HEALTH.state(sig) == "retrying"
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            with pytest.raises(KernelLoweringError, match="retrying"):
+                sp.bspmm(a, b)
+            assert not any(ops.launch_counts().values())
+            retry = sp.bspmm(a, b)
+        assert any(ops.launch_counts().values())
+        assert HEALTH.state(sig) == "healthy"
+        assert HEALTH.snapshot()["recoveries"] == 1
+        unarmed = sp.bspmm(a, b)
+        assert torch.equal(retry.view(torch.int32), unarmed.view(torch.int32))
+    finally:
+        HARNESS.reset()
+        HEALTH.reset()
+
+
+def test_cuda_deadline(cuda):
+    """deadline=0.0 raises DeadlineExceeded once the card is synchronised;
+    deadline=120.0 returns the bits of the call without one."""
+    from repro_torch import sparse as sp
+    from repro_torch.errors import DeadlineExceeded
+
+    spec = PAPER_DATASETS["cora"]
+    rows, cols, vals = generate(spec)
+    a = sp.from_coo(rows, cols, vals, (spec.m, spec.k), device=cuda)
+    rng = np.random.RandomState(4)
+    b = torch.from_numpy(rng.randn(spec.k, 16).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.randn(spec.m, 8).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.randn(8, spec.k).astype(np.float32)).to(cuda)
+    for call in (lambda **kw: sp.spmm(a, b, **kw),
+                 lambda **kw: sp.sddmm(a, x, y, **kw),
+                 lambda **kw: torch.from_numpy(sp.spspmm(a, a, **kw).val)):
+        with pytest.raises(DeadlineExceeded):
+            call(deadline=0.0)
+        assert torch.equal(call(deadline=120.0).view(torch.int32),
+                           call().view(torch.int32))

@@ -2,9 +2,14 @@
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``.
 
 An AST scan of every import statement (top level or inside a function).
-Relative imports stay inside ``repro_torch`` and are allowed.
+Relative imports stay inside ``repro_torch`` and are allowed.  The port's
+layer check, ``tools/check_layers_torch.py``, passes on the tree and
+rejects an upward import and a ``jax``/``repro`` import.
 """
 import ast
+import importlib.util
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -35,7 +40,8 @@ def test_port_files_exist():
     assert "chip_smoke.py" in names
     assert "src/repro_torch/sparse.py" in names
     for module in ("core/coordinator.py", "core/tuner.py", "obs/trace.py",
-                   "obs/profile.py", "obs/report.py"):
+                   "obs/profile.py", "obs/report.py", "robust/faults.py",
+                   "exec/health.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) > 20
 
@@ -56,3 +62,58 @@ def test_scan_catches_forbidden_imports(tmp_path):
                      "from . import sibling\n")
     assert [m for _, m in _imported_roots(probe) if m in FORBIDDEN] == [
         "repro", "jax", "repro"]
+
+
+def _layer_checker():
+    spec = importlib.util.spec_from_file_location(
+        "check_layers_torch", ROOT / "tools" / "check_layers_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_layer_check_passes_on_the_tree():
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "check_layers_torch.py")],
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "import layering ok" in out.stdout
+
+
+def _fake_port(tmp_path, files):
+    for rel, text in files.items():
+        path = tmp_path / "repro_torch" / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(text)
+    return str(tmp_path)
+
+
+def test_layer_check_rejects_upward_and_foreign_imports(tmp_path):
+    check = _layer_checker()
+    src = _fake_port(tmp_path, {
+        "__init__.py": "",
+        "errors.py": "",
+        "core/__init__.py": "",
+        # upward: core must not reach the facade, even inside a function
+        "core/spmm.py": "def f():\n    from .. import sparse\n",
+        "kernels/ops.py": ("from ..core.cost_model import x\n"
+                           "from ..exec import api\n"),
+        "obs/metrics.py": "from ..errors import ReproError\n",
+        "exec/api.py": "from ..dynamic import update_values\n",
+        "sparse.py": "import importlib\nimportlib.import_module('jax')\n",
+        "models/layers.py": "from repro.core import spmm\n",
+    })
+    smoke = tmp_path / "chip_smoke.py"
+    smoke.write_text("import jax.numpy as jnp\n")
+    found = check.check_tree(src, extra_files=(str(smoke),))
+    joined = "\n".join(found)
+    assert "repro_torch/core/spmm.py:2: core must not import " \
+        "repro_torch.sparse" in joined
+    assert "kernels must not import repro_torch.exec" in joined
+    assert "obs must not import repro_torch.errors" in joined
+    assert "repro_torch/sparse.py:2: imports jax" in joined
+    assert "repro_torch/models/layers.py:1: imports repro.core" in joined
+    assert "chip_smoke.py:1: imports jax.numpy" in joined
+    # the allowances: kernels -> core.cost_model, exec/api.py -> dynamic
+    assert "cost_model" not in joined and "dynamic" not in joined
+    assert len(found) == 6, found

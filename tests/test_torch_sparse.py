@@ -201,13 +201,78 @@ def test_torch_impl_spmm_gradient_is_at_g(matrix, batched):
 
 
 def test_sparse_times_sparse_raises_typed_error(matrix):
-    """SparseMatrix @ SparseMatrix is spspmm, which the port does not
-    carry yet: a typed error that names it (not an AttributeError)."""
-    from repro_torch.errors import NotPortedError
+    """SparseMatrix @ SparseMatrix is spspmm: ``A @ A`` equals
+    ``sp.spspmm(A, A)`` and the JAX facade's product on the same COO
+    (the typed error this test held before spspmm was ported is gone);
+    disagreeing inner dimensions still raise a typed error."""
+    import repro.sparse as jsp
 
+    _, rows, cols, vals, _ = matrix
+    m = 110  # square: the first 110 rows of the fixture's matrix
+    keep = rows < m
+    r, c, v = rows[keep], cols[keep], vals[keep]
+    A = sp.from_coo(r, c, v, (m, m), device="cpu")
+    P, Q = A @ A, sp.spspmm(A, A)
+    J = jsp.spspmm(*(jsp.from_coo(r, c, v, (m, m), impl="xla"),) * 2)
+    for x, y, z in zip(P.coo(), Q.coo(), J.coo()):
+        assert np.array_equal(x, y) and np.array_equal(x, np.asarray(z))
+    want = A.dense() @ A.dense()
+    err = np.abs(P.dense() - want).max()
+    assert err <= TOL * max(1.0, np.abs(want).max()), err
+    with pytest.raises(ValueError, match="inner"):
+        matrix[-1] @ matrix[-1]  # (140, 110) @ (140, 110)
+
+
+def test_facade_deadline(matrix):
+    """``deadline=`` on every operator: 0 raises DeadlineExceeded once the
+    result is ready; a generous one returns the same bits as no deadline
+    (mirrors ``tests/test_operator_family.py::test_facade_deadline``)."""
+    from repro_torch.errors import DeadlineExceeded
+
+    a, _, _, _, A = matrix
+    rng = np.random.RandomState(4)
+    b = torch.from_numpy(rng.randn(110, 8).astype(np.float32))
+    bb = torch.stack([b, b])
+    x = torch.from_numpy(rng.randn(140, 5).astype(np.float32))
+    y = torch.from_numpy(rng.randn(5, 110).astype(np.float32))
+    At = sp.from_coo(A.col, A.row, A.val, (110, 140), device="cpu")
+    calls = {
+        "spmm": lambda **kw: sp.spmm(A, b, **kw),
+        "bspmm": lambda **kw: sp.bspmm(A, bb, **kw),
+        "sddmm": lambda **kw: sp.sddmm(A, x, y, **kw),
+        "spspmm": lambda **kw: sp.spspmm(A, At, **kw).val,
+    }
+    for name, call in calls.items():
+        with pytest.raises(DeadlineExceeded, match="past its 0.000s"):
+            call(deadline=0.0)
+        got, want = call(deadline=120.0), call()
+        if isinstance(got, torch.Tensor):
+            assert torch.equal(got, want), name
+        else:
+            assert np.array_equal(got, want), name
+    _close(sp.spmm(A, b, deadline=120.0), a.astype(np.float64) @ b.numpy())
+    assert issubclass(DeadlineExceeded, TimeoutError)
+
+
+def test_facade_properties(matrix):
     A = matrix[-1]
-    with pytest.raises(NotPortedError, match="spspmm") as err:
-        A @ A
-    assert isinstance(err.value, DispatchError)
-    with pytest.raises(NotPortedError, match="spspmm"):
-        A @ A.plan
+    assert A.dtype == torch.float32
+    assert A.is_dynamic is False and A.is_sharded is False
+    assert "spspmm" in sp.__all__
+
+
+def test_sddmm_and_spspmm_profiled():
+    """Each of sddmm and spspmm leaves a PROFILER record (mirrors
+    ``tests/test_telemetry_integration.py::test_sddmm_and_spspmm_profiled``)."""
+    from repro_torch.obs import PROFILER
+
+    rng = np.random.RandomState(0)
+    a, rows, cols, vals = make_sparse(rng, 48, 48, 0.1)  # square: A @ A
+    A = sp.from_coo(rows, cols, vals, a.shape, device="cpu", telemetry=True)
+    x = rng.randn(48, 8).astype(np.float32)
+    y = rng.randn(8, 48).astype(np.float32)
+    PROFILER.reset()
+    sp.sddmm(A, x, y)
+    sp.spspmm(A, A.with_values(np.abs(vals)))
+    ops = {r.op for r in PROFILER.records()}
+    assert "sddmm" in ops and "spspmm" in ops
