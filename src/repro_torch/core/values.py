@@ -25,10 +25,10 @@ stream would go stale, and the general leaves are always kept current.
 The demotion changes the signature once (to ``general_format_sig`` of the
 old one); later updates keep it.
 
-Scope of this port: single-device plans.  Structural deltas
-(``GraphDelta``, ``DynamicPlan``, compaction) and the registry are not
-ported yet (ROADMAP: "Dynamic plans, and ``with_values`` on the
-device").
+It lives in ``core`` because the executor's backward (``exec.api``) writes
+values into the transpose structure with it, and ``exec`` sits below
+``dynamic``; ``repro_torch.dynamic.update_values`` is the public name, as
+in the reference.  Single-device plans only.
 """
 from __future__ import annotations
 
@@ -38,10 +38,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..core.plan_ir import (
-    PATH_FRINGE, NeutronPlan, UpdateMaps, unsplittable_flag,
-)
 from ..errors import PlanBuildError
+from .plan_ir import PATH_FRINGE, NeutronPlan, UpdateMaps, unsplittable_flag
 
 
 def _as_1d(a, dtype) -> np.ndarray:

@@ -1,5 +1,7 @@
-"""Plan maintenance under changing values (the value path of
-``repro.dynamic``)."""
-from .delta import update_values
+"""Plan maintenance over evolving sparse matrices (``repro.dynamic``).
+
+``update_values`` (the value path) lives in ``core.values`` and is
+re-exported here under its public name."""
+from ..core.values import update_values
 
 __all__ = ["update_values"]

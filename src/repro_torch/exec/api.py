@@ -62,7 +62,7 @@ from ..core.plan_ir import (
     permute_pad_b, plan_leaves, sddmm_body_leaves, sig_impl, tag_op,
     validate_rhs,
 )
-from ..dynamic import update_values
+from ..core.values import update_values
 from ..errors import DispatchError, KernelLoweringError, PlanBuildError
 from ..kernels import _build, ops
 from ..obs import PROFILER

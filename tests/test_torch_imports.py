@@ -41,7 +41,7 @@ def test_port_files_exist():
     assert "src/repro_torch/sparse.py" in names
     for module in ("core/coordinator.py", "core/tuner.py", "obs/trace.py",
                    "obs/profile.py", "obs/report.py", "robust/faults.py",
-                   "exec/health.py"):
+                   "exec/health.py", "core/values.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) > 20
 
@@ -114,6 +114,24 @@ def test_layer_check_rejects_upward_and_foreign_imports(tmp_path):
     assert "repro_torch/sparse.py:2: imports jax" in joined
     assert "repro_torch/models/layers.py:1: imports repro.core" in joined
     assert "chip_smoke.py:1: imports jax.numpy" in joined
-    # the allowances: kernels -> core.cost_model, exec/api.py -> dynamic
-    assert "cost_model" not in joined and "dynamic" not in joined
-    assert len(found) == 6, found
+    # exec sits below dynamic: the backward's update_values is core's
+    assert "repro_torch/exec/api.py:1: exec must not import " \
+        "repro_torch.dynamic" in joined
+    # the allowance: kernels -> core.cost_model
+    assert "cost_model" not in joined
+    assert len(found) == 7, found
+
+
+def test_exec_imports_nothing_of_dynamic():
+    """``exec`` sits below ``dynamic``: no module under ``exec/`` imports
+    it, and the checker's one allowance is ``core/spmm.py``'s lazy
+    forward of the execution names."""
+    check = _layer_checker()
+    assert check.ALLOWED == {("repro_torch/core/spmm.py", "repro_torch.exec")}
+    exec_dir = ROOT / "src" / "repro_torch" / "exec"
+    for path in sorted(exec_dir.glob("*.py")):
+        rel = path.relative_to(ROOT / "src").as_posix()
+        tree = ast.parse(path.read_text(), filename=str(path))
+        targets = [t for _, t in check.iter_imports(rel, tree)]
+        assert not [t for t in targets
+                    if t.startswith("repro_torch.dynamic")], (rel, targets)

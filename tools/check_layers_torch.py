@@ -27,15 +27,13 @@ as in the reference) and ``core.plan_ir`` (``unsplittable_flag``, the
 tile-value check the matrix-path kernels share with ``prepare``); both
 import nothing above ``errors``.
 
-Two allowances, each pinned to one module and target:
-
-- ``core/spmm.py`` forwards execution names to ``repro_torch.exec``
-  through a lazy PEP 562 ``__getattr__``, as in the reference.
-- ``exec/api.py`` imports ``repro_torch.dynamic``, a layer above it: the
-  backward (``transpose_plan``, ``_sddmm_grads``) writes a plan's values
-  into the transpose structure with ``update_values``.  The reference's
-  ``exec`` never imports ``dynamic``; the port's ``dynamic`` holds only
-  ``update_values``, which imports nothing above ``core``.
+One allowance, pinned to one module and target: ``core/spmm.py``
+forwards execution names to ``repro_torch.exec`` through a lazy PEP 562
+``__getattr__``, as in the reference.  ``exec`` imports nothing of
+``dynamic``: the backward (``transpose_plan``, ``_sddmm_grads``) writes a
+plan's values into the transpose structure with ``update_values``, which
+lives in ``core.values`` (``repro_torch.dynamic`` re-exports it), so
+``dynamic`` may import ``exec``, as the reference's does.
 
 Beyond the layers, the port stands alone: any import of ``jax``,
 ``jaxlib`` or the JAX package ``repro`` in the port (or in
@@ -85,10 +83,9 @@ ALLOWED_PREFIXES = {
 }
 
 # (module path relative to src, imported target) pairs allowed despite the
-# rules above; each is justified in the module docstring
+# rules above; justified in the module docstring
 ALLOWED = {
     ("repro_torch/core/spmm.py", "repro_torch.exec"),
-    ("repro_torch/exec/api.py", "repro_torch.dynamic"),
 }
 
 
