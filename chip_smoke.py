@@ -124,7 +124,32 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    (batch 6) raises until the signature is demoted, and once disarmed it
    still raises with no launch until ``HEALTH.reset()``; ``deadline=0.0``
    raises ``DeadlineExceeded`` on ``spmm``, ``sddmm`` and ``spspmm``, and
-   ``deadline=120.0`` gives the bits of the call without one.
+   ``deadline=120.0`` gives the bits of the call without one;
+8. the dynamic path, on the GCN path's graph at ogbn-arxiv size (169,343
+   nodes, 2,481,327 nonzeros; not cut): ``from_coo(..., dynamic=True)``
+   and the reference example's mutation stream (``mutate(steps=5,
+   insert_frac=0.01, delete_frac=0.01, update_frac=0.05, seed=1)``: about
+   24.8 k inserts, 24.8 k deletes and 124 k re-weights a step), N = 256;
+   each step prints ``update()``'s host seconds and routing stats,
+   ``_materialize``'s host seconds, the sidecar's capacity and tier,
+   ``spmm`` by CUDA events beside the base plan alone, and the launches,
+   and holds the result against ``torch.sparse.mm`` on the CSR of
+   ``to_coo()`` and the sidecar's contribution against its plain version.
+   The whole stream on the default tier, whose sidecar must launch
+   gather_spmm once a call; the first two steps again under a budget that
+   puts the sidecar on the k-sharded tier, which must launch
+   gather_spmm_ksharded; both kernels are timed on their last sidecar
+   beside the plain version, cuSPARSE and the bound, and with an Inf in B
+   row 0 their NaN cells must be the plain version's.  Then B's gradient
+   against ``torch.sparse.mm`` with autograd; a registry round trip (no
+   ``prepare``, ``spmm`` bit-equal); ``executor_build`` armed around a
+   fresh ``fused+delta`` build (``KernelLoweringError``, no launch); one
+   ``compact()``, whose leaves must equal a fresh ``from_coo`` of
+   ``to_coo()`` and whose ``spmm`` must be bit-equal to that plan's; and
+   bench_dynamic's three rows (a value update of 1 % of the nonzeros, one
+   structural batch, a full re-prepare, each with one ``spmm``) with their
+   ratios.  It prints its wall time (``bench_torch/dynamic_probe.py`` runs
+   it alone).
 
 Tolerance everywhere: max |x - ref| <= 1e-4 * max(1, max |ref|) (fp32 on
 both sides, different summation orders; the kernels' tensor-core path is
@@ -1437,6 +1462,406 @@ def health_phase(ctx, A, P):
             "demoted_after": dispatches}
 
 
+# the dynamic path: the reference example's mutation stream
+# (examples/dynamic_serving.py) on the GCN path's graph
+DYN_STREAM = dict(steps=5, insert_frac=0.01, delete_frac=0.01,
+                  update_frac=0.05, seed=1)
+# the k-sharded sidecar form runs the stream's first steps under a budget
+# that makes a sidecar of up to 2 x this capacity take the k-sharded tier
+DYN_KSHARDED_STEPS = 2
+DYN_KSHARDED_CAP = 65536
+
+
+def dynamic_path(ctx, graph):
+    """The dynamic path on the card, at ogbn-arxiv size (the GCN path's
+    graph): ``from_coo(..., dynamic=True)``, then ``mutate``'s stream
+    (DYN_STREAM), each step ``update()`` (host seconds, routing stats),
+    the sidecar's ``_materialize`` (host seconds, capacity, tier) and
+    ``spmm`` (CUDA events, beside the base plan's call alone; launches,
+    the sidecar's own being those of the dynamic ``spmm`` less those of
+    the base plan alone), held
+    against ``torch.sparse.mm`` on the CSR of ``to_coo()``; the sidecar's
+    contribution (``execute_delta_contribution``) against its plain
+    version.  Twice: on the default tier (B2's walk) for the whole stream,
+    and under a budget that puts the sidecar on the k-sharded tier (B3's
+    walk) for its first DYN_KSHARDED_STEPS steps.  Then, on the first
+    form: B's gradient against ``torch.sparse.mm`` with autograd; B with
+    an Inf in row 0 under the padded sidecar (NaN cells as the plain
+    version's); a registry round trip (bit-equal, no ``prepare``); a fresh
+    ``fused+delta`` build with ``executor_build`` armed (raises
+    ``KernelLoweringError``, launches nothing); one ``compact()`` (forced
+    unless the policy folded), whose leaves must equal a fresh
+    ``from_coo`` of ``to_coo()`` and whose ``spmm`` must be bit-equal to
+    that plan's; bench_dynamic's three rows (a value update of 1 % of the
+    nonzeros, one structural batch, a full re-prepare, each with one
+    ``spmm``).  B2 and B3 are timed on the last sidecar of each form."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import spmm as core_spmm
+    from repro_torch.core.cost_model import fringe_resident_bytes
+    from repro_torch.core.plan_ir import (
+        LEAF_NAMES, gather_rows, permute_pad_b, sig_impl,
+    )
+    from repro_torch.data.graphs import mutate
+    from repro_torch.dynamic import (
+        DynamicPlan, GraphDelta, PlanRegistry, update_values,
+    )
+    from repro_torch.errors import KernelLoweringError
+    from repro_torch.exec import api
+    from repro_torch.exec.health import HEALTH
+    from repro_torch.kernels import ops, ref
+    from repro_torch.robust.faults import HARNESS, armed
+
+    sp, dev, log, require, drive = (ctx.sp, ctx.dev, ctx.log, ctx.require,
+                                    ctx.drive)
+    t_path = time.perf_counter()
+    rows, cols, vals = graph[:3]
+    n = graph[3].shape[0]
+    shape = (n, n)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    b = torch.randn((n, N), device=dev, generator=gen)
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    deltas = list(mutate(rows, cols, vals, shape, **DYN_STREAM))
+    t_mutate = time.perf_counter() - t0
+    log(f"dynamic path (ogbn-arxiv size, {rows.size} nonzeros, N = {N}): "
+        f"mutate stream of {len(deltas)} steps generated in {t_mutate:.2f} "
+        f"s; per step " + ", ".join(
+            f"+{d.ins_rows.size} -{d.del_rows.size} ~{d.upd_rows.size}"
+            for d in deltas))
+
+    def plain_contrib(side, bmat):
+        """The sidecar's contribution by its plain version: the reference
+        gather on the padded stream (or its k-bucketed copy), then the
+        sidecar's row gather."""
+        d_rows, d_cols, d_vals, gsrc, kbc, kbr, kbcol, kbv = side.leaves
+        if side.tier == "ksharded":
+            packed = ref.ref_gather_spmm_kblocked(
+                kbc, kbr, kbcol, kbv, bmat, side.capacity, side.bk,
+                step=1 << 20)
+        else:
+            packed = ref.ref_gather_spmm(d_rows, d_cols, d_vals, bmat,
+                                         side.capacity, chunk=1 << 20)
+        return gather_rows(packed, gsrc)
+
+    def library_ref(dp, bmat):
+        r, c, v = dp.to_coo()
+        return torch.sparse.mm(ctx.csr_of(r, c, v, shape), bmat)
+
+    def run_form(label, a, steps, kernel):
+        dp = a.plan
+        log_rows = []
+        for step, delta in enumerate(deltas[:steps]):
+            stats, t_update = synced(lambda: dp.update(delta))
+            if not dp.delta_nnz:   # the policy folded: no sidecar to run
+                e_spmm = ctx.err_bound(sp.spmm(a, b), library_ref(dp, b))
+                log_rows.append({"step": step, "update_s": t_update,
+                                 **stats, "err_spmm": e_spmm})
+                log(f"  {label} step {step}: update {t_update:.3f} s, "
+                    f"folded by the policy ({dp.last_decision.reason}); "
+                    f"vs torch.sparse.mm {e_spmm:.3e}")
+                continue
+            side, t_mat = synced(dp._materialize)
+            _, base_counts = drive(lambda: api.execute(dp.plan, b))
+            out, counts = drive(lambda: sp.spmm(a, b))
+            side_launches = {k: counts[k] - base_counts[k] for k in counts}
+            require(side_launches[kernel] == 1
+                    and sum(side_launches.values()) == 1,
+                    (label, step, "sidecar launches", side_launches))
+            e_spmm = ctx.err_bound(out, library_ref(dp, b))
+            contrib, c_counts = drive(lambda: api.execute_delta_contribution(
+                shape, dp.config, side, b))
+            require(c_counts[kernel] == 1 and sum(c_counts.values()) == 1,
+                    (label, step, c_counts))
+            e_side = ctx.err_bound(contrib, plain_contrib(side, b))
+            spmm_ms = ctx.timed_ms(lambda: sp.spmm(a, b), budget_ms=100.0)
+            base_ms = ctx.timed_ms(lambda: api.execute(dp.plan, b),
+                                   budget_ms=100.0)
+            row = {"step": step, "update_s": t_update, **stats,
+                   "materialize_s": t_mat, "capacity": side.capacity,
+                   "count": side.count, "tier": side.tier, "bk": side.bk,
+                   "spmm_ms": spmm_ms, "base_ms": base_ms,
+                   "launches": counts,
+                   "sidecar_launches": side_launches,
+                   "err_spmm": e_spmm, "err_sidecar": e_side}
+            log_rows.append(row)
+            log(f"  {label} step {step}: update {t_update:.3f} s "
+                f"(fast_path {stats['fast_path']}, delta_nnz "
+                f"{stats['delta_nnz']}, compacted {stats['compacted']}); "
+                f"materialize {t_mat:.3f} s; sidecar capacity "
+                f"{side.capacity} ({side.count} entries), tier {side.tier}"
+                f"{f' bk={side.bk}' if side.bk else ''}; spmm "
+                f"{spmm_ms:.3f} ms (the base plan alone {base_ms:.3f} ms); "
+                f"launches {counts} (sidecar "
+                f"{ {k: v for k, v in side_launches.items() if v} }); vs "
+                f"torch.sparse.mm {e_spmm:.3e}; sidecar vs plain "
+                f"{e_side:.3e}")
+        return dp, log_rows
+
+    def sidecar_kernel(label, dp):
+        """B2 or B3 on the form's last sidecar, as the fused body calls
+        it (its own derived cache, warm), against its plain version and
+        cuSPARSE on the CSR of the padded stream."""
+        side = dp._materialize()
+        d_rows, d_cols, d_vals, _gsrc, kbc, kbr, kbcol, kbv = side.leaves
+        bp = permute_pad_b(b, None, False, dp.config.bk)
+        cap = side.capacity
+        kname = ("gather_spmm_ksharded" if side.tier == "ksharded"
+                 else "gather_spmm")
+
+        def kern():
+            return ops.delta_fringe_spmm(
+                d_rows, d_cols, d_vals, bp, num_rows=cap, impl="cuda",
+                tier=side.tier, bk=side.bk, kb_chunk=kbc, kb_rows=kbr,
+                kb_cols=kbcol, kb_vals=kbv, derived=side.derived)
+
+        if side.tier == "ksharded":
+            entries = kbr.numel()
+            gcols = torch.repeat_interleave(kbc, entries // kbc.numel()) \
+                * side.bk + kbcol
+            index_bytes = kbc.numel() * 4 + entries * 12
+
+            def plain():
+                return ref.ref_gather_spmm_kblocked(
+                    kbc, kbr, kbcol, kbv, bp, cap, side.bk, step=1 << 20)
+        else:
+            entries = d_rows.numel()
+            gcols = d_cols
+            index_bytes = entries * 12
+
+            def plain():
+                return ref.ref_gather_spmm(d_rows, d_cols, d_vals, bp, cap,
+                                           chunk=1 << 20)
+        lib = torch.sparse_coo_tensor(
+            torch.stack([d_rows.long(), d_cols.long()]), d_vals,
+            (cap, bp.shape[0])).coalesce().to_sparse_csr()
+        b_rows = int(torch.unique(gcols).numel())
+        m = ctx.measure(
+            f"{kname} on the {label} sidecar (capacity {cap}, "
+            f"{side.count} entries, {entries} walked)",
+            kern, plain, lambda: torch.sparse.mm(lib, bp),
+            # each byte once: the stream (padding included), the B rows it
+            # addresses, the packed output; a multiply-add per entry
+            nbytes=index_bytes + b_rows * N * 4 + cap * N * 4,
+            flops=2 * entries * N)
+        return {"kernel": kname, "tier": side.tier,
+                "capacity": cap, "count": side.count, "entries": entries,
+                **m}
+
+    def nonfinite(label, dp):
+        """An Inf in B's row 0 under the padded sidecar: the card's NaN
+        and Inf cells are the plain version's, finite cells within the
+        tolerance."""
+        side = dp._materialize()
+        b_inf = b.clone()
+        b_inf[0, 3] = float("inf")
+        got = api.execute_delta_contribution(shape, dp.config, side, b_inf)
+        want = plain_contrib(side, b_inf)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        row0 = int(torch.nonzero(side.leaves[3] == 0)[0])
+        require(bool(nan[row0, 3]), (label, "padding gave no NaN"))
+        require(torch.equal(torch.isnan(got), nan)
+                and torch.equal(torch.isinf(got), torch.isinf(want)),
+                (label, "NaN/Inf cells"))
+        fin = torch.isfinite(want)
+        err = (got[fin] - want[fin]).abs().max().item()
+        require(err <= TOL * max(1.0, want[fin].abs().max().item()),
+                (label, err))
+        log(f"  {label} sidecar with an Inf in B row 0: {int(nan.sum())} NaN "
+            f"cells as in the plain version (packed row 0, original row "
+            f"{row0}); finite cells max |diff| {err:.3e}")
+
+    # --- the default tier (B2's walk), the whole stream --------------------
+    a, t_prepare = synced(lambda: sp.from_coo(rows, cols, vals, shape,
+                                              device=dev, dynamic=True))
+    log(f"  from_coo(dynamic=True): {t_prepare:.2f} s; base fringe tier "
+        f"{a.plan.plan.fringe_tier}")
+    dp, steps_default = run_form("default", a, len(deltas), "gather_spmm")
+    require(all(r.get("tier", "resident") == "resident"
+                for r in steps_default), steps_default)
+    if not dp.delta_nnz:   # folded at the last step: one more batch
+        dp.update(GraphDelta.inserts(deltas[0].ins_rows, deltas[0].ins_cols,
+                                     deltas[0].ins_vals))
+    kern_default = sidecar_kernel("default-tier", dp)
+    nonfinite("default-tier", dp)
+
+    # B's gradient through the base plan (the transpose plan) and the
+    # transposed sidecar, against the library's autograd on the CSR
+    g = torch.randn((n, N), device=dev, generator=gen)
+    bt = b.clone().requires_grad_(True)
+    (_, t_grad) = synced(lambda: (sp.spmm(a, bt) * g).sum().backward())
+    r, c, v = dp.to_coo()
+    b_lib = b.clone().requires_grad_(True)
+    (torch.sparse.mm(ctx.csr_of(r, c, v, shape), b_lib) * g).sum().backward()
+    e_grad = ctx.err_bound(bt.grad, b_lib.grad)
+    log(f"  B's gradient (first backward, plan_t prepared: {t_grad:.2f} s) "
+        f"vs torch.sparse.mm with autograd: {e_grad:.3e}")
+
+    # registry round trip of the plan with its pending deltas
+    root = tempfile.mkdtemp(prefix="repro_torch_registry_")
+    try:
+        reg = PlanRegistry(root)
+        _, t_save = synced(lambda: reg.save("arxiv", dp))
+        prepares = core_spmm.prepare_call_count()
+        loaded, t_load = synced(lambda: reg.load("arxiv"))
+        require(core_spmm.prepare_call_count() == prepares,
+                "the registry load ran prepare")
+        require(loaded.delta_nnz == dp.delta_nnz, "overlay lost")
+        same = bits_equal(loaded.execute(b), dp.execute(b))
+        require(same, "the loaded plan's spmm is not bit-equal")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del loaded
+    log(f"  registry: save {t_save:.2f} s, load {t_load:.2f} s (no "
+        f"prepare), spmm bit-equal {same}")
+
+    # a fresh fused+delta build under an armed executor_build: raises,
+    # launches nothing (batch 3: a (signature, batch, sidecar) key no
+    # other call built)
+    HARNESS.reset()
+    HEALTH.reset()
+    b3 = torch.randn((3, n, 16), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    raised = None
+    with armed("executor_build", times=1,
+               match=lambda s: sig_impl(s) == "cuda"):
+        try:
+            sp.bspmm(a, b3)
+        except KernelLoweringError as err:
+            raised = err
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    require(raised is not None, "the armed fused+delta build did not raise")
+    require(not any(counts.values()), ("the armed build launched", counts))
+    HARNESS.reset()
+    HEALTH.reset()
+    e_b3 = ctx.err_bound(sp.bspmm(a, b3)[2], sp.spmm(a, b3[2]))
+    log(f"  executor_build armed around a fresh fused+delta build: "
+        f"KernelLoweringError ({type(raised.__cause__).__name__} chained), "
+        f"no launch; after HEALTH.reset() bspmm vs spmm {e_b3:.3e}")
+
+    # the fold
+    folded_by_policy = dp.compactions > 0
+    if not folded_by_policy:
+        _, t_fold = synced(dp.compact)
+    else:
+        t_fold = None
+    fresh, t_fresh = synced(lambda: sp.from_coo(*dp.to_coo(), shape,
+                                                device=dev))
+    for name in LEAF_NAMES:
+        require(torch.equal(getattr(dp.plan, name),
+                            getattr(fresh.plan, name)),
+                ("folded leaf differs from a fresh from_coo", name))
+    require(bits_equal(sp.spmm(a, b), sp.spmm(fresh, b)),
+            "the folded plan's spmm is not bit-equal to a fresh plan's")
+    e_fold = ctx.err_bound(sp.spmm(a, b), library_ref(dp, b))
+    log(f"  fold: {'by the policy' if folded_by_policy else 'forced'}, "
+        f"compact() {t_fold if t_fold is None else round(t_fold, 2)} s; "
+        f"leaves equal a fresh from_coo ({t_fresh:.2f} s), spmm bit-equal; "
+        f"vs torch.sparse.mm {e_fold:.3e}; decision after the last step: "
+        f"{dp.last_decision}")
+    del fresh
+
+    # bench_dynamic's three rows, each with one spmm (best of 2)
+    rng = np.random.RandomState(0)
+    base = dp.plan
+    nnz = base.update_maps.nnz
+    d = max(1, nnz // 100)
+
+    def best_of(fn, reps=2):
+        return min(synced(fn)[1] for _ in range(reps))
+
+    state = {"plan": base}
+
+    def value_cycle():
+        idx = rng.choice(nnz, d, replace=False)
+        state["plan"] = update_values(state["plan"], idx, rng.randn(d))
+        api.execute(state["plan"], b)
+
+    t_value = best_of(value_cycle)
+    dp2 = DynamicPlan(base, auto_compact=False)
+    taken = set((base.update_maps.rows * np.int64(n)
+                 + base.update_maps.cols).tolist())
+
+    def fresh_edges(count):
+        out = []
+        while len(out) < count:
+            for key in (rng.randint(0, n, count).astype(np.int64) * n
+                        + rng.randint(0, n, count)).tolist():
+                if key not in taken and len(out) < count:
+                    taken.add(key)
+                    out.append(key)
+        keys = np.asarray(out, np.int64)
+        return keys // n, keys % n
+
+    def struct_cycle():
+        rr, cc = fresh_edges(d)
+        dp2.update(GraphDelta.inserts(rr, cc, rng.randn(d)))
+        dp2.execute(b)
+
+    t_struct = best_of(struct_cycle)
+    mv = base.update_maps
+
+    def reprepare_cycle():
+        v2 = mv.vals.copy()
+        v2[rng.choice(nnz, d, replace=False)] = rng.randn(d)
+        api.execute(core_spmm.prepare(mv.rows, mv.cols, v2, shape,
+                                      base.config, device=dev), b)
+
+    t_full = best_of(reprepare_cycle)
+    bench = {"value_update_s": t_value, "struct_update_s": t_struct,
+             "full_reprepare_s": t_full, "delta": d,
+             "full_over_value": t_full / t_value,
+             "full_over_struct": t_full / t_struct}
+    log(f"  bench_dynamic rows ({d} nonzeros, 1 %; each with one spmm, best"
+        f" of 2): value update {t_value:.3f} s, structural batch "
+        f"{t_struct:.3f} s, full re-prepare {t_full:.3f} s; re-prepare / "
+        f"value {t_full / t_value:.1f}x, re-prepare / structural "
+        f"{t_full / t_struct:.1f}x")
+    del state, dp2, a, dp, bt, b_lib, g
+
+    # --- the k-sharded tier (B3's walk), the stream's first steps ----------
+    k_pad = -(-n // 64) * 64
+    budget = fringe_resident_bytes(k_pad, DYN_KSHARDED_CAP, 256) - 1
+    a_ks, t_prepare_ks = synced(lambda: sp.from_coo(
+        rows, cols, vals, shape, device=dev, dynamic=True,
+        fringe_vmem_budget=budget))
+    log(f"  k-sharded form: fringe_vmem_budget {budget}, from_coo "
+        f"{t_prepare_ks:.2f} s; base fringe tier {a_ks.plan.plan.fringe_tier}")
+    dp_ks, steps_ks = run_form("k-sharded", a_ks, DYN_KSHARDED_STEPS,
+                               "gather_spmm_ksharded")
+    require(all(r.get("tier", "ksharded") == "ksharded" for r in steps_ks)
+            and any("tier" in r for r in steps_ks), steps_ks)
+    kern_ks = sidecar_kernel("k-sharded", dp_ks)
+    nonfinite("k-sharded", dp_ks)
+    del a_ks, dp_ks
+    torch.cuda.empty_cache()
+
+    wall = time.perf_counter() - t_path
+    log(f"  dynamic path wall time: {wall:.1f} s")
+    return {"mutate_s": t_mutate, "prepare_s": t_prepare,
+            "steps_default": steps_default, "steps_ksharded": steps_ks,
+            "sidecar_kernels": [kern_default, kern_ks],
+            "grad_err": e_grad, "registry": {"save_s": t_save,
+                                             "load_s": t_load},
+            "fold": {"by_policy": folded_by_policy, "compact_s": t_fold,
+                     "fresh_from_coo_s": t_fresh},
+            "bench": bench, "wall_s": wall}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -1923,7 +2348,7 @@ def main() -> int:
     log(f"  {json.dumps({'telemetry_roofline': telemetry})}")
     log(f"  (coordination and telemetry paths: "
         f"{time.perf_counter() - t0:.1f} s)")
-    del coord_plans, b_coord, arxiv_graph
+    del coord_plans, b_coord  # arxiv_graph stays for the dynamic path
 
     # each kernel's count from the path that runs it
     launches = {
@@ -2301,6 +2726,16 @@ def main() -> int:
     # --- phase 7: health, faults and deadlines --------------------------------
     health = health_phase(ctx6, A2, P2)
     log(f"  {json.dumps({'health': health})}")
+    del A2, P2
+    torch.cuda.empty_cache()
+
+    # --- phase 8: the dynamic path -------------------------------------------
+    ctx8 = types.SimpleNamespace(
+        sp=sp, dev=dev, log=log, require=require, drive=drive,
+        err_bound=err_bound, timed_ms=timed_ms, measure=measure,
+        csr_of=csr_of)
+    dynamic = dynamic_path(ctx8, arxiv_graph)
+    log(f"  {json.dumps({'dynamic': dynamic})}")
     require(len(report) == 7 and all(r["launches"] > 0 for r in report),
             [(r["name"], r["launches"]) for r in report])
     print(json.dumps({"kernels": report}), flush=True)

@@ -150,6 +150,11 @@ class EngineCostModel:
         """Max tolerated LPT row imbalance before rhs-sharding wins."""
         return ROWS_IMBALANCE_THRESHOLD
 
+    def compaction_thresholds(self) -> tuple:
+        """``(max_delta_fraction, max_slowdown)`` for
+        :func:`should_compact`."""
+        return DELTA_MAX_FRACTION, DELTA_MAX_SLOWDOWN
+
     def select_matrix_format(
         self, *, nm_pattern: Optional[tuple], tile_zero_fraction: float,
         num_steps: int, bm: int, bk: int, row_cap: int, hint=None,
@@ -370,3 +375,74 @@ def select_shard_axis(
     return ShardAxisDecision(
         "rows", n_shards, float(imb), f"LPT row imbalance {imb:.2f}"
     )
+
+
+# --- dynamic-delta compaction policy ----------------------------------------
+# Structural mutations accumulate in a COO sidecar run on the vector path
+# (dynamic/delta.py).  A small delta belongs there; once it grows past a
+# fraction of the base matrix, or its predicted vector-path cost would
+# dominate the plan's own, folding it into a fresh prepare wins back the
+# coordinated split.  The reference's policy and thresholds, unchanged: the
+# same engine rates that price the split price this trigger.
+DELTA_MAX_FRACTION = 0.25   # delta nnz / base nnz before a forced fold
+DELTA_MAX_SLOWDOWN = 1.25   # predicted (base+delta)/base exec cost ratio
+# denominator floor for the fraction trigger: a plan built (near-)empty and
+# grown by inserts would otherwise fold on its first batches
+DELTA_BASE_NNZ_FLOOR = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactionDecision:
+    compact: bool
+    delta_fraction: float   # delta nnz / base nnz
+    est_slowdown: float     # predicted exec-cost ratio with the sidecar
+    reason: str
+
+
+def should_compact(
+    cm: EngineCostModel,
+    *,
+    base_nnz: int,
+    delta_nnz: int,
+    core_rows: int,
+    fringe_nnz: int,
+    k: int,
+    max_delta_fraction: float = DELTA_MAX_FRACTION,
+    max_slowdown: float = DELTA_MAX_SLOWDOWN,
+) -> CompactionDecision:
+    """Decide whether a delta sidecar should fold into a fresh plan.
+
+    ``core_rows`` is the matrix path's packed row count (num_windows * bm)
+    and ``fringe_nnz`` the base plan's vector-path nonzeros; together they
+    price the base execution the sidecar rides on.  A base with no cost
+    (an empty plan) folds on the fraction trigger alone, its denominator
+    floored at ``DELTA_BASE_NNZ_FLOOR``.
+    """
+    fraction = delta_nnz / max(base_nnz, DELTA_BASE_NNZ_FLOOR)
+    base_cost = cm.cost_matrix(core_rows, k) + cm.cost_vector(fringe_nnz)
+    if delta_nnz == 0:
+        return CompactionDecision(False, 0.0, 1.0, "empty delta")
+    if base_cost <= 0.0:
+        if fraction > max_delta_fraction:
+            return CompactionDecision(
+                True, fraction, 1.0,
+                f"empty base: delta nnz fraction {fraction:.3f} > "
+                f"{max_delta_fraction:.2f} (floored base "
+                f"{max(base_nnz, DELTA_BASE_NNZ_FLOOR)})")
+        return CompactionDecision(
+            False, fraction, 1.0,
+            f"empty base: delta within floored fraction budget "
+            f"({fraction:.3f})")
+    slowdown = (base_cost + cm.cost_vector(delta_nnz)) / base_cost
+    if fraction > max_delta_fraction:
+        return CompactionDecision(
+            True, fraction, slowdown,
+            f"delta nnz fraction {fraction:.3f} > {max_delta_fraction:.2f}")
+    if slowdown > max_slowdown:
+        return CompactionDecision(
+            True, fraction, slowdown,
+            f"predicted fringe-path slowdown {slowdown:.2f} > "
+            f"{max_slowdown:.2f}")
+    return CompactionDecision(
+        False, fraction, slowdown,
+        f"delta within budget ({fraction:.3f}, {slowdown:.2f})")

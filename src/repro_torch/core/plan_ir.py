@@ -23,6 +23,11 @@ on first use, never part of the leaf set, and shared by the plans a value
 update makes.  And it carries ``a_unsplittable``, a device flag computed
 from the matrix-path values themselves (:func:`unsplittable_flag`), which
 a value update recomputes.
+
+A dynamic plan's structural delta rides beside a plan as a
+:class:`DeltaFringe`: the reference's capacity-padded sidecar (eight
+leaves and a signature, :func:`build_delta_fringe`), with a ``derived``
+cache of its own.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..errors import PlanBuildError
+from .cost_model import select_fringe_tier
 
 PLAN_FORMAT_VERSION = 2
 
@@ -211,6 +217,18 @@ class UpdateMaps:
     def nnz(self) -> int:
         return int(self.rows.shape[0])
 
+    def lookup(self, rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
+        """nnz ids of the given (row, col) pairs; -1 where absent (the
+        first occurrence of a duplicated pair)."""
+        keys = np.asarray(rows, np.int64) * self.shape[1] + np.asarray(
+            cols, np.int64)
+        if self.key_sorted.size == 0:
+            return np.full(keys.shape, -1, np.int64)
+        pos = np.minimum(np.searchsorted(self.key_sorted, keys),
+                         self.key_sorted.size - 1)
+        found = self.key_sorted[pos] == keys
+        return np.where(found, self.key_order[pos], -1)
+
 
 def build_key_index(
     rows: np.ndarray, cols: np.ndarray, k: int
@@ -345,6 +363,8 @@ class NeutronPlan:
 # --- executor-body leaf ordering -------------------------------------------
 N_PLAN_LEAVES = 17   # executor-body plan args (everything before b)
 LEAF_RANKS = (1, 1, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 3, 3, 3, 3)
+LEAF_COL_PERM = 6    # position of col_perm among the executor-body args
+N_DELTA_LEAVES = 8   # d_rows, d_cols, d_vals, d_gsrc, kb_chunk/rows/cols/vals
 
 
 def plan_leaves(plan: NeutronPlan) -> Tuple[torch.Tensor, ...]:
@@ -733,3 +753,134 @@ def build_sddmm_maps(plan: NeutronPlan) -> SddmmMaps:
                       nnz=maps.nnz, nnz_f=max(1, int(f_sel.size)))
     plan.derived["sddmm_maps"] = built
     return built
+
+
+# --- structural-delta sidecar ---------------------------------------------
+
+
+def _pad_clip(a: np.ndarray, n: int) -> np.ndarray:
+    if a.shape[0] >= n:
+        return a[:n]
+    return np.concatenate(
+        [a, np.zeros((n - a.shape[0],) + a.shape[1:], a.dtype)])
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaFringe:
+    """Capacity-padded COO sidecar, shaped for the fringe tier dispatch.
+
+    ``leaves`` are the reference's 8 arrays, as tensors on the plan's
+    device: the packed rows, columns and values of the delta sorted by
+    key, padded to ``capacity`` with (row 0, col 0, 0.0) entries; the
+    inverse row map ``gsrc`` (original row -> packed row, -1); and the
+    k-bucketed copy of the stream (1-element dummies unless the tier is
+    "ksharded" and the impl "cuda").  ``sig`` keys the cached executor; it
+    changes only when ``capacity`` grows (powers of two).
+
+    Beyond the reference's fields: ``coo``, the delta's own (rows, cols,
+    vals) host triplets, from which the backward builds the transposed
+    sidecar; and ``derived``, the sidecar's own cache of index arrays the
+    kernel wrappers derive from its structure (row offsets, row orders).
+    It lives and dies with this sidecar: a plan's ``derived`` describes the
+    plan's fringe, never this stream.
+    """
+
+    leaves: Tuple[torch.Tensor, ...]
+    sig: Tuple
+    capacity: int
+    count: int
+    tier: str
+    bk: int
+    coo: Tuple[np.ndarray, np.ndarray, np.ndarray] = dataclasses.field(
+        default=(), compare=False, repr=False)
+    derived: Dict[str, Any] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
+
+
+def build_delta_fringe(
+    d_rows: np.ndarray,
+    d_cols: np.ndarray,
+    d_vals: np.ndarray,
+    shape: Tuple[int, int],
+    config: SpmmConfig,
+    capacity: Optional[int] = None,
+    *,
+    device: Any = None,
+) -> DeltaFringe:
+    """Materialize a delta COO into a capacity-padded sidecar stream, as
+    the reference's ``build_delta_fringe`` does, on ``device`` (default:
+    the one ``config.impl`` runs on).
+
+    The tier comes from the port's ``select_fringe_tier`` with
+    ``config.impl``: on ``"torch"`` the reference's arithmetic (so leaves
+    and ``sig`` equal the reference's on ``"xla"``), on ``"cuda"`` with
+    the H100 rule, which turns "xla" into "resident" so that no sidecar
+    runs without a kernel on the card.
+    """
+    from ..kernels.ops import effective_chunk, pow2_at_least
+
+    m, k = shape
+    d_rows = np.asarray(d_rows, np.int64)
+    d_cols = np.asarray(d_cols, np.int64)
+    d_vals = np.asarray(d_vals)
+    count = int(d_rows.size)
+    cap = max(8, pow2_at_least(count), int(capacity or 0))
+
+    if count:
+        order = np.argsort(d_rows * np.int64(k) + d_cols, kind="stable")
+        sr = d_rows[order]
+        first = np.concatenate([[True], sr[1:] != sr[:-1]])
+        row_ids = sr[first]
+        pr = (np.cumsum(first) - 1).astype(np.int32)
+        pc = d_cols[order].astype(np.int32)
+        pv = d_vals[order].astype(np.float32)
+    else:
+        row_ids = np.zeros(0, np.int64)
+        pr = np.zeros(0, np.int32)
+        pc = np.zeros(0, np.int32)
+        pv = np.zeros(0, np.float32)
+    pr, pc, pv = _pad_clip(pr, cap), _pad_clip(pc, cap), _pad_clip(pv, cap)
+    gsrc = np.full(m, -1, np.int32)
+    if row_ids.size:
+        gsrc[row_ids] = np.arange(row_ids.size, dtype=np.int32)
+
+    # the sidecar goes through the plan fringe's tier selection; the
+    # packed-row bound is the capacity (static per signature)
+    k_pad = ((k + config.bk - 1) // config.bk) * config.bk
+    tier, dbk = select_fringe_tier(
+        k_pad, cap, config.bn, vmem_budget=config.fringe_vmem_budget,
+        impl=config.impl)
+    chunk_eff = effective_chunk(config.fringe_chunk)
+    if tier == "ksharded" and config.impl == "cuda":
+        kbc, kbr, kbcol, kbv, _pos = bucket_fringe_kblocks(
+            pr, pc, pv, k_pad, dbk, chunk_eff)
+        # shapes fixed per capacity: each nonempty bucket wastes < chunk
+        # slots, so cap * chunk bounds the stream; pad chunks address
+        # k-block 0 with zero values
+        kb_cap = cap * chunk_eff
+        kbc = _pad_clip(kbc, kb_cap // chunk_eff)
+        kbr = _pad_clip(kbr, kb_cap)
+        kbcol = _pad_clip(kbcol, kb_cap)
+        kbv = _pad_clip(kbv, kb_cap)
+    else:
+        kbc = np.zeros(1, np.int32)
+        kbr = np.zeros(1, np.int32)
+        kbcol = np.zeros(1, np.int32)
+        kbv = np.zeros(1, np.float32)
+
+    if device is None:
+        device = IMPL_DEVICE.get(config.impl, config.impl)
+    leaves = tuple(
+        torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        for x in (pr, pc, pv, gsrc, kbc, kbr, kbcol, kbv))
+    sig = ("delta", cap, cap, tier, int(dbk),
+           int(kbc.shape[0]), int(kbr.shape[0]))
+    return DeltaFringe(leaves=leaves, sig=sig, capacity=cap, count=count,
+                       tier=tier, bk=int(dbk), coo=(d_rows, d_cols, d_vals))
+
+
+def delta_child_sig(dsig: Tuple) -> Tuple:
+    """Per-shard ("delta", ...) signature of any sidecar signature."""
+    if dsig[0] == "sharded_delta":
+        return ("delta",) + tuple(dsig[2:])
+    return dsig

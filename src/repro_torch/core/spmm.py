@@ -14,7 +14,8 @@ the general stream always rides along.
 
 Scope of this port: the analytic cost model only (``autotune`` raises).
 
-Execution names (``execute``, the per-path executors, ``neutron_spmm``,
+Execution names (``execute``, ``execute_with_delta``,
+``execute_delta_contribution``, the per-path executors, ``neutron_spmm``,
 ``NeutronSpMM``, ...) are forwarded lazily to ``repro_torch.exec.api``, as
 the reference's ``_EXEC_FORWARDS`` do, so ``core`` never imports ``exec``
 at import time; each forwarded access warns once per process that the
@@ -32,6 +33,7 @@ from ..kernels.ops import effective_chunk
 from ..obs import REGISTRY
 from . import formats, partition, plan_ir, reorder, reuse
 from .cost_model import EngineCostModel, default_cost_model
+from .tuner import check_autotune
 from .plan_ir import IMPL_DEVICE, NeutronPlan, SpmmConfig
 
 _PREPARES = REGISTRY.counter(
@@ -45,7 +47,8 @@ _DUMMY_I32 = np.zeros((1, 1, 1), np.int32)
 # execution API lives in repro_torch.exec.api; forwarded lazily so that
 # importing the core layer never pulls the executor in
 _EXEC_FORWARDS = (
-    "execute", "execute_matrix_path", "execute_vector_path", "neutron_spmm",
+    "execute", "execute_with_delta", "execute_delta_contribution",
+    "execute_matrix_path", "execute_vector_path", "neutron_spmm",
     "SpMMOperator", "NeutronSpMM", "fused_trace_count", "dispatch_count",
 )
 
@@ -79,14 +82,6 @@ def __dir__():
 def prepare_call_count() -> int:
     """Number of ``prepare()`` calls since process start (test hook)."""
     return int(_PREPARES.total())
-
-
-def _check_config(config: SpmmConfig) -> None:
-    if config.autotune:
-        raise PlanBuildError(
-            "autotune is not ported yet (ROADMAP: the tuner and cost "
-            "model, re-derived for the H100): the port prepares with the "
-            "analytic cost model only; pass autotune=False")
 
 
 def _structured_payload(
@@ -184,7 +179,7 @@ def build_plan_arrays(
     ``meta`` is what :func:`plan_ir.plan_from_leaves` takes besides the
     leaves.  Runs no kernel and touches no device.
     """
-    _check_config(config)
+    check_autotune(config)
     m, k = shape
     rows, cols, vals = plan_ir.validate_coo(rows, cols, vals, shape)
     _PREPARES.inc()
@@ -421,7 +416,7 @@ def prepare(
     kernels, "cpu" for the plain versions); a mismatched pair raises before
     any work is done.
     """
-    _check_config(config)
+    check_autotune(config)
     if device is None:
         device = IMPL_DEVICE.get(config.impl, config.impl)
     plan_ir.check_impl_device(config.impl, device)

@@ -1,8 +1,11 @@
-"""The synchronised timer of the dispatch cost model's tuner.
+"""The synchronised timer of the dispatch cost model's tuner, and the
+cost-model resolver.
 
-Only :func:`timed_best_of` is ported, the counterpart of
-``repro.core.tuner.timed_best_of``: ``EngineCostModel.measure`` calibrates
-through it.  The rest of the reference's tuner (the persistent table of
+Ported: :func:`timed_best_of`, the counterpart of
+``repro.core.tuner.timed_best_of`` (``EngineCostModel.measure`` calibrates
+through it), and :func:`resolve_cost_model`, which gives the analytic
+model while ``autotune`` is off (the dynamic plans' compaction policy
+reads it).  The rest of the reference's tuner (the persistent table of
 measured dispatch decisions, ``autotune=True``) waits for the ROADMAP item
 "Tuner and cost model, re-derived for the H100".
 """
@@ -12,6 +15,9 @@ import time
 from typing import Any, Callable, List
 
 import torch
+
+from ..errors import PlanBuildError
+from .cost_model import EngineCostModel, default_cost_model
 
 
 def _cuda_devices(out: Any, found: List[torch.device]) -> List[torch.device]:
@@ -63,3 +69,21 @@ def timed_best_of(
         synchronize(fn())
         best = min(best, time.perf_counter() - t0)
     return max(best, 1e-9)
+
+
+def check_autotune(config: Any) -> None:
+    """Raise for ``autotune``: the measured table is not ported."""
+    if getattr(config, "autotune", False):
+        raise PlanBuildError(
+            "autotune is not ported yet (ROADMAP: the tuner and cost "
+            "model, re-derived for the H100): the port prepares with the "
+            "analytic cost model only; pass autotune=False")
+
+
+def resolve_cost_model(op: str, m: int, k: int, nnz: int,
+                       config: Any) -> EngineCostModel:
+    """The cost model for one operator and shape class: the analytic model
+    at the config's ``bn`` while ``autotune`` is off, as in the reference
+    (``autotune`` raises)."""
+    check_autotune(config)
+    return default_cost_model(n_cols=config.bn)

@@ -14,15 +14,16 @@ configurable scale so every benchmark table has a corresponding workload:
   per m-wide group (an exact N:M pattern, the structured fast lane's
   target) or globally at the same density (its unstructured control)
 - ``PAPER_DATASETS``: scaled-down stand-ins for the paper's Table 2 rows.
+- ``mutate``: a seeded mutation stream (edge inserts and deletes, weight
+  updates) for the dynamic plans.
 
-A copy of ``repro.data.graphs`` (without its mutation-stream generator,
-which belongs to the dynamic subsystem): the same spec and seed give the
-same triplets in both packages.
+A copy of ``repro.data.graphs``: the same spec and seed give the same
+triplets in both packages, and ``mutate`` the same batches.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -134,6 +135,82 @@ PAPER_DATASETS: Dict[str, GraphSpec] = {
     "dlmc-unstr":   GraphSpec("dlmc-unstr", 4096, 4096, 128.0,
                               "unstructured_pruned", 1.0, 15),
 }
+
+
+def mutate(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    shape: Tuple[int, int],
+    steps: int = 10,
+    insert_frac: float = 0.02,
+    delete_frac: float = 0.02,
+    update_frac: float = 0.05,
+    seed: int = 0,
+) -> Iterator["GraphDelta"]:  # noqa: F821 (imported lazily)
+    """Yield a seeded stream of ``dynamic.GraphDelta`` mutation batches.
+
+    Each step inserts ``insert_frac * nnz`` absent edges, deletes
+    ``delete_frac * nnz`` live edges and re-weights ``update_frac * nnz``
+    live edges, tracking the evolving structure so that deletes always
+    target live entries and inserts always target holes (what
+    ``DynamicPlan.update`` enforces).  Fractions are of the *current* nnz.
+    The reference's generator, draw for draw.
+    """
+    from ..dynamic.delta import GraphDelta  # generators stay import-light
+
+    m, k = shape
+    rng = np.random.RandomState(seed)
+    live: Dict[int, float] = {
+        int(r) * k + int(c): float(v)
+        for r, c, v in zip(rows, cols, vals)
+    }
+    for _ in range(steps):
+        nnz = max(len(live), 1)
+        n_ins = int(round(insert_frac * nnz))
+        n_del = min(int(round(delete_frac * nnz)), max(len(live) - 1, 0))
+        n_upd = min(int(round(update_frac * nnz)), len(live))
+
+        live_keys = np.fromiter(live, np.int64, count=len(live))
+        del_keys = rng.choice(live_keys, n_del, replace=False) if n_del \
+            else np.zeros(0, np.int64)
+        remaining = np.setdiff1d(live_keys, del_keys)
+        upd_keys = (
+            rng.choice(remaining, min(n_upd, remaining.size), replace=False)
+            if remaining.size and n_upd else np.zeros(0, np.int64)
+        )
+        ins_keys: list = []
+        taken = set(live)
+        attempts = 0
+        while len(ins_keys) < n_ins and attempts < 100:  # dense-matrix guard
+            attempts += 1
+            cand = rng.randint(0, m, n_ins) * np.int64(k) + rng.randint(
+                0, k, n_ins)
+            for key in cand:
+                key = int(key)
+                if key not in taken:
+                    taken.add(key)
+                    ins_keys.append(key)
+                    if len(ins_keys) == n_ins:
+                        break
+        ins_keys = np.asarray(ins_keys, np.int64)
+        ins_vals = rng.randn(ins_keys.size)
+        upd_vals = rng.randn(upd_keys.size)
+
+        for key in del_keys:
+            del live[int(key)]
+        for key, v in zip(upd_keys, upd_vals):
+            live[int(key)] = float(v)
+        for key, v in zip(ins_keys, ins_vals):
+            live[int(key)] = float(v)
+
+        yield GraphDelta(
+            ins_rows=ins_keys // k, ins_cols=ins_keys % k,
+            ins_vals=ins_vals,
+            del_rows=del_keys // k, del_cols=del_keys % k,
+            upd_rows=upd_keys // k, upd_cols=upd_keys % k,
+            upd_vals=upd_vals,
+        )
 
 
 def dataset_stats(rows: np.ndarray, cols: np.ndarray, shape) -> Dict[str, float]:

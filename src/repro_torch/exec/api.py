@@ -2,7 +2,10 @@
 
 ``execute(plan, b)`` resolves the plan's executor from the bounded cache
 and calls it on the plan's leaves: one call runs both engine paths and the
-merge.  ``execute_sddmm(plan, x, y)`` does the same for SDDMM over the
+merge.  ``execute_with_delta(plan, delta, b)`` adds a dynamic plan's
+structural sidecar (``plan_ir.DeltaFringe``) to the same call, and
+``execute_delta_contribution`` runs the sidecar's part alone.
+``execute_sddmm(plan, x, y)`` does the same for SDDMM over the
 plan's pattern, and ``execute_spspmm(a_plan, b_plan)`` multiplies two
 prepared patterns (a host symbolic phase, then one numeric dispatch).
 
@@ -58,9 +61,9 @@ from ..core.cost_model import (
     matrix_payload_bytes,
 )
 from ..core.plan_ir import (
-    NeutronPlan, SpmmConfig, UpdateMaps, build_sddmm_maps, gather_rows,
-    permute_pad_b, plan_leaves, sddmm_body_leaves, sig_impl, tag_op,
-    validate_rhs,
+    DeltaFringe, NeutronPlan, SpmmConfig, UpdateMaps, build_delta_fringe,
+    build_sddmm_maps, gather_rows, general_format_sig, permute_pad_b,
+    plan_leaves, sddmm_body_leaves, sig_impl, tag_op, validate_rhs,
 )
 from ..core.values import update_values
 from ..errors import DispatchError, KernelLoweringError, PlanBuildError
@@ -71,7 +74,7 @@ from .cache import (  # noqa: F401  (re-exported test hooks)
     dispatch_count, fused_trace_count, set_executor_cache_capacity,
 )
 from .health import HEALTH
-from .pipeline import build_executor
+from .pipeline import build_delta_only_executor, build_executor
 
 # roofline ceilings the telemetry profiler prices modeled work against: the
 # H100 SXM's (NVIDIA data sheet, 700 W), not the TPU constants the split
@@ -289,6 +292,26 @@ def _execute(plan: NeutronPlan, b: torch.Tensor) -> torch.Tensor:
         kwargs=dict(derived=plan.derived, a_flag=plan.a_unsplittable))
 
 
+def _execute_with_delta(plan: NeutronPlan, delta: DeltaFringe,
+                        b: torch.Tensor) -> torch.Tensor:
+    """:func:`execute_with_delta` without the autograd Function around
+    it."""
+    validate_rhs(b, plan.shape)
+    _check_device(plan, b, *delta.leaves[:1])
+    _apply_cache_capacity(plan.config)
+    batch = int(b.shape[0]) if b.ndim == 3 else None
+    # dynamic dispatch rides the general payload, as in the reference: the
+    # structured lane serves static plans, and value churn (the reason a
+    # sidecar exists) would stale a packed payload
+    sig = general_format_sig(plan.signature())
+    return _guarded_call(
+        sig, lambda s: build_executor(s, batch=batch, delta_sig=delta.sig),
+        (*plan_leaves(plan), *delta.leaves, b), "fused+delta", plan=plan,
+        prof=_spmm_prof(plan, b),
+        kwargs=dict(derived=plan.derived, a_flag=plan.a_unsplittable,
+                    delta_derived=delta.derived))
+
+
 def validate_sddmm_operands(
     x: torch.Tensor, y: torch.Tensor, shape: Tuple[int, int]
 ) -> Optional[int]:
@@ -497,6 +520,23 @@ def transpose_plan(plan: NeutronPlan) -> NeutronPlan:
     return own
 
 
+def transpose_delta(plan: NeutronPlan, delta: DeltaFringe) -> DeltaFringe:
+    """The sidecar of Aᵀ: ``delta``'s entries with rows and columns
+    swapped, built by ``build_delta_fringe`` at shape ``(K, M)`` with the
+    same capacity, on the plan's device.  Built once per sidecar and kept
+    in its ``derived`` (a sidecar's entries never change: a new overlay
+    builds a new sidecar)."""
+    cached = delta.derived.get("transpose")
+    if cached is None:
+        rows, cols, vals = delta.coo
+        m, k = plan.shape
+        cached = build_delta_fringe(cols, rows, vals, (k, m), plan.config,
+                                    capacity=delta.capacity,
+                                    device=plan.device)
+        delta.derived["transpose"] = cached
+    return cached
+
+
 class SpMMFunction(torch.autograd.Function):
     """``C = A @ B`` with ``dL/dB = Aᵀ @ dL/dC``: both directions run the
     coordinated executor, the backward on :func:`transpose_plan`.  ``b``
@@ -514,6 +554,28 @@ class SpMMFunction(torch.autograd.Function):
             return None, None
         db = _execute(transpose_plan(ctx.plan), g.contiguous())
         return db.to(ctx.b_dtype), None
+
+
+class SpMMDeltaFunction(torch.autograd.Function):
+    """``C = (A + Δ) @ B`` with ``dL/dB = (A + Δ)ᵀ @ dL/dC``: the backward
+    is one ``fused+delta`` dispatch of the transpose plan with the
+    transposed sidecar (:func:`transpose_delta`)."""
+
+    @staticmethod
+    def forward(ctx, b: torch.Tensor, plan: NeutronPlan,
+                delta: DeltaFringe) -> torch.Tensor:
+        ctx.plan, ctx.delta = plan, delta
+        ctx.b_dtype = b.dtype
+        return _execute_with_delta(plan, delta, b)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        db = _execute_with_delta(transpose_plan(ctx.plan),
+                                 transpose_delta(ctx.plan, ctx.delta),
+                                 g.contiguous())
+        return db.to(ctx.b_dtype), None, None
 
 
 def _sddmm_grads(plan: NeutronPlan, x: torch.Tensor, y: torch.Tensor,
@@ -568,6 +630,37 @@ def execute(plan: NeutronPlan, b: torch.Tensor) -> torch.Tensor:
     Differentiable in ``b`` (:class:`SpMMFunction`).
     """
     return SpMMFunction.apply(b, plan)
+
+
+def execute_with_delta(plan: NeutronPlan, delta: DeltaFringe,
+                       b: torch.Tensor) -> torch.Tensor:
+    """C = (A_base + A_delta) @ B in one call.
+
+    ``delta`` is a ``plan_ir.DeltaFringe`` on the plan's device.  The
+    sidecar's contribution joins the merge of the base plan's two engine
+    paths in the same executor (kind ``"fused+delta"``), on the general
+    payload's signature (``plan_ir.general_format_sig``), which the health
+    gate keys: a failed sidecar launch counts against it and raises
+    ``KernelLoweringError``, as every ``"cuda"`` dispatch does.
+    Differentiable in ``b`` (:class:`SpMMDeltaFunction`).
+    """
+    return SpMMDeltaFunction.apply(b, plan, delta)
+
+
+def execute_delta_contribution(shape: Tuple[int, int], config: SpmmConfig,
+                               delta: DeltaFringe,
+                               b: torch.Tensor) -> torch.Tensor:
+    """The sidecar's own (M, N) (or (batch, M, N)) contribution, one call
+    of its own executor: the differential baseline of the fused merge, and
+    the sidecar term alone for callers that want it.  Not gated and not
+    differentiable, as in the reference."""
+    validate_rhs(b, shape)
+    batch = int(b.shape[0]) if b.ndim == 3 else None
+    fn = build_delta_only_executor(shape[0], config.bk, config.impl,
+                                   config.fringe_chunk, delta.sig, batch)
+    _cache.record_dispatch("delta_only")
+    col_perm = torch.arange(shape[1], dtype=torch.int32, device=b.device)
+    return fn(*delta.leaves, col_perm, b, derived=delta.derived)
 
 
 def execute_sddmm(plan: NeutronPlan, x: torch.Tensor,

@@ -12,6 +12,12 @@ each path launches once for the whole batch and the output is unfolded to
 signature's matrix format picks the matrix-path payload: the N:M or bitmap
 encoding on a structured plan, the flat tile stream otherwise.
 
+A delta signature (``delta_sig``, a ``plan_ir.DeltaFringe.sig``) adds a
+dynamic plan's structural sidecar to the SpMM body: its contribution
+(``ops.delta_fringe_spmm`` through the fringe tiers, then its own row
+gather) is added to the merged paths in the same call, as the reference
+merges it inside its one jitted program (:func:`_delta_contrib_body`).
+
 A signature tagged with ``plan_ir.tag_op(sig, "sddmm", ...)`` selects the
 SDDMM body instead, on the same plan structure: the values at the plan's
 core slots (``core_lin``) on the matrix path, per-nonzero dots on the
@@ -25,8 +31,10 @@ Each build fires the fault seams of ``repro_torch.robust``:
 builds nothing and fires neither.
 
 Executors live in the bounded LRU ``exec.cache.EXECUTOR_CACHE`` keyed by
-(signature, batch); a tagged signature never equals an untagged one, so an
-SDDMM executor never aliases an SpMM one.
+(signature, batch, delta signature); a tagged signature never equals an
+untagged one, so an SDDMM executor never aliases an SpMM one.  A value
+update keeps both signatures, so it builds nothing; a sidecar's signature
+changes only when its capacity doubles.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..core.plan_ir import (
+    LEAF_COL_PERM, N_DELTA_LEAVES, N_PLAN_LEAVES, delta_child_sig,
     gather_rows, op_extra, permute_pad_b, sig_impl, sig_op, untag_sig,
 )
 from ..errors import PlanBuildError
@@ -163,14 +172,53 @@ def _batched_sddmm(run):
 def _batched(run):
     """Fold a (batch, K, N) operand into (K, batch*N), run once, unfold."""
 
-    def run_batched(*args, derived=None, a_flag=None):
+    def run_batched(*args, **kwargs):
         *leaves, b = args
         batch, k, n = b.shape
         folded = b.permute(1, 0, 2).reshape(k, batch * n)
-        out = run(*leaves, folded, derived=derived, a_flag=a_flag)
+        out = run(*leaves, folded, **kwargs)
         return out.reshape(out.shape[0], batch, n).permute(1, 0, 2)
 
     return run_batched
+
+
+def _delta_contrib_body(m: int, bk_cfg: int, impl: str, reorder_cols: bool,
+                        fringe_chunk, dsig: Tuple):
+    """The sidecar's contribution: ``contrib(d_rows, d_cols, d_vals,
+    d_gsrc, kb_chunk, kb_rows, kb_cols, kb_vals, col_perm, b,
+    derived=None) -> (m, N)``, where ``derived`` is the sidecar's own
+    cache (``DeltaFringe.derived``)."""
+    _tag, _cap, num_rows, tier, dbk, _nch, _nkb = delta_child_sig(dsig)
+
+    def contrib(d_rows, d_cols, d_vals, d_gsrc, kbc, kbr, kbcol, kbv,
+                col_perm, b, derived: Optional[Dict[str, Any]] = None):
+        bp = permute_pad_b(b, col_perm, reorder_cols, bk_cfg)
+        packed = ops.delta_fringe_spmm(
+            d_rows, d_cols, d_vals, bp, num_rows=num_rows, impl=impl,
+            chunk=fringe_chunk, tier=tier, bk=dbk, kb_chunk=kbc,
+            kb_rows=kbr, kb_cols=kbcol, kb_vals=kbv, derived=derived)
+        return gather_rows(packed, d_gsrc)
+
+    return contrib
+
+
+def _with_delta(run, sig: Tuple, dsig: Tuple):
+    """The SpMM body plus the sidecar's contribution: ``(*plan_leaves,
+    *delta_leaves, b, derived=None, a_flag=None, delta_derived=None)``."""
+    (_version, shape, _bm, bk, _bn, impl, reorder_cols, fringe_chunk,
+     *_rest) = sig
+    contrib = _delta_contrib_body(shape[0], bk, impl, reorder_cols,
+                                  fringe_chunk, dsig)
+
+    def body(*args, derived=None, a_flag=None, delta_derived=None):
+        leaves = args[:N_PLAN_LEAVES]
+        dleaves = args[N_PLAN_LEAVES:N_PLAN_LEAVES + N_DELTA_LEAVES]
+        b = args[-1]
+        return (run(*leaves, b, derived=derived, a_flag=a_flag)
+                + contrib(*dleaves, leaves[LEAF_COL_PERM], b,
+                          derived=delta_derived))
+
+    return body
 
 
 def _spspmm_body(sig: Tuple):
@@ -199,36 +247,62 @@ def _spspmm_body(sig: Tuple):
     return run
 
 
-def _build(sig: Tuple, batch: Optional[int]):
+def _build(sig: Tuple, batch: Optional[int], dsig: Optional[Tuple]):
     # fault seams: once per executor *build* (a cache hit skips _build)
     HARNESS.fire("executor_build", context=sig)
     if sig_impl(sig) == "cuda":
         HARNESS.fire("pallas_lowering", context=sig)
     record_build("fused" if batch is None else "batched")
-    if sig[0] == "spspmm":
+    op = "spspmm" if sig[0] == "spspmm" else sig_op(sig)
+    if op != "spmm" and dsig is not None:
+        raise PlanBuildError(
+            f"op {op!r} does not take a delta sidecar; fold structural "
+            "deltas (DynamicPlan compaction) before dispatching it")
+    if op == "spspmm":
         return _spspmm_body(sig)
-    op = sig_op(sig)
     if op == "sddmm":
         run = _sddmm_body(sig)
         return run if batch is None else _batched_sddmm(run)
     if op != "spmm":
         raise PlanBuildError(f"operator {op!r} is not ported")
     run = _fused_body(sig)
+    if dsig is not None:
+        run = _with_delta(run, sig, dsig)
     return run if batch is None else _batched(run)
 
 
-def build_executor(sig: Tuple, *, batch: Optional[int] = None):
+def build_executor(sig: Tuple, *, batch: Optional[int] = None,
+                   delta_sig: Optional[Tuple] = None):
     """Build (or fetch) the executor for one plan structure and operator.
 
     For an SpMM signature the returned callable takes ``(*plan_leaves, b,
     derived=None, a_flag=None)`` with the 17 leaves of
     ``plan_ir.plan_leaves``; ``b`` is (K, N), or (batch, K, N) when
-    ``batch`` is set.  For an SDDMM-tagged signature it takes
-    ``(*plan_ir.sddmm_body_leaves(...), x, y, derived=None)``, batched
-    along a leading axis of both operands when ``batch`` is set.  For a
-    ``("spspmm", ...)`` signature it takes ``(ae, be, lengths, va, vb)``
-    (:func:`_spspmm_body`).
+    ``batch`` is set.  ``delta_sig`` (an SpMM signature only) adds a
+    sidecar: the callable then takes ``(*plan_leaves, *delta.leaves, b,
+    derived=None, a_flag=None, delta_derived=None)``.  For an
+    SDDMM-tagged signature it takes ``(*plan_ir.sddmm_body_leaves(...), x,
+    y, derived=None)``, batched along a leading axis of both operands when
+    ``batch`` is set.  For a ``("spspmm", ...)`` signature it takes ``(ae,
+    be, lengths, va, vb)`` (:func:`_spspmm_body`).
     """
     return EXECUTOR_CACHE.get_or_build(
-        (sig, batch), functools.partial(_build, sig, batch))
+        (sig, batch, delta_sig),
+        functools.partial(_build, sig, batch, delta_sig))
+
+
+def build_delta_only_executor(m: int, bk_cfg: int, impl: str, fringe_chunk,
+                              dsig: Tuple, batch: Optional[int]):
+    """The sidecar's contribution on its own: ``(*delta.leaves, col_perm,
+    b, derived=None)``, as the reference's compat executor (the
+    differential baseline of ``execute_delta_contribution``)."""
+    key = ("delta_only", m, bk_cfg, impl, fringe_chunk, dsig, batch)
+
+    def builder():
+        record_build("delta_only")
+        contrib = _delta_contrib_body(m, bk_cfg, impl, False, fringe_chunk,
+                                      dsig)
+        return contrib if batch is None else _batched(contrib)
+
+    return EXECUTOR_CACHE.get_or_build(key, builder)
 

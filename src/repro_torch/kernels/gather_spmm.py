@@ -13,8 +13,12 @@ wrappers launch the hand-written Hopper kernel in ``csrc/gather_spmm.cu``
 (design notes there), the row walk: the k-bucketed stream is remapped once,
 from its structure alone, into a row-major order with global columns
 (:func:`kbucket_row_order`), and each call gathers its values into that
-order, then walks.  On CPU tensors they run the plain versions from
-:mod:`repro_torch.kernels.ref`.  A CUDA call launches its kernel or raises.
+order, then walks.  A packed stream whose rows are not sorted (the delta
+sidecar of a dynamic plan, padded to its capacity with (row 0, col 0, 0.0)
+entries) gets the same treatment in :func:`gather_spmm` with a
+``row_order`` from :func:`stream_row_order`.  On CPU tensors they run the
+plain versions from :mod:`repro_torch.kernels.ref`.  A CUDA call launches
+its kernel or raises.
 """
 from __future__ import annotations
 
@@ -87,33 +91,40 @@ def fringe_profile(indptr: torch.Tensor, cols: torch.Tensor,
     }
 
 
-class KBucketRowOrder(NamedTuple):
-    """The k-bucketed stream in row-major order, from its structure alone.
+class RowOrder(NamedTuple):
+    """A packed stream in row-major order, from its structure alone.
 
     ``perm`` (nnz,) int32: a stable row-major order of the stream (each
-    row's entries stay in k-block order, padding entries included, in row
+    row's entries stay in stream order, padding entries included, in row
     0); ``indptr`` (num_rows+1,) int32: row offsets into it; ``cols``
-    (nnz,) int32: the global column ``chunk_kb[i // chunk] * bk + col`` of
-    entry ``perm[j]`` at position j.  The values are not here: a value
-    update rewrites them, so each call gathers ``vals[perm]`` first.
+    (nnz,) int32: the global column of entry ``perm[j]`` at position j (for
+    a k-bucketed stream ``chunk_kb[i // chunk] * bk + col``).  The values
+    are not here: a value update rewrites them, so each call gathers
+    ``vals[perm]`` first.
     """
     perm: torch.Tensor
     indptr: torch.Tensor
     cols: torch.Tensor
 
 
+def stream_row_order(rows: torch.Tensor, cols: torch.Tensor,
+                     num_rows: int) -> RowOrder:
+    """:class:`RowOrder` of a packed stream whose rows need not be sorted
+    (``cols`` global), on its device (one host read: callers cache it)."""
+    perm = torch.argsort(rows, stable=True)
+    return RowOrder(perm.to(torch.int32), csr_indptr(rows[perm], num_rows),
+                    cols[perm].to(torch.int32).contiguous())
+
+
 def kbucket_row_order(
     chunk_kb: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
     num_rows: int, bk: int,
-) -> KBucketRowOrder:
-    """:class:`KBucketRowOrder` of a k-bucketed stream, on its device
-    (one host read: plans cache it in ``plan.derived``)."""
-    perm = torch.argsort(rows, stable=True)
+) -> RowOrder:
+    """:class:`RowOrder` of a k-bucketed stream, on its device (one host
+    read: plans cache it in ``plan.derived``)."""
     chunk = rows.shape[0] // max(chunk_kb.shape[0], 1)
-    gcols = (torch.repeat_interleave(chunk_kb, chunk) * bk + cols)[perm]
-    return KBucketRowOrder(perm.to(torch.int32),
-                           csr_indptr(rows[perm], num_rows),
-                           gcols.to(torch.int32).contiguous())
+    gcols = torch.repeat_interleave(chunk_kb, chunk) * bk + cols
+    return stream_row_order(rows, gcols, num_rows)
 
 
 def _check(b: torch.Tensor, **tensors) -> None:
@@ -141,24 +152,48 @@ def gather_spmm(
     num_rows: int,
     chunk: Optional[int] = None,
     indptr: Optional[torch.Tensor] = None,
+    row_order: Optional[RowOrder] = None,
 ) -> torch.Tensor:
     """Resident tier.  ``chunk`` only bounds the plain version's gather;
     ``indptr`` is :func:`csr_indptr` of ``rows`` when the caller has it
-    cached (plans keep it in ``plan.derived``)."""
+    cached (plans keep it in ``plan.derived``).
+
+    ``row_order`` (:func:`stream_row_order` of ``rows`` and ``cols``)
+    walks a stream whose rows are not sorted, such as a delta sidecar
+    padded with (row 0, col 0, 0.0) entries: on the card that is two
+    launches, counted once, the gather of the values into the row order,
+    then the walk.  Its padding entries are walked, so each adds ``0 *
+    B[0]`` to packed row 0, as in the plain version: NaN where B's row 0
+    holds an Inf or a NaN."""
     if b.device.type == "cpu":
         return ref_gather_spmm(rows, cols, vals, b, num_rows, chunk=chunk)
     _check(b, rows=(rows, torch.int32), cols=(cols, torch.int32),
            vals=(vals, torch.float32))
-    if indptr is None:
-        indptr = csr_indptr(rows, num_rows)
     n = b.shape[1]
     out = torch.empty((num_rows, n), dtype=torch.float32, device=b.device)
-    fn = _build.function(NAME, "gather_spmm_launch", _ARGTYPES)
-    status = fn(indptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
-                b.data_ptr(), out.data_ptr(), num_rows, n, _stream(b))
-    _build.check_status(status, NAME)
+    if row_order is not None:
+        _walk_in_order(row_order, vals, b, out, num_rows, NAME)
+    else:
+        if indptr is None:
+            indptr = csr_indptr(rows, num_rows)
+        fn = _build.function(NAME, "gather_spmm_launch", _ARGTYPES)
+        status = fn(indptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+                    b.data_ptr(), out.data_ptr(), num_rows, n, _stream(b))
+        _build.check_status(status, NAME)
     gather_spmm.launches += 1
     return out
+
+
+def _walk_in_order(order: RowOrder, vals: torch.Tensor, b: torch.Tensor,
+                   out: torch.Tensor, num_rows: int, name: str) -> None:
+    """The walk over ``vals`` gathered into ``order``: two launches."""
+    scratch = torch.empty_like(vals)
+    fn = _build.function(NAME, "gather_spmm_perm_launch", _ARGTYPES_PERM)
+    status = fn(order.indptr.data_ptr(), order.cols.data_ptr(),
+                order.perm.data_ptr(), vals.data_ptr(), scratch.data_ptr(),
+                vals.shape[0], b.data_ptr(), out.data_ptr(), num_rows,
+                b.shape[1], _stream(b))
+    _build.check_status(status, name)
 
 
 gather_spmm.launches = 0  # kernel launches (CPU calls do not count)
@@ -173,7 +208,7 @@ def gather_spmm_ksharded(
     *,
     num_rows: int,
     bk: int,
-    row_order: Optional[KBucketRowOrder] = None,
+    row_order: Optional[RowOrder] = None,
 ) -> torch.Tensor:
     """K-sharded streaming tier.  ``row_order`` is
     :func:`kbucket_row_order` of the stream when the caller has it cached.
@@ -197,15 +232,9 @@ def gather_spmm_ksharded(
            cols=(cols, torch.int32), vals=(vals, torch.float32))
     order = row_order or kbucket_row_order(chunk_kb, rows, cols, num_rows,
                                            bk)
-    n = b.shape[1]
-    out = torch.empty((num_rows, n), dtype=torch.float32, device=b.device)
-    scratch = torch.empty_like(vals)
-    fn = _build.function(NAME, "gather_spmm_perm_launch", _ARGTYPES_PERM)
-    status = fn(order.indptr.data_ptr(), order.cols.data_ptr(),
-                order.perm.data_ptr(), vals.data_ptr(), scratch.data_ptr(),
-                vals.shape[0], b.data_ptr(), out.data_ptr(), num_rows, n,
-                _stream(b))
-    _build.check_status(status, NAME_KSHARDED)
+    out = torch.empty((num_rows, b.shape[1]), dtype=torch.float32,
+                      device=b.device)
+    _walk_in_order(order, vals, b, out, num_rows, NAME_KSHARDED)
     gather_spmm_ksharded.launches += 1
     return out
 

@@ -23,6 +23,7 @@ from . import ref
 from .dense_tile_spmm import dense_tile_spmm, window_chunks, window_segments
 from .gather_spmm import (
     csr_indptr, gather_spmm, gather_spmm_ksharded, kbucket_row_order,
+    stream_row_order,
 )
 from .sddmm import dense_tile_sddmm, gather_sddmm, sampled_index
 from .structured_spmm import bitmap_tile_spmm, nm_tile_spmm
@@ -252,6 +253,57 @@ def fringe_spmm(
                      lambda: csr_indptr(rows, num_rows))
     return gather_spmm(rows, cols, vals, b, num_rows=num_rows,
                        indptr=indptr)
+
+
+def delta_fringe_spmm(
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    vals: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    num_rows: int,
+    impl: str,
+    chunk: Optional[int] = None,
+    tier: str = "resident",
+    bk: int = 0,
+    kb_chunk: Optional[torch.Tensor] = None,
+    kb_rows: Optional[torch.Tensor] = None,
+    kb_cols: Optional[torch.Tensor] = None,
+    kb_vals: Optional[torch.Tensor] = None,
+    derived: Optional[Dict[str, Any]] = None,
+) -> torch.Tensor:
+    """A dynamic plan's delta sidecar through the fringe tiers; returns
+    packed (num_rows, N) fp32.
+
+    The sidecar (``plan_ir.DeltaFringe``) is a capacity-padded COO: its
+    real entries sorted by key, then padding entries (row 0, col 0, 0.0),
+    so its rows are not sorted.  ``impl="torch"`` runs the reference's
+    gather on it.  ``impl="cuda"`` runs B3's walk over the k-bucketed
+    sidecar for tier "ksharded" (its row order is built there, as for a
+    plan), and B2's walk in the stream's stable row order
+    (:func:`~repro_torch.kernels.gather_spmm.stream_row_order`) otherwise.
+    The padding entries are walked, as the reference and the plain version
+    add them.  ``derived`` must be the sidecar's own cache
+    (``DeltaFringe.derived``), never its plan's.
+    """
+    if rows.shape != cols.shape or rows.shape != vals.shape:
+        raise ValueError(
+            f"delta stream triplets disagree: rows={tuple(rows.shape)} "
+            f"cols={tuple(cols.shape)} vals={tuple(vals.shape)}")
+    if b.ndim != 2:
+        raise ValueError(
+            f"delta_fringe_spmm expects a rank-2 (K, N) operand, got shape "
+            f"{tuple(b.shape)}")
+    _check_impl(impl, b)
+    if impl == "cuda" and tier != "ksharded":
+        order = _cached(derived, "stream_row_order",
+                        lambda: stream_row_order(rows, cols, num_rows))
+        return gather_spmm(rows, cols, vals, b, num_rows=num_rows,
+                           row_order=order)
+    return fringe_spmm(rows, cols, vals, b, num_rows=num_rows, impl=impl,
+                       chunk=chunk, tier=tier, bk=bk, kb_chunk=kb_chunk,
+                       kb_rows=kb_rows, kb_cols=kb_cols, kb_vals=kb_vals,
+                       derived=derived)
 
 
 def sddmm_block_stream(

@@ -33,8 +33,10 @@ seam                fire site
                     context = signature
 ``fold_build``      no fire site yet: the background compaction worker
                     comes with the serving layer (ROADMAP A-queue 8)
-``registry_write``  no fire site yet: the plan registry (A-queue 5)
-``registry_read``   no fire site yet: the plan registry (A-queue 5)
+``registry_write``  ``dynamic.registry.PlanRegistry._write_entry``, before
+                    the checkpoint save; context = entry name
+``registry_read``   ``dynamic.registry.PlanRegistry._read_step``, before
+                    each generation's manifest is read; context = name
 ``dispatch``        no fire site yet: the service's per-batch dispatch
                     (A-queue 8)
 ==================  ======================================================

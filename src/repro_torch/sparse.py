@@ -17,9 +17,18 @@
     W = sp.from_coo(rows, cols, vals, shape, structure_hint=("nm", 2, 4))
     Y = W @ X                # a 2:4-pruned weight on the N:M kernel
 
-The subset of ``repro.sparse`` this port carries: static single-device
-plans (general, N:M and bitmap payloads), SpMM, SDDMM, sparse x sparse
-products (``spspmm``) and value updates.
+    D = sp.from_coo(rows, cols, vals, shape, dynamic=True)
+    D.plan.update(GraphDelta.inserts(r, c, v))   # structural mutation
+    C = D @ B                # base plan + delta sidecar, one call
+    D.plan.compact()         # fold the sidecar into a fresh plan
+
+The subset of ``repro.sparse`` this port carries: single-device plans
+(general, N:M and bitmap payloads), static or dynamic
+(``dynamic.DynamicPlan``), SpMM, SDDMM, sparse x sparse products
+(``spspmm``) and value updates.  ``with_values``, ``sddmm`` and
+``spspmm`` address the prepared pattern, so on a dynamic matrix with
+pending structural deltas they raise until ``compact()``, as in the
+reference.
 ``spmm``/``bspmm`` are differentiable in B and ``sddmm`` in X and Y, on
 either impl (``exec.api.SpMMFunction`` and ``SDDMMFunction``: the
 backward runs the same executor, on the transpose plan for SpMM); no
@@ -41,14 +50,14 @@ executor dispatch a roofline record in ``obs.PROFILER``); read them with
 from __future__ import annotations
 
 import time
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .core import spmm as core_spmm
 from .core.plan_ir import NeutronPlan, SpmmConfig
-from .dynamic import update_values
+from .dynamic import DynamicPlan, update_values
 from .errors import DeadlineExceeded, PlanBuildError
 from .exec import api as _exec
 from .obs import TRACES
@@ -57,7 +66,10 @@ __all__ = ["SparseMatrix", "from_coo", "from_plan", "spmm", "bspmm",
            "sddmm", "spspmm"]
 
 
-def _traced_call(name: str, plan: NeutronPlan, attrs, fn):
+PlanLike = Union[NeutronPlan, DynamicPlan]
+
+
+def _traced_call(name: str, plan: PlanLike, attrs, fn):
     """Run ``fn()``; when the plan opts into telemetry, record an
     ``obs`` trace with one ``dispatch`` span around it (host-side
     bookkeeping only: with telemetry off this is the bare call)."""
@@ -97,15 +109,32 @@ def _await(out: torch.Tensor, deadline: Optional[float], t0: float,
 
 
 class SparseMatrix:
-    """A prepared sparse matrix: a thin handle over one :class:`NeutronPlan`."""
+    """A prepared sparse matrix: a thin handle over one
+    :class:`NeutronPlan`, or a :class:`~repro_torch.dynamic.DynamicPlan`
+    (mutable)."""
 
     __slots__ = ("plan",)
 
-    def __init__(self, plan: NeutronPlan):
-        if not isinstance(plan, NeutronPlan):
+    def __init__(self, plan: PlanLike):
+        if not isinstance(plan, (NeutronPlan, DynamicPlan)):
             raise TypeError(
-                f"SparseMatrix wraps a NeutronPlan; got {type(plan).__name__}")
+                "SparseMatrix wraps a NeutronPlan or DynamicPlan; got "
+                f"{type(plan).__name__}")
         self.plan = plan
+
+    def _static_plan(self, what: str) -> NeutronPlan:
+        """The underlying static plan; a dynamic plan with pending
+        structural deltas has left its prepared pattern, so
+        pattern-addressed operators refuse it."""
+        p = self.plan
+        if isinstance(p, DynamicPlan):
+            if p.delta_nnz:
+                raise PlanBuildError(
+                    f"{what} on a dynamic matrix with {p.delta_nnz} pending "
+                    "structural delta(s): call .compact() first so the "
+                    "prepared pattern matches the logical matrix")
+            p = p.plan
+        return p
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -125,7 +154,7 @@ class SparseMatrix:
 
     @property
     def is_dynamic(self) -> bool:
-        return False  # DynamicPlan is not ported yet
+        return isinstance(self.plan, DynamicPlan)
 
     @property
     def is_sharded(self) -> bool:
@@ -144,7 +173,9 @@ class SparseMatrix:
         return self.coo()[2]
 
     def coo(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Host ``(rows, cols, vals)`` triplets of the matrix."""
+        """Host ``(rows, cols, vals)`` triplets of the logical matrix."""
+        if isinstance(self.plan, DynamicPlan):
+            return self.plan.to_coo()
         maps = self.plan.update_maps
         if maps is None:
             raise PlanBuildError("plan was built without update maps")
@@ -161,18 +192,19 @@ class SparseMatrix:
         """Same pattern, new per-nonzero values (input COO order), as a
         numpy array or a tensor: the landing pad for :func:`sddmm` output.
 
-        Functional: returns a new handle and leaves this one as it was.
-        The plan signature, and so the cached executor, is unchanged
-        (``dynamic.update_values`` underneath).
+        Functional: returns a new handle (on the static plan) and leaves
+        this one as it was.  The plan signature, and so the cached
+        executor, is unchanged (``dynamic.update_values`` underneath).
         """
-        nnz = self.nnz
+        p = self._static_plan("with_values")
+        nnz = p.update_maps.nnz
         if not isinstance(values, torch.Tensor):
             values = np.asarray(values)
         if tuple(values.shape) != (nnz,):
             raise ValueError(
                 f"with_values needs one value per nonzero: got shape "
                 f"{tuple(values.shape)} for nnz={nnz}")
-        return SparseMatrix(update_values(self.plan, np.arange(nnz), values))
+        return SparseMatrix(update_values(p, np.arange(nnz), values))
 
     def __matmul__(self, other):
         if isinstance(other, SparseMatrix):
@@ -191,6 +223,7 @@ def from_coo(
     shape: Tuple[int, int],
     *,
     device: Any = "cuda",
+    dynamic: bool = False,
     config: Optional[SpmmConfig] = None,
     **config_overrides,
 ) -> SparseMatrix:
@@ -201,6 +234,8 @@ def from_coo(
     or individual fields as keyword overrides, not both: for example
     ``structure_hint=("nm", 2, 4)`` or ``structure_hint="bitmap"`` for a
     pruned weight (an N:M pattern is also detected without a hint).
+    ``dynamic=True`` wraps the plan in a
+    :class:`~repro_torch.dynamic.DynamicPlan` for in-place mutation.
     """
     if config is not None and config_overrides:
         raise ValueError(
@@ -211,18 +246,19 @@ def from_coo(
         config = SpmmConfig(impl=impl, **config_overrides)
     plan = core_spmm.prepare(np.asarray(rows), np.asarray(cols),
                              np.asarray(vals), shape, config, device=device)
-    return SparseMatrix(plan)
+    return SparseMatrix(DynamicPlan(plan) if dynamic else plan)
 
 
-def from_plan(plan: NeutronPlan) -> SparseMatrix:
-    """Adopt an already-prepared plan into the facade."""
+def from_plan(plan: PlanLike) -> SparseMatrix:
+    """Adopt an already-prepared plan (static or dynamic) into the
+    facade."""
     return SparseMatrix(plan)
 
 
 def _as_matrix(a, what: str) -> SparseMatrix:
     if isinstance(a, SparseMatrix):
         return a
-    if isinstance(a, NeutronPlan):
+    if isinstance(a, (NeutronPlan, DynamicPlan)):
         return SparseMatrix(a)
     raise TypeError(f"{what} wants a SparseMatrix, got {type(a).__name__}")
 
@@ -236,13 +272,17 @@ def spmm(a, b, *, deadline: Optional[float] = None) -> torch.Tensor:
     """Dense ``C = A @ B`` in fp32.  ``b`` is (K, N) on A's device (a
     numpy array is copied there); batched operands go through
     :func:`bspmm`.  Differentiable in ``b``: its gradient is ``Aᵀ @ g``,
-    run on the transpose plan."""
+    run on the transpose plan (with the transposed sidecar on a dynamic
+    matrix with pending deltas)."""
     a = _as_matrix(a, "spmm")
     b = _on_device(b, a)
+    p = a.plan
 
     def run():
         t0 = time.monotonic()
-        return _await(_exec.execute(a.plan, b), deadline, t0, "spmm")
+        out = (p.execute(b) if isinstance(p, DynamicPlan)
+               else _exec.execute(p, b))
+        return _await(out, deadline, t0, "spmm")
 
     return _traced_call(
         "bspmm" if b.ndim == 3 else "spmm", a.plan,
@@ -270,14 +310,15 @@ def sddmm(a, x, y, *, deadline: Optional[float] = None) -> torch.Tensor:
     (S_gᵀ @ X)ᵀ``, two SpMMs.
     """
     a = _as_matrix(a, "sddmm")
+    plan = a._static_plan("sddmm")
     x, y = _on_device(x, a), _on_device(y, a)
 
     def run():
         t0 = time.monotonic()
-        return _await(_exec.execute_sddmm(a.plan, x, y), deadline, t0,
+        return _await(_exec.execute_sddmm(plan, x, y), deadline, t0,
                       "sddmm")
 
-    return _traced_call("sddmm", a.plan, {"shape": a.shape}, run)
+    return _traced_call("sddmm", plan, {"shape": a.shape}, run)
 
 
 def spspmm(a, b, *, deadline: Optional[float] = None) -> SparseMatrix:
@@ -292,14 +333,16 @@ def spspmm(a, b, *, deadline: Optional[float] = None) -> SparseMatrix:
     """
     a = _as_matrix(a, "spspmm")
     b = _as_matrix(b, "spspmm")
+    a_plan = a._static_plan("spspmm")
+    b_plan = b._static_plan("spspmm")
 
     def run():
         t0 = time.monotonic()
-        out = _exec.execute_spspmm(a.plan, b.plan)
+        out = _exec.execute_spspmm(a_plan, b_plan)
         _await(out[2], deadline, t0, "spspmm")
         return out
 
-    cr, cc, cv, cshape = _traced_call("spspmm", a.plan, {"shape": a.shape},
+    cr, cc, cv, cshape = _traced_call("spspmm", a_plan, {"shape": a.shape},
                                       run)
     return from_coo(cr, cc, cv.cpu().numpy(), cshape, device=a.device,
-                    config=a.plan.config)
+                    config=a_plan.config)

@@ -2,8 +2,11 @@
 
 Mirrors ``tests/test_faults.py`` where a test does not assume a degrade
 tier: the seven harness tests, ``chaos_schedule(seed)`` against the
-reference's for the same seeds, the chaos smoke test, and a ``"torch"``
-plan's build fault propagating as it is (the reference's ``"xla"`` test).
+reference's for the same seeds, the chaos smoke test, a ``"torch"``
+plan's build fault propagating as it is (the reference's ``"xla"`` test),
+and the three registry tests (``registry_write`` raises a clean
+``RegistryError`` and keeps the previous generation; ``registry_read``
+falls back one generation, or raises once every generation fails).
 
 The port has no degrade tier: a ``"cuda"`` dispatch that fails raises
 ``KernelLoweringError`` and is recorded in ``exec.health.HEALTH``; inside
@@ -21,8 +24,6 @@ Left out, and why:
   ``test_dispatch_error_when_every_tier_fails``: there is no degrade tier
   (and no ``SpmmConfig.degrade_to_xla``); their gating is covered by the
   raising counterparts below.
-- the three registry tests: the plan registry is not ported yet (ROADMAP
-  A-queue 5), so ``registry_read``/``registry_write`` have no fire site.
 
 Plans get unique shapes per test: the executor cache is process-wide, and
 the build seams fire per *build*, so a shape reused from another test
@@ -30,6 +31,7 @@ would hit the cache and never reach the seam.
 """
 import os
 import threading
+import warnings
 from contextlib import nullcontext
 
 import numpy as np
@@ -38,7 +40,10 @@ import torch
 
 from repro.robust import faults as ref_faults
 from repro_torch.core import spmm
-from repro_torch.core.plan_ir import SIG_IMPL
+from repro_torch.core.plan_ir import (
+    SIG_IMPL, build_delta_fringe, general_format_sig,
+)
+from repro_torch.dynamic import DynamicPlan, PlanRegistry, RegistryError
 from repro_torch.errors import (
     DispatchError, FaultInjected, KernelLoweringError, ReproError,
 )
@@ -292,6 +297,87 @@ def test_cuda_gate_is_per_signature(rng):
         _dispatch(sig2, _Launcher())  # a neighbour is not poisoned
     assert HEALTH.state(sig) == "retrying"
     assert HEALTH.state(sig2) == "healthy"
+
+
+def test_fused_delta_build_fault_raises_and_launches_nothing(rng):
+    """A fresh ``fused+delta`` build (the dynamic plan's sidecar
+    executor) with ``executor_build`` armed raises KernelLoweringError,
+    launches nothing, and counts against the base plan's general-payload
+    signature, which ``execute_with_delta`` gates on."""
+    _, plan = _plan(rng, 68, 42)
+    rows, cols = np.array([1, 5, 9]), np.array([2, 3, 40])
+    delta = build_delta_fringe(rows, cols, np.ones(3), plan.shape,
+                               plan.config)
+    sig = general_format_sig(_cuda_sig(plan))
+    launches = []
+
+    def make_fn(s):
+        build_executor(s, delta_sig=delta.sig)
+        return lambda x: launches.append(x) or x
+
+    builds = HARNESS.calls("executor_build")
+    with armed("executor_build", times=1):
+        with pytest.raises(KernelLoweringError) as err:
+            api._guarded_call(sig, make_fn, (torch.ones(3),), "fused+delta")
+    assert isinstance(err.value.__cause__, FaultInjected)
+    assert HARNESS.calls("executor_build") == builds + 1
+    assert launches == [] and HEALTH.state(sig) == "retrying"
+    # the same sidecar through the "torch" plan: a build fault propagates
+    # as it is, and the retry computes base + sidecar
+    b = torch.ones(42, 2)
+    with armed("executor_build", times=1):
+        with pytest.raises(FaultInjected):
+            api.execute_with_delta(plan, delta, b)
+    out = api.execute_with_delta(plan, delta, b)
+    assert torch.allclose(out, api.execute(plan, b) + api.
+                          execute_delta_contribution(plan.shape, plan.config,
+                                                     delta, b))
+
+
+# ---------------------------------------------------------------------------
+# registry seams: write faults stay clean, read faults fall back a
+# generation
+# ---------------------------------------------------------------------------
+def _dplan(rng, m=64, k=48):
+    a, plan = _plan(rng, m, k)
+    return a, DynamicPlan(plan)
+
+
+def test_registry_write_fault_is_a_clean_registry_error(rng, tmp_path):
+    a, dp = _dplan(rng)
+    reg = PlanRegistry(str(tmp_path))
+    reg.save("g", dp)
+    with armed("registry_write"):
+        with pytest.raises(RegistryError, match="persist"):
+            reg.save("g", dp)
+    # the previous generation still loads (atomic layout untouched)
+    restored = reg.load("g")
+    assert restored.plan.shape == a.shape
+    assert reg.generation_fallbacks == 0
+
+
+def test_registry_read_fault_falls_back_one_generation(rng, tmp_path):
+    _, dp = _dplan(rng)
+    reg = PlanRegistry(str(tmp_path), keep=2)
+    reg.save("g", dp)
+    reg.save("g", dp)  # two retained generations
+    with armed("registry_read", times=1):  # the newest read dies
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            restored = reg.load("g")
+    assert restored is not None
+    assert reg.generation_fallbacks == 1
+    assert any("serving step_" in str(w.message) for w in caught)
+
+
+def test_registry_read_fault_on_all_generations_aggregates(rng, tmp_path):
+    _, dp = _dplan(rng)
+    reg = PlanRegistry(str(tmp_path), keep=2)
+    reg.save("g", dp)
+    reg.save("g", dp)
+    with armed("registry_read", times=None):
+        with pytest.raises(RegistryError, match="every retained generation"):
+            reg.load("g")
 
 
 # ---------------------------------------------------------------------------

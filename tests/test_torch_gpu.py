@@ -1049,3 +1049,78 @@ def test_cuda_deadline(cuda):
             call(deadline=0.0)
         assert torch.equal(call(deadline=120.0).view(torch.int32),
                            call().view(torch.int32))
+
+
+@pytest.mark.parametrize("tier,budget", [
+    ("resident", None),
+    ("ksharded", 400 * 256 * 4),   # a k-block stream beside 256 rows
+    ("resident", 16),              # the reference says "xla"
+])
+def test_delta_sidecar_matches_plain(cuda, tier, budget):
+    """A dynamic plan's sidecar on the card (B2's walk in the padded
+    stream's row order, or B3's over its k-bucketed copy) against the
+    plain gather on the same padded stream, one launch of its kernel;
+    with +-Inf and NaN in B, and an Inf in B's row 0, which the padding
+    entries (row 0, col 0, 0.0) turn into NaN in packed row 0, as the
+    plain version does."""
+    from repro_torch.core.plan_ir import build_delta_fringe
+    from repro_torch.kernels import ops
+
+    rng = np.random.RandomState(11)
+    shape = (300, 3000)
+    key = rng.choice(shape[0] * shape[1], 150, replace=False)
+    cfg = SpmmConfig(impl="cuda", fringe_vmem_budget=budget)
+    df = build_delta_fringe(key // shape[1], key % shape[1], rng.randn(150),
+                            shape, cfg)
+    assert df.tier == tier and df.count < df.capacity
+    rows, cols, vals, _gsrc, kbc, kbr, kbcol, kbv = df.leaves
+    kernel = "gather_spmm_ksharded" if tier == "ksharded" else "gather_spmm"
+    b = rng.randn(shape[1], 256).astype(np.float32)
+    for bmat in (b, _with_nonfinite(rng, b.copy())):
+        bmat = bmat.copy()
+        bmat[0, 9] = np.inf
+        bt = torch.from_numpy(bmat).to(cuda)
+        ops.reset_launch_counts()
+        got = ops.delta_fringe_spmm(
+            rows, cols, vals, bt, num_rows=df.capacity, impl="cuda",
+            tier=df.tier, bk=df.bk, kb_chunk=kbc, kb_rows=kbr,
+            kb_cols=kbcol, kb_vals=kbv, derived={})
+        counts = ops.launch_counts()
+        assert counts[kernel] == 1 and sum(counts.values()) == 1, counts
+        want = ref.ref_gather_spmm(rows, cols, vals, bt, df.capacity)
+        assert bool(torch.isnan(want[0, 9]))
+        _close_nan(got, want)
+
+
+def test_dynamic_plan_cuda_matches_cpu(cuda):
+    """DynamicPlan on the card against the same on the CPU through a
+    mutation stream, the fold included; B's gradient too."""
+    from repro_torch.core.spmm import prepare as prep
+    from repro_torch.data.graphs import mutate
+    from repro_torch.dynamic import DynamicPlan
+
+    spec = PAPER_DATASETS["cora"]
+    rows, cols, vals = generate(spec)
+    shape = (spec.m, spec.k)
+    gpu = DynamicPlan(prep(rows, cols, vals, shape, SpmmConfig(impl="cuda")),
+                      auto_compact=False)
+    cpu = DynamicPlan(prep(rows, cols, vals, shape, SpmmConfig(impl="torch"),
+                           device="cpu"), auto_compact=False)
+    rng = np.random.RandomState(5)
+    b = rng.randn(spec.k, 64).astype(np.float32)
+    for d in mutate(rows, cols, vals, shape, steps=3, insert_frac=0.02,
+                    delete_frac=0.02, update_frac=0.05, seed=1):
+        gpu.update(d)
+        cpu.update(d)
+        _close(gpu.execute(torch.from_numpy(b).to(cuda)).cpu(),
+               cpu.execute(torch.from_numpy(b)))
+    bt = torch.from_numpy(b).to(cuda).requires_grad_(True)
+    g = torch.from_numpy(rng.randn(spec.m, 64).astype(np.float32))
+    (gpu.execute(bt) * g.to(cuda)).sum().backward()
+    bc = torch.from_numpy(b).requires_grad_(True)
+    (cpu.execute(bc) * g).sum().backward()
+    _close(bt.grad.cpu(), bc.grad)
+    gpu.compact()
+    cpu.compact()
+    _close(gpu.execute(torch.from_numpy(b).to(cuda)).cpu(),
+           cpu.execute(torch.from_numpy(b)))

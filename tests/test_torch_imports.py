@@ -41,7 +41,9 @@ def test_port_files_exist():
     assert "src/repro_torch/sparse.py" in names
     for module in ("core/coordinator.py", "core/tuner.py", "obs/trace.py",
                    "obs/profile.py", "obs/report.py", "robust/faults.py",
-                   "exec/health.py", "core/values.py"):
+                   "exec/health.py", "core/values.py",
+                   "checkpoint/checkpoint.py", "dynamic/registry.py",
+                   "dynamic/delta.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) > 20
 
@@ -100,6 +102,10 @@ def test_layer_check_rejects_upward_and_foreign_imports(tmp_path):
                            "from ..exec import api\n"),
         "obs/metrics.py": "from ..errors import ReproError\n",
         "exec/api.py": "from ..dynamic import update_values\n",
+        # data sits beside dynamic: nothing below dynamic imports it
+        "exec/pipeline.py": "from ..data import graphs\n",
+        "data/graphs.py": "def f():\n    from ..dynamic.delta import x\n",
+        "checkpoint/checkpoint.py": "from ..errors import ReproError\n",
         "sparse.py": "import importlib\nimportlib.import_module('jax')\n",
         "models/layers.py": "from repro.core import spmm\n",
     })
@@ -117,9 +123,11 @@ def test_layer_check_rejects_upward_and_foreign_imports(tmp_path):
     # exec sits below dynamic: the backward's update_values is core's
     assert "repro_torch/exec/api.py:1: exec must not import " \
         "repro_torch.dynamic" in joined
-    # the allowance: kernels -> core.cost_model
-    assert "cost_model" not in joined
-    assert len(found) == 7, found
+    assert "exec must not import repro_torch.data" in joined
+    assert "checkpoint must not import repro_torch.errors" in joined
+    # the allowances: kernels -> core.cost_model, data -> dynamic
+    assert "cost_model" not in joined and "data/graphs.py" not in joined
+    assert len(found) == 9, found
 
 
 def test_exec_imports_nothing_of_dynamic():

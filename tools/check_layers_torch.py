@@ -7,16 +7,22 @@ imports, plus ``importlib.import_module`` calls with literal arguments —
 and fails when a package imports a layer above itself.  The graph, from
 the bottom up:
 
-    errors, obs, robust     (taxonomy, telemetry, fault harness)
-    kernels, data           (kernels and their plain versions; the graph
-                             generators)
+    errors, obs, robust,    (taxonomy, telemetry, fault harness, the
+    checkpoint               numpy checkpoint layout)
+    kernels                 (kernels and their plain versions)
         -> core             (plan IR + plan builders)
         -> exec             (executor pipeline + health table)
-        -> dynamic          (plan maintenance: value updates)
+        -> dynamic, data    (plan maintenance: value updates, the delta
+                             sidecar, the registry; the graph generators
+                             and the mutation stream)
         -> sparse           (the user-facing operator facade)
         -> models           (graph layers over the facade)
         -> interop          (JAX <-> port state, layers included)
         -> examples         (scripts; imported by nothing)
+
+``data`` sits beside ``dynamic``: its generators import numpy alone,
+and ``mutate`` builds ``dynamic.GraphDelta`` batches (a function-local
+import, as in the reference).  Nothing below ``dynamic`` imports it.
 
 ``models`` and ``interop`` sit above ``sparse`` here, as the port's
 imports place them: the graph layers call the facade (the reference's
@@ -65,11 +71,12 @@ FORBIDDEN = {
     "errors": ("repro_torch",),
     "obs": ("repro_torch",),
     "robust": ("repro_torch",),
+    "checkpoint": ("repro_torch",),
     "kernels": ("repro_torch.core", "repro_torch.data") + _ABOVE_CORE,
-    "data": ("repro_torch.core", "repro_torch.kernels") + _ABOVE_CORE,
-    "core": _ABOVE_CORE,
-    "exec": _ABOVE_CORE[1:],
+    "core": _ABOVE_CORE + ("repro_torch.data",),
+    "exec": _ABOVE_CORE[1:] + ("repro_torch.data",),
     "dynamic": _ABOVE_CORE[2:],
+    "data": _ABOVE_CORE[2:],
     "sparse": _ABOVE_CORE[3:],
     "models": _ABOVE_CORE[4:],
     "interop": _ABOVE_CORE[5:],
@@ -78,6 +85,7 @@ FORBIDDEN = {
 # prefixes a package may import despite the rules above
 ALLOWED_PREFIXES = {
     "obs": ("repro_torch.obs",),
+    "checkpoint": ("repro_torch.checkpoint",),
     "robust": ("repro_torch.errors", "repro_torch.obs", "repro_torch.robust"),
     "kernels": ("repro_torch.core.cost_model", "repro_torch.core.plan_ir"),
 }
