@@ -27,7 +27,9 @@ port's), as ``interop.plan_from_arrays`` does, and checks the restored
 signature with the stored impl in its place.  The reference's
 ``degrade_to_xla`` is an execution-only field (it is left out of the
 fingerprint too) that the port's config does not have (no degrade tier):
-it is dropped on load.
+it is dropped on load.  A tuple ``structure_hint``, which JSON stores as
+a list, is made a tuple again (the reference's loader keeps the list,
+and its next ``prepare`` then ignores the hint: ROADMAP C10).
 
 Sharded entries (``kind: "sharded"``) are not ported: loading one raises
 ``RegistryError`` (ROADMAP A-queue 9).
@@ -102,11 +104,15 @@ def _safe_name(name: str) -> str:
 def _port_config(cfg: Dict[str, Any], impl: str) -> Dict[str, Any]:
     """The stored config's fields for the port's ``SpmmConfig`` on
     ``impl``: the impl mapped, execution-only fields the port lacks
-    dropped."""
+    dropped, and a ``structure_hint`` that JSON turned into a list made a
+    tuple again (as a list the hint would be ignored by the next
+    ``prepare``, and the config could not be hashed)."""
     known = {f.name for f in dataclasses.fields(SpmmConfig)}
     out = {key: value for key, value in cfg.items()
            if key in known or key not in _EXECUTION_ONLY_CONFIG_FIELDS}
     out["impl"] = impl
+    if isinstance(out.get("structure_hint"), list):
+        out["structure_hint"] = tuple(out["structure_hint"])
     return out
 
 

@@ -724,3 +724,38 @@ def test_facade_dynamic_matrix(rng):
     r, c, _ = a.coo()
     _close(sp.sddmm(a, x, y), (x @ y)[r, c], TOL_DENSE)
     assert not a.with_values(np.ones(a.nnz)).is_dynamic
+
+
+def test_structured_base_plan_rides_the_general_payload(rng):
+    """A dynamic plan over an N:M plan: the sidecar's dispatch runs on the
+    general payload's signature (``general_format_sig``), reading the
+    general tiles that ride beside the packed ones, as the reference's
+    does; value updates of core entries demote the plan, as
+    ``update_values`` does."""
+    m, k = 64, 64
+    g = rng.randn(m, k // 4, 4)
+    keep = np.argsort(rng.rand(*g.shape), axis=-1) < 2
+    w = np.where(keep, g, 0.0).reshape(m, k)
+    rows, cols = np.nonzero(w)
+    vals = w[rows, cols]
+    kw = dict(bm=32, bk=16, structure_hint=("nm", 2, 4), alpha=1e-9,
+              enable_col_stage=False)
+    port = _dyn(rows, cols, vals, (m, k),
+                cfg=spmm.SpmmConfig(impl="torch", **kw), auto_compact=False)
+    want = JaxDynamicPlan(jax_spmm.prepare(
+        rows, cols, vals, (m, k), jax_spmm.SpmmConfig(impl="xla", **kw)),
+        auto_compact=False)
+    assert port.plan.matrix_format == want.plan.matrix_format == "nm"
+    b = rng.randn(k, 8).astype(np.float32)
+    dense = _dense(rows, cols, vals, (m, k))
+    zr, zc = np.nonzero(dense == 0)
+    batches = [GraphDelta.inserts(zr[:6], zc[:6], rng.randn(6)),
+               GraphDelta.updates(rows[:4], cols[:4], rng.randn(4))]
+    for d in batches:
+        port.update(d)
+        want.update(_jax_delta(d))
+        _apply_delta_dense(dense, d)
+        _close(port.execute(torch.from_numpy(b)),
+               want.execute(jnp.asarray(b)), TOL_REF)
+        _check_dense(port, dense, b)
+    assert port.plan.matrix_format == want.plan.matrix_format == "general"

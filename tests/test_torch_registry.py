@@ -19,7 +19,8 @@ signature) before the reference loads it.  (The reference's
 dropped by the port's loader; the port's manifest lacks it, and the
 reference's config takes its default.)  Every leaf, map and overlay array
 must come back equal, and the results agree within 1e-5 * max(1,
-max|ref|).
+max|ref|).  A structured plan's ``structure_hint`` comes back a tuple in
+the port and a list in the reference (C10).
 """
 import json
 import os
@@ -455,3 +456,42 @@ def test_port_entry_loads_in_the_reference(rng, tmp_path):
     # and back: the port loads the entry the reference reads
     again = reg.load("g", impl="torch")
     _assert_state_equal(again, ref)
+
+
+def test_structured_entry_keeps_its_hint_through_a_fold(rng, tmp_path):
+    """An N:M plan prepared with ``structure_hint=("nm", 2, 4)``: the
+    registry's JSON stores the hint as a list; the port's loader makes it
+    a tuple again, so the loaded plan's leaves and signature are the
+    saved ones and a fold still packs 2:4.  (C10: the reference's loader
+    keeps the list, so its fold falls back to the general payload; this
+    test shows that too.)"""
+    m, k = 64, 64
+    g = rng.randn(m, k // 4, 4)
+    keep = np.argsort(rng.rand(*g.shape), axis=-1) < 2
+    w = np.where(keep, g, 0.0).reshape(m, k)
+    rows, cols = np.nonzero(w)
+    vals = w[rows, cols]
+    kw = dict(bm=32, bk=16, structure_hint=("nm", 2, 4), alpha=1e-9,
+              enable_col_stage=False)
+    cfg = spmm.SpmmConfig(impl="torch", **kw)
+    plan = _prep(rows, cols, vals, (m, k), cfg)
+    assert plan.matrix_format == "nm"
+    reg = PlanRegistry(str(tmp_path))
+    reg.save("w", DynamicPlan(plan, auto_compact=False))
+    loaded = reg.load("w")
+    assert loaded.config == cfg and hash(loaded.config) == hash(cfg)
+    assert loaded.plan.signature() == plan.signature()
+    for name in LEAF_NAMES:
+        assert torch.equal(getattr(loaded.plan, name), getattr(plan, name))
+    loaded.compact()
+    assert loaded.plan.matrix_format == "nm"
+    assert loaded.plan.format_params == (2, 4)
+    # the reference, on the same entry layout
+    jreg = JaxPlanRegistry(str(tmp_path))
+    jreg.save("j", JaxDynamicPlan(jax_spmm.prepare(
+        rows, cols, vals, (m, k), jax_spmm.SpmmConfig(impl="xla", **kw)),
+        auto_compact=False))
+    jl = jreg.load("j")
+    assert isinstance(jl.config.structure_hint, list)
+    jl.compact()
+    assert jl.plan.matrix_format == "general"
