@@ -25,8 +25,8 @@ per change, in three layers:
    swap it in.
 
 The host loops over the mutated keys are the reference's, key by key
-(ROADMAP A-queue 7 vectorises them).  Sharded plans are not ported
-(ROADMAP A-queue 9).
+(ROADMAP A-queue 5 vectorises them).  Sharded plans are not ported
+(ROADMAP A-queue 6).
 """
 from __future__ import annotations
 

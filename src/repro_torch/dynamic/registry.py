@@ -32,7 +32,7 @@ a list, is made a tuple again (the reference's loader keeps the list,
 and its next ``prepare`` then ignores the hint: ROADMAP C10).
 
 Sharded entries (``kind: "sharded"``) are not ported: loading one raises
-``RegistryError`` (ROADMAP A-queue 9).
+``RegistryError`` (ROADMAP A-queue 6).
 """
 from __future__ import annotations
 
@@ -290,7 +290,7 @@ class PlanRegistry:
         if meta.get("kind", "plan") == "sharded":
             raise RegistryError(
                 f"{name!r} is a sharded entry; sharded plans are not ported "
-                "(ROADMAP A-queue 9)")
+                "(ROADMAP A-queue 6)")
         try:
             stored_impl = meta["config"]["impl"]
             impl = impl or stored_impl

@@ -26,6 +26,7 @@ import ctypes
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from . import _build
@@ -125,6 +126,148 @@ def kbucket_row_order(
     chunk = rows.shape[0] // max(chunk_kb.shape[0], 1)
     gcols = torch.repeat_interleave(chunk_kb, chunk) * bk + cols
     return stream_row_order(rows, gcols, num_rows)
+
+
+# How the walk (csrc/gather_spmm.cu, kDefaultSlice = 64 columns and
+# kDefaultUnroll = 4) sums a row: the entry at position p of the row goes
+# to partial sum p % WALK_GROUPS, each partial sum takes its entries in
+# row order, and the walk takes WALK_STEP entries a step, adding 0 * 0 in
+# the slots of the row's last step that lie past its end.  The partial
+# sums are added at the end.  tests/test_torch_ksharded.py reads both
+# numbers from the source.
+WALK_GROUPS = 2
+WALK_STEP = 8
+
+
+def sidecar_real_count(rows: torch.Tensor, cols: torch.Tensor) -> int:
+    """Real entries of a delta sidecar's packed stream
+    (``plan_ir.DeltaFringe``): they come first, sorted by strictly rising
+    (row, column) keys, and the capacity padding (row 0, col 0, 0.0)
+    follows, so the first key that does not rise starts the padding (one
+    host read)."""
+    r = rows.cpu().numpy().astype(np.int64)
+    c = cols.cpu().numpy().astype(np.int64)
+    if r.size < 2:
+        return int(r.size)
+    key = r * (int(c.max()) + 1) + c
+    fall = np.flatnonzero(key[1:] <= key[:-1])
+    return int(fall[0]) + 1 if fall.size else int(r.size)
+
+
+def kbucket_padding(chunk_kb: torch.Tensor, n_entries: int,
+                    real_cols: torch.Tensor, bk: int) -> np.ndarray:
+    """(n_entries,) bool: the padding entries of a sidecar's k-bucketed
+    stream (``plan_ir.bucket_fringe_kblocks`` of the packed stream, padded
+    to its capacity).  ``real_cols`` are the packed stream's real columns:
+    each k-block's bucket starts with its real entries, in packed order,
+    and everything else (the packed stream's capacity padding, bucketed
+    into k-block 0, each bucket's fill to a whole chunk, and the trailing
+    chunks) is padding."""
+    kbc = chunk_kb.cpu().numpy().astype(np.int64)
+    chunk = n_entries // max(kbc.size, 1)
+    kb = real_cols.cpu().numpy().astype(np.int64) // bk
+    pad = np.ones(n_entries, bool)
+    if not kb.size:
+        return pad
+    # the bucketed chunks rise by k-block; the trailing ones restart at 0
+    fall = np.flatnonzero(kbc[1:] < kbc[:-1])
+    n_bucketed = int(fall[0]) + 1 if fall.size else kbc.size
+    counts = np.bincount(kb)
+    blocks = np.flatnonzero(counts)
+    starts = np.searchsorted(kbc[:n_bucketed], blocks) * chunk
+    n = counts[blocks]
+    first = np.cumsum(n) - n
+    pos = np.repeat(starts - first, n) + np.arange(int(n.sum()))
+    pad[pos] = False
+    return pad
+
+
+def _kept_padding(pos0: int, cols: np.ndarray, last: bool) -> np.ndarray:
+    """Indices (into one run of padding entries at row position ``pos0``,
+    global columns ``cols``) of the entries to walk in place of the whole
+    run, with the same effect on the row's sum.
+
+    A padding entry adds ``0 * B[col]``: nothing to a partial sum that is
+    not zero, NaN where B[col] is an Inf or a NaN, and to a zero it gives
+    +0 unless the zero is -0 and B[col] negative.  So a run acts on each
+    partial sum through the set of columns among its entries there, each
+    once.  A run followed by a real entry keeps that set for every partial
+    sum; the ``last`` run of the row only needs each column once, since
+    the partial sums are then added (a sum of zeros is -0 only if every
+    term is).  The kept run's length is the run's modulo ``WALK_STEP``, so
+    every later entry keeps its partial sum and the row's last step its
+    slots past the end."""
+    size = cols.size
+    if last:
+        first = np.sort(np.unique(cols, return_index=True)[1])
+        kept = first.size + (size - first.size) % WALK_STEP
+        return np.concatenate([first, np.full(kept - first.size, first[0])])
+    group = (pos0 + np.arange(size)) % WALK_GROUPS
+    key = group * (int(cols.max()) + 1) + cols
+    first = np.sort(np.unique(key, return_index=True)[1])
+    sets = [first[group[first] == g] for g in range(WALK_GROUPS)]
+    need = max(s.size for s in sets) * WALK_GROUPS
+    kept = need + (size - need) % WALK_STEP
+    if kept >= size or any(s.size == 0 for s in sets):
+        return np.arange(size)
+    slot = np.arange(kept)
+    out = np.empty(kept, np.int64)
+    for g in range(WALK_GROUPS):
+        mine = (pos0 + slot) % WALK_GROUPS == g
+        rank = np.minimum(slot[mine] // WALK_GROUPS, sets[g].size - 1)
+        out[mine] = sets[g][rank]
+    return out
+
+
+def drop_padding(order: RowOrder, is_pad: np.ndarray) -> RowOrder:
+    """``order`` with the padding entries (``is_pad`` over stream
+    positions, all in row 0) cut to those that change what the walk
+    computes: each run of them between two real entries of row 0, or after
+    the last, becomes :func:`_kept_padding` of it, at most a few entries.
+    The walk over the result is bit for bit the walk over ``order``,
+    non-finite values and signed zeros in B included (one host read)."""
+    end0 = int(order.indptr[1])
+    perm = order.perm.cpu().numpy().astype(np.int64)
+    pad = np.asarray(is_pad, bool)[perm]
+    if pad[end0:].any():
+        raise ValueError("drop_padding: padding entries outside row 0")
+    cols0 = order.cols[:end0].cpu().numpy()
+    edges = np.diff(np.concatenate([[0], pad[:end0].astype(np.int8), [0]]))
+    starts = np.flatnonzero(edges == 1)
+    ends = np.flatnonzero(edges == -1)
+    keep, prev = [], 0
+    for s, e in zip(starts, ends):
+        keep.append(np.arange(prev, s))
+        keep.append(s + _kept_padding(int(s), cols0[s:e], e == end0))
+        prev = e
+    keep.append(np.arange(prev, end0))
+    keep = torch.from_numpy(np.concatenate(keep)).to(order.perm.device)
+    cut = end0 - int(keep.numel())
+    indptr = order.indptr.clone()
+    indptr[1:] -= cut
+    return RowOrder(torch.cat([order.perm[keep], order.perm[end0:]]),
+                    indptr,
+                    torch.cat([order.cols[keep], order.cols[end0:]]))
+
+
+def sidecar_row_order(
+    rows: torch.Tensor, cols: torch.Tensor, num_rows: int, *,
+    kb_chunk: Optional[torch.Tensor] = None,
+    kb_rows: Optional[torch.Tensor] = None,
+    kb_cols: Optional[torch.Tensor] = None, bk: int = 0,
+) -> RowOrder:
+    """The row order B2 walks a delta sidecar's packed stream in (``rows``,
+    ``cols``), or with ``kb_*`` and ``bk`` the order B3 walks its
+    k-bucketed copy in, each with its padding cut by
+    :func:`drop_padding` (host reads: callers cache it in the sidecar's
+    ``derived``)."""
+    n_real = sidecar_real_count(rows, cols)
+    if kb_chunk is None:
+        return drop_padding(stream_row_order(rows, cols, num_rows),
+                            np.arange(rows.shape[0]) >= n_real)
+    return drop_padding(
+        kbucket_row_order(kb_chunk, kb_rows, kb_cols, num_rows, bk),
+        kbucket_padding(kb_chunk, kb_rows.shape[0], cols[:n_real], bk))
 
 
 def _check(b: torch.Tensor, **tensors) -> None:

@@ -23,7 +23,7 @@ from . import ref
 from .dense_tile_spmm import dense_tile_spmm, window_chunks, window_segments
 from .gather_spmm import (
     csr_indptr, gather_spmm, gather_spmm_ksharded, kbucket_row_order,
-    stream_row_order,
+    sidecar_row_order,
 )
 from .sddmm import dense_tile_sddmm, gather_sddmm, sampled_index
 from .structured_spmm import bitmap_tile_spmm, nm_tile_spmm
@@ -279,12 +279,16 @@ def delta_fringe_spmm(
     real entries sorted by key, then padding entries (row 0, col 0, 0.0),
     so its rows are not sorted.  ``impl="torch"`` runs the reference's
     gather on it.  ``impl="cuda"`` runs B3's walk over the k-bucketed
-    sidecar for tier "ksharded" (its row order is built there, as for a
-    plan), and B2's walk in the stream's stable row order
-    (:func:`~repro_torch.kernels.gather_spmm.stream_row_order`) otherwise.
-    The padding entries are walked, as the reference and the plain version
-    add them.  ``derived`` must be the sidecar's own cache
-    (``DeltaFringe.derived``), never its plan's.
+    sidecar for tier "ksharded", and B2's walk in the stream's stable row
+    order (:func:`~repro_torch.kernels.gather_spmm.stream_row_order`)
+    otherwise.  Every padding entry lies in packed row 0, so one warp would
+    walk them all (up to ``capacity * chunk`` on the k-bucketed form).  The
+    row order, cached in ``derived``, keeps only the few of them that
+    change what the walk computes
+    (:func:`~repro_torch.kernels.gather_spmm.drop_padding`): the result is
+    bit for bit the walk over every padding entry, NaN where the padding
+    reads an Inf or a NaN in B.  ``derived`` must be the sidecar's own
+    cache (``DeltaFringe.derived``), never its plan's.
     """
     if rows.shape != cols.shape or rows.shape != vals.shape:
         raise ValueError(
@@ -295,9 +299,21 @@ def delta_fringe_spmm(
             f"delta_fringe_spmm expects a rank-2 (K, N) operand, got shape "
             f"{tuple(b.shape)}")
     _check_impl(impl, b)
-    if impl == "cuda" and tier != "ksharded":
+    if impl == "cuda" and tier == "ksharded":
+        if kb_rows is None or kb_chunk is None or bk <= 0:
+            raise ValueError(
+                "tier='ksharded' needs the k-bucketed sidecar (kb_chunk/"
+                "kb_rows/kb_cols/kb_vals) and its bk")
+        order = _cached(derived, "kbucket_row_order",
+                        lambda: sidecar_row_order(
+                            rows, cols, num_rows, kb_chunk=kb_chunk,
+                            kb_rows=kb_rows, kb_cols=kb_cols, bk=bk))
+        return gather_spmm_ksharded(kb_chunk, kb_rows, kb_cols, kb_vals, b,
+                                    num_rows=num_rows, bk=bk,
+                                    row_order=order)
+    if impl == "cuda":
         order = _cached(derived, "stream_row_order",
-                        lambda: stream_row_order(rows, cols, num_rows))
+                        lambda: sidecar_row_order(rows, cols, num_rows))
         return gather_spmm(rows, cols, vals, b, num_rows=num_rows,
                            row_order=order)
     return fringe_spmm(rows, cols, vals, b, num_rows=num_rows, impl=impl,

@@ -1092,6 +1092,59 @@ def test_delta_sidecar_matches_plain(cuda, tier, budget):
         _close_nan(got, want)
 
 
+@pytest.mark.parametrize("tier,budget", [
+    ("resident", None),
+    ("ksharded", 400 * 256 * 4),
+])
+def test_delta_sidecar_cut_padding_is_bit_equal(cuda, tier, budget):
+    """The sidecar's row order with its padding cut
+    (``gather_spmm.sidecar_row_order``) against the walk over every
+    padding entry (``stream_row_order``/``kbucket_row_order``), on the
+    card: bit-equal on a finite B, with signed zeros and underflowing
+    products, and the same NaN cells with an Inf in B's row 0."""
+    from repro_torch.core.plan_ir import build_delta_fringe
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gather_spmm import (
+        gather_spmm, gather_spmm_ksharded, kbucket_row_order,
+        stream_row_order,
+    )
+
+    rng = np.random.RandomState(12)
+    shape = (300, 3000)
+    key = np.unique(np.concatenate([
+        [0, 700, 1500, 2900],
+        rng.choice(shape[0] * shape[1], 150, replace=False)]))
+    cfg = SpmmConfig(impl="cuda", fringe_vmem_budget=budget)
+    df = build_delta_fringe(key // shape[1], key % shape[1],
+                            rng.randn(key.size), shape, cfg)
+    assert df.tier == tier and df.count < df.capacity
+    rows, cols, vals, _gsrc, kbc, kbr, kbcol, kbv = df.leaves
+    cap = df.capacity
+    b = rng.randn(shape[1], 256).astype(np.float32)
+    b[rng.rand(*b.shape) < 0.1] = -0.0
+    b[rng.rand(*b.shape) < 0.1] = 1e-30
+    for bmat in (b, b.copy()):
+        if bmat is not b:
+            bmat[0, 9] = np.inf
+        bt = torch.from_numpy(bmat).to(cuda)
+        got = ops.delta_fringe_spmm(
+            rows, cols, vals, bt, num_rows=cap, impl="cuda", tier=df.tier,
+            bk=df.bk, kb_chunk=kbc, kb_rows=kbr, kb_cols=kbcol, kb_vals=kbv,
+            derived={})
+        if tier == "ksharded":
+            full = gather_spmm_ksharded(
+                kbc, kbr, kbcol, kbv, bt, num_rows=cap, bk=df.bk,
+                row_order=kbucket_row_order(kbc, kbr, kbcol, cap, df.bk))
+        else:
+            full = gather_spmm(rows, cols, vals, bt, num_rows=cap,
+                               row_order=stream_row_order(rows, cols, cap))
+        nan = torch.isnan(full)
+        assert torch.equal(torch.isnan(got), nan)
+        assert bool(nan[0, 9]) == (bmat is not b)
+        assert torch.equal(got[~nan].view(torch.int32),
+                           full[~nan].view(torch.int32))
+
+
 def test_dynamic_plan_cuda_matches_cpu(cuda):
     """DynamicPlan on the card against the same on the CPU through a
     mutation stream, the fold included; B's gradient too."""

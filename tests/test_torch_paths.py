@@ -319,11 +319,17 @@ def test_cuda_paths_raise_without_a_card():
 
 class _Queue:
     """A stand-in for a CUDA stream: calls queue work and return at once;
-    the work (a sleep) happens when ``torch.cuda.synchronize`` is called."""
+    the work (a sleep) happens when ``torch.cuda.synchronize`` is called.
+    ``clock`` is a simulated clock that advances by the queued work at each
+    synchronisation, for tests that must not read the wall clock."""
 
     def __init__(self):
         self.pending = 0.0
+        self.now = 0.0
         self.log = []
+
+    def clock(self):
+        return self.now
 
     def submit(self, seconds, tag):
         self.pending += seconds
@@ -333,6 +339,7 @@ class _Queue:
     def synchronize(self, device=None):
         self.log.append(("sync", str(device)))
         time.sleep(self.pending)
+        self.now += self.pending
         self.pending = 0.0
 
 
@@ -367,9 +374,12 @@ def test_timed_best_of_synchronizes_after_each_call(monkeypatch):
 def test_measure_calibration_synchronizes_async_benches(monkeypatch):
     """The port of ``tests/test_cost_model.py``'s calibration test: a bench
     whose cost hides behind an asynchronous launch must still calibrate
-    (best of 3, so one slow scheduler tick cannot decide it)."""
+    (best of 3).  The timer reads the queue's simulated clock, which moves
+    only when the queue synchronises, so a loaded host cannot decide it."""
     q = _Queue()
     monkeypatch.setattr(torch.cuda, "synchronize", q.synchronize)
+    monkeypatch.setattr(tuner, "time", types.SimpleNamespace(
+        perf_counter=q.clock))
     cm = EngineCostModel.measure(
         lambda: q.submit(0.0, "matrix"), lambda: q.submit(0.004, "vector"),
         1000.0, 1000.0, repeats=3,

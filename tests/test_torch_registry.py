@@ -7,7 +7,7 @@ Mirrors the single-device tests of ``tests/test_dynamic_registry.py``
 version drift, retention, crashes mid-save, generation fallback) and
 ``tests/test_checkpoint.py`` (round trip, shard files, retention, no
 temporary directory left behind, a given step, shape mismatch).  The
-reference's sharded-entry and serving tests wait for A-queue 9 and 8; a
+reference's sharded-entry tests wait for A-queue 6 (sharding); a
 sharded entry raises here.
 
 Across packages, on one disk layout: an entry written by ``repro`` loads
@@ -271,7 +271,7 @@ def test_corrupt_manifest_raises(rng, tmp_path):
     ("plan_format_version", "plan format"),
     ("registry_format_version", "registry format"),
     ("signature", "signature"),
-    ("kind", "A-queue 9"),
+    ("kind", "A-queue 6"),
 ])
 def test_manifest_drift_raises(rng, tmp_path, field, match):
     a, rows, cols, vals = _graph(rng)
