@@ -146,6 +146,13 @@ class EngineCostModel:
         return select_fringe_tier(k, num_rows, bn, vmem_budget=vmem_budget,
                                   impl=impl)
 
+    def select_sddmm_tier(
+        self, d: int, n_src_rows: int, n_dst_rows: int,
+        vmem_budget: Optional[int] = None, impl: str = "torch",
+    ) -> str:
+        return select_sddmm_tier(d, n_src_rows, n_dst_rows,
+                                 vmem_budget=vmem_budget, impl=impl)
+
     def imbalance_threshold(self) -> float:
         """Max tolerated LPT row imbalance before rhs-sharding wins."""
         return ROWS_IMBALANCE_THRESHOLD
@@ -154,6 +161,20 @@ class EngineCostModel:
         """``(max_delta_fraction, max_slowdown)`` for
         :func:`should_compact`."""
         return DELTA_MAX_FRACTION, DELTA_MAX_SLOWDOWN
+
+    def densify_occupancy(self) -> Optional[float]:
+        """Occupancy above which the reference's core densifies (None: its
+        kernel default).  No executor of the port reads it: B1 has no
+        densify crossover (``kMmaMinDensity`` in ``csrc/tile_core.cuh``
+        picks the tile product instead)."""
+        return None
+
+    def tile_shape(self, m: int, k: int, n: int,
+                   nnz: int) -> Optional[tuple]:
+        """Autotuned ``(bm, bk)`` for this problem, or None to keep the
+        config's.  The analytic model never overrides; only the measured
+        table (``core.tuner.TunedCostModel``) answers."""
+        return None
 
     def select_matrix_format(
         self, *, nm_pattern: Optional[tuple], tile_zero_fraction: float,

@@ -12,7 +12,10 @@ Structured lane: where the core tile stream has an N:M pattern that pays
 N:M or bitmap payload the structured kernels read, as the reference does;
 the general stream always rides along.
 
-Scope of this port: the analytic cost model only (``autotune`` raises).
+Every dispatch decision consults the cost model that ``core.tuner``
+resolves for the config: the analytic model, or with ``autotune`` the
+measured table, whose tuned ``(bm, bk)`` applies before partitioning, as
+in the reference.
 
 Execution names (``execute``, ``execute_with_delta``,
 ``execute_delta_contribution``, the per-path executors, ``neutron_spmm``,
@@ -23,6 +26,7 @@ at import time; each forwarded access warns once per process that the
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -32,8 +36,8 @@ from ..errors import PlanBuildError
 from ..kernels.ops import effective_chunk
 from ..obs import REGISTRY
 from . import formats, partition, plan_ir, reorder, reuse
-from .cost_model import EngineCostModel, default_cost_model
-from .tuner import check_autotune
+from .cost_model import EngineCostModel
+from .tuner import resolve_cost_model
 from .plan_ir import IMPL_DEVICE, NeutronPlan, SpmmConfig
 
 _PREPARES = REGISTRY.counter(
@@ -179,12 +183,19 @@ def build_plan_arrays(
     ``meta`` is what :func:`plan_ir.plan_from_leaves` takes besides the
     leaves.  Runs no kernel and touches no device.
     """
-    check_autotune(config)
     m, k = shape
     rows, cols, vals = plan_ir.validate_coo(rows, cols, vals, shape)
     _PREPARES.inc()
-    cm = cost_model if cost_model is not None else default_cost_model(
-        config.bn)
+    # the analytic model unless config.autotune enables the measured table
+    cm = cost_model if cost_model is not None else resolve_cost_model(
+        "spmm", int(m), int(k), int(rows.shape[0]), config)
+    # a tuned (bm, bk) applies before partitioning: the tile shape drives
+    # window costs, the core/fringe split and every static plan shape
+    if config.autotune:
+        ts = cm.tile_shape(int(m), int(k), config.bn, int(rows.shape[0]))
+        if ts is not None:
+            config = dataclasses.replace(config, bm=int(ts[0]),
+                                         bk=int(ts[1]))
     t0 = time.perf_counter()
 
     # 1) heterogeneous workload partitioning (§5.2)
@@ -416,7 +427,6 @@ def prepare(
     kernels, "cpu" for the plain versions); a mismatched pair raises before
     any work is done.
     """
-    check_autotune(config)
     if device is None:
         device = IMPL_DEVICE.get(config.impl, config.impl)
     plan_ir.check_impl_device(config.impl, device)

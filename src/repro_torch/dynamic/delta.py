@@ -156,8 +156,8 @@ class DynamicPlan:
                 "DynamicPlan does not support reorder_cols=True: sidecar "
                 "columns address the un-permuted operand")
         self.plan = plan
-        # the analytic model (autotune is not ported); the compaction
-        # thresholds resolve explicit argument > cost model
+        # the tuner's model (the analytic one unless config.autotune); the
+        # compaction thresholds resolve explicit argument > cost model
         self.cost_model = (
             cost_model if cost_model is not None
             else tuner.resolve_cost_model(

@@ -358,6 +358,19 @@ def _execute_sddmm(plan: NeutronPlan, x: torch.Tensor,
     if smaps.nnz == 0:
         shape = (0,) if batch is None else (batch, 0)
         return torch.zeros(shape, dtype=torch.float32, device=plan.device)
+    if getattr(plan.config, "autotune", False) and (
+            plan.config.impl == "cuda"):
+        # the tuned SDDMM tier, as the reference resolves it for its kernel
+        # impls; under the H100 rule a "cuda" plan's tier is always the
+        # gather kernel (a stored "xla" is ignored and counted by the
+        # tuner), so the op tag keeps the config's budget.  A "torch" plan
+        # never reads the tier, as the reference's "xla" does not.
+        tuner.resolve_cost_model(
+            "sddmm", int(plan.shape[0]), int(plan.shape[1]), smaps.nnz,
+            plan.config,
+        ).select_sddmm_tier(
+            int(x.shape[-1]), int(plan.shape[0]), int(plan.shape[1]),
+            vmem_budget=plan.config.fringe_vmem_budget, impl="cuda")
     sig = tag_op(plan.signature(), "sddmm", smaps.nnz, smaps.nnz_f,
                  plan.config.fringe_vmem_budget)
     return _guarded_call(

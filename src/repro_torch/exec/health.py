@@ -134,6 +134,13 @@ class HealthTable:
                     f"is inside its backoff, next attempt at dispatch "
                     f"{rec.next_retry_call}")
 
+    def is_degraded(self, sig: Tuple) -> bool:
+        """True while ``sig`` is retrying or demoted: its dispatches raise
+        inside the backoff, or always once demoted."""
+        with self._lock:
+            rec = self._sigs.get(sig)
+            return bool(rec and rec.state != "healthy")
+
     def state(self, sig: Tuple) -> str:
         with self._lock:
             rec = self._sigs.get(sig)

@@ -31,14 +31,15 @@ seam                fire site
                     a ``"cuda"`` signature only, after ``executor_build``
                     — where the reference lowers its Pallas tiers;
                     context = signature
-``fold_build``      no fire site yet: the background compaction worker
-                    comes with the serving layer (ROADMAP A-queue 8)
+``fold_build``      ``serve.spmm_service._compact_build``, on the worker
+                    thread before the folded plan is built; context =
+                    matrix name
 ``registry_write``  ``dynamic.registry.PlanRegistry._write_entry``, before
                     the checkpoint save; context = entry name
 ``registry_read``   ``dynamic.registry.PlanRegistry._read_step``, before
                     each generation's manifest is read; context = name
-``dispatch``        no fire site yet: the service's per-batch dispatch
-                    (A-queue 8)
+``dispatch``        ``serve.spmm_service.SpmmService._execute``, before
+                    each batched dispatch; context = matrix name
 ==================  ======================================================
 """
 from __future__ import annotations

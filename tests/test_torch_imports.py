@@ -43,7 +43,8 @@ def test_port_files_exist():
                    "obs/profile.py", "obs/report.py", "robust/faults.py",
                    "exec/health.py", "core/values.py",
                    "checkpoint/checkpoint.py", "dynamic/registry.py",
-                   "dynamic/delta.py"):
+                   "dynamic/delta.py", "dynamic/tuning.py",
+                   "serve/spmm_service.py", "examples/dynamic_serving.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) > 20
 
@@ -143,3 +144,55 @@ def test_exec_imports_nothing_of_dynamic():
         targets = [t for _, t in check.iter_imports(rel, tree)]
         assert not [t for t in targets
                     if t.startswith("repro_torch.dynamic")], (rel, targets)
+
+
+def test_layer_check_puts_serve_on_top_and_keeps_seams_downward(tmp_path):
+    """``serve`` sits above every layer but the examples; the tuner's
+    store hook is called only from ``dynamic``/``serve``, and no fault
+    seam fires in ``core`` or ``kernels``."""
+    check = _layer_checker()
+    src = _fake_port(tmp_path, {
+        "__init__.py": "",
+        # serve may import every layer below it
+        "serve/spmm_service.py": ("from ..dynamic import PlanRegistry\n"
+                                  "from ..core import tuner\n"
+                                  "from ..robust.faults import HARNESS\n"
+                                  "HARNESS.fire('dispatch')\n"),
+        # nothing below serve imports it
+        "dynamic/registry.py": "from ..serve import SpmmService\n",
+        "sparse.py": "def f():\n    from .serve import spmm_service\n",
+        "examples/demo.py": "from ..serve import SpmmService\n",
+        # the store seam: defined in core, called from dynamic only
+        "core/tuner.py": ("def install_store(s):\n    pass\n"
+                          "install_store(None)\n"),
+        "dynamic/tuning.py": ("from ..core import tuner\n"
+                              "tuner.install_store(None)\n"),
+        # no fault seam fires in core or kernels
+        "core/spmm.py": ("from ..robust.faults import HARNESS\n"
+                         "HARNESS.fire('fold_build')\n"),
+        "kernels/ops.py": "HARNESS.fire('dispatch')\n",
+    })
+    found = check.check_tree(src, extra_files=())
+    joined = "\n".join(found)
+    assert ("repro_torch/dynamic/registry.py:1: dynamic must not import "
+            "repro_torch.serve") in joined
+    assert ("repro_torch/sparse.py:2: sparse must not import "
+            "repro_torch.serve") in joined
+    assert "repro_torch/core/tuner.py:3: install_store()" in joined
+    assert "repro_torch/core/spmm.py:2: core must not fire" in joined
+    assert "repro_torch/kernels/ops.py:1: kernels must not fire" in joined
+    assert "serve/spmm_service.py" not in joined
+    assert "examples/demo.py" not in joined
+    assert "dynamic/tuning.py" not in joined
+    assert len(found) == 5, found
+
+
+def test_tuner_installs_no_store_and_fires_no_seam():
+    """The rule on the tree itself: ``core/tuner.py`` defines the store
+    hook and calls neither it nor a fault seam."""
+    check = _layer_checker()
+    path = ROOT / "src" / "repro_torch" / "core" / "tuner.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not list(check.iter_calls(tree, check.STORE_SEAM_HOOK))
+    assert not list(check.iter_calls(tree, check.FAULT_SEAM_HOOK))
+    assert "def install_store" in path.read_text()

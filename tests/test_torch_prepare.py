@@ -247,14 +247,29 @@ def test_nm_detectable_matrix_raises():
     (dict(structure_hint=("nm", 1, 32)), "A8"),
 ])
 def test_unported_options_raise(cfg, match):
-    """autotune (the tuner) still raises.  The structured hints (A8) are ported:
-    the port builds the reference's plan, or raises its PlanBuildError."""
+    """Options the port once refused.  ``autotune=True`` (the tuner) is
+    ported: with the same timer injected into both packages' tuners, each
+    measures the same record inline and builds the reference's plan.  The
+    structured hints (A8) are ported: the port builds the reference's
+    plan, or raises its PlanBuildError."""
     rng = np.random.RandomState(0)
     _, rows, cols, vals = make_sparse(rng, 40, 40, 0.1)
     if match == "tuner":
-        with pytest.raises(PlanBuildError, match=match):
-            spmm.prepare(rows, cols, vals, (40, 40),
-                         SpmmConfig(impl="torch", **cfg))
+        from repro.core import tuner as jax_tuner
+        from repro_torch.core import tuner
+        for t in (tuner, jax_tuner):
+            t.reset_for_tests()
+            t.set_timer(lambda fn: 1e-3)
+        try:
+            ours = spmm.prepare(rows, cols, vals, (40, 40),
+                                SpmmConfig(impl="torch", **cfg))
+            theirs = jax_spmm.prepare(rows, cols, vals, (40, 40),
+                                      jax_spmm.SpmmConfig(impl="xla", **cfg))
+            assert tuner.tune_call_count() == jax_tuner.tune_call_count() > 0
+        finally:
+            for t in (tuner, jax_tuner):
+                t.reset_for_tests()
+        _check(ours, theirs)
         return
     try:
         theirs = jax_spmm.prepare(rows, cols, vals, (40, 40),

@@ -18,6 +18,8 @@ the bottom up:
         -> sparse           (the user-facing operator facade)
         -> models           (graph layers over the facade)
         -> interop          (JAX <-> port state, layers included)
+        -> serve            (the batching SpMM service over dynamic
+                             plans, the registry and the tuner)
         -> examples         (scripts; imported by nothing)
 
 ``data`` sits beside ``dynamic``: its generators import numpy alone,
@@ -40,6 +42,13 @@ forwards execution names to ``repro_torch.exec`` through a lazy PEP 562
 plan's values into the transpose structure with ``update_values``, which
 lives in ``core.values`` (``repro_torch.dynamic`` re-exports it), so
 ``dynamic`` may import ``exec``, as the reference's does.
+
+Two seams must point downward only.  The tuner (``core/tuner.py``)
+persists its table through ``PlanRegistry``, two layers up: ``core``
+defines ``install_store`` and ``dynamic/tuning.py`` hands the store
+down, so ``install_store(...)`` may be called only from ``dynamic`` and
+``serve``.  The fault seams (``HARNESS.fire(...)``) fire in ``exec``,
+``dynamic`` and ``serve``; nothing in ``core`` or ``kernels`` fires one.
 
 Beyond the layers, the port stands alone: any import of ``jax``,
 ``jaxlib`` or the JAX package ``repro`` in the port (or in
@@ -64,7 +73,8 @@ FOREIGN = ("jax", "jaxlib", "repro")
 
 _ABOVE_CORE = ("repro_torch.exec", "repro_torch.dynamic",
                "repro_torch.sparse", "repro_torch.models",
-               "repro_torch.interop", "repro_torch.examples")
+               "repro_torch.interop", "repro_torch.serve",
+               "repro_torch.examples")
 
 # package -> layers it must never import (prefix match on absolute module)
 FORBIDDEN = {
@@ -80,7 +90,15 @@ FORBIDDEN = {
     "sparse": _ABOVE_CORE[3:],
     "models": _ABOVE_CORE[4:],
     "interop": _ABOVE_CORE[5:],
+    "serve": _ABOVE_CORE[6:],
 }
+
+# the tuner's store hook may only be *called* from these layers, and no
+# fault seam may fire in these (see the module docstring)
+STORE_SEAM_HOOK = "install_store"
+STORE_SEAM_CALLERS = ("dynamic", "serve")
+FAULT_SEAM_HOOK = "fire"
+NO_FAULT_SEAMS = ("core", "kernels")
 
 # prefixes a package may import despite the rules above
 ALLOWED_PREFIXES = {
@@ -128,6 +146,30 @@ def iter_imports(module_rel: str, tree: ast.AST) -> Iterator[Tuple[int, str]]:
                     and isinstance(node.args[0], ast.Constant)
                     and isinstance(node.args[0].value, str)):
                 yield node.lineno, node.args[0].value
+
+
+def iter_calls(tree: ast.AST, name: str) -> Iterator[int]:
+    """Line numbers of calls to a function or method named ``name``."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            func = node.func
+            called = (func.attr if isinstance(func, ast.Attribute)
+                      else func.id if isinstance(func, ast.Name) else None)
+            if called == name:
+                yield node.lineno
+
+
+def _seam_violations(rel: str, subpkg: str, tree: ast.AST) -> List[str]:
+    out = []
+    if subpkg not in STORE_SEAM_CALLERS:
+        out += [f"{rel}:{line}: {STORE_SEAM_HOOK}() may only be called "
+                f"from {'/'.join(STORE_SEAM_CALLERS)} (the tuner's store "
+                f"seam points downward only)"
+                for line in iter_calls(tree, STORE_SEAM_HOOK)]
+    if subpkg in NO_FAULT_SEAMS:
+        out += [f"{rel}:{line}: {subpkg} must not fire a fault seam"
+                for line in iter_calls(tree, FAULT_SEAM_HOOK)]
+    return out
 
 
 def _foreign(target: str) -> bool:
@@ -183,6 +225,7 @@ def check_tree(src_root: str = SRC,
                            f"no JAX and nothing of the JAX package)"
                            for line, t in imports if _foreign(t)]
             violations += _layer_violations(rel, subpkg, imports)
+            violations += _seam_violations(rel, subpkg, tree)
     for path in extra_files:
         rel = os.path.basename(path)
         tree = _parse(path, rel, violations)
