@@ -18,7 +18,6 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -35,71 +34,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     import chip_smoke as cs
-    import repro_torch.sparse as sp
-    from repro_torch.core import cost_model
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build
 
-    dev = torch.device("cuda")
     _build.build_all()
-
-    def log(*args):
-        print(*args, flush=True)
-
-    def drive(path):
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        out = path()
-        torch.cuda.synchronize()
-        return out, ops.launch_counts()
-
-    def err_bound(got, want):
-        torch.cuda.synchronize()
-        cs.require(got.shape == want.shape, (got.shape, want.shape))
-        cs.require(bool(torch.isfinite(got).all()), "non-finite output")
-        err = (got - want).abs().max().item()
-        cs.require(err <= cs.TOL * max(1.0, want.abs().max().item()), err)
-        return err
-
-    def timed_ms(fn, budget_ms=300.0, max_reps=200):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        reps = int(min(max_reps, max(2, budget_ms // max(
-            start.elapsed_time(end), 1e-3))))
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def measure(label, kern, plain, library, nbytes, flops):
-        err = err_bound(kern(), plain())
-        ms, plain_ms = timed_ms(kern), timed_ms(plain)
-        lib_ms = timed_ms(library)
-        t_bytes = nbytes / cost_model.H100_HBM_BYTES_PER_S * 1e3
-        t_ops = flops / cost_model.H100_FP32_FLOPS_PER_S * 1e3
-        bms = max(t_bytes, t_ops)
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"  {label}: {ms:.3f} ms (plain {plain_ms:.3f} ms, library "
-            f"{lib_ms:.3f} ms, bound {bms:.4f} ms by {by}); max |kernel - "
-            f"plain| {err:.3e}")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
-
-    def csr_of(r, c, v, shape):
-        idx = torch.stack([torch.as_tensor(r), torch.as_tensor(c)]).to(dev)
-        return torch.sparse_coo_tensor(
-            idx, torch.as_tensor(v, dtype=torch.float32).to(dev), shape,
-        ).coalesce().to_sparse_csr()
-
-    ctx = types.SimpleNamespace(
-        sp=sp, dev=dev, log=log, require=cs.require, drive=drive,
-        err_bound=err_bound, timed_ms=timed_ms, measure=measure,
-        csr_of=csr_of)
+    ctx = cs.standalone_context()
+    log = cs.log
     graph = cs.arxiv_gcn_graph()
     log(f"graph: {graph[0].size} nonzeros in {graph[-1]:.1f} s")
     log(json.dumps({"dynamic": cs.dynamic_path(ctx, graph)}))

@@ -1626,20 +1626,19 @@ def dynamic_path(ctx, graph):
                 tier=side.tier, bk=side.bk, kb_chunk=kbc, kb_rows=kbr,
                 kb_cols=kbcol, kb_vals=kbv, derived=side.derived)
 
+        # the walk takes the stream in its row order, which keeps only the
+        # padding entries that change its sum (gather_spmm.drop_padding)
+        kern()
+        order = side.derived["kbucket_row_order" if side.tier == "ksharded"
+                             else "stream_row_order"]
+        entries = int(order.perm.numel())
+        gcols = order.cols
+        index_bytes = entries * 12
         if side.tier == "ksharded":
-            entries = kbr.numel()
-            gcols = torch.repeat_interleave(kbc, entries // kbc.numel()) \
-                * side.bk + kbcol
-            index_bytes = kbc.numel() * 4 + entries * 12
-
             def plain():
                 return ref.ref_gather_spmm_kblocked(
                     kbc, kbr, kbcol, kbv, bp, cap, side.bk, step=1 << 20)
         else:
-            entries = d_rows.numel()
-            gcols = d_cols
-            index_bytes = entries * 12
-
             def plain():
                 return ref.ref_gather_spmm(d_rows, d_cols, d_vals, bp, cap,
                                            chunk=1 << 20)
@@ -1651,8 +1650,9 @@ def dynamic_path(ctx, graph):
             f"{kname} on the {label} sidecar (capacity {cap}, "
             f"{side.count} entries, {entries} walked)",
             kern, plain, lambda: torch.sparse.mm(lib, bp),
-            # each byte once: the stream (padding included), the B rows it
-            # addresses, the packed output; a multiply-add per entry
+            # each byte once: the walked stream (the padding it keeps
+            # included), the B rows it addresses, the packed output; a
+            # multiply-add per walked entry
             nbytes=index_bytes + b_rows * N * 4 + cap * N * 4,
             flops=2 * entries * N)
         return {"kernel": kname, "tier": side.tier,
@@ -1862,6 +1862,556 @@ def dynamic_path(ctx, graph):
             "bench": bench, "wall_s": wall}
 
 
+# the serving path: SpmmService at ogbn-arxiv size (the GCN path's graph),
+# request rounds that run every bucket of max_batch 8 once, unpadded
+SERVE_MAX_BATCH = 8
+SERVE_ROUNDS = (8, 8, 4, 2, 1)
+SERVE_STEPS = 2   # steps of DYN_STREAM's mutation stream served through
+
+
+def standalone_context():
+    """The helpers every path takes: launch counts around a path, the
+    tolerance check, CUDA-event times, a kernel's measurement beside its
+    plain version, the library call and its bound on the card, and the CSR
+    of a COO.  ``main`` uses them, and so does a probe that runs one path
+    alone (``bench_torch/dynamic_probe.py``,
+    ``bench_torch/serving_probe.py``)."""
+    import torch
+
+    import repro_torch.sparse as sp
+    from repro_torch.core import cost_model
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+
+    def drive(path):
+        """Run one path with the launch counts set to 0 just before it;
+        return its result and the counts read just after it."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = path()
+        torch.cuda.synchronize()
+        return out, ops.launch_counts()
+
+    def err_bound(got, want):
+        torch.cuda.synchronize()
+        require(got.shape == want.shape, (got.shape, want.shape))
+        require(bool(torch.isfinite(got).all()), "non-finite output")
+        err = (got - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        require(err <= TOL * scale, f"max |diff| {err} > {TOL} * {scale}")
+        return err
+
+    def timed_ms(fn, budget_ms=300.0, max_reps=200):
+        """Mean ms per call over back-to-back calls after one warm-up,
+        with enough calls to fill about ``budget_ms`` (at least 2)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        first = start.elapsed_time(end)
+        reps = int(min(max_reps, max(2, budget_ms // max(first, 1e-3))))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def bound_ms(nbytes, flops):
+        # the H100 SXM's HBM rate and fp32 rate outside the tensor cores
+        t_bytes = nbytes / cost_model.H100_HBM_BYTES_PER_S * 1e3
+        t_ops = flops / cost_model.H100_FP32_FLOPS_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    def measure(label, kern, plain, library, nbytes, flops):
+        """Hold ``kern`` against ``plain`` and time both, and ``library``."""
+        err = err_bound(kern(), plain())
+        ms = timed_ms(kern)
+        plain_ms = timed_ms(plain)
+        lib_ms = timed_ms(library) if library is not None else None
+        bms, by = bound_ms(nbytes, flops)
+        log(f"  {label}: {ms:.3f} ms (plain {plain_ms:.3f} ms, library "
+            f"{lib_ms if lib_ms is None else round(lib_ms, 3)} ms, bound "
+            f"{bms:.3f} ms by {by}); max |kernel - plain| {err:.3e}")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+    def csr_of(r, c, v, shape):
+        idx = torch.stack([torch.as_tensor(r), torch.as_tensor(c)]).to(dev)
+        return torch.sparse_coo_tensor(
+            idx, torch.as_tensor(v, dtype=torch.float32).to(dev), shape,
+        ).coalesce().to_sparse_csr()
+
+    return types.SimpleNamespace(
+        sp=sp, dev=dev, log=log, require=require, drive=drive,
+        err_bound=err_bound, timed_ms=timed_ms, measure=measure,
+        csr_of=csr_of)
+
+
+def serving_path(ctx, graph):
+    """The serving path on the card: ``SpmmService`` over a dynamic plan of
+    the GCN path's graph at ogbn-arxiv size, N = 256, ``max_batch`` 8.
+
+    1. Registered with a ``PlanRegistry`` in a temporary directory; 23
+       requests in rounds of SERVE_ROUNDS, one ``flush`` each, so that the
+       buckets 8, 8, 4, 2 and 1 each run once; each result against
+       ``torch.sparse.mm`` on the CSR; the launches of each flush (one
+       B1 and one fringe kernel for any bucket), its CUDA-event time, the
+       p50 and p99 of submit -> fetch and requests/s.
+    2. SERVE_STEPS steps of the reference example's stream through
+       ``update_matrix`` (host seconds), a request served after each
+       against the library on ``to_coo()``; the sidecar's capacity, its
+       padding and what the walk keeps of it; ``spmm`` (CUDA events)
+       beside the base plan's; B2 on the sidecar with the cut row order
+       and with every padding entry (the walk before the repair): bit-equal
+       on a finite B, each timed.  Then a service whose budget puts the
+       sidecar on the k-sharded tier (as the dynamic path's), one step,
+       one request (B3 must launch), ``spmm`` timed, and B3 cut and full.
+    3. A fold forced through the cost model: a tuned ``delta_max_fraction``
+       in an injected record (the analytic rates, so the plan is the
+       analytic one), then one update; requests are served against the
+       old plan while the fold runs on the worker, and the folded leaves
+       equal a fresh ``from_coo`` of ``to_coo()``.
+    4. ``fold_build`` armed for ``quarantine_after`` folds: the matrix is
+       ``quarantined``, keeps serving through its sidecar, and ``close()``
+       is clean.
+    5. A second service warm-started from the registry: no ``prepare``,
+       its first result bit-equal to the first service's on that panel.
+    6. A service with ``autotune=True``: the background tune (wall time,
+       microbenchmarks, the adopted decisions and what each candidate
+       measured), then a fresh tuner that reads the table back through
+       ``RegistryTuningStore`` with 0 microbenchmarks; where the tuned tile
+       shape or tier differs from the analytic one, the plan built with it
+       against the library.
+
+    Every phase drives the service through its entry points; launch
+    counts are set to 0 just before each flush and read just after it.
+    """
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import spmm as core_spmm
+    from repro_torch.core import tuner
+    from repro_torch.core.cost_model import (
+        default_cost_model, fringe_resident_bytes,
+    )
+    from repro_torch.core.plan_ir import LEAF_NAMES, SpmmConfig, permute_pad_b
+    from repro_torch.data.graphs import mutate
+    from repro_torch.dynamic import GraphDelta, PlanRegistry
+    from repro_torch.dynamic.tuning import RegistryTuningStore
+    from repro_torch.errors import CompactionError
+    from repro_torch.exec import api
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gather_spmm import (
+        gather_spmm, gather_spmm_ksharded, kbucket_row_order,
+        stream_row_order,
+    )
+    from repro_torch.robust.faults import HARNESS, armed
+    from repro_torch.serve import SpmmService
+
+    sp, dev, log, require, drive = (ctx.sp, ctx.dev, ctx.log, ctx.require,
+                                    ctx.drive)
+    t_path = time.perf_counter()
+    rows, cols, vals = graph[:3]
+    n = graph[3].shape[0]
+    shape = (n, n)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    csr = ctx.csr_of(rows, cols, vals, shape)
+    root = tempfile.mkdtemp(prefix="repro_torch_serving_")
+    out = {}
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def panel():
+        return torch.randn((n, N), device=dev, generator=gen)
+
+    def library_ref(dp, bmat):
+        r, c, v = dp.to_coo()
+        return torch.sparse.mm(ctx.csr_of(r, c, v, shape), bmat)
+
+    def serve_one(svc, name, bmat):
+        """One request through submit/flush/fetch; the result and the
+        flush's launches."""
+        t = svc.submit(name, bmat)
+        _, counts = drive(lambda: svc.flush(name=name))
+        return svc.fetch(t), counts
+
+    def injected_record(key, decisions):
+        am = default_cost_model()
+        return {"table_format_version": tuner.TABLE_FORMAT_VERSION,
+                "key": key, "p_matrix": am.p_matrix,
+                "p_vector": am.p_vector, "r": am.r, "n_cols": am.n_cols,
+                "decisions": dict(decisions)}
+
+    try:
+        # --- 1. registration and the request rounds ------------------------
+        tuner.reset_for_tests()
+        HARNESS.reset()
+        reg = PlanRegistry(root)
+        # "offline": the plans read the tuner's table, where phase 3
+        # injects its record; until then the record below holds the
+        # analytic rates and thresholds, so the plan is the analytic one
+        cfg = SpmmConfig(autotune="offline")
+        key = tuner.table_key("spmm", n, n, rows.size, cfg)
+        tuner.get_tuner().adopt(key, injected_record(key, {}))
+        svc = SpmmService(cfg, max_batch=SERVE_MAX_BATCH, registry=reg)
+        _, t_register = synced(
+            lambda: svc.register("arxiv", rows, cols, vals, shape))
+        dp = svc.plan("arxiv")
+        log(f"serving path (ogbn-arxiv size, {rows.size} nonzeros, N = {N},"
+            f" max_batch {SERVE_MAX_BATCH}): register (prepare + registry "
+            f"save) {t_register:.2f} s; fringe tier {dp.plan.fringe_tier}")
+        # the first request builds the plan's derived index arrays (row
+        # offsets, window segments, the chunk table): timed on its own
+        cold = panel()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, _ = serve_one(svc, "arxiv", cold)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        ctx.err_bound(res, torch.sparse.mm(csr, cold))
+        del cold, res
+        lat, flushes = [], []
+        t_serve = 0.0   # first submit -> last result of each round, summed
+        for size in SERVE_ROUNDS:
+            panels = [panel() for _ in range(size)]
+            torch.cuda.synchronize()
+            t_sub, tickets = [], []
+            for bmat in panels:
+                t_sub.append(time.perf_counter())
+                tickets.append(svc.submit("arxiv", bmat))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, counts = drive(lambda: svc.flush(name="arxiv"))
+            end.record()
+            results = [svc.fetch(t) for t in tickets]
+            torch.cuda.synchronize()
+            t_done = time.perf_counter()
+            lat += [t_done - t for t in t_sub]
+            t_serve += t_done - t_sub[0]
+            require(counts["dense_tile_spmm"] == 1
+                    and counts["gather_spmm"] + counts[
+                        "gather_spmm_ksharded"] == 1
+                    and sum(counts.values()) == 2, ("flush", size, counts))
+            errs = [ctx.err_bound(r, torch.sparse.mm(csr, bmat))
+                    for r, bmat in zip(results, panels)]
+            flushes.append({"requests": size, "bucket": size,
+                            "flush_ms": start.elapsed_time(end),
+                            "launches": {k: v for k, v in counts.items()
+                                         if v},
+                            "max_err": max(errs)})
+            del panels, results
+        stats = svc.stats.as_dict()
+        require(stats["requests"] == sum(SERVE_ROUNDS) + 1
+                and stats["dispatches"] == len(SERVE_ROUNDS) + 1, stats)
+        lat_ms = np.asarray(lat) * 1e3
+        out["requests"] = {
+            "count": int(sum(SERVE_ROUNDS)), "flushes": flushes,
+            "padded_slots": stats["padded_slots"],
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "requests_per_s": sum(SERVE_ROUNDS) / t_serve,
+            "wall_s": t_serve, "first_request_ms": first_ms}
+        for f in flushes:
+            log(f"  flush of {f['requests']} (bucket {f['bucket']}): "
+                f"{f['flush_ms']:.3f} ms by CUDA events, "
+                f"{f['flush_ms'] / f['requests']:.3f} ms a request; "
+                f"launches {f['launches']}; vs torch.sparse.mm "
+                f"{f['max_err']:.3e}")
+        log(f"  the first request (builds the plan's index arrays): "
+            f"{first_ms:.1f} ms submit -> fetch")
+        log(f"  {sum(SERVE_ROUNDS)} requests in {len(SERVE_ROUNDS)} flushes"
+            f": padded_slots {stats['padded_slots']}; submit -> fetch p50 "
+            f"{out['requests']['p50_ms']:.2f} ms, p99 "
+            f"{out['requests']['p99_ms']:.2f} ms; "
+            f"{out['requests']['requests_per_s']:.1f} requests/s")
+
+        # --- 2. the mutation stream through update_matrix ------------------
+        t0 = time.perf_counter()
+        deltas = list(mutate(rows, cols, vals, shape,
+                             **dict(DYN_STREAM, steps=SERVE_STEPS)))
+        log(f"  mutate stream of {len(deltas)} steps: "
+            f"{time.perf_counter() - t0:.2f} s")
+        b = panel()
+
+        def sidecar_walks(label, dpl):
+            """B2 (or B3) on the plan's sidecar with the cut row order and
+            with every padding entry: bit-equal on this finite B; each
+            timed by CUDA events."""
+            side = dpl._materialize()
+            d_rows, d_cols, d_vals, _gsrc, kbc, kbr, kbcol, kbv = \
+                side.leaves
+            bp = permute_pad_b(b, None, False, dpl.config.bk)
+            cap = side.capacity
+
+            def cut():
+                return ops.delta_fringe_spmm(
+                    d_rows, d_cols, d_vals, bp, num_rows=cap, impl="cuda",
+                    tier=side.tier, bk=side.bk, kb_chunk=kbc, kb_rows=kbr,
+                    kb_cols=kbcol, kb_vals=kbv, derived=side.derived)
+
+            if side.tier == "ksharded":
+                full_order = kbucket_row_order(kbc, kbr, kbcol, cap,
+                                               side.bk)
+
+                def full():
+                    return gather_spmm_ksharded(
+                        kbc, kbr, kbcol, kbv, bp, num_rows=cap, bk=side.bk,
+                        row_order=full_order)
+                n_pad = kbr.numel() - side.count
+                key_order = "kbucket_row_order"
+            else:
+                full_order = stream_row_order(d_rows, d_cols, cap)
+
+                def full():
+                    return gather_spmm(d_rows, d_cols, d_vals, bp,
+                                       num_rows=cap, row_order=full_order)
+                n_pad = cap - side.count
+                key_order = "stream_row_order"
+            same = bits_equal(cut(), full())
+            require(same, (label, "the cut row order changed the bits"))
+            walked = int(side.derived[key_order].perm.numel())
+            kept = walked - side.count
+            row = {"tier": side.tier, "bk": side.bk, "capacity": cap,
+                   "count": side.count, "padding": n_pad,
+                   "padding_walked": kept,
+                   "ms": ctx.timed_ms(cut), "full_walk_ms": ctx.timed_ms(
+                       full), "bit_equal": same}
+            log(f"  {label} sidecar: capacity {cap}, {side.count} entries, "
+                f"{n_pad} padding of which the walk keeps {kept}; "
+                f"{'B3' if side.tier == 'ksharded' else 'B2'} "
+                f"{row['ms']:.3f} ms, over every padding entry "
+                f"{row['full_walk_ms']:.3f} ms; bit-equal {same}")
+            return row
+
+        steps = []
+        for step, delta in enumerate(deltas):
+            stats_u, t_update = synced(
+                lambda: svc.update_matrix("arxiv", delta))
+            res, counts = serve_one(svc, "arxiv", b)
+            e_serve = ctx.err_bound(res, library_ref(dp, b))
+            require(counts["dense_tile_spmm"] == 1
+                    and counts["gather_spmm"] + counts[
+                        "gather_spmm_ksharded"] == 2, ("step", counts))
+            walks = sidecar_walks(f"step {step}", dp)
+            spmm_ms = ctx.timed_ms(lambda: dp.execute(b), budget_ms=100.0)
+            base_ms = ctx.timed_ms(lambda: api.execute(dp.plan, b),
+                                   budget_ms=100.0)
+            steps.append({"step": step, "update_matrix_s": t_update,
+                          **stats_u, "spmm_ms": spmm_ms, "base_ms": base_ms,
+                          "launches": {k: v for k, v in counts.items() if v},
+                          "err": e_serve, "sidecar": walks})
+            log(f"  step {step}: update_matrix {t_update:.3f} s (fast_path "
+                f"{stats_u['fast_path']}, delta_nnz {stats_u['delta_nnz']})"
+                f"; served vs torch.sparse.mm on to_coo() {e_serve:.3e}, "
+                f"launches {steps[-1]['launches']}; spmm {spmm_ms:.3f} ms "
+                f"(the base plan alone {base_ms:.3f} ms)")
+        out["steps"] = steps
+
+        # the k-sharded sidecar (B3), as the dynamic path forces it
+        k_pad = -(-n // 64) * 64
+        budget = fringe_resident_bytes(k_pad, DYN_KSHARDED_CAP, 256) - 1
+        svc_ks = SpmmService(SpmmConfig(fringe_vmem_budget=budget),
+                             max_batch=SERVE_MAX_BATCH)
+        _, t_reg_ks = synced(
+            lambda: svc_ks.register("arxiv-ks", rows, cols, vals, shape))
+        dp_ks = svc_ks.plan("arxiv-ks")
+        _, t_update_ks = synced(
+            lambda: svc_ks.update_matrix("arxiv-ks", deltas[0]))
+        res, counts = serve_one(svc_ks, "arxiv-ks", b)
+        e_ks = ctx.err_bound(res, library_ref(dp_ks, b))
+        require(counts["gather_spmm_ksharded"] >= 1, ("k-sharded", counts))
+        walks_ks = sidecar_walks("k-sharded", dp_ks)
+        require(walks_ks["tier"] == "ksharded", walks_ks)
+        spmm_ks = ctx.timed_ms(lambda: dp_ks.execute(b), budget_ms=100.0)
+        base_ks = ctx.timed_ms(lambda: api.execute(dp_ks.plan, b),
+                               budget_ms=100.0)
+        out["ksharded"] = {"register_s": t_reg_ks,
+                           "update_matrix_s": t_update_ks,
+                           "spmm_ms": spmm_ks, "base_ms": base_ks,
+                           "launches": {k: v for k, v in counts.items()
+                                        if v},
+                           "err": e_ks, "sidecar": walks_ks}
+        log(f"  k-sharded service (budget {budget}): register "
+            f"{t_reg_ks:.2f} s, update_matrix {t_update_ks:.3f} s; served "
+            f"vs torch.sparse.mm {e_ks:.3e}, launches "
+            f"{out['ksharded']['launches']}; spmm {spmm_ks:.3f} ms (the base "
+            f"plan alone {base_ks:.3f} ms)")
+        svc_ks.close()
+        del svc_ks, dp_ks
+        torch.cuda.empty_cache()
+
+        # --- 3. a fold forced through the cost model -----------------------
+        tuner.get_tuner().adopt(key, injected_record(
+            key, {"delta_max_fraction": 1e-9}))
+        require(dp.refresh_cost_model(), "the injected record was not read")
+        zr = np.random.RandomState(31).randint(0, n, 64)
+        zc = np.random.RandomState(32).randint(0, n, 64)
+        taken = set((dp.maps.rows * np.int64(n) + dp.maps.cols).tolist())
+        taken |= set(dp._overlay)
+        keep = [i for i in range(64)
+                if int(zr[i]) * n + int(zc[i]) not in taken]
+        ins = GraphDelta.inserts(zr[keep[:8]], zc[keep[:8]],
+                                 np.ones(len(keep[:8])))
+        svc.update_matrix("arxiv", ins)
+        require(svc.stats.compactions_scheduled == 1,
+                svc.stats.as_dict())
+        fut = svc._folds["arxiv"][1]
+        served_during = 0
+        while not fut.done() and served_during < 50:
+            res, _ = serve_one(svc, "arxiv", b)
+            ctx.err_bound(res, library_ref(dp, b))
+            # a flush swaps the fold in only once it has finished
+            require(dp.compactions == 0 or fut.done(), "swapped mid-fold")
+            served_during += dp.compactions == 0
+        require(served_during >= 1, "nothing served during the fold")
+        _, t_drain = synced(lambda: svc.drain_compactions(timeout=300))
+        require(dp.compactions == 1 and dp.delta_nnz == 0,
+                (dp.compactions, dp.delta_nnz))
+        fresh, t_fresh = synced(lambda: sp.from_coo(*dp.to_coo(), shape,
+                                                    device=dev))
+        for name in LEAF_NAMES:
+            require(torch.equal(getattr(dp.plan, name),
+                                getattr(fresh.plan, name)),
+                    ("folded leaf differs from a fresh from_coo", name))
+        res, _ = serve_one(svc, "arxiv", b)
+        e_fold = ctx.err_bound(res, library_ref(dp, b))
+        out["fold"] = {"served_during": served_during,
+                       "drain_s": t_drain, "fresh_from_coo_s": t_fresh,
+                       "err": e_fold}
+        log(f"  fold through a tuned delta_max_fraction: {served_during} "
+            f"requests served against the old plan while it ran; drained "
+            f"{t_drain:.2f} s after; leaves equal a fresh from_coo "
+            f"({t_fresh:.2f} s); vs torch.sparse.mm {e_fold:.3e}")
+        del fresh
+
+        # --- 4. quarantine ----------------------------------------------------
+        errors = 0
+        with armed("fold_build", times=None):
+            for i in range(svc.quarantine_after):
+                d = GraphDelta.inserts(zr[keep[8 + i:9 + i]],
+                                       zc[keep[8 + i:9 + i]], [1.0])
+                svc.update_matrix("arxiv", d)
+                try:
+                    svc.drain_compactions(timeout=300)
+                except CompactionError:
+                    errors += 1
+        h = svc.health()["matrices"]["arxiv"]
+        require(errors == svc.quarantine_after and h["state"] ==
+                "quarantined", (errors, h))
+        res, counts = serve_one(svc, "arxiv", b)
+        e_quar = ctx.err_bound(res, library_ref(dp, b))
+        require(dp.delta_nnz > 0 and counts["gather_spmm"]
+                + counts["gather_spmm_ksharded"] == 2, (dp.delta_nnz,
+                                                        counts))
+        b_first = panel()
+        first, _ = serve_one(svc, "arxiv", b_first)
+        svc.close()
+        out["quarantine"] = {"failed_folds": errors, "health": h,
+                             "err": e_quar,
+                             "stats": svc.stats.as_dict()}
+        log(f"  fold_build armed: {errors} failed folds, state "
+            f"{h['state']}; served through the sidecar ({dp.delta_nnz} "
+            f"entries) vs torch.sparse.mm {e_quar:.3e}; close() clean")
+
+        # --- 5. warm start -------------------------------------------------
+        prepares = core_spmm.prepare_call_count()
+        svc2 = SpmmService(cfg, max_batch=SERVE_MAX_BATCH, registry=reg)
+        _, t_warm = synced(lambda: svc2.warm_start("arxiv"))
+        again, _ = serve_one(svc2, "arxiv", b_first)
+        n_prep = core_spmm.prepare_call_count() - prepares
+        same = bits_equal(again, first)
+        require(n_prep == 0 and same, (n_prep, same))
+        svc2.close()
+        out["warm_start"] = {"warm_start_s": t_warm, "prepares": n_prep,
+                             "bit_equal": same}
+        log(f"  warm start from the registry: {t_warm:.2f} s, {n_prep} "
+            f"prepare calls; first result bit-equal to the first "
+            f"service's: {same}")
+        del svc, svc2, dp, first, again
+        torch.cuda.empty_cache()
+
+        # --- 6. the background tune ----------------------------------------
+        tuner.reset_for_tests()
+        root_tune = tempfile.mkdtemp(prefix="repro_torch_tune_", dir=root)
+        reg3 = PlanRegistry(root_tune)
+        calls0 = tuner.tune_call_count()
+        svc3 = SpmmService(SpmmConfig(autotune=True),
+                           max_batch=SERVE_MAX_BATCH, registry=reg3)
+        svc3.register("arxiv", rows, cols, vals, shape)
+        t0 = time.perf_counter()
+        served_while = 0
+        while svc3._tunes and served_while < 20:
+            res, _ = serve_one(svc3, "arxiv", b)
+            ctx.err_bound(res, torch.sparse.mm(csr, b))
+            served_while += 1
+        svc3.drain_tunings(timeout=600)
+        t_tune = time.perf_counter() - t0
+        n_bench = tuner.tune_call_count() - calls0
+        report = svc3.tuning_report()
+        (rec_key, rec), = report["records"].items()
+        require(svc3.stats.tunings_applied == 1 and n_bench > 0,
+                (svc3.stats.as_dict(), n_bench))
+        require(not any(label.startswith("fringe:xla")
+                        for label in rec["bench_us"]), rec["bench_us"])
+        svc3.close()
+        log(f"  autotune=True: background tune {t_tune:.2f} s (register -> "
+            f"adopted, {served_while} requests served meanwhile), "
+            f"{n_bench} microbenchmarks; record {rec_key}")
+        log(f"    decisions {rec['decisions']}")
+        log(f"    bench_us {json.dumps(rec['bench_us'])}")
+        tuner.reset_for_tests(keep_store=True)
+        off = SpmmConfig(autotune="offline")
+        cm = tuner.resolve_cost_model("spmm", n, n, rows.size, off)
+        require(isinstance(cm, tuner.TunedCostModel) and cm.source ==
+                "table" and tuner.tune_call_count() == 0,
+                (type(cm), tuner.tune_call_count()))
+        require(isinstance(tuner.installed_store(), RegistryTuningStore),
+                tuner.installed_store())
+        tuned = {"tune_s": t_tune, "microbenchmarks": n_bench,
+                 "decisions": rec["decisions"],
+                 "bench_us": rec["bench_us"],
+                 "refused": rec.get("refused", []),
+                 "warm_microbenchmarks": tuner.tune_call_count()}
+        if {"tile_shape", "fringe_tier"} & set(rec["decisions"]):
+            a_tuned, t_tuned = synced(lambda: sp.from_coo(
+                rows, cols, vals, shape, device=dev, autotune="offline"))
+            plan = a_tuned.plan
+            e_tuned = ctx.err_bound(sp.spmm(a_tuned, b),
+                                    torch.sparse.mm(csr, b))
+            tuned["tuned_plan"] = {"bm": plan.config.bm,
+                                   "bk": plan.config.bk,
+                                   "fringe_tier": plan.fringe_tier,
+                                   "prepare_s": t_tuned, "err": e_tuned}
+            log(f"    the tuned plan (bm {plan.config.bm}, bk "
+                f"{plan.config.bk}, tier {plan.fringe_tier}) vs "
+                f"torch.sparse.mm {e_tuned:.3e}")
+            del a_tuned, plan
+        out["autotune"] = tuned
+        log(f"  a fresh tuner read the table back through "
+            f"RegistryTuningStore: {tuned['warm_microbenchmarks']} "
+            f"microbenchmarks, source {cm.source}")
+    finally:
+        HARNESS.reset()
+        tuner.reset_for_tests()
+        shutil.rmtree(root, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"  serving path wall time: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -1921,32 +2471,10 @@ def main() -> int:
     _build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
 
-    def err_bound(got, want):
-        torch.cuda.synchronize()
-        require(got.shape == want.shape, (got.shape, want.shape))
-        require(bool(torch.isfinite(got).all()), "non-finite output")
-        err = (got - want).abs().max().item()
-        scale = max(1.0, want.abs().max().item())
-        require(err <= TOL * scale, f"max |diff| {err} > {TOL} * {scale}")
-        return err
-
-    def timed_ms(fn, budget_ms=300.0, max_reps=200):
-        """Mean ms per call over back-to-back calls after one warm-up,
-        with enough calls to fill about ``budget_ms`` (at least 2)."""
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        first = start.elapsed_time(end)
-        reps = int(min(max_reps, max(2, budget_ms // max(first, 1e-3))))
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
+    helpers = standalone_context()
+    drive, err_bound, timed_ms = (helpers.drive, helpers.err_bound,
+                                  helpers.timed_ms)
+    measure, csr_of = helpers.measure, helpers.csr_of
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -2187,15 +2715,6 @@ def main() -> int:
     bb = operand(spec.k, 64, batch=4)
     b_arxiv = operand(arxiv.k, N)
 
-    def drive(path):
-        """Run one path with the launch counts set to 0 just before it;
-        return its result and the counts read just after it."""
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        out = path()
-        torch.cuda.synchronize()
-        return out, ops.launch_counts()
-
     def reddit_path():
         t0 = time.perf_counter()
         a = sp.from_coo(rows, cols, vals, (spec.m, spec.k), device="cuda")
@@ -2359,12 +2878,6 @@ def main() -> int:
         "gather_sddmm": launches_att["gather_sddmm"],
     }
 
-    def csr_of(r, cc, v, shape):
-        idx = torch.stack([torch.as_tensor(r), torch.as_tensor(cc)]).to(dev)
-        return torch.sparse_coo_tensor(
-            idx, torch.as_tensor(v, dtype=torch.float32).to(dev), shape,
-        ).coalesce().to_sparse_csr()
-
     require(c.shape == (spec.m, N) and cb.shape == (4, spec.m, 64),
             (c.shape, cb.shape))
     csr = csr_of(rows, cols, vals, (spec.m, spec.k))
@@ -2379,26 +2892,6 @@ def main() -> int:
 
     # --- phase 4: kernels at their paths' shapes ---------------------------
     report = []
-
-    def bound_ms(nbytes, flops):
-        # the H100 SXM's HBM rate and fp32 rate outside the tensor cores
-        t_bytes = nbytes / cost_model.H100_HBM_BYTES_PER_S * 1e3
-        t_ops = flops / cost_model.H100_FP32_FLOPS_PER_S * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                     else "operations")
-
-    def measure(label, kern, plain, library, nbytes, flops):
-        """Hold ``kern`` against ``plain`` and time both, and ``library``."""
-        err = err_bound(kern(), plain())
-        ms = timed_ms(kern)
-        plain_ms = timed_ms(plain)
-        lib_ms = timed_ms(library) if library is not None else None
-        bms, by = bound_ms(nbytes, flops)
-        log(f"  {label}: {ms:.3f} ms (plain {plain_ms:.3f} ms, library "
-            f"{lib_ms if lib_ms is None else round(lib_ms, 3)} ms, bound "
-            f"{bms:.3f} ms by {by}); max |kernel - plain| {err:.3e}")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
 
     def padding_nan_check(label, kbc, kbr, kbcol, kbv, bmat, nr, bk, order):
         """B3 with an Inf in the first B row of a k-block whose bucket is
@@ -2736,6 +3229,10 @@ def main() -> int:
         csr_of=csr_of)
     dynamic = dynamic_path(ctx8, arxiv_graph)
     log(f"  {json.dumps({'dynamic': dynamic})}")
+
+    # --- phase 9: the serving path --------------------------------------------
+    serving = serving_path(ctx8, arxiv_graph)
+    log(f"  {json.dumps({'serving': serving})}")
     require(len(report) == 7 and all(r["launches"] > 0 for r in report),
             [(r["name"], r["launches"]) for r in report])
     print(json.dumps({"kernels": report}), flush=True)

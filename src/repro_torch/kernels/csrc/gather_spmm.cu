@@ -307,11 +307,13 @@ extern "C" int gather_spmm_launch(const int* indptr, const int* cols,
                         static_cast<cudaStream_t>(stream));
 }
 
-// gather_spmm_ksharded: indptr (num_rows+1,) offsets into the row-major
-// order perm (nnz,) of the k-bucketed stream; cols (nnz,) the global
-// column of entry perm[e] at e, each below K; vals (nnz,) in stream order;
-// scratch (nnz,) floats; b: (K, n) row-major; out: (num_rows, n), every
-// element written.  Two launches: the gather of the values, the walk.
+// gather_spmm_ksharded (and a padded stream's walk): indptr
+// (num_rows+1,) offsets into the row-major order perm (nnz,) of the
+// stream's entries, which may leave some out (a sidecar's cut padding);
+// cols (nnz,) the global column of entry perm[e] at e, each below K; vals
+// the stream's values, in stream order; scratch (nnz,) floats; b: (K, n)
+// row-major; out: (num_rows, n), every element written.  Two launches:
+// the gather of the values, the walk.
 extern "C" int gather_spmm_perm_launch(const int* indptr, const int* cols,
                                        const int* perm, const float* vals,
                                        float* scratch, int nnz,

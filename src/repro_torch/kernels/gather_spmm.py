@@ -329,12 +329,15 @@ def gather_spmm(
 
 def _walk_in_order(order: RowOrder, vals: torch.Tensor, b: torch.Tensor,
                    out: torch.Tensor, num_rows: int, name: str) -> None:
-    """The walk over ``vals`` gathered into ``order``: two launches."""
-    scratch = torch.empty_like(vals)
+    """The walk over ``vals`` gathered into ``order``: two launches.  The
+    order may walk fewer entries than the stream holds (a sidecar's cut
+    padding), or some more than once."""
+    walked = order.perm.shape[0]
+    scratch = torch.empty(walked, dtype=vals.dtype, device=vals.device)
     fn = _build.function(NAME, "gather_spmm_perm_launch", _ARGTYPES_PERM)
     status = fn(order.indptr.data_ptr(), order.cols.data_ptr(),
                 order.perm.data_ptr(), vals.data_ptr(), scratch.data_ptr(),
-                vals.shape[0], b.data_ptr(), out.data_ptr(), num_rows,
+                walked, b.data_ptr(), out.data_ptr(), num_rows,
                 b.shape[1], _stream(b))
     _build.check_status(status, name)
 

@@ -25,7 +25,6 @@ future waited with a timeout, ``drain_compactions(timeout=)``,
 ``drain_tunings(timeout=)``); time-dependent tests run on an injected
 clock (``svc._clock``), never on sleeps.
 """
-import dataclasses
 import os
 import threading
 import time
@@ -1013,8 +1012,11 @@ def test_chaos_serving_survives_seeded_faults(tmp_path):
         except p.errors.ReproError as e:
             surfaced.append(e)
         assert all(isinstance(e, p.errors.ReproError) for e in surfaced)
-        return {"schedule": schedule, "out": outs,
-                "surfaced": sorted(type(e).__name__ for e in surfaced)}
+        assert outs
+        # which call a seam fails on shifts with when the worker's folds
+        # land (a fold's registry save is a registry_write), so the two
+        # runs are held to their mirrors and the schedule, not each other
+        return {"schedule": schedule}
 
     _both(scenario)
 
@@ -1237,6 +1239,58 @@ def test_health_schema_byte_compatible():
 # ---------------------------------------------------------------------------
 # the port only
 # ---------------------------------------------------------------------------
+def test_counters_and_tuner_table_survive_thread_switching():
+    """Stress: more threads than cores, each serving through its own
+    service and adopting records into the one process-wide tuner, with
+    the interpreter switching threads every microsecond; no counter and
+    no record may be lost."""
+    import sys
+
+    n_threads = min(4 * (os.cpu_count() or 1), 32)
+    n_requests = 4
+    a, rows, cols, vals = make_sparse(np.random.RandomState(3), 48, 40,
+                                      0.1)
+    services = []
+    for _ in range(n_threads):
+        svc = SpmmService(_cfg(PORT), max_batch=2)
+        svc.register("g", rows, cols, vals, a.shape)
+        services.append(svc)
+    b = np.random.RandomState(4).randn(40, 4).astype(np.float32)
+    errs = []
+
+    def drive(i, svc):
+        try:
+            for j in range(n_requests):
+                t = svc.submit("g", b)
+                svc.flush()
+                _mirror(svc.fetch(t), a, b)
+                tuner.get_tuner().adopt(
+                    f"stress|{i}|{j}",
+                    {"table_format_version": tuner.TABLE_FORMAT_VERSION})
+        except BaseException as err:  # surfaced after join
+            errs.append(err)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=drive, args=(i, s))
+                   for i, s in enumerate(services)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errs, errs[:3]
+    for svc in services:
+        assert svc.stats.requests == svc.stats.dispatches == n_requests
+        svc.close()
+    counters = tuner.get_tuner().counters()
+    assert counters["measured"] == counters["records"] == (
+        n_threads * n_requests)
+
+
 def test_degraded_state_names_the_health_gate(rng):
     """No degrade tier: ``"degraded"`` means that ``exec.health`` retries
     or refuses the matrix's signature (the plan's own, or the general
