@@ -149,7 +149,25 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    bench_dynamic's three rows (a value update of 1 % of the nonzeros, one
    structural batch, a full re-prepare, each with one ``spmm``) with their
    ratios.  It prints its wall time (``bench_torch/dynamic_probe.py`` runs
-   it alone).
+   it alone); B2 and B3 walk the sidecar in row orders that keep only the
+   padding entries that change their sums;
+9. the serving path (``serving_path``; ``bench_torch/serving_probe.py``
+   runs it alone), on the same graph: ``SpmmService`` with a registry,
+   one request, then 23 in flushes of 8, 8, 4, 2 and 1 (N = 256, each
+   against ``torch.sparse.mm``; one dense_tile_spmm and one gather_spmm
+   launch per flush; CUDA-event time per flush, p50/p99 submit -> fetch,
+   requests/s); two steps of the stream through ``update_matrix``, each
+   served request against the library on ``to_coo()``, and B2 on the
+   sidecar with the cut row order and over every padding entry (bit-
+   equal, both timed); a service whose sidecar takes the k-sharded tier
+   (B3 must launch; cut and full walks bit-equal); a fold forced through
+   a tuned ``delta_max_fraction`` with requests served against the old
+   plan meanwhile and folded leaves equal to a fresh ``from_coo``;
+   ``fold_build`` armed until the matrix is quarantined (it keeps
+   serving; ``close()`` is clean); a warm start from the registry (no
+   ``prepare``, bit-equal); and an ``autotune=True`` service whose
+   background tune is adopted and read back by a fresh tuner with no
+   microbenchmark, the tuned plan held against the library.
 
 Tolerance everywhere: max |x - ref| <= 1e-4 * max(1, max |ref|) (fp32 on
 both sides, different summation orders; the kernels' tensor-core path is

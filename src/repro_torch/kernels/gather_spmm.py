@@ -16,7 +16,8 @@ from its structure alone, into a row-major order with global columns
 order, then walks.  A packed stream whose rows are not sorted (the delta
 sidecar of a dynamic plan, padded to its capacity with (row 0, col 0, 0.0)
 entries) gets the same treatment in :func:`gather_spmm` with a
-``row_order`` from :func:`stream_row_order`.  On CPU tensors they run the
+``row_order``; a sidecar's (:func:`sidecar_row_order`) keeps only the
+padding entries that change the walk's sum (:func:`drop_padding`).  On CPU tensors they run the
 plain versions from :mod:`repro_torch.kernels.ref`.  A CUDA call launches
 its kernel or raises.
 """
@@ -301,13 +302,13 @@ def gather_spmm(
     ``indptr`` is :func:`csr_indptr` of ``rows`` when the caller has it
     cached (plans keep it in ``plan.derived``).
 
-    ``row_order`` (:func:`stream_row_order` of ``rows`` and ``cols``)
-    walks a stream whose rows are not sorted, such as a delta sidecar
-    padded with (row 0, col 0, 0.0) entries: on the card that is two
-    launches, counted once, the gather of the values into the row order,
-    then the walk.  Its padding entries are walked, so each adds ``0 *
-    B[0]`` to packed row 0, as in the plain version: NaN where B's row 0
-    holds an Inf or a NaN."""
+    ``row_order`` (:func:`stream_row_order` of ``rows`` and ``cols``, or
+    a sidecar's :func:`sidecar_row_order`) walks a stream whose rows are
+    not sorted, such as a delta sidecar padded with (row 0, col 0, 0.0)
+    entries: on the card that is two launches, counted once, the gather
+    of the values into the row order, then the walk.  A padding entry
+    adds ``0 * B[0]`` to packed row 0, as in the plain version: NaN where
+    B's row 0 holds an Inf or a NaN."""
     if b.device.type == "cpu":
         return ref_gather_spmm(rows, cols, vals, b, num_rows, chunk=chunk)
     _check(b, rows=(rows, torch.int32), cols=(cols, torch.int32),
