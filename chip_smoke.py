@@ -167,7 +167,26 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    serving; ``close()`` is clean); a warm start from the registry (no
    ``prepare``, bit-equal); and an ``autotune=True`` service whose
    background tune is adopted and read back by a fresh tuner with no
-   microbenchmark, the tuned plan held against the library.
+   microbenchmark, the tuned plan held against the library;
+10. the sharded path (``sharded_path``; ``bench_torch/sharded_probe.py``
+   runs it alone): a 4-way mesh over the visible cards, ``cuda:0`` four
+   times on one card (``distributed.make_spmm_mesh(devices=...)``).  The
+   main path's Reddit-scale COO sharded by rows (the single-device plan
+   freed first): ``prepare_sharded`` seconds, ``auto_shard_axis``, the
+   imbalance, rows and nonzeros per shard, the tier and the peak device
+   memory; ``spmm`` (N = 256) and a batch-2 ``bspmm``, each the median of
+   7 CUDA-event times, launching dense_tile_spmm and the fringe kernel
+   once per shard per call, held against ``torch.sparse.mm`` and
+   bit-equal across two calls; the assemble gather alone.  Then on the
+   GCN path's graph at ogbn-arxiv size: an rhs-sharded ``spmm``; the
+   sharded SDDMM at D = 256 (gather_sddmm over the global COO, no
+   dense_tile_sddmm) against ``torch.sparse.sampled_addmm``, then
+   ``with_values`` of it and ``spmm``; a sharded ``DynamicPlan`` through
+   two steps of the reference example's stream with the routed sidecar
+   (per step the fringe kernel twice per shard); a registry save and a
+   ``SpmmService.warm_start(mesh=)`` re-sharded, bit-equal; and
+   ``register_sharded`` with flushes of 8, 4, 2 and 1 requests, each
+   against the library.  The kernels line adds this path's launches.
 
 Tolerance everywhere: max |x - ref| <= 1e-4 * max(1, max |ref|) (fp32 on
 both sides, different summation orders; the kernels' tensor-core path is
@@ -2430,6 +2449,309 @@ def serving_path(ctx, graph):
     return out
 
 
+# the sharded path: a 4-way mesh over the visible cards, one card repeated
+# where there are fewer (a machine with one H100 runs cuda:0 four times)
+SHARDS = 4
+# the single-device plan's warm spmm at Reddit scale, N = 256 (PERF.md
+# section 5), beside which the rows-sharded plan on one card is printed
+REDDIT_SINGLE_MS = 17.871
+SHARDED_STEPS = 2     # steps of the reference example's stream
+SERVE_FLUSHES = (8, 4, 2, 1)
+
+
+def median_ms(fn, reps=7):
+    """Median of ``reps`` CUDA-event times of one call each, after one
+    warm-up call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def sharded_path(ctx, reddit, graph):
+    """The sharded path on the card: plans sharded over a 4-way mesh of the
+    visible cards (``cuda:0`` four times on one card), through the entry
+    points a user calls.  Launch counts are set to 0 just before each
+    call and read just after it.
+
+    1. Reddit scale (``reddit``: the main path's COO and shape; its
+       single-device plan is freed first), rows axis forced:
+       ``from_coo(..., mesh=)`` (host seconds, ``auto_shard_axis``,
+       imbalance, rows and nonzeros per shard, the fringe tier, peak
+       device memory); ``spmm`` at N = 256 and ``bspmm`` at batch 2, each
+       the median of 7 CUDA-event times, launching B1 and the fringe kernel
+       once per shard; each held against ``torch.sparse.mm`` and bit-equal
+       across two calls; the assemble gather timed alone.
+    2. At ogbn-arxiv size (``graph``, the GCN path's): an rhs-sharded
+       ``spmm`` (N = 256); the sharded SDDMM at D = 256 (B5 over the
+       global COO) against ``torch.sparse.sampled_addmm``, then
+       ``with_values`` of its output and ``spmm``; a sharded
+       ``DynamicPlan`` through SHARDED_STEPS steps of the reference
+       example's stream with the routed sidecar, each against the library
+       on ``to_coo()``; a registry save and ``SpmmService.warm_start(mesh=)``
+       re-sharding it bit-equal; ``register_sharded`` with flushes of
+       SERVE_FLUSHES requests, each against the library.
+
+    Returns the path's numbers and the launches of every kernel summed
+    over its calls."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import spmm as core_spmm
+    from repro_torch.data.graphs import mutate
+    from repro_torch.distributed import make_spmm_mesh
+    from repro_torch.dynamic import DynamicPlan, PlanRegistry
+    from repro_torch.serve import SpmmService
+
+    sp, dev, log, require, drive = (ctx.sp, ctx.dev, ctx.log, ctx.require,
+                                    ctx.drive)
+    t_path = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    mesh = make_spmm_mesh(devices=[torch.device("cuda", i % n_cards)
+                                   for i in range(SHARDS)])
+    log(f"sharded path: {mesh}")
+    gen = torch.Generator(device=dev).manual_seed(40)
+    out = {"mesh": [str(d) for d in mesh.devices]}
+    totals = {}
+
+    def counted(fn):
+        res, counts = drive(fn)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        return res, counts
+
+    def once_per_shard(counts, fringe):
+        require(counts["dense_tile_spmm"] == SHARDS
+                and counts[fringe] == SHARDS, counts)
+
+    # --- 1. Reddit scale, rows axis ----------------------------------------
+    rows, cols, vals, shape = reddit
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    splan = core_spmm.prepare_sharded(
+        rows, cols, vals, shape, mesh, core_spmm.SpmmConfig(impl="cuda"),
+        shard_axis="rows")
+    S = sp.from_plan(splan)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    st = splan.stats_dict
+    fringe = ("gather_spmm_ksharded" if st["fringe_tier"] == "ksharded"
+              else "gather_spmm")
+    b = torch.randn((shape[1], N), device=dev, generator=gen)
+    bb = torch.randn((2, shape[1], N), device=dev, generator=gen)
+    c, counts = counted(lambda: sp.spmm(S, b))
+    once_per_shard(counts, fringe)
+    cb, counts_b = counted(lambda: sp.bspmm(S, bb))
+    once_per_shard(counts_b, fringe)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    require(torch.equal(c, sp.spmm(S, b)), "sharded spmm not bit-stable")
+    csr = ctx.csr_of(rows, cols, vals, shape)
+    e_spmm = ctx.err_bound(c, torch.sparse.mm(csr, b))
+    e_bspmm = max(ctx.err_bound(cb[i], torch.sparse.mm(csr, bb[i]))
+                  for i in range(2))
+    del csr
+    spmm_ms = median_ms(lambda: sp.spmm(S, b))
+    bspmm_ms = median_ms(lambda: sp.bspmm(S, bb))
+    m_loc = splan.rows_per_shard
+    stacked_out = torch.empty((SHARDS * m_loc, N), device=dev)
+    gather_ms = median_ms(lambda: torch.index_select(stacked_out, 0,
+                                                     splan.assemble))
+    # where the device time of one call goes, by kernel (torch.profiler)
+    device_ms, by_kernel = device_breakdown(lambda: sp.spmm(S, b), top=10)
+    out["reddit"] = {
+        "prepare_s": t_prep, "auto_shard_axis": st["auto_shard_axis"],
+        "rows_imbalance": st["rows_imbalance"],
+        "rows_imbalance_est": st["rows_imbalance_est"],
+        "shard_rows": list(st["shard_rows"]),
+        "shard_nnz": list(st["shard_nnz"]),
+        "rows_per_shard_padded": m_loc, "fringe_tier": st["fringe_tier"],
+        "tiles_per_shard_padded": splan.sig[9],
+        "fringe_per_shard_padded": splan.sig[10],
+        "own_tiles": [sh.derived["stack_padding"]["steps"]
+                      for sh in splan.shards],
+        "own_fringe": [sh.derived["stack_padding"]["fringe"]
+                       for sh in splan.shards],
+        "peak_gb": peak, "spmm_ms": spmm_ms, "bspmm2_ms": bspmm_ms,
+        "assemble_gather_ms": gather_ms, "single_device_ms": REDDIT_SINGLE_MS,
+        "device_ms": device_ms, "kernels_ms": by_kernel,
+        "launches_spmm": counts, "max_abs_err_spmm": e_spmm,
+        "max_abs_err_bspmm": e_bspmm}
+    log(f"  reddit-scale, rows axis: prepare_sharded {t_prep:.1f} s "
+        f"(auto_shard_axis {st['auto_shard_axis']}, rows_imbalance "
+        f"{st['rows_imbalance']:.4f}), shard_rows {st['shard_rows']}, "
+        f"shard_nnz {st['shard_nnz']}, tier {st['fringe_tier']}, peak "
+        f"device memory {peak:.2f} GB; spmm {spmm_ms:.3f} ms (median of 7; "
+        f"single-device plan {REDDIT_SINGLE_MS} ms), bspmm batch 2 "
+        f"{bspmm_ms:.3f} ms, assemble gather {gather_ms:.3f} ms; launches "
+        f"{counts}; vs torch.sparse.mm {e_spmm:.3e} / {e_bspmm:.3e}")
+    log(f"  sharded spmm's device time {device_ms} ms by kernel: "
+        f"{by_kernel}")
+    del S, splan, c, cb, b, bb, stacked_out
+    torch.cuda.empty_cache()
+
+    # --- 2. ogbn-arxiv size ------------------------------------------------
+    rows, cols, vals = graph[:3]
+    n = graph[3].shape[0]
+    shape = (n, n)
+    cfg = core_spmm.SpmmConfig(impl="cuda")
+    csr = ctx.csr_of(rows, cols, vals, shape)
+    b = torch.randn((n, N), device=dev, generator=gen)
+    t0 = time.perf_counter()
+    R = sp.from_plan(core_spmm.prepare_sharded(rows, cols, vals, shape, mesh,
+                                               cfg, shard_axis="rhs"))
+    t_rhs = time.perf_counter() - t0
+    fringe_r = ("gather_spmm_ksharded" if R.plan.sig[14] == "ksharded"
+                else "gather_spmm")
+    c, counts = counted(lambda: sp.spmm(R, b))
+    once_per_shard(counts, fringe_r)
+    out["arxiv_rhs"] = {
+        "prepare_s": t_rhs, "spmm_ms": median_ms(lambda: sp.spmm(R, b)),
+        "library_ms": median_ms(lambda: torch.sparse.mm(csr, b)),
+        "launches": counts,
+        "max_abs_err": ctx.err_bound(c, torch.sparse.mm(csr, b))}
+    del R
+    log(f"  ogbn-arxiv size, rhs axis: {out['arxiv_rhs']}")
+
+    # the sharded SDDMM (B5 over the global COO), then with_values + spmm
+    t0 = time.perf_counter()
+    S = sp.from_coo(rows, cols, vals, shape, mesh=mesh)
+    t_rows = time.perf_counter() - t0
+    require(S.is_sharded, "from_coo(mesh=) gave no sharded plan")
+    key = rows.astype(np.int64) * n + cols
+    order = torch.from_numpy(np.argsort(key, kind="stable")).to(dev)
+    require(np.unique(key).size == key.size, "the GCN graph has duplicates")
+    x = torch.randn((n, N), device=dev, generator=gen)
+    yt = torch.randn((n, N), device=dev, generator=gen)
+    y = yt.t()
+    pattern = torch.sparse_csr_tensor(
+        csr.crow_indices(), csr.col_indices(),
+        torch.ones(rows.size, device=dev), shape)
+    w, counts_sd = counted(lambda: sp.sddmm(S, x, y))
+    require(counts_sd["gather_sddmm"] > 0
+            and counts_sd["dense_tile_sddmm"] == 0, counts_sd)
+    want_w = torch.sparse.sampled_addmm(pattern, x, yt.t().contiguous(),
+                                        beta=0.0).values()
+    e_sd = ctx.err_bound(w[order], want_w)
+    fringe_s = ("gather_spmm_ksharded" if S.plan.sig[14] == "ksharded"
+                else "gather_spmm")
+    S2 = S.with_values(w)
+    c2, counts_wv = counted(lambda: sp.spmm(S2, b))
+    once_per_shard(counts_wv, fringe_s)
+    wv_csr = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                     want_w, shape)
+    e_wv = ctx.err_bound(c2, torch.sparse.mm(wv_csr, b))
+    out["arxiv_sddmm"] = {
+        "prepare_rows_s": t_rows,
+        "shard_rows": list(S.plan.stats_dict["shard_rows"]),
+        "sddmm_ms": median_ms(lambda: sp.sddmm(S, x, y)),
+        "library_ms": median_ms(lambda: torch.sparse.sampled_addmm(
+            pattern, x, yt.t().contiguous(), beta=0.0)),
+        "launches": counts_sd, "max_abs_err": e_sd,
+        "with_values_spmm_max_abs_err": e_wv}
+    log(f"  ogbn-arxiv size, sharded sddmm at D = {N}: {out['arxiv_sddmm']}")
+    del S2, w, c2, wv_csr, pattern, x, y, yt
+
+    # a sharded DynamicPlan over the reference example's stream
+    root = tempfile.mkdtemp(prefix="repro_torch_sharded_")
+    try:
+        t0 = time.perf_counter()
+        D = sp.from_plan(DynamicPlan(core_spmm.prepare_sharded(
+            rows, cols, vals, shape, mesh, cfg, shard_axis="rows")))
+        t_dyn = time.perf_counter() - t0
+        dp = D.plan
+        steps = []
+        deltas = list(mutate(rows, cols, vals, shape,
+                             **dict(DYN_STREAM, steps=SHARDED_STEPS)))
+        for i, d in enumerate(deltas):
+            t0 = time.perf_counter()
+            stats = dp.update(d)
+            t_up = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            side = dp._materialize()
+            t_mat = time.perf_counter() - t0
+            cd, counts_d = counted(lambda: sp.spmm(D, b))
+            require(counts_d["dense_tile_spmm"] == SHARDS
+                    and counts_d["gather_spmm"]
+                    + counts_d["gather_spmm_ksharded"] == 2 * SHARDS,
+                    counts_d)
+            r, cc, v = dp.to_coo()
+            e = ctx.err_bound(cd, torch.sparse.mm(
+                ctx.csr_of(r, cc, v, shape), b))
+            steps.append({
+                "update_s": t_up, "materialize_s": t_mat,
+                "routed": type(side).__name__, "capacity": side.capacity,
+                "tier": side.tier, "stats": stats,
+                "spmm_ms": median_ms(lambda: sp.spmm(D, b)),
+                "launches": counts_d, "max_abs_err": e})
+            log(f"  sharded dynamic step {i}: {steps[-1]}")
+        require(steps and steps[0]["routed"] == "ShardedDeltaFringe", steps)
+        out["arxiv_dynamic"] = {"prepare_s": t_dyn, "steps": steps}
+
+        # registry save, then a warm start re-sharded onto the mesh
+        reg = PlanRegistry(root)
+        t0 = time.perf_counter()
+        reg.save("arxiv", dp)
+        t_save = time.perf_counter() - t0
+        svc = SpmmService(cfg, registry=reg, max_batch=8)
+        t0 = time.perf_counter()
+        svc.warm_start("arxiv", mesh=mesh)
+        t_warm = time.perf_counter() - t0
+        warm = svc.plan("arxiv")
+        require(warm.is_sharded and warm.delta_nnz == dp.delta_nnz,
+                "warm start lost the sharded state")
+        tk = svc.submit("arxiv", b)
+        svc.flush()
+        require(torch.equal(svc.fetch(tk), sp.spmm(D, b)),
+                "warm start is not bit-equal")
+        out["registry"] = {"save_s": t_save, "warm_start_s": t_warm}
+
+        # register_sharded and flushes of 8, 4, 2, 1
+        svc.register_sharded("g", S.plan)
+        flushes = []
+        for k in SERVE_FLUSHES:
+            panels = [torch.randn((n, N), device=dev, generator=gen)
+                      for _ in range(k)]
+            tickets = [svc.submit("g", p) for p in panels]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+
+            def flush():
+                start.record()
+                svc.flush(name="g")
+                end.record()
+
+            _, counts_f = counted(flush)
+            once_per_shard(counts_f, fringe_s)
+            e = max(ctx.err_bound(svc.fetch(t), torch.sparse.mm(csr, p))
+                    for t, p in zip(tickets, panels))
+            flushes.append({"requests": k, "ms": start.elapsed_time(end),
+                            "launches": counts_f, "max_abs_err": e})
+        out["service"] = {"flushes": flushes,
+                          "stats": svc.stats.as_dict()}
+        log(f"  register_sharded flushes: {flushes}")
+        svc.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = totals
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"  sharded path wall time: {out['wall_s']:.1f} s; launches "
+        f"{totals}")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -3251,6 +3573,13 @@ def main() -> int:
     # --- phase 9: the serving path --------------------------------------------
     serving = serving_path(ctx8, arxiv_graph)
     log(f"  {json.dumps({'serving': serving})}")
+
+    # --- phase 10: the sharded path -------------------------------------------
+    sharded = sharded_path(ctx8, (rows, cols, vals, (spec.m, spec.k)),
+                           arxiv_graph)
+    log(f"  {json.dumps({'sharded': sharded}, default=str)}")
+    for r in report:
+        r["launches"] += sharded["launches"].get(r["name"], 0)
     require(len(report) == 7 and all(r["launches"] > 0 for r in report),
             [(r["name"], r["launches"]) for r in report])
     print(json.dumps({"kernels": report}), flush=True)

@@ -19,7 +19,8 @@ A tree is nested dicts, lists and tuples of arrays (numpy arrays, tensors
 on any device, or scalars).  Leaf names are the reference's: the path's
 keys joined by ``_`` (dict keys sorted, sequence positions as numbers),
 so ``{"a": {"w": x}, "b": [y, z]}`` gives ``a_w``, ``b_0`` and ``b_1``.
-Arrays come back as host numpy; placing them on a device is the caller's.
+Arrays come back as host numpy from :func:`restore`, and as tensors on the
+devices a caller names from :func:`restore_resharded`.
 """
 from __future__ import annotations
 
@@ -147,6 +148,21 @@ def restore(ckpt_dir: str, template: Any,
             name, arr.shape, _host(leaf).shape)
         out.append(arr.astype(info["dtype"]))
     return step, _rebuild(template, out)
+
+
+def restore_resharded(ckpt_dir: str, template: Any, devices: Any,
+                      step: Optional[int] = None) -> Tuple[int, Any]:
+    """Elastic restore: :func:`restore`, then each array placed as a
+    tensor on the device that the matching leaf of ``devices`` names (a
+    tree of ``template``'s structure whose leaves are ``torch.device``s or
+    device strings), as the reference places each under a new sharding."""
+    import torch
+
+    step, tree = restore(ckpt_dir, template, step)
+    placed = [torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+              for (_, arr), (_, dev) in zip(_leaf_paths(tree),
+                                            _leaf_paths(devices))]
+    return step, _rebuild(template, placed)
 
 
 def _gc(ckpt_dir: str, keep: int) -> None:

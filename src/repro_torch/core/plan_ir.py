@@ -28,6 +28,14 @@ A dynamic plan's structural delta rides beside a plan as a
 :class:`DeltaFringe`: the reference's capacity-padded sidecar (eight
 leaves and a signature, :func:`build_delta_fringe`), with a ``derived``
 cache of its own.
+
+A :class:`ShardedPlan` holds one :class:`PlanShard` per shard of a mesh
+(``distributed.SpmmMesh``): on the rows axis each shard's sub-plan padded
+to one mesh-uniform signature (:func:`stack_shard_leaves`, the
+reference's stacked leaves), on the rhs axis the one plan replicated;
+each shard has its own ``derived`` and ``a_unsplittable``.  Its COO maps
+are :class:`ShardedUpdateMaps`, and a rows plan's sidecar is a
+:class:`ShardedDeltaFringe` routed to the owning shards.
 """
 from __future__ import annotations
 
@@ -365,19 +373,25 @@ N_PLAN_LEAVES = 17   # executor-body plan args (everything before b)
 LEAF_RANKS = (1, 1, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 3, 3, 3, 3)
 LEAF_COL_PERM = 6    # position of col_perm among the executor-body args
 N_DELTA_LEAVES = 8   # d_rows, d_cols, d_vals, d_gsrc, kb_chunk/rows/cols/vals
+# positions, among the executor-body args, of the values a value update
+# rewrites
+LEAF_FLAT_VALUES = 2
+LEAF_FRINGE_VALS = 5
+LEAF_KB_VALS = 12
+
+# the executor-body args by name, in fused-body order
+EXEC_LEAF_NAMES = (
+    "step_window", "step_col", "flat_values",
+    "fringe_rows", "fringe_cols", "fringe_vals",
+    "col_perm", "gather_src_matrix", "gather_src_vector",
+    "fringe_kb_chunk", "fringe_kb_rows", "fringe_kb_cols", "fringe_kb_vals",
+    "nm_values", "nm_codes", "bitmap_words", "bitmap_values",
+)
 
 
 def plan_leaves(plan: NeutronPlan) -> Tuple[torch.Tensor, ...]:
     """Executor-body args in fused-body order (without b)."""
-    return (
-        plan.step_window, plan.step_col, plan.flat_values,
-        plan.fringe_rows, plan.fringe_cols, plan.fringe_vals,
-        plan.col_perm, plan.gather_src_matrix, plan.gather_src_vector,
-        plan.fringe_kb_chunk, plan.fringe_kb_rows,
-        plan.fringe_kb_cols, plan.fringe_kb_vals,
-        plan.nm_values, plan.nm_codes,
-        plan.bitmap_words, plan.bitmap_values,
-    )
+    return tuple(getattr(plan, name) for name in EXEC_LEAF_NAMES)
 
 
 def plan_from_leaves(
@@ -884,3 +898,297 @@ def delta_child_sig(dsig: Tuple) -> Tuple:
     if dsig[0] == "sharded_delta":
         return ("delta",) + tuple(dsig[2:])
     return dsig
+
+
+# --- sharded plans -----------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ShardedUpdateMaps:
+    """COO->slot inverse maps of a sharded plan.
+
+    Global nonzero ``j`` lives in shard ``shard_of_nnz[j]`` at position
+    ``local_of_nnz[j]`` of that shard's input arrays; ``shard_maps[s]`` are
+    the shard's own :class:`UpdateMaps`, whose slots stay valid in the
+    padded stacked leaves (padding only appends).  The global
+    ``rows/cols/vals`` mirror serves the dynamic layer and compaction.
+    """
+
+    shape: Tuple[int, int]
+    rows: np.ndarray
+    cols: np.ndarray
+    vals: np.ndarray
+    shard_of_nnz: np.ndarray
+    local_of_nnz: np.ndarray
+    shard_maps: Tuple[UpdateMaps, ...]
+    key_sorted: np.ndarray
+    key_order: np.ndarray
+
+    @property
+    def nnz(self) -> int:
+        return int(self.rows.shape[0])
+
+    lookup = UpdateMaps.lookup
+
+
+@dataclasses.dataclass
+class PlanShard:
+    """One shard of a :class:`ShardedPlan` on its device: the 17
+    executor-body leaves, its own ``derived`` cache and its own
+    ``a_unsplittable`` flag (so the C6 routing is decided per shard).
+
+    On a rows-sharded plan the ``derived`` of each shard starts with
+    ``stack_padding``: how many tile steps, packed fringe entries and
+    k-bucketed entries of its padded leaves are its own (the rest pads the
+    shard to the mesh-uniform shapes).  The kernel wrappers read it to
+    leave the padded tiles unread and to cut the padded fringe entries
+    from their row orders, with the walk's bits unchanged
+    (``kernels.ops``)."""
+
+    leaves: Tuple[torch.Tensor, ...]
+    derived: Dict[str, Any]
+    a_unsplittable: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.leaves[0].device
+
+
+@dataclasses.dataclass
+class ShardedPlan:
+    """Prepared multi-device execution plan.
+
+    ``shard_axis == "rows"``: every shard holds its own padded sub-plan,
+    the reference's stacked leaves cut along their leading shard axis; it
+    emits its packed ``(rows_per_shard, N)`` block, and ``assemble`` maps
+    each original row into the concatenated blocks.  ``shard_axis ==
+    "rhs"``: one plan, replicated on every device of the mesh (one copy
+    per distinct device), with B's columns split across the shards.
+
+    On a mesh whose shards share one device (``[cuda:0] * 4``, ``[cpu] *
+    n``) the rows-axis leaves are uploaded once, stacked (``stacked``), and
+    every shard's leaves are views of its slice.  ``leaves`` gives the
+    reference's 17 executor-body leaves, stacked along a leading shard
+    axis on the rows axis (on the mesh's first device), plain on the rhs
+    axis.
+    """
+
+    shards: Tuple[PlanShard, ...]
+    sig: Tuple                      # mesh-uniform per-shard signature
+    mesh: Any                       # distributed.SpmmMesh
+    axis_name: str
+    shard_axis: str                 # "rows" | "rhs"
+    n_shards: int
+    assemble: Optional[torch.Tensor]  # (M,) int32 on mesh.first ("rows")
+    shape: Tuple[int, int]
+    config: SpmmConfig
+    stats: Tuple
+    update_maps: Optional[ShardedUpdateMaps] = None
+    # padded per-shard row count ("rows"; 0 for "rhs"): assemble[r] ==
+    # shard_of(r) * rows_per_shard + local_of(r)
+    rows_per_shard: int = 0
+    stacked: Optional[Tuple[torch.Tensor, ...]] = None
+
+    @property
+    def device(self) -> torch.device:
+        """The device that takes B and holds the result."""
+        return self.mesh.first
+
+    @property
+    def leaves(self) -> Tuple[torch.Tensor, ...]:
+        if self.shard_axis == "rhs":
+            return self.shards[0].leaves
+        if self.stacked is not None:
+            return self.stacked
+        dev = self.device
+        return tuple(torch.stack([sh.leaves[i].to(dev) for sh in self.shards])
+                     for i in range(N_PLAN_LEAVES))
+
+    @property
+    def stats_dict(self) -> Dict:
+        return dict(self.stats)
+
+    def signature(self) -> Tuple:
+        """Static structure key; never equal to a ``NeutronPlan``'s (a
+        distinct leading tag and length), as in the reference."""
+        return ("sharded", self.shard_axis, self.n_shards, self.axis_name,
+                (self.mesh.size,), self.sig)
+
+
+def stack_shard_leaves(
+    shard_leaves, kb_streams, t_max: int, nw_max: int, nnzf_max: int,
+    nch_max: int, nnzkb_max: int,
+) -> Tuple[np.ndarray, ...]:
+    """Pad every shard's 17 leaves (host arrays, fused-body order) to
+    mesh-uniform shapes and stack them, as the reference does.
+
+    Padding is inert: padded tile steps carry zero values into the extra
+    window ``nw_max``, padded fringe entries add 0.0 to packed row 0,
+    padded k-bucketed chunks address k-block 0 with zero values, and the
+    gather maps are already at the padded row count.  (0 · Inf is NaN: an
+    Inf or NaN in B's row 0 reaches packed row 0 of every shard through
+    the padding, as in the reference.)
+    """
+    n = len(shard_leaves)
+    # (padded length, fill) per leaf; None: the leaf is already uniform
+    pads = ((t_max, nw_max), (t_max, 0), (t_max, 0.0),
+            (nnzf_max, 0), (nnzf_max, 0), (nnzf_max, 0.0),
+            None, None, None,
+            (nch_max, 0), (nnzkb_max, 0), (nnzkb_max, 0), (nnzkb_max, 0.0),
+            None, None, None, None)
+    out = []
+    for i, pad in enumerate(pads):
+        cols = [(leaves[i] if i < 9 or i >= 13 else kb[i - 9])
+                for leaves, kb in zip(shard_leaves, kb_streams)]
+        if pad is None:
+            out.append(np.stack(cols))
+            continue
+        length, fill = pad
+        first = cols[0]
+        # written in place, one copy per leaf (the tile stream is the
+        # largest array a plan holds)
+        arr = np.empty((n, length) + first.shape[1:], first.dtype)
+        for s, col in enumerate(cols):
+            arr[s, :col.shape[0]] = col
+            arr[s, col.shape[0]:] = fill
+        out.append(arr)
+    return tuple(out)
+
+
+def place_shards(
+    stacked: Tuple[np.ndarray, ...], devices, real_counts=None,
+) -> Tuple[Tuple[PlanShard, ...], Optional[Tuple[torch.Tensor, ...]]]:
+    """Rows-axis shards on their devices from the stacked host leaves.
+
+    ``real_counts[s]`` (tile steps, fringe entries, k-bucketed entries of
+    shard ``s``'s own) seeds each shard's ``stack_padding``.  Where every
+    shard runs on one device the stack is uploaded once and the shards'
+    leaves are views of it (returned second); otherwise each shard's
+    slice is copied to its device and the second value is None."""
+    devices = tuple(torch.device(d) for d in devices)
+    uniform = len(set(devices)) == 1
+    stack_t = None
+    if uniform:
+        stack_t = tuple(
+            torch.from_numpy(np.ascontiguousarray(x)).to(devices[0])
+            for x in stacked)
+    shards = []
+    for s, dev in enumerate(devices):
+        if uniform:
+            leaves = tuple(x[s] for x in stack_t)
+        else:
+            leaves = tuple(torch.from_numpy(np.ascontiguousarray(x[s])).to(dev)
+                           for x in stacked)
+        derived: Dict[str, Any] = {}
+        if real_counts is not None:
+            steps, fringe, kb = real_counts[s]
+            derived["stack_padding"] = {"steps": int(steps),
+                                        "fringe": int(fringe), "kb": int(kb)}
+        shards.append(PlanShard(
+            leaves, derived,
+            unsplittable_flag(leaves[LEAF_FLAT_VALUES])))
+    return tuple(shards), stack_t
+
+
+def replicate_shards(plans_by_device: Dict[torch.device, NeutronPlan],
+                     devices) -> Tuple[PlanShard, ...]:
+    """Rhs-axis shards: shard ``s`` runs the plan on its device, whose
+    leaves, ``derived`` and flag the shards on one device share."""
+    out = []
+    for d in devices:
+        p = plans_by_device[torch.device(d)]
+        out.append(PlanShard(plan_leaves(p), p.derived, p.a_unsplittable))
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedDeltaFringe:
+    """Per-shard delta sidecars of a rows-sharded plan.
+
+    Every delta row is routed to the shard that owns its output row (by
+    the plan's ``assemble``) and relabelled to that shard's local rows;
+    each shard's :class:`DeltaFringe` is built at the shard-local shape
+    with one capacity for the whole mesh, on the shard's device, with its
+    own ``derived`` (so the cut row orders of its padding are its own).
+    ``leaves`` stacks the eight leaves along a leading shard axis, as the
+    reference's do.
+    """
+
+    shards: Tuple[DeltaFringe, ...]
+    sig: Tuple
+    capacity: int
+    count: int
+    tier: str
+    bk: int
+    n_shards: int
+
+    @property
+    def leaves(self) -> Tuple[torch.Tensor, ...]:
+        dev = self.shards[0].leaves[0].device
+        return tuple(torch.stack([df.leaves[i].to(dev) for df in self.shards])
+                     for i in range(N_DELTA_LEAVES))
+
+
+def build_sharded_delta_fringe(
+    d_rows: np.ndarray,
+    d_cols: np.ndarray,
+    d_vals: np.ndarray,
+    splan: ShardedPlan,
+    capacity: Optional[int] = None,
+) -> ShardedDeltaFringe:
+    """Route a delta COO to its owning shards and build their sidecars, as
+    the reference's ``build_sharded_delta_fringe`` does: each shard merges
+    its own rows inside its body, and the assemble gather picks them up."""
+    from ..kernels.ops import pow2_at_least
+
+    if splan.shard_axis != "rows":
+        raise ValueError(
+            "build_sharded_delta_fringe routes by row ownership and needs a "
+            f"rows-sharded plan; got shard_axis={splan.shard_axis!r} "
+            "(rhs-sharded plans replicate a plain DeltaFringe instead)")
+    m_loc = splan.rows_per_shard
+    n_shards = splan.n_shards
+    k = splan.shape[1]
+    d_rows = np.asarray(d_rows, np.int64)
+    d_cols = np.asarray(d_cols, np.int64)
+    d_vals = np.asarray(d_vals)
+    assemble = splan.assemble.cpu().numpy().astype(np.int64)
+    slot = assemble[d_rows] if d_rows.size else np.zeros(0, np.int64)
+    shard_of = slot // max(m_loc, 1)
+    local_row = slot % max(m_loc, 1)
+    counts = (np.bincount(shard_of, minlength=n_shards) if d_rows.size
+              else np.zeros(n_shards, np.int64))
+    cap = max(8, pow2_at_least(int(counts.max()) if d_rows.size else 0),
+              int(capacity or 0))
+    per_shard = []
+    for s in range(n_shards):
+        sel = np.flatnonzero(shard_of == s)
+        per_shard.append(build_delta_fringe(
+            local_row[sel], d_cols[sel], d_vals[sel], (m_loc, k),
+            splan.config, capacity=cap, device=splan.mesh.devices[s]))
+    child_sig = per_shard[0].sig
+    if any(df.sig != child_sig for df in per_shard):
+        raise PlanBuildError(
+            "per-shard delta signatures diverged despite one capacity")
+    return ShardedDeltaFringe(
+        shards=tuple(per_shard),
+        sig=("sharded_delta", n_shards) + child_sig[1:],
+        capacity=cap, count=int(d_rows.size), tier=per_shard[0].tier,
+        bk=per_shard[0].bk, n_shards=n_shards)
+
+
+def delta_on(delta: DeltaFringe, device: torch.device) -> DeltaFringe:
+    """``delta`` on ``device``: itself where it lives there, else a copy
+    with a ``derived`` of its own, made once and kept in ``delta.derived``
+    (the rhs axis replicates one plain sidecar on every device)."""
+    device = torch.device(device)
+    if delta.leaves[0].device == device:
+        return delta
+    key = ("replica", str(device))
+    rep = delta.derived.get(key)
+    if rep is None:
+        rep = dataclasses.replace(
+            delta, leaves=tuple(x.to(device) for x in delta.leaves),
+            derived={})
+        delta.derived[key] = rep
+    return rep

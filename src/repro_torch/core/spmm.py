@@ -1,4 +1,4 @@
-"""NeutronSparse plan construction: ``prepare``.
+"""NeutronSparse plan construction: ``prepare`` and ``prepare_sharded``.
 
 ``prepare`` runs the preprocessing pipeline of the paper's workflow
 (Fig. 7) on the host, in numpy, exactly as ``repro.core.spmm.prepare``
@@ -11,6 +11,10 @@ Structured lane: where the core tile stream has an N:M pattern that pays
 (or a ``structure_hint`` asks for one), the stream is also packed into the
 N:M or bitmap payload the structured kernels read, as the reference does;
 the general stream always rides along.
+
+``prepare_sharded`` balances row windows across a mesh's shards (or
+replicates the plan and shards B's columns) and builds one padded
+sub-plan per shard, as the reference does; see its section below.
 
 Every dispatch decision consults the cost model that ``core.tuner``
 resolves for the config: the analytic model, or with ``autotune`` the
@@ -31,14 +35,22 @@ import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..errors import PlanBuildError
 from ..kernels.ops import effective_chunk
 from ..obs import REGISTRY
 from . import formats, partition, plan_ir, reorder, reuse
-from .cost_model import EngineCostModel
+from .coordinator import (
+    balance_row_window_list, list_imbalance, window_costs_from_coo,
+)
+from .cost_model import EngineCostModel, select_shard_axis
 from .tuner import resolve_cost_model
-from .plan_ir import IMPL_DEVICE, NeutronPlan, SpmmConfig
+from .plan_ir import (  # noqa: F401  (public re-exports, as the reference's)
+    IMPL_DEVICE, LEAF_FLAT_VALUES, LEAF_FRINGE_VALS, LEAF_KB_VALS, PATH_CORE,
+    PATH_FRINGE, PLAN_FORMAT_VERSION, NeutronPlan, ShardedPlan,
+    ShardedUpdateMaps, SpmmConfig, UpdateMaps,
+)
 
 _PREPARES = REGISTRY.counter(
     "core_prepares_total", "host-side prepare() preprocessing runs")
@@ -51,9 +63,10 @@ _DUMMY_I32 = np.zeros((1, 1, 1), np.int32)
 # execution API lives in repro_torch.exec.api; forwarded lazily so that
 # importing the core layer never pulls the executor in
 _EXEC_FORWARDS = (
-    "execute", "execute_with_delta", "execute_delta_contribution",
-    "execute_matrix_path", "execute_vector_path", "neutron_spmm",
-    "SpMMOperator", "NeutronSpMM", "fused_trace_count", "dispatch_count",
+    "execute", "execute_with_delta", "execute_sharded",
+    "execute_delta_contribution", "execute_matrix_path",
+    "execute_vector_path", "neutron_spmm", "SpMMOperator", "NeutronSpMM",
+    "fused_trace_count", "sharded_trace_count", "dispatch_count",
 )
 
 _WARNED_FORWARD = False  # one DeprecationWarning per process, not per access
@@ -177,11 +190,14 @@ def build_plan_arrays(
     shape: Tuple[int, int],
     config: SpmmConfig = SpmmConfig(),
     cost_model: Optional[EngineCostModel] = None,
+    _tune_tile_shape: bool = True,
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
     """Host-side preprocessing: the 19 plan leaves as numpy arrays + meta.
 
     ``meta`` is what :func:`plan_ir.plan_from_leaves` takes besides the
-    leaves.  Runs no kernel and touches no device.
+    leaves.  Runs no kernel and touches no device.  ``prepare_sharded``
+    passes ``_tune_tile_shape=False`` to its per-shard builds, whose tile
+    shape it resolved once at the global shape.
     """
     m, k = shape
     rows, cols, vals = plan_ir.validate_coo(rows, cols, vals, shape)
@@ -191,7 +207,7 @@ def build_plan_arrays(
         "spmm", int(m), int(k), int(rows.shape[0]), config)
     # a tuned (bm, bk) applies before partitioning: the tile shape drives
     # window costs, the core/fringe split and every static plan shape
-    if config.autotune:
+    if _tune_tile_shape and config.autotune:
         ts = cm.tile_shape(int(m), int(k), config.bn, int(rows.shape[0]))
         if ts is not None:
             config = dataclasses.replace(config, bm=int(ts[0]),
@@ -433,3 +449,244 @@ def prepare(
     leaves, meta = build_plan_arrays(rows, cols, vals, shape, config,
                                      cost_model)
     return plan_ir.plan_from_leaves(leaves, meta, device)
+
+
+# --- multi-device sharded plan build ----------------------------------------
+# The window-cost model that balances the two engine paths also balances
+# shards: row windows are LPT-assigned to the mesh's shards over the cost
+# model's window costs, each shard gets its own sub-plan, padded to
+# mesh-uniform shapes so that one per-shard body serves every shard, and
+# since every shard owns a disjoint set of output rows the merge is one
+# gather of the concatenated packed blocks (no scatter, no sum).
+
+
+def prepare_sharded(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    shape: Tuple[int, int],
+    mesh: Any,
+    config: SpmmConfig = SpmmConfig(),
+    cost_model: Optional[EngineCostModel] = None,
+    shard_axis: str = "auto",
+    axis_name: Optional[str] = None,
+) -> plan_ir.ShardedPlan:
+    """Partition the SpMM across ``mesh`` (``distributed.SpmmMesh``) and
+    build the per-shard plans, as the reference's ``prepare_sharded`` does.
+
+    ``shard_axis="auto"`` lets ``cost_model.select_shard_axis`` choose
+    between sharding output rows (balanced window lists, plan state
+    distributed) and replicating the plan while sharding B's columns.  The
+    host work is the reference's, so with ``impl="torch"`` the stacked
+    leaves, signature, ``assemble`` and stats equal the reference's; with
+    ``"cuda"`` the mesh-uniform fringe tier follows the H100 rule
+    (``cost_model.select_fringe_tier``).  Each shard's leaves go to its
+    device (``mesh.devices[s]``), which must suit ``config.impl``.
+    """
+    m, k = shape
+    rows, cols, vals = plan_ir.validate_coo(rows, cols, vals, shape)
+    if config.reorder_cols:
+        raise ValueError(
+            "prepare_sharded does not support reorder_cols=True: per-shard "
+            "column permutations cannot share one B operand")
+    axis_name = axis_name or mesh.axis_names[0]
+    n_shards = int(mesh.shape[axis_name])
+    devices = tuple(mesh.devices)
+    for d in devices:
+        plan_ir.check_impl_device(config.impl, d)
+    cm = cost_model if cost_model is not None else resolve_cost_model(
+        "spmm", int(m), int(k), int(rows.shape[0]), config)
+    # the tuned (bm, bk) resolves once, at the global shape, so that the
+    # window balance, the sub-plans and the signature share one tile shape
+    if config.autotune:
+        ts = cm.tile_shape(int(m), int(k), config.bn, int(rows.shape[0]))
+        if ts is not None:
+            config = dataclasses.replace(config, bm=int(ts[0]), bk=int(ts[1]))
+    # sub-plans always take the general payload (structured leaves would
+    # need mesh-uniform packed shapes); the plan keeps the caller's config
+    shard_config = dataclasses.replace(config, structure_hint="general")
+
+    wc = window_costs_from_coo(rows, m, config.bm, k, cm, alpha=config.alpha)
+    decision = select_shard_axis(
+        wc, n_shards, imbalance_threshold=cm.imbalance_threshold())
+    if shard_axis == "auto":
+        shard_axis = decision.shard_axis
+    if shard_axis not in ("rows", "rhs"):
+        raise ValueError(f"shard_axis must be rows|rhs|auto, got {shard_axis!r}")
+
+    base_stats = (
+        ("n_shards", n_shards),
+        ("shard_axis", shard_axis),
+        ("auto_shard_axis", decision.shard_axis),
+        ("rows_imbalance_est", decision.rows_imbalance),
+        ("num_windows_global", int(wc.shape[0])),
+    )
+
+    if shard_axis == "rhs":
+        leaves, meta = build_plan_arrays(rows, cols, vals, shape,
+                                         shard_config, cm,
+                                         _tune_tile_shape=False)
+        by_device = {d: plan_ir.plan_from_leaves(leaves, meta, d)
+                     for d in dict.fromkeys(devices)}
+        plan = by_device[devices[0]]
+        um = meta["update_maps"]
+        smaps = plan_ir.ShardedUpdateMaps(
+            shape=tuple(shape), rows=um.rows, cols=um.cols, vals=um.vals,
+            shard_of_nnz=np.zeros(um.nnz, np.int64),
+            local_of_nnz=np.arange(um.nnz, dtype=np.int64),
+            shard_maps=(um,), key_sorted=um.key_sorted,
+            key_order=um.key_order)
+        return plan_ir.ShardedPlan(
+            shards=plan_ir.replicate_shards(by_device, devices),
+            sig=plan.signature(), mesh=mesh, axis_name=axis_name,
+            shard_axis="rhs", n_shards=n_shards, assemble=None,
+            shape=tuple(shape), config=config,
+            stats=base_stats + (("nnz", int(rows.shape[0])),),
+            update_maps=smaps)
+
+    # --- rows axis: LPT-balanced window lists -> per-shard sub-problems ---
+    # empty windows are spread by row load after the LPT pass (fed to LPT
+    # they would all land on one shard and inflate every shard's padding)
+    nw = int(wc.shape[0])
+    costed = np.flatnonzero(wc > 0)
+    empty = np.flatnonzero(wc == 0)
+    assign_costed = balance_row_window_list(wc[costed], n_shards)
+    lists = [list(costed[a]) for a in assign_costed]
+    rows_w_all = np.minimum(
+        (np.arange(nw, dtype=np.int64) + 1) * config.bm, m
+    ) - np.arange(nw, dtype=np.int64) * config.bm
+    row_loads = np.array([int(rows_w_all[li].sum()) for li in lists])
+    for w in empty:
+        s = int(np.argmin(row_loads))
+        lists[s].append(int(w))
+        row_loads[s] += int(rows_w_all[w])
+    assignment = [np.asarray(li, np.int64) for li in lists]
+    imbalance = list_imbalance(assignment, wc) if nw else 1.0
+    shard_of_window = np.zeros(nw, np.int64)
+    local_window_start = np.zeros(nw, np.int64)
+    m_loc = np.zeros(n_shards, np.int64)
+    for s, wins in enumerate(assignment):
+        wins = np.sort(wins)  # ascending original order within the shard
+        sizes = np.minimum((wins + 1) * config.bm, m) - wins * config.bm
+        starts = np.cumsum(sizes) - sizes
+        shard_of_window[wins] = s
+        local_window_start[wins] = starts
+        m_loc[s] = int(sizes.sum())
+    m_loc_max = int(m_loc.max()) if n_shards else 0
+
+    # per-shard builds: each a self-contained (m_loc_max, k) problem over
+    # locally relabelled rows, its fringe tier forced off (budget 0): the
+    # mesh-uniform tier is chosen below from the largest shard
+    sub_cfg = dataclasses.replace(shard_config, fringe_vmem_budget=0)
+    row_window = rows // config.bm if rows.size else rows
+    built = []
+    shard_idx = []  # global nnz ids per shard
+    for s in range(n_shards):
+        mask = (shard_of_window[row_window] == s if rows.size
+                else np.zeros(0, bool))
+        local_rows = (
+            local_window_start[row_window[mask]] + rows[mask] % config.bm)
+        shard_idx.append(np.flatnonzero(mask))
+        built.append(build_plan_arrays(
+            local_rows, cols[mask], vals[mask], (m_loc_max, k), sub_cfg, cm,
+            _tune_tile_shape=False))
+
+    # --- mesh-uniform static structure: pad every leaf to the max ---------
+    cfg = config
+    k_pad = ((k + cfg.bk - 1) // cfg.bk) * cfg.bk
+    sub_stats = [dict(meta["stats"]) for _, meta in built]
+    nw_max = max(lv["core_row_map"].shape[0] // cfg.bm for lv, _ in built)
+    t_max = max(lv["step_window"].shape[0] for lv, _ in built)
+    nnzf_max = max(lv["fringe_rows"].shape[0] for lv, _ in built)
+    nfr_max = max(lv["fringe_row_ids"].shape[0] for lv, _ in built)
+    has_core = any(bool(st["core_nnz"]) for st in sub_stats)
+    has_fringe = any(bool(st["fringe_nnz"]) for st in sub_stats)
+    u_tier, u_bk = cm.select_fringe_tier(
+        k_pad, nfr_max, cfg.bn, vmem_budget=cfg.fringe_vmem_budget,
+        impl=cfg.impl)
+    chunk_eff = effective_chunk(cfg.fringe_chunk)
+
+    kb_streams = []
+    for (lv, _), st in zip(built, sub_stats):
+        if u_tier == "ksharded" and st["fringe_nnz"] and cfg.impl == "cuda":
+            kb_streams.append(plan_ir.bucket_fringe_kblocks(
+                lv["fringe_rows"], lv["fringe_cols"], lv["fringe_vals"],
+                k_pad, u_bk, chunk_eff))
+        else:
+            kb_streams.append((
+                np.zeros(1, np.int32), np.zeros(1, np.int32),
+                np.zeros(1, np.int32), np.zeros(1, np.float32), None))
+    nch_max = max(kb[0].shape[0] for kb in kb_streams)
+    nnzkb_max = max(kb[1].shape[0] for kb in kb_streams)
+
+    # one more window for the kernels: padded tile steps address window
+    # nw_max, never a real slot (see stack_shard_leaves)
+    nw_kernel = nw_max + 1
+    shard_leaves = [tuple(lv[name] for name in plan_ir.EXEC_LEAF_NAMES)
+                    for lv, _ in built]
+    stacked = plan_ir.stack_shard_leaves(
+        shard_leaves, kb_streams, t_max, nw_max, nnzf_max, nch_max,
+        nnzkb_max)
+    real_counts = [(lv["step_window"].shape[0], lv["fringe_rows"].shape[0],
+                    kb[1].shape[0]) for (lv, _), kb in zip(built, kb_streams)]
+    del shard_leaves
+
+    sig = (
+        plan_ir.PLAN_FORMAT_VERSION,
+        (m_loc_max, k), cfg.bm, cfg.bk, cfg.bn, cfg.impl, cfg.reorder_cols,
+        cfg.fringe_chunk, nw_kernel, t_max, nnzf_max, nfr_max,
+        has_core, has_fringe, u_tier, int(u_bk), nch_max, nnzkb_max,
+        "general", (0, 0),
+    )
+
+    # COO->slot maps: the shards' own maps (padding appends, so their
+    # slots stay valid in the stacked leaves), with kb_pos bucketed again
+    # under the mesh-uniform tier
+    shard_of_nnz = (shard_of_window[row_window] if rows.size
+                    else np.zeros(0, np.int64))
+    local_of_nnz = np.zeros(rows.shape[0], np.int64)
+    shard_maps = []
+    for s, ((_, meta), kb) in enumerate(zip(built, kb_streams)):
+        local_of_nnz[shard_idx[s]] = np.arange(shard_idx[s].size)
+        um = meta["update_maps"]
+        if kb[4] is not None:
+            kb_pos = np.where(um.fringe_pos >= 0,
+                              kb[4][np.clip(um.fringe_pos, 0, None)], -1)
+        else:
+            kb_pos = np.full(um.nnz, -1, np.int64)
+        shard_maps.append(dataclasses.replace(um, kb_pos=kb_pos))
+    key_sorted, key_order = plan_ir.build_key_index(rows, cols, k)
+    smaps = plan_ir.ShardedUpdateMaps(
+        shape=tuple(shape), rows=rows, cols=cols, vals=vals.copy(),
+        shard_of_nnz=shard_of_nnz, local_of_nnz=local_of_nnz,
+        shard_maps=tuple(shard_maps), key_sorted=key_sorted,
+        key_order=key_order)
+
+    # original row r lives in shard shard_of_window[r // bm] at local slot
+    # local_window_start[..] + r % bm; the concatenated blocks are
+    # row-major in (shard, local), so one flat index gathers C
+    if m:
+        rw = np.arange(m, dtype=np.int64) // cfg.bm
+        assemble = (
+            shard_of_window[rw] * m_loc_max
+            + local_window_start[rw] + np.arange(m, dtype=np.int64) % cfg.bm
+        ).astype(np.int32)
+    else:
+        assemble = np.zeros(0, np.int32)
+
+    stats = base_stats + (
+        ("rows_imbalance", float(imbalance)),
+        ("shard_rows", tuple(int(x) for x in m_loc)),
+        ("shard_nnz", tuple(int(st["nnz"]) for st in sub_stats)),
+        ("rows_per_shard_padded", m_loc_max),
+        ("fringe_tier", u_tier),
+        ("fringe_bk", int(u_bk)),
+    )
+    del built
+    shards, stack_t = plan_ir.place_shards(stacked, devices, real_counts)
+    return plan_ir.ShardedPlan(
+        shards=shards, sig=sig, mesh=mesh, axis_name=axis_name,
+        shard_axis="rows", n_shards=n_shards,
+        assemble=torch.from_numpy(assemble).to(devices[0]),
+        shape=tuple(shape), config=config, stats=stats, update_maps=smaps,
+        rows_per_shard=m_loc_max, stacked=stack_t)

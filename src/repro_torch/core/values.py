@@ -28,7 +28,8 @@ old one); later updates keep it.
 It lives in ``core`` because the executor's backward (``exec.api``) writes
 values into the transpose structure with it, and ``exec`` sits below
 ``dynamic``; ``repro_torch.dynamic.update_values`` is the public name, as
-in the reference.  Single-device plans only.
+in the reference.  On a ``ShardedPlan`` it writes through each shard's own
+maps (:func:`_update_values_sharded`).
 """
 from __future__ import annotations
 
@@ -39,7 +40,10 @@ import numpy as np
 import torch
 
 from ..errors import PlanBuildError
-from .plan_ir import PATH_FRINGE, NeutronPlan, UpdateMaps, unsplittable_flag
+from .plan_ir import (
+    LEAF_FLAT_VALUES, LEAF_FRINGE_VALS, LEAF_KB_VALS, PATH_FRINGE,
+    NeutronPlan, PlanShard, ShardedPlan, UpdateMaps, unsplittable_flag,
+)
 
 
 def _as_1d(a, dtype) -> np.ndarray:
@@ -136,13 +140,15 @@ def update_values(plan: NeutronPlan, indices, new_values) -> NeutronPlan:
     back on the general payload, its signature demoted by
     ``plan_ir.general_format_sig``.
     """
+    if isinstance(new_values, torch.Tensor):
+        new_values = new_values.detach().cpu().numpy()
+    if isinstance(plan, ShardedPlan):
+        return _update_values_sharded(plan, indices, new_values)
     maps = plan.update_maps
     if maps is None:
         raise PlanBuildError(
             "plan carries no update maps (prepare builds them; a carried "
             "plan gets them from interop.update_maps_from_arrays)")
-    if isinstance(new_values, torch.Tensor):
-        new_values = new_values.detach().cpu().numpy()
     indices, new_values = _validate_update(maps, indices, new_values)
     cur = maps.vals.copy()
     cur[indices] = new_values.astype(cur.dtype, copy=False)
@@ -176,3 +182,72 @@ def update_values(plan: NeutronPlan, indices, new_values) -> NeutronPlan:
             )
     return dataclasses.replace(
         plan, update_maps=dataclasses.replace(maps, vals=cur), **replacements)
+
+
+def _update_values_sharded(splan: ShardedPlan, indices,
+                           new_values) -> ShardedPlan:
+    """:func:`update_values` on a :class:`ShardedPlan`, as the reference's
+    ``_update_values_sharded``: each touched shard's values are written
+    through its own maps into a copy of its leaf (rows axis), or into a
+    copy of each device's replica of the plan (rhs axis), so the old plan
+    stays as it was.  A written leaf no longer views the stack the shards
+    were uploaded in, so the new plan keeps none (``ShardedPlan.leaves``
+    stacks on demand).  A shard whose tile values change gets its
+    ``a_unsplittable`` again; shards keep their ``derived``."""
+    maps = splan.update_maps
+    if maps is None:
+        raise PlanBuildError(
+            "sharded plan carries no update maps; re-prepare_sharded to "
+            "enable value updates")
+    indices, new_values = _validate_update(maps, indices, new_values)
+    cur = maps.vals.copy()
+    cur[indices] = new_values.astype(cur.dtype, copy=False)
+
+    leaves = [list(sh.leaves) for sh in splan.shards]
+    copies: Dict[int, torch.Tensor] = {}   # id of a written leaf -> copy
+
+    def write(s, li, slots, values):
+        # rhs shards run one replicated plan: each device's replica (one
+        # tensor, shared by the shards on that device) is written once
+        owners = [s] if splan.shard_axis == "rows" else range(len(leaves))
+        for t in owners:
+            src = splan.shards[t].leaves[li]
+            dest = copies.get(id(src))
+            if dest is None:
+                dest = copies[id(src)] = src.clone()
+                dest.view(-1)[torch.from_numpy(slots).to(dest.device)] = (
+                    torch.from_numpy(values).to(dest.device))
+            leaves[t][li] = dest
+
+    new_shard_maps = list(maps.shard_maps)
+    for s in np.unique(maps.shard_of_nnz[indices]):
+        s = int(s)
+        sel = indices[maps.shard_of_nnz[indices] == s]
+        um = maps.shard_maps[s]
+        lcur = um.vals.copy()
+        lcur[maps.local_of_nnz[sel]] = cur[sel].astype(lcur.dtype, copy=False)
+        core_ids, fringe_ids = _split_paths(um, maps.local_of_nnz[sel])
+        if fringe_ids.size:
+            v32 = lcur[fringe_ids].astype(np.float32)
+            write(s, LEAF_FRINGE_VALS, um.fringe_pos[fringe_ids], v32)
+            kb = um.kb_pos[fringe_ids]
+            if kb.size and kb[0] >= 0:
+                write(s, LEAF_KB_VALS, kb, v32)
+        if core_ids.size:
+            touched, sums = _recompute_core_slots(um, core_ids, lcur)
+            write(s, LEAF_FLAT_VALUES, touched, sums)
+        new_shard_maps[s] = dataclasses.replace(um, vals=lcur)
+
+    flags: Dict[int, torch.Tensor] = {}
+    shards = []
+    for sh, lv in zip(splan.shards, leaves):
+        fv = lv[LEAF_FLAT_VALUES]
+        flag = sh.a_unsplittable
+        if fv is not sh.leaves[LEAF_FLAT_VALUES]:
+            flag = flags.setdefault(id(fv), unsplittable_flag(fv))
+        shards.append(PlanShard(tuple(lv), sh.derived, flag))
+    return dataclasses.replace(
+        splan, shards=tuple(shards),
+        stacked=splan.stacked if not copies else None,
+        update_maps=dataclasses.replace(
+            maps, vals=cur, shard_maps=tuple(new_shard_maps)))

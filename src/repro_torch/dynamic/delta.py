@@ -25,13 +25,20 @@ per change, in three layers:
    swap it in.
 
 The host loops over the mutated keys are the reference's, key by key
-(ROADMAP A-queue 5 vectorises them).  Sharded plans are not ported
-(ROADMAP A-queue 6).
+(ROADMAP A-queue 5 vectorises them).
+
+All three layers work over a ``NeutronPlan`` and a ``ShardedPlan``.  The
+sharded fast path writes into each shard's leaves; a rows-sharded plan's
+sidecar is routed (``plan_ir.build_sharded_delta_fringe``: each delta row
+to the shard that owns its output row, merged inside that shard's body),
+an rhs-sharded plan's is one plain sidecar, replicated; either way a call
+is one ``exec.api.execute_sharded`` dispatch, and a fold re-shards through
+``prepare_sharded`` on the same mesh and axis.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,12 +50,15 @@ from ..core.cost_model import (
 # DeltaFringe and build_delta_fringe are re-exported: plan_ir owns the
 # sidecar's layout
 from ..core.plan_ir import (  # noqa: F401
-    PATH_FRINGE, DeltaFringe, NeutronPlan, build_delta_fringe,
+    PATH_FRINGE, DeltaFringe, NeutronPlan, ShardedDeltaFringe, ShardedPlan,
+    ShardedUpdateMaps, build_delta_fringe, build_sharded_delta_fringe,
 )
 from ..core.values import _as_1d, update_values
 from ..errors import PlanBuildError
 from ..exec import api as exec_api
 from ..obs import REGISTRY
+
+PlanLike = Union[NeutronPlan, ShardedPlan]
 
 _UPDATES = REGISTRY.counter(
     "dynamic_updates_total",
@@ -128,8 +138,9 @@ class GraphDelta:
 class DynamicPlan:
     """A prepared plan that stays valid while its matrix evolves.
 
-    Wraps a :class:`NeutronPlan` with update maps and routes mutations to
-    the cheapest layer that keeps the result right: value updates of
+    Wraps a :class:`NeutronPlan` or :class:`ShardedPlan` with update maps
+    and routes mutations to the cheapest layer that keeps the result
+    right: value updates of
     existing entries are written in place, structural inserts and deletes
     accumulate in the :class:`DeltaFringe` sidecar, and the cost model
     folds the sidecar into a fresh ``prepare`` once it would dominate.
@@ -137,20 +148,20 @@ class DynamicPlan:
 
     def __init__(
         self,
-        plan: NeutronPlan,
+        plan: PlanLike,
         cost_model: Optional[EngineCostModel] = None,
         max_delta_fraction: Optional[float] = None,
         max_slowdown: Optional[float] = None,
         auto_compact: bool = True,
     ):
-        if not isinstance(plan, NeutronPlan):
+        if not isinstance(plan, (NeutronPlan, ShardedPlan)):
             raise TypeError(
-                f"DynamicPlan wraps a NeutronPlan, got {type(plan).__name__}"
-                " (sharded plans are not ported)")
+                "DynamicPlan wraps a NeutronPlan or ShardedPlan, got "
+                f"{type(plan).__name__}")
         if plan.update_maps is None:
             raise PlanBuildError(
                 "DynamicPlan needs a plan with update maps (built by "
-                "prepare())")
+                "prepare()/prepare_sharded())")
         if plan.config.reorder_cols:
             raise PlanBuildError(
                 "DynamicPlan does not support reorder_cols=True: sidecar "
@@ -185,9 +196,17 @@ class DynamicPlan:
         self._refresh_base_costs()
 
     def _refresh_base_costs(self) -> None:
-        self._base_fringe_nnz = int(
-            (self.maps.path == PATH_FRINGE).sum())
-        self._base_core_rows = self.plan.num_windows * self.plan.config.bm
+        maps = self.maps
+        if isinstance(maps, ShardedUpdateMaps):
+            self._base_fringe_nnz = int(sum(
+                int((um.path == PATH_FRINGE).sum())
+                for um in maps.shard_maps))
+        else:
+            self._base_fringe_nnz = int((maps.path == PATH_FRINGE).sum())
+        if isinstance(self.plan, NeutronPlan):
+            self._base_core_rows = self.plan.num_windows * self.plan.config.bm
+        else:
+            self._base_core_rows = self.plan.shape[0]  # a bound, as there
 
     def refresh_cost_model(self) -> bool:
         """Resolve the cost model again; True if it changed.  Thresholds
@@ -231,7 +250,7 @@ class DynamicPlan:
 
     @property
     def is_sharded(self) -> bool:
-        return False
+        return isinstance(self.plan, ShardedPlan)
 
     def to_coo(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Current logical matrix as (rows, cols, vals) host triplets."""
@@ -411,12 +430,17 @@ class DynamicPlan:
         rows, cols, vals = self.to_coo()
         self.adopt_compacted(self.build_compacted(rows, cols, vals))
 
-    def build_compacted(self, rows, cols, vals) -> NeutronPlan:
+    def build_compacted(self, rows, cols, vals) -> PlanLike:
         """Prepare the folded plan for a ``to_coo`` snapshot, on the plan's
-        device.  Changes nothing here, so it may run while the current plan
-        keeps serving; pair with :meth:`snapshot_for_compaction` and
-        :meth:`adopt_compacted`."""
+        device (a sharded plan: on its mesh and axis).  Changes nothing
+        here, so it may run while the current plan keeps serving; pair
+        with :meth:`snapshot_for_compaction` and :meth:`adopt_compacted`."""
         old = self.plan
+        if isinstance(old, ShardedPlan):
+            return spmm.prepare_sharded(
+                rows, cols, vals, self.shape, old.mesh, old.config,
+                self.cost_model, shard_axis=old.shard_axis,
+                axis_name=old.axis_name)
         return spmm.prepare(rows, cols, vals, self.shape, old.config,
                             self.cost_model, device=old.device)
 
@@ -426,7 +450,7 @@ class DynamicPlan:
         rows, cols, vals = self.to_coo()
         return self.version, rows, cols, vals
 
-    def adopt_compacted(self, plan: NeutronPlan,
+    def adopt_compacted(self, plan: PlanLike,
                         expected_version: Optional[int] = None) -> bool:
         """Swap in a compacted plan built from a snapshot.
 
@@ -450,9 +474,12 @@ class DynamicPlan:
         return True
 
     # -- execution ----------------------------------------------------------
-    def _materialize(self) -> DeltaFringe:
+    def _materialize(self):
         """Build (or reuse) the sidecar stream for the current overlay, on
-        the plan's device, with a fresh ``derived`` of its own."""
+        the plan's device, with a fresh ``derived`` of its own.  A
+        rows-sharded plan's is routed to the owning shards
+        (``ShardedDeltaFringe``, each on its shard's device); an
+        rhs-sharded plan's is one plain sidecar, replicated at dispatch."""
         if self._delta is not None:
             return self._delta
         maps = self.maps
@@ -467,15 +494,26 @@ class DynamicPlan:
              else (t - base[i] if in_base[i] else t))
             for i, t in enumerate(targets)
         ], np.float64)
-        self._delta = build_delta_fringe(
-            keys // k, keys % k, vals, self.shape, self.config,
-            capacity=self._capacity, device=self.plan.device)
+        plan = self.plan
+        if isinstance(plan, ShardedPlan) and plan.shard_axis == "rows":
+            self._delta = build_sharded_delta_fringe(
+                keys // k, keys % k, vals, plan, capacity=self._capacity)
+        else:
+            self._delta = build_delta_fringe(
+                keys // k, keys % k, vals, self.shape, self.config,
+                capacity=self._capacity, device=plan.device)
         self._capacity = self._delta.capacity  # grow-only: bounded builds
         return self._delta
 
     def execute(self, b: torch.Tensor) -> torch.Tensor:
         """C = A_current @ B: the base plan and the sidecar in one call.
-        Differentiable in ``b``."""
+        Differentiable in ``b`` on a single-device plan; on a sharded plan
+        one ``execute_sharded`` dispatch, with the sidecar merged inside
+        the shards' bodies."""
+        base = self.plan
+        if isinstance(base, ShardedPlan):
+            return exec_api.execute_sharded(
+                base, b, delta=self._materialize() if self._overlay else None)
         if not self._overlay:
-            return exec_api.execute(self.plan, b)
-        return exec_api.execute_with_delta(self.plan, self._materialize(), b)
+            return exec_api.execute(base, b)
+        return exec_api.execute_with_delta(base, self._materialize(), b)

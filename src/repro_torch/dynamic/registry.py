@@ -31,8 +31,12 @@ it is dropped on load.  A tuple ``structure_hint``, which JSON stores as
 a list, is made a tuple again (the reference's loader keeps the list,
 and its next ``prepare`` then ignores the hint: ROADMAP C10).
 
-Sharded entries (``kind: "sharded"``) are not ported: loading one raises
-``RegistryError`` (ROADMAP A-queue 6).
+Sharded entries (``kind: "sharded"``) store the base COO, the config,
+the shard axis and the overlay: a mesh cannot outlive its process, so
+``load`` re-shards through ``prepare_sharded`` onto the caller's mesh (or
+a new one of the stored shard count: repeated CPUs for ``"torch"``, the
+visible cards for ``"cuda"``, never fewer shards), and the warm start
+keeps the state (value updates and the overlay), not the plan build.
 """
 from __future__ import annotations
 
@@ -139,8 +143,12 @@ class PlanRegistry:
     # -- save ---------------------------------------------------------------
     def save(self, name: str, dplan: DynamicPlan) -> str:
         """Persist a dynamic plan: its leaves (host copies), update maps
-        and overlay, so that ``load`` runs no ``prepare``."""
+        and overlay, so that ``load`` runs no ``prepare``.  A sharded plan
+        stores its base COO, config and shard axis instead (the
+        reference's layout): ``load`` re-shards it."""
         _safe_name(name)
+        if dplan.is_sharded:
+            return self._save_sharded(name, dplan)
         plan = dplan.plan
         maps = plan.update_maps
         tree: Dict[str, np.ndarray] = {}
@@ -181,6 +189,34 @@ class PlanRegistry:
              for key in keys], np.float64)
         return {"delta_keys": keys, "delta_has_target": has_target,
                 "delta_targets": targets}
+
+    def _save_sharded(self, name: str, dplan: DynamicPlan) -> str:
+        splan = dplan.plan
+        maps = splan.update_maps
+        # base COO (current values: the fast path advances maps.vals) and
+        # the structural overlay; load re-shards and restores the overlay
+        tree: Dict[str, np.ndarray] = {
+            "coo_rows": np.asarray(maps.rows, np.int64),
+            "coo_cols": np.asarray(maps.cols, np.int64),
+            "coo_vals": np.asarray(maps.vals),
+        }
+        tree.update(self._overlay_tree(dplan))
+        rows, cols, vals = dplan.to_coo()
+        meta = {
+            "registry_format_version": REGISTRY_FORMAT_VERSION,
+            "plan_format_version": PLAN_FORMAT_VERSION,
+            "kind": "sharded",
+            "name": name,
+            "shape": list(splan.shape),
+            "config": dataclasses.asdict(splan.config),
+            "shard_axis": splan.shard_axis,
+            "axis_name": splan.axis_name,
+            "n_shards": splan.n_shards,
+            "coo_hash": coo_fingerprint(rows, cols, vals, splan.shape,
+                                        splan.config),
+            "compactions": dplan.compactions,
+        }
+        return self._write_entry(name, tree, meta)
 
     def _write_entry(self, name: str, tree: Dict, meta: Dict) -> str:
         d = os.path.join(self.root, _safe_name(name))
@@ -278,26 +314,28 @@ class PlanRegistry:
         return meta, arrays
 
     def load(self, name: str, *, impl: Optional[str] = None,
-             device: Any = None, **dynamic_kwargs) -> DynamicPlan:
-        """Restore an entry as a :class:`DynamicPlan`, with no ``prepare``.
+             device: Any = None, mesh: Any = None,
+             **dynamic_kwargs) -> DynamicPlan:
+        """Restore an entry as a :class:`DynamicPlan`.
 
-        ``impl`` ("cuda" or "torch") is the impl to run the plan on; by
-        default the stored one, which must then be one of the port's (an
-        entry written by the JAX package says "xla" or "pallas").
-        ``device`` defaults to the one ``impl`` runs on.
+        A single-device entry needs no ``prepare``.  ``impl`` ("cuda" or
+        "torch") is the impl to run the plan on; by default the stored
+        one, which must then be one of the port's (an entry written by the
+        JAX package says "xla" or "pallas").  ``device`` defaults to the
+        one ``impl`` runs on.  A sharded entry re-shards onto ``mesh`` (see
+        the module docstring).
         """
         meta, arrays = self._read_entry(name)
-        if meta.get("kind", "plan") == "sharded":
+        stored_impl = meta.get("config", {}).get("impl")
+        impl = impl or stored_impl
+        if impl not in IMPL_DEVICE:
             raise RegistryError(
-                f"{name!r} is a sharded entry; sharded plans are not ported "
-                "(ROADMAP A-queue 6)")
+                f"{name!r} was written for impl {stored_impl!r}; pass "
+                f"impl= one of {sorted(IMPL_DEVICE)} to load it here")
+        if meta.get("kind", "plan") == "sharded":
+            return self._load_sharded(name, meta, arrays, mesh, impl,
+                                      **dynamic_kwargs)
         try:
-            stored_impl = meta["config"]["impl"]
-            impl = impl or stored_impl
-            if impl not in IMPL_DEVICE:
-                raise RegistryError(
-                    f"{name!r} was written for impl {stored_impl!r}; pass "
-                    f"impl= one of {sorted(IMPL_DEVICE)} to load it here")
             shape = tuple(int(s) for s in meta["shape"])
             maps = UpdateMaps(
                 shape=shape, **{n: arrays[f"maps_{n}"] for n in _MAPS_NAMES})
@@ -326,6 +364,40 @@ class PlanRegistry:
                 "manifest; refusing to serve a structurally inconsistent "
                 "plan")
         dplan = DynamicPlan(plan, **dynamic_kwargs)
+        self._restore_overlay(dplan, meta, arrays)
+        return dplan
+
+    def _load_sharded(self, name: str, meta: Dict, arrays: Dict, mesh,
+                      impl: str, **dynamic_kwargs) -> DynamicPlan:
+        try:
+            cfg = SpmmConfig(**_port_config(meta["config"], impl))
+            shape = tuple(int(s) for s in meta["shape"])
+            shard_axis = meta["shard_axis"]
+            axis_name = meta["axis_name"]
+            n_shards = int(meta["n_shards"])
+            rows = arrays["coo_rows"]
+            cols = arrays["coo_cols"]
+            vals = arrays["coo_vals"]
+        except (KeyError, TypeError, ValueError) as e:
+            raise RegistryError(
+                f"sharded registry entry for {name!r} does not reconstruct "
+                f"a plan: {e}") from e
+        if mesh is None:
+            from ..distributed import make_spmm_mesh
+
+            try:
+                mesh = (make_spmm_mesh(devices=["cpu"] * n_shards,
+                                       axis_name=axis_name)
+                        if IMPL_DEVICE[impl] == "cpu"
+                        else make_spmm_mesh(n_shards, axis_name))
+            except ValueError as e:
+                raise RegistryError(
+                    f"sharded entry {name!r} wants {n_shards} shards and no "
+                    f"mesh was provided: {e}") from e
+        splan = spmm.prepare_sharded(
+            rows, cols, vals, shape, mesh, cfg, shard_axis=shard_axis,
+            axis_name=axis_name)
+        dplan = DynamicPlan(splan, **dynamic_kwargs)
         self._restore_overlay(dplan, meta, arrays)
         return dplan
 
@@ -371,6 +443,42 @@ class PlanRegistry:
                 pass  # fall through to a fresh prepare
         dplan = DynamicPlan(
             spmm.prepare(rows, cols, vals, shape, config, device=device),
+            **dynamic_kwargs)
+        self.save(name, dplan)
+        return dplan
+
+    def load_or_prepare_sharded(
+        self,
+        name: str,
+        rows: np.ndarray,
+        cols: np.ndarray,
+        vals: np.ndarray,
+        shape: Tuple[int, int],
+        mesh,
+        config: SpmmConfig = SpmmConfig(),
+        shard_axis: str = "auto",
+        axis_name: Optional[str] = None,
+        **dynamic_kwargs,
+    ) -> DynamicPlan:
+        """Sharded counterpart of :meth:`load_or_prepare`: a matching entry
+        (same COO fingerprint, same shard count) restores its state
+        re-sharded onto ``mesh``; anything else prepares fresh and
+        persists.  A damaged entry costs a ``prepare_sharded``."""
+        fp = coo_fingerprint(rows, cols, vals, shape, config)
+        n_shards = int(mesh.shape[axis_name or mesh.axis_names[0]])
+        if self.has(name):
+            try:
+                meta, _ = self._read_entry(name)
+                if (meta.get("kind") == "sharded"
+                        and meta.get("coo_hash") == fp
+                        and int(meta.get("n_shards", -1)) == n_shards):
+                    return self.load(name, impl=config.impl, mesh=mesh,
+                                     **dynamic_kwargs)
+            except RegistryError:
+                pass  # fall through to a fresh prepare
+        dplan = DynamicPlan(
+            spmm.prepare_sharded(rows, cols, vals, shape, mesh, config,
+                                 shard_axis=shard_axis, axis_name=axis_name),
             **dynamic_kwargs)
         self.save(name, dplan)
         return dplan

@@ -8,6 +8,9 @@ structural sidecar (``plan_ir.DeltaFringe``) to the same call, and
 ``execute_sddmm(plan, x, y)`` does the same for SDDMM over the
 plan's pattern, and ``execute_spspmm(a_plan, b_plan)`` multiplies two
 prepared patterns (a host symbolic phase, then one numeric dispatch).
+``execute_sharded(splan, b, delta=None)`` runs a ``ShardedPlan`` across
+its mesh in one dispatch (the per-shard body once per shard), and
+``execute_sddmm``/``execute_spspmm`` take sharded plans too.
 
 Health gate (:func:`_guarded_call`, ``exec.health``): every dispatch of a
 ``"cuda"`` signature asks ``HEALTH`` first.  There is no degrade tier in
@@ -61,8 +64,9 @@ from ..core.cost_model import (
     matrix_payload_bytes,
 )
 from ..core.plan_ir import (
-    DeltaFringe, NeutronPlan, SpmmConfig, UpdateMaps, build_delta_fringe,
-    build_sddmm_maps, gather_rows, general_format_sig, permute_pad_b,
+    DeltaFringe, NeutronPlan, ShardedDeltaFringe, ShardedPlan, SpmmConfig,
+    UpdateMaps, build_delta_fringe, build_sddmm_maps, delta_on,
+    fringe_row_order, gather_rows, general_format_sig, permute_pad_b,
     plan_leaves, sddmm_body_leaves, sig_impl, tag_op, validate_rhs,
 )
 from ..core.values import update_values
@@ -72,6 +76,7 @@ from ..obs import PROFILER
 from . import cache as _cache
 from .cache import (  # noqa: F401  (re-exported test hooks)
     dispatch_count, fused_trace_count, set_executor_cache_capacity,
+    sharded_trace_count,
 )
 from .health import HEALTH
 from .pipeline import build_delta_only_executor, build_executor
@@ -312,6 +317,59 @@ def _execute_with_delta(plan: NeutronPlan, delta: DeltaFringe,
                     delta_derived=delta.derived))
 
 
+def execute_sharded(splan: ShardedPlan, b: torch.Tensor,
+                    delta=None) -> torch.Tensor:
+    """Multi-device coordinated SpMM: C = A @ B across ``splan.mesh``.
+
+    ``b`` is (K, N) or (batch, K, N) on the mesh's first device, which
+    also receives the result; each shard's copy of B is made with
+    ``.to(device)`` (none where the device is the first's).  Every output
+    row is computed by exactly one shard.
+
+    ``delta`` adds a structural sidecar inside each shard's body: a
+    ``plan_ir.ShardedDeltaFringe`` on the rows axis (each shard merges
+    the rows it owns, in its local coordinates) or a plain
+    ``DeltaFringe`` on the rhs axis (replicated, over the column blocks).
+    One call is one dispatch of the sharded executor (kind ``"sharded"``
+    or ``"sharded+delta"``), through the health gate of the per-shard
+    signature: a shard whose kernel fails raises, and the gate records it.
+    """
+    validate_rhs(b, splan.shape)
+    if b.device != splan.device:
+        raise DispatchError(
+            f"operand is on {b.device} but the sharded plan takes B on its "
+            f"mesh's first device, {splan.device}; move it there first")
+    _apply_cache_capacity(splan.config)
+    batch = int(b.shape[0]) if b.ndim == 3 else None
+    if splan.shard_axis == "rhs" and b.shape[-1] % splan.n_shards:
+        raise DispatchError(
+            f"rhs-sharded plan needs N divisible by n_shards="
+            f"{splan.n_shards}; got N={b.shape[-1]} (re-prepare with "
+            "shard_axis='rows' or pad B)")
+    deltas = None
+    if delta is not None:
+        routed = isinstance(delta, ShardedDeltaFringe)
+        if splan.shard_axis == "rows" and not routed:
+            raise DispatchError(
+                "a rows-sharded plan needs its delta routed to owning "
+                "shards (plan_ir.build_sharded_delta_fringe), got a plain "
+                "DeltaFringe")
+        if splan.shard_axis == "rhs" and routed:
+            raise DispatchError(
+                "an rhs-sharded plan replicates its delta; pass the plain "
+                "DeltaFringe, not a ShardedDeltaFringe")
+        deltas = (delta.shards if routed else
+                  tuple(delta_on(delta, sh.device) for sh in splan.shards))
+    return _guarded_call(
+        splan.sig,
+        lambda s: build_executor(
+            s, batch=batch, delta_sig=None if delta is None else delta.sig,
+            shard_axis=splan.shard_axis),
+        (splan.shards, splan.assemble, deltas, b),
+        "sharded" if delta is None else "sharded+delta", plan=splan,
+        prof=_spmm_prof(splan, b))
+
+
 def validate_sddmm_operands(
     x: torch.Tensor, y: torch.Tensor, shape: Tuple[int, int]
 ) -> Optional[int]:
@@ -346,6 +404,41 @@ def validate_sddmm_operands(
             f"sddmm operands disagree on D: x {tuple(x.shape)} vs y "
             f"{tuple(y.shape)}")
     return int(x.shape[0]) if x.ndim == 3 else None
+
+
+def _execute_sddmm_sharded(splan: ShardedPlan, x: torch.Tensor,
+                           y: torch.Tensor) -> torch.Tensor:
+    """SDDMM over a sharded plan's pattern: the reference's flat gather
+    form over the global COO mirror, one call on the mesh's first device
+    (B5's row walk on the card).  The walk is built once per structure and
+    kept on the maps."""
+    maps = splan.update_maps
+    if maps is None:
+        raise PlanBuildError(
+            "sddmm on a sharded plan needs its global COO mirror "
+            "(ShardedUpdateMaps); this plan has none: re-prepare from COO")
+    batch = validate_sddmm_operands(x, y, splan.shape)
+    _check_device(splan, x, y)
+    _apply_cache_capacity(splan.config)
+    dev = splan.device
+    if maps.nnz == 0:
+        shape = (0,) if batch is None else (batch, 0)
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    walk = getattr(maps, "_sddmm_walk", None)
+    if walk is None or walk.indptr.device != dev:
+        def on_dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+
+        walk = fringe_row_order(on_dev(maps.rows), on_dev(maps.cols),
+                                on_dev(np.arange(maps.nnz)), splan.shape[0])
+        maps._sddmm_walk = walk
+    cfg = splan.config
+    return _guarded_call(
+        ("sddmm_flat", cfg.impl, maps.nnz, cfg.fringe_chunk),
+        lambda s: build_executor(s, batch=batch), (*walk, x, y), "sddmm",
+        plan=splan,
+        # flat gather form: every nonzero rides the vector path
+        prof=_sddmm_prof(cfg, maps.nnz, maps.nnz, int(x.shape[-1]), batch))
 
 
 def _execute_sddmm(plan: NeutronPlan, x: torch.Tensor,
@@ -685,8 +778,12 @@ def execute_sddmm(plan: NeutronPlan, x: torch.Tensor,
     plan's input COO order, the order ``SparseMatrix.with_values`` takes.
     One call runs the dense-tile kernel on the plan's tiles and the gather
     kernel on its fringe.  Differentiable in ``x`` and ``y``
-    (:class:`SDDMMFunction`).
+    (:class:`SDDMMFunction`).  On a :class:`ShardedPlan` it is the
+    reference's flat gather over the global COO, on the mesh's first
+    device (:func:`_execute_sddmm_sharded`), with no backward.
     """
+    if isinstance(plan, ShardedPlan):
+        return _execute_sddmm_sharded(plan, x, y)
     return SDDMMFunction.apply(x, y, plan)
 
 

@@ -9,7 +9,8 @@ fused-body closure; a build is the counterpart of the reference's trace.
 Counts live on the ``repro_torch.obs`` registry:
 
 - ``exec_traces_total{kind}``        — executor builds (``fused`` for a
-  (K, N) operand, ``batched`` for (batch, K, N));
+  (K, N) operand, ``batched`` for (batch, K, N), ``sharded`` for a
+  sharded plan's);
 - ``exec_dispatches_total{kind}``    — executor invocations by ``exec.api``;
 - ``exec_cache_events_total{event}`` — cache ``hit`` / ``miss`` /
   ``eviction``.
@@ -118,6 +119,11 @@ def fused_trace_count() -> int:
     """Number of executor builds, of either kind, since process start
     (test hook)."""
     return int(_TRACES.total())
+
+
+def sharded_trace_count() -> int:
+    """Number of sharded-executor builds since process start (test hook)."""
+    return int(_TRACES.value(kind="sharded"))
 
 
 def dispatch_count() -> int:

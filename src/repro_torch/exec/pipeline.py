@@ -30,8 +30,14 @@ Each build fires the fault seams of ``repro_torch.robust``:
 ``"cuda"`` one, where the reference lowers its Pallas tiers.  A cache hit
 builds nothing and fires neither.
 
+A sharded plan's per-shard signature with ``shard_axis`` builds the
+sharded flavour (:func:`_sharded`): the same body launched once per shard
+on its device, the port of the reference's ``shard_map`` wrap; its SDDMM
+is the flat gather over the global COO (:func:`_sddmm_flat_body`).
+
 Executors live in the bounded LRU ``exec.cache.EXECUTOR_CACHE`` keyed by
-(signature, batch, delta signature); a tagged signature never equals an
+(signature, batch, delta signature, and the shard axis where there is
+one); a tagged signature never equals an
 untagged one, so an SDDMM executor never aliases an SpMM one.  A value
 update keeps both signatures, so it builds nothing; a sidecar's signature
 changes only when its capacity doubles.
@@ -247,17 +253,91 @@ def _spspmm_body(sig: Tuple):
     return run
 
 
-def _build(sig: Tuple, batch: Optional[int], dsig: Optional[Tuple]):
+def _sddmm_flat_body(sig: Tuple):
+    """Gather-only SDDMM body for ``("sddmm_flat", impl, nnz, chunk)``
+    signatures: the sharded plan's form, as in the reference.  A sharded
+    plan keeps one global COO mirror and the output is a flat (nnz,)
+    vector, so every nonzero takes one dot, on the mesh's first device.
+
+    Returns ``run(w_indptr, w_cols, w_pos, x, y, derived=None)``: the
+    nonzeros walked in row order (``plan_ir.fringe_row_order`` of the
+    global COO), each dot written at its input position; on the card that
+    is B5's walk (``ops.sddmm_gather``).  ``derived`` is unused: the walk
+    is the whole index state."""
+    _tag, impl, nnz, chunk = sig
+
+    def run(w_indptr, w_cols, w_pos, x, y, derived=None):
+        x = x.to(torch.float32).contiguous()
+        yt = y.t().to(torch.float32).contiguous()
+        out = torch.empty(nnz, dtype=torch.float32, device=x.device)
+        return ops.sddmm_gather(w_indptr, w_cols, w_pos, x, yt, out,
+                                impl=impl, chunk=chunk)
+
+    return run
+
+
+def _sharded(run, shard_axis: str):
+    """The per-shard body launched once per shard, each on its shard's
+    device: the port of the reference's ``shard_map`` wrap.
+
+    Returns ``exec_(shards, assemble, deltas, b)``: ``shards`` are the
+    plan's ``PlanShard``s, ``deltas`` one sidecar per shard (None for
+    none), ``b`` on the mesh's first device, which receives the result.
+    Rows axis: every shard runs on all of B and emits its packed
+    ``(rows_per_shard, N)`` block; the blocks are concatenated on the
+    first device and ``assemble`` gathers C's rows from them (one
+    ``index_select``).  Rhs axis: shard ``s`` runs the replicated plan on
+    B's ``s``-th block of N / n columns, and the blocks are concatenated
+    along N.  B reaches each device with ``.to``, which is no copy where
+    the device is B's own."""
+    rows_axis = shard_axis == "rows"
+
+    def exec_(shards, assemble, deltas, b):
+        home = b.device
+        n_shards = len(shards)
+        width = b.shape[-1] // n_shards
+        outs = []
+        for s, sh in enumerate(shards):
+            bs = b if rows_axis else b[..., s * width:(s + 1) * width]
+            bs = bs.to(sh.device)
+            kw = dict(derived=sh.derived, a_flag=sh.a_unsplittable)
+            if deltas is None:
+                out = run(*sh.leaves, bs, **kw)
+            else:
+                out = run(*sh.leaves, *deltas[s].leaves, bs,
+                          delta_derived=deltas[s].derived, **kw)
+            outs.append(out.to(home))
+        if rows_axis:
+            return torch.index_select(torch.cat(outs, dim=-2), -2,
+                                      assemble)
+        return torch.cat(outs, dim=-1)
+
+    return exec_
+
+
+def _build(sig: Tuple, batch: Optional[int], dsig: Optional[Tuple],
+           shard_axis: Optional[str] = None):
     # fault seams: once per executor *build* (a cache hit skips _build)
     HARNESS.fire("executor_build", context=sig)
     if sig_impl(sig) == "cuda":
         HARNESS.fire("pallas_lowering", context=sig)
-    record_build("fused" if batch is None else "batched")
-    op = "spspmm" if sig[0] == "spspmm" else sig_op(sig)
+    if shard_axis is not None:
+        record_build("sharded")
+    else:
+        record_build("fused" if batch is None else "batched")
+    op = sig[0] if isinstance(sig[0], str) else sig_op(sig)
     if op != "spmm" and dsig is not None:
         raise PlanBuildError(
             f"op {op!r} does not take a delta sidecar; fold structural "
             "deltas (DynamicPlan compaction) before dispatching it")
+    if shard_axis is not None and op != "spmm":
+        raise PlanBuildError(
+            "the sharded flavour exists for the SpMM body only; sddmm on a "
+            "sharded plan runs its flat gather form, and spspmm one "
+            "device's numeric phase")
+    if op == "sddmm_flat":
+        run = _sddmm_flat_body(sig)
+        return run if batch is None else _batched_sddmm(run)
     if op == "spspmm":
         return _spspmm_body(sig)
     if op == "sddmm":
@@ -268,11 +348,14 @@ def _build(sig: Tuple, batch: Optional[int], dsig: Optional[Tuple]):
     run = _fused_body(sig)
     if dsig is not None:
         run = _with_delta(run, sig, dsig)
-    return run if batch is None else _batched(run)
+    if batch is not None:
+        run = _batched(run)
+    return run if shard_axis is None else _sharded(run, shard_axis)
 
 
 def build_executor(sig: Tuple, *, batch: Optional[int] = None,
-                   delta_sig: Optional[Tuple] = None):
+                   delta_sig: Optional[Tuple] = None,
+                   shard_axis: Optional[str] = None):
     """Build (or fetch) the executor for one plan structure and operator.
 
     For an SpMM signature the returned callable takes ``(*plan_leaves, b,
@@ -284,11 +367,23 @@ def build_executor(sig: Tuple, *, batch: Optional[int] = None,
     SDDMM-tagged signature it takes ``(*plan_ir.sddmm_body_leaves(...), x,
     y, derived=None)``, batched along a leading axis of both operands when
     ``batch`` is set.  For a ``("spspmm", ...)`` signature it takes ``(ae,
-    be, lengths, va, vb)`` (:func:`_spspmm_body`).
+    be, lengths, va, vb)`` (:func:`_spspmm_body`), and for a
+    ``("sddmm_flat", ...)`` one ``(w_indptr, w_cols, w_pos, x, y)``
+    (:func:`_sddmm_flat_body`), batched as the SDDMM body is.
+
+    ``shard_axis`` ("rows" or "rhs", an SpMM signature only: the
+    mesh-uniform per-shard signature of a ``ShardedPlan``) builds the
+    sharded flavour, :func:`_sharded` over the same body: it takes
+    ``(shards, assemble, deltas, b)``.  Its cache key carries the axis, so
+    it never aliases the single-device executor of an equal signature.
     """
+    if shard_axis not in (None, "rows", "rhs"):
+        raise PlanBuildError(
+            f"shard_axis must be rows|rhs, got {shard_axis!r}")
+    key = ((sig, batch, delta_sig) if shard_axis is None
+           else (sig, batch, delta_sig, "sharded", shard_axis))
     return EXECUTOR_CACHE.get_or_build(
-        (sig, batch, delta_sig),
-        functools.partial(_build, sig, batch, delta_sig))
+        key, functools.partial(_build, sig, batch, delta_sig, shard_axis))
 
 
 def build_delta_only_executor(m: int, bk_cfg: int, impl: str, fringe_chunk,

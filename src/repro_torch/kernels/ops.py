@@ -11,19 +11,25 @@
 Each function takes raw tensors (plan leaves arrive via the executor in
 ``repro_torch.exec``) and an optional ``derived`` dict in which index
 arrays the kernels derive from leaves are cached for the plan's lifetime.
+On a shard of a sharded plan ``derived`` also says how many entries of
+each stream are the shard's own (``stack_padding``): on the card B1
+leaves the padded tiles out of its window segments, and B2 and B3 walk
+the padded fringe in a row order that keeps only the padding entries that
+change the walk's sum.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..core.cost_model import select_sddmm_tier
 from . import ref
 from .dense_tile_spmm import dense_tile_spmm, window_chunks, window_segments
 from .gather_spmm import (
-    csr_indptr, gather_spmm, gather_spmm_ksharded, kbucket_row_order,
-    sidecar_row_order,
+    RowOrder, csr_indptr, drop_padding, gather_spmm, gather_spmm_ksharded,
+    kbucket_row_order, sidecar_row_order, stream_row_order,
 )
 from .sddmm import dense_tile_sddmm, gather_sddmm, sampled_index
 from .structured_spmm import bitmap_tile_spmm, nm_tile_spmm
@@ -77,6 +83,24 @@ def _cached(derived: Optional[Dict[str, Any]], key: str,
     return derived[key]
 
 
+def _own_entries(derived: Optional[Dict[str, Any]], key: str) -> Optional[int]:
+    """How many leading entries of a stream are the shard's own, on a shard
+    of a rows-sharded plan (``plan_ir.PlanShard``: the rest pads it to the
+    mesh-uniform shape); None elsewhere."""
+    pad = (derived or {}).get("stack_padding")
+    return None if pad is None else pad[key]
+
+
+def _padded_row_order(order: RowOrder, n_own: int) -> RowOrder:
+    """``order`` with the padding past a shard's ``n_own`` entries (all in
+    packed row 0) cut to the entries that change the walk's sum
+    (``drop_padding``): the same bits as walking every one of them."""
+    n = int(order.perm.shape[0])
+    if n_own >= n:
+        return order
+    return drop_padding(order, np.arange(n) >= n_own)
+
+
 def _check_impl(impl: str, b: torch.Tensor) -> None:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
@@ -120,8 +144,13 @@ def block_stream_spmm(
                 step_window, step_col, flat_values, b, num_windows)
         return ref.ref_block_stream_spmm(step_window, step_col, flat_values,
                                          b, num_windows)
+    # a shard of a sharded plan walks its own tiles only: its padding
+    # tiles (zeros, in the extra window, whose rows no gather reads) stay
+    # out of the window segments
+    own = _own_entries(derived, "steps")
+    walked = step_window if own is None else step_window[:own]
     segments = _cached(derived, "window_segments",
-                       lambda: window_segments(step_window, num_windows))
+                       lambda: window_segments(walked, num_windows))
     chunks = _cached(derived, "window_chunks",
                      lambda: window_chunks(segments[1]))
     return dense_tile_spmm(step_window, step_col, flat_values, b,
@@ -243,12 +272,23 @@ def fringe_spmm(
             raise ValueError(
                 "tier='ksharded' needs the k-bucketed stream (kb_chunk/"
                 "kb_rows/kb_cols/kb_vals) and its bk")
+        own = _own_entries(derived, "kb")
         order = _cached(derived, "kbucket_row_order",
-                        lambda: kbucket_row_order(kb_chunk, kb_rows, kb_cols,
-                                                  num_rows, bk))
+                        lambda: _padded_row_order(kbucket_row_order(
+                            kb_chunk, kb_rows, kb_cols, num_rows, bk),
+                            kb_rows.shape[0] if own is None else own))
         return gather_spmm_ksharded(kb_chunk, kb_rows, kb_cols, kb_vals, b,
                                     num_rows=num_rows, bk=bk,
                                     row_order=order)
+    own = _own_entries(derived, "fringe")
+    if own is not None and own < rows.shape[0]:
+        # a shard's padded fringe: (row 0, col 0, 0.0) entries follow its
+        # own, so its rows are not sorted
+        order = _cached(derived, "stack_row_order",
+                        lambda: _padded_row_order(
+                            stream_row_order(rows, cols, num_rows), own))
+        return gather_spmm(rows, cols, vals, b, num_rows=num_rows,
+                           row_order=order)
     indptr = _cached(derived, "csr_indptr",
                      lambda: csr_indptr(rows, num_rows))
     return gather_spmm(rows, cols, vals, b, num_rows=num_rows,

@@ -50,8 +50,12 @@ on a plain version in its place.  ``"quarantined"`` is the reference's:
 ``quarantine_after`` consecutive fold failures stop the folds of one
 matrix, which keeps serving through its sidecar.
 
-Sharded plans are not ported (ROADMAP A-queue 6): ``register_sharded``
-and ``warm_start(mesh=...)`` raise.
+Multi-device deployments pass a ``ShardedPlan`` to ``register_sharded``
+(a plan with update maps is wrapped in a ``DynamicPlan``); the flush path
+is the same, through ``exec.api.execute_sharded``, which takes the batched
+operand as ``execute`` does.  An rhs-sharded plan needs N divisible by its
+shard count, checked at ``submit``.  ``warm_start(mesh=...)`` re-shards a
+sharded registry entry onto the mesh.
 """
 from __future__ import annotations
 
@@ -67,7 +71,7 @@ import torch
 
 from ..core import spmm
 from ..core import tuner as core_tuner
-from ..core.plan_ir import general_format_sig
+from ..core.plan_ir import ShardedPlan, general_format_sig
 from ..dynamic import DynamicPlan, GraphDelta, PlanRegistry
 from ..dynamic.tuning import install_registry_store
 from ..errors import (
@@ -82,10 +86,6 @@ from ..robust.faults import HARNESS
 
 #: Admission policies for a full per-matrix queue (``max_queue`` set).
 ADMISSION_POLICIES = ("reject", "shed-oldest")
-
-_SHARDING = ("sharded plans are not ported yet (ROADMAP A-queue 6: "
-             "sharding)")
-
 
 def _compact_build(name: str, dplan: DynamicPlan, rows, cols, vals):
     """Build the folded plan for a snapshot (the worker thread's seam).
@@ -112,6 +112,8 @@ def _plan_nnz(plan) -> int:
     stats = plan.stats_dict
     if "nnz" in stats:
         return int(stats["nnz"])
+    if "shard_nnz" in stats:
+        return int(sum(stats["shard_nnz"]))
     um = getattr(plan, "update_maps", None)
     return int(um.nnz) if um is not None else 0
 
@@ -286,24 +288,28 @@ class SpmmService:
         self._maybe_schedule_tune(name)
 
     def warm_start(self, name: str, mesh=None) -> None:
-        """Restore a matrix from the registry by name alone (no COO, no
-        ``prepare``), on this service's impl.  ``mesh`` (a sharded entry's
-        re-shard target in the reference) raises: sharding is not
-        ported."""
-        if mesh is not None:
-            raise PlanBuildError(f"warm_start(mesh=...): {_SHARDING}")
+        """Restore a matrix from the registry by name alone (no COO), on
+        this service's impl.  A single-device entry runs no ``prepare``; a
+        sharded one re-shards onto ``mesh`` (or a new mesh of its stored
+        shard count: see ``dynamic.registry``)."""
         if self.registry is None:
             raise RegistryError("warm_start needs a service registry")
         self._check_reregister(name)
         self._plans[name] = self.registry.load(
-            name, impl=self.config.impl, **self._dynamic_kwargs)
+            name, impl=self.config.impl, mesh=mesh, **self._dynamic_kwargs)
         self.stats.warm_starts += 1
         self._queues.setdefault(name, [])
         self._maybe_schedule_tune(name)
 
-    def register_sharded(self, name: str, splan) -> None:
-        """Serve a matrix through a multi-device plan: not ported."""
-        raise PlanBuildError(f"register_sharded({name!r}): {_SHARDING}")
+    def register_sharded(self, name: str, splan: ShardedPlan) -> None:
+        """Serve a matrix through an already-prepared multi-device plan
+        (wrapped in a ``DynamicPlan`` when it carries update maps)."""
+        self._check_reregister(name)
+        self._plans[name] = (
+            DynamicPlan(splan, **self._dynamic_kwargs)
+            if splan.update_maps is not None else splan)
+        self._queues.setdefault(name, [])
+        self._maybe_schedule_tune(name)
 
     def _check_reregister(self, name: str) -> None:
         if self._closed:
@@ -622,6 +628,12 @@ class SpmmService:
             raise DispatchError(
                 f"request for {name!r} must be (K={k}, N), got "
                 f"{tuple(b.shape)}")
+        if (isinstance(plan, ShardedPlan) and plan.shard_axis == "rhs"
+                and b.shape[1] % plan.n_shards):
+            raise DispatchError(
+                f"request for {name!r} needs N divisible by "
+                f"n_shards={plan.n_shards} (rhs-sharded plan); got "
+                f"N={b.shape[1]}")
         panel = torch.as_tensor(b).to(device=plan.device,
                                       dtype=torch.float32)
         queue = self._queues[name]
@@ -667,6 +679,8 @@ class SpmmService:
         HARNESS.fire("dispatch", context=name)
         if isinstance(plan, DynamicPlan):
             return plan.execute(stacked)
+        if isinstance(plan, ShardedPlan):
+            return exec_api.execute_sharded(plan, stacked)
         return exec_api.execute(plan, stacked)
 
     def _expire_queue(self, name: str) -> None:
@@ -787,7 +801,9 @@ class SpmmService:
         """Whether ``exec.health`` retries or refuses this matrix's
         signature: the plan's own, or the general payload's that a
         dispatch with a sidecar runs on."""
-        sig = self._inner_plan(name).signature()
+        plan = self._inner_plan(name)
+        # a sharded plan's dispatches are gated by its per-shard signature
+        sig = plan.sig if isinstance(plan, ShardedPlan) else plan.signature()
         return (HEALTH.is_degraded(sig)
                 or HEALTH.is_degraded(general_format_sig(sig)))
 

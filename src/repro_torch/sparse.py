@@ -22,10 +22,16 @@
     C = D @ B                # base plan + delta sidecar, one call
     D.plan.compact()         # fold the sidecar into a fresh plan
 
-The subset of ``repro.sparse`` this port carries: single-device plans
-(general, N:M and bitmap payloads), static or dynamic
+    mesh = make_spmm_mesh(devices=["cuda:0"] * 4)  # or every card
+    S = sp.from_coo(rows, cols, vals, shape, mesh=mesh)  # sharded plan
+    C = sp.spmm(S, B)        # B on mesh.first; one launch set per shard
+
+What this port carries of ``repro.sparse``: single-device plans (general,
+N:M and bitmap payloads) and sharded ones (``core.spmm.prepare_sharded``
+over a ``distributed.SpmmMesh``), static or dynamic
 (``dynamic.DynamicPlan``), SpMM, SDDMM, sparse x sparse products
-(``spspmm``) and value updates.  ``with_values``, ``sddmm`` and
+(``spspmm``; a product of sharded inputs is prepared on one device) and
+value updates.  ``with_values``, ``sddmm`` and
 ``spspmm`` address the prepared pattern, so on a dynamic matrix with
 pending structural deltas they raise until ``compact()``, as in the
 reference.
@@ -56,7 +62,7 @@ import numpy as np
 import torch
 
 from .core import spmm as core_spmm
-from .core.plan_ir import NeutronPlan, SpmmConfig
+from .core.plan_ir import NeutronPlan, ShardedPlan, SpmmConfig
 from .dynamic import DynamicPlan, update_values
 from .errors import DeadlineExceeded, PlanBuildError
 from .exec import api as _exec
@@ -66,7 +72,7 @@ __all__ = ["SparseMatrix", "from_coo", "from_plan", "spmm", "bspmm",
            "sddmm", "spspmm"]
 
 
-PlanLike = Union[NeutronPlan, DynamicPlan]
+PlanLike = Union[NeutronPlan, ShardedPlan, DynamicPlan]
 
 
 def _traced_call(name: str, plan: PlanLike, attrs, fn):
@@ -110,16 +116,16 @@ def _await(out: torch.Tensor, deadline: Optional[float], t0: float,
 
 class SparseMatrix:
     """A prepared sparse matrix: a thin handle over one
-    :class:`NeutronPlan`, or a :class:`~repro_torch.dynamic.DynamicPlan`
-    (mutable)."""
+    :class:`NeutronPlan` or :class:`ShardedPlan`, or a
+    :class:`~repro_torch.dynamic.DynamicPlan` (mutable) over either."""
 
     __slots__ = ("plan",)
 
     def __init__(self, plan: PlanLike):
-        if not isinstance(plan, (NeutronPlan, DynamicPlan)):
+        if not isinstance(plan, (NeutronPlan, ShardedPlan, DynamicPlan)):
             raise TypeError(
-                "SparseMatrix wraps a NeutronPlan or DynamicPlan; got "
-                f"{type(plan).__name__}")
+                "SparseMatrix wraps a NeutronPlan, ShardedPlan or "
+                f"DynamicPlan; got {type(plan).__name__}")
         self.plan = plan
 
     def _static_plan(self, what: str) -> NeutronPlan:
@@ -158,7 +164,9 @@ class SparseMatrix:
 
     @property
     def is_sharded(self) -> bool:
-        return False  # sharded plans are not ported yet
+        p = self.plan
+        return isinstance(p.plan if isinstance(p, DynamicPlan) else p,
+                          ShardedPlan)
 
     @property
     def row(self) -> np.ndarray:
@@ -223,11 +231,14 @@ def from_coo(
     shape: Tuple[int, int],
     *,
     device: Any = "cuda",
+    mesh: Any = None,
     dynamic: bool = False,
     config: Optional[SpmmConfig] = None,
     **config_overrides,
 ) -> SparseMatrix:
-    """Prepare a sparse matrix from COO triplets, on ``device``.
+    """Prepare a sparse matrix from COO triplets, on ``device``, or sharded
+    across ``mesh`` (a ``distributed.SpmmMesh``; ``device`` is then its
+    first device).
 
     The impl follows the device unless given: ``"cuda"`` on a CUDA device,
     ``"torch"`` on the CPU.  Pass a full :class:`SpmmConfig` via ``config``
@@ -240,12 +251,19 @@ def from_coo(
     if config is not None and config_overrides:
         raise ValueError(
             "pass either config= or individual config overrides, not both")
+    if mesh is not None:
+        device = mesh.first
     if config is None:
         impl = config_overrides.pop(
             "impl", "cuda" if torch.device(device).type == "cuda" else "torch")
         config = SpmmConfig(impl=impl, **config_overrides)
-    plan = core_spmm.prepare(np.asarray(rows), np.asarray(cols),
-                             np.asarray(vals), shape, config, device=device)
+    rows, cols, vals = np.asarray(rows), np.asarray(cols), np.asarray(vals)
+    if mesh is not None:
+        plan: PlanLike = core_spmm.prepare_sharded(rows, cols, vals, shape,
+                                                   mesh, config)
+    else:
+        plan = core_spmm.prepare(rows, cols, vals, shape, config,
+                                 device=device)
     return SparseMatrix(DynamicPlan(plan) if dynamic else plan)
 
 
@@ -258,7 +276,7 @@ def from_plan(plan: PlanLike) -> SparseMatrix:
 def _as_matrix(a, what: str) -> SparseMatrix:
     if isinstance(a, SparseMatrix):
         return a
-    if isinstance(a, (NeutronPlan, DynamicPlan)):
+    if isinstance(a, (NeutronPlan, ShardedPlan, DynamicPlan)):
         return SparseMatrix(a)
     raise TypeError(f"{what} wants a SparseMatrix, got {type(a).__name__}")
 
@@ -280,8 +298,12 @@ def spmm(a, b, *, deadline: Optional[float] = None) -> torch.Tensor:
 
     def run():
         t0 = time.monotonic()
-        out = (p.execute(b) if isinstance(p, DynamicPlan)
-               else _exec.execute(p, b))
+        if isinstance(p, DynamicPlan):
+            out = p.execute(b)
+        elif isinstance(p, ShardedPlan):
+            out = _exec.execute_sharded(p, b)
+        else:
+            out = _exec.execute(p, b)
         return _await(out, deadline, t0, "spmm")
 
     return _traced_call(
@@ -344,5 +366,10 @@ def spspmm(a, b, *, deadline: Optional[float] = None) -> SparseMatrix:
 
     cr, cc, cv, cshape = _traced_call("spspmm", a_plan, {"shape": a.shape},
                                       run)
+    # the product has no window assignment yet: a product of sharded
+    # inputs is prepared on one device (A's first), as in the reference;
+    # from_coo(mesh=...) shards it again
+    cfg = (b_plan.config if isinstance(a_plan, ShardedPlan)
+           else a_plan.config)
     return from_coo(cr, cc, cv.cpu().numpy(), cshape, device=a.device,
-                    config=a_plan.config)
+                    config=cfg)

@@ -1177,3 +1177,155 @@ def test_dynamic_plan_cuda_matches_cpu(cuda):
     cpu.compact()
     _close(gpu.execute(torch.from_numpy(b).to(cuda)).cpu(),
            cpu.execute(torch.from_numpy(b)))
+
+
+# --- sharded plans on one card repeated -------------------------------------
+
+
+def _sharded_pair(cuda, rows, cols, vals, shape, shard_axis, n=4, **cfg):
+    """The same COO sharded n ways on the card repeated ("cuda") and on
+    the CPU repeated ("torch")."""
+    from repro_torch.core.spmm import prepare_sharded
+    from repro_torch.distributed import make_spmm_mesh
+
+    gpu = prepare_sharded(rows, cols, vals, shape,
+                          make_spmm_mesh(devices=[cuda] * n),
+                          SpmmConfig(impl="cuda", **cfg),
+                          shard_axis=shard_axis)
+    cpu = prepare_sharded(rows, cols, vals, shape,
+                          make_spmm_mesh(devices=["cpu"] * n),
+                          SpmmConfig(impl="torch", **cfg),
+                          shard_axis=shard_axis)
+    return gpu, cpu
+
+
+def _close_nonfinite(got: torch.Tensor, want: torch.Tensor) -> None:
+    torch.cuda.synchronize()
+    got = got.cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    _close(got[fin], want[fin])
+
+
+@pytest.mark.parametrize("shard_axis,budget", [
+    ("rows", None), ("rows", 40_000), ("rhs", None)])
+def test_sharded_plan_on_a_repeated_card_matches_plain(cuda, shard_axis,
+                                                       budget):
+    """A 4-way mesh of one card: ``execute_sharded`` launches B1 and the
+    fringe kernel once per shard per call, and matches the plain version
+    on a 4-way CPU mesh, batched too; with an Inf in B's row 0 (which
+    every shard's padded fringe reads on the rows axis) its NaN and Inf
+    cells are the plain version's (on the rhs axis the card's
+    single-device plan's).  The budget puts the fringe on the k-sharded
+    tier (B3)."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.RandomState(3)
+    a = (rng.rand(1200, 300) < 0.02) * rng.randn(1200, 300)
+    a[rng.choice(1200, 6, replace=False)] = rng.randn(6, 300)
+    rows, cols = np.nonzero(a)
+    vals = a[rows, cols].astype(np.float32)
+    gpu, cpu = _sharded_pair(cuda, rows, cols, vals, a.shape, shard_axis,
+                             fringe_vmem_budget=budget)
+    assert gpu.sig[12] and gpu.sig[13]   # a core and a fringe
+    tier = gpu.sig[14]
+    assert tier == ("ksharded" if budget else "resident")
+    fringe = "gather_spmm_ksharded" if tier == "ksharded" else "gather_spmm"
+    b = rng.randn(300, 64).astype(np.float32)
+    ops.reset_launch_counts()
+    got = api.execute_sharded(gpu, torch.from_numpy(b).to(cuda))
+    counts = ops.launch_counts()
+    assert counts["dense_tile_spmm"] == 4 and counts[fringe] == 4, counts
+    want = api.execute_sharded(cpu, torch.from_numpy(b))
+    _close(got.cpu(), want)
+    assert torch.equal(got, api.execute_sharded(
+        gpu, torch.from_numpy(b).to(cuda)))
+    bb = rng.randn(2, 300, 32).astype(np.float32)
+    _close(api.execute_sharded(gpu, torch.from_numpy(bb).to(cuda)).cpu(),
+           api.execute_sharded(cpu, torch.from_numpy(bb)))
+    b[0, 5] = np.inf
+    b[0, 9] = -np.inf
+    b[0, 11] = np.nan
+    got = api.execute_sharded(gpu, torch.from_numpy(b).to(cuda))
+    if shard_axis == "rows":
+        # the padding of every shard's fringe reads B's row 0
+        want = api.execute_sharded(cpu, torch.from_numpy(b))
+    else:
+        # no padding here; the plain "torch" path densifies the tiles above
+        # 25 % occupancy, as the reference's "xla" does, and its NaN cells
+        # are not the tile kernels' (ROADMAP C5): hold the split of B's
+        # columns against the card's single-device plan
+        single = prepare(rows, cols, vals, a.shape, SpmmConfig(impl="cuda"))
+        want = api.execute(single, torch.from_numpy(b).to(cuda)).cpu()
+    _close_nonfinite(got, want)
+
+
+def test_sharded_padded_fringe_cut_is_bit_equal(cuda):
+    """On the card, B2 over a shard's padded fringe in the cut row order
+    (``ops._padded_row_order``) gives the bits of the walk over every
+    padding entry, an Inf in B's row 0 included."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gather_spmm import stream_row_order
+
+    rng = np.random.RandomState(8)
+    a = (rng.rand(900, 500) < 0.02) * rng.randn(900, 500)
+    rows, cols = np.nonzero(a)
+    gpu, _ = _sharded_pair(cuda, rows, cols, a[rows, cols], a.shape, "rows")
+    nr = gpu.sig[11]
+    b = torch.from_numpy(rng.randn(gpu.sig[1][1], 48).astype(np.float32))
+    b = b.to(cuda)
+    cut_any = False
+    for sh in gpu.shards:
+        fr, fc, fv = sh.leaves[3:6]
+        own = sh.derived["stack_padding"]["fringe"]
+        full = stream_row_order(fr, fc, nr)
+        cut = ops._padded_row_order(full, own)
+        cut_any |= cut.perm.numel() < full.perm.numel()
+        for inf in (False, True):
+            bb = b.clone()
+            if inf:
+                bb[0, 3] = float("inf")
+            x = gather_spmm(fr, fc, fv, bb, num_rows=nr, row_order=cut)
+            y = gather_spmm(fr, fc, fv, bb, num_rows=nr, row_order=full)
+            torch.cuda.synchronize()
+            assert torch.equal(torch.isnan(x), torch.isnan(y))
+            fin = ~torch.isnan(y)
+            assert torch.equal(x[fin].view(torch.int32),
+                               y[fin].view(torch.int32))
+    assert cut_any
+
+
+def test_sharded_sddmm_and_dynamic_on_a_repeated_card(cuda):
+    """The sharded SDDMM (B5 over the global COO) and a rows-sharded
+    DynamicPlan with a routed sidecar (B2 on each shard's sidecar) on a
+    4-way mesh of one card, against the same on the CPU."""
+    from repro_torch.dynamic import DynamicPlan, GraphDelta
+    from repro_torch.kernels import ops
+
+    spec = PAPER_DATASETS["cora"]
+    rows, cols, vals = generate(spec)
+    shape = (spec.m, spec.k)
+    gpu, cpu = _sharded_pair(cuda, rows, cols, vals, shape, "rows")
+    rng = np.random.RandomState(2)
+    x = rng.randn(spec.m, 32).astype(np.float32)
+    y = rng.randn(32, spec.k).astype(np.float32)
+    ops.reset_launch_counts()
+    got = api.execute_sddmm(gpu, torch.from_numpy(x).to(cuda),
+                            torch.from_numpy(y).to(cuda))
+    assert ops.launch_counts()["gather_sddmm"] >= 1
+    _close(got.cpu(), api.execute_sddmm(cpu, torch.from_numpy(x),
+                                        torch.from_numpy(y)))
+    dg = DynamicPlan(gpu, auto_compact=False)
+    dc = DynamicPlan(cpu, auto_compact=False)
+    zr, zc = np.nonzero(np.ones(shape, bool))
+    pick = rng.choice(zr.size, 200, replace=False)
+    delta = GraphDelta.inserts(zr[pick], zc[pick], rng.randn(200))
+    dg.update(delta)
+    dc.update(delta)
+    b = rng.randn(spec.k, 64).astype(np.float32)
+    ops.reset_launch_counts()
+    out = dg.execute(torch.from_numpy(b).to(cuda))
+    counts = ops.launch_counts()
+    assert counts["dense_tile_spmm"] == 4 and counts["gather_spmm"] == 8
+    _close(out.cpu(), dc.execute(torch.from_numpy(b)))

@@ -8,6 +8,7 @@ rejects an upward import and a ``jax``/``repro`` import.
 """
 import ast
 import importlib.util
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -44,7 +45,8 @@ def test_port_files_exist():
                    "exec/health.py", "core/values.py",
                    "checkpoint/checkpoint.py", "dynamic/registry.py",
                    "dynamic/delta.py", "dynamic/tuning.py",
-                   "serve/spmm_service.py", "examples/dynamic_serving.py"):
+                   "serve/spmm_service.py", "examples/dynamic_serving.py",
+                   "distributed/mesh.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) > 20
 
@@ -196,3 +198,48 @@ def test_tuner_installs_no_store_and_fires_no_seam():
     assert not list(check.iter_calls(tree, check.STORE_SEAM_HOOK))
     assert not list(check.iter_calls(tree, check.FAULT_SEAM_HOOK))
     assert "def install_store" in path.read_text()
+
+
+def test_sharded_path_runs_with_jax_and_the_reference_unimportable():
+    """The mesh and every module of the sharded path import and run with
+    ``jax`` and ``repro`` blocked: a 2-shard plan on the repeated CPU
+    through the facade, a value update, a routed sidecar, the registry
+    and the service."""
+    code = """
+import sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+import tempfile
+import numpy as np
+import torch
+import repro_torch.sparse as sp
+from repro_torch.distributed import make_spmm_mesh
+from repro_torch.dynamic import GraphDelta, PlanRegistry
+from repro_torch.serve import SpmmService
+mesh = make_spmm_mesh(devices=["cpu"] * 2)
+rng = np.random.RandomState(0)
+rows, cols = np.nonzero(rng.rand(300, 40) < 0.1)
+vals = rng.randn(rows.size)
+A = sp.from_coo(rows, cols, vals, (300, 40), mesh=mesh, dynamic=True)
+A.plan.update(GraphDelta.inserts([0, 5], [1, 2], [1.0, 2.0]))
+A.plan.update(GraphDelta.updates(rows[:2], cols[:2], [3.0, 4.0]))
+out = sp.spmm(A, torch.ones((40, 4)))
+assert out.shape == (300, 4) and A.plan.is_sharded
+reg = PlanRegistry(tempfile.mkdtemp())
+reg.save("g", A.plan)
+svc = SpmmService(A.plan.config, registry=reg)
+svc.warm_start("g", mesh=mesh)
+t = svc.submit("g", torch.ones((40, 4)))
+svc.flush()
+assert torch.equal(svc.fetch(t), out)
+svc.close()
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
+               for m, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")

@@ -7,8 +7,8 @@ Mirrors the single-device tests of ``tests/test_dynamic_registry.py``
 version drift, retention, crashes mid-save, generation fallback) and
 ``tests/test_checkpoint.py`` (round trip, shard files, retention, no
 temporary directory left behind, a given step, shape mismatch).  The
-reference's sharded-entry tests wait for A-queue 6 (sharding); a
-sharded entry raises here.
+reference's sharded-entry tests run in ``tests/test_torch_sharded_dynamic.py``;
+here a single-device entry whose manifest says ``"sharded"`` raises.
 
 Across packages, on one disk layout: an entry written by ``repro`` loads
 in ``repro_torch`` and the reverse.  The one field mapped is the impl
@@ -271,7 +271,9 @@ def test_corrupt_manifest_raises(rng, tmp_path):
     ("plan_format_version", "plan format"),
     ("registry_format_version", "registry format"),
     ("signature", "signature"),
-    ("kind", "A-queue 6"),
+    # a "sharded" kind reads the entry as the base COO of a sharded plan,
+    # which a single-device entry lacks (the id is the case's earlier name)
+    pytest.param("kind", "does not reconstruct", id="kind-A-queue 6"),
 ])
 def test_manifest_drift_raises(rng, tmp_path, field, match):
     a, rows, cols, vals = _graph(rng)

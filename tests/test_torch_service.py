@@ -9,22 +9,23 @@ tests.  The two runs must then agree: results within 1e-5 * max(1,
 max|ref|), ``ServiceStats`` counters equal, and the same typed errors
 (each package's own class of one name).
 
-Mirrored: 17 of the 19 tests of ``tests/test_spmm_service.py`` (the two
-sharded ones, ``test_submit_rejects_indivisible_n_for_rhs_plan`` and
-``test_sharded_plan_backend``, wait for ROADMAP A-queue 6; here the
-sharded entry points raise), the 14 of
+Mirrored: the 19 tests of ``tests/test_spmm_service.py`` (the sharded
+ones on a 1-shard mesh, the port's over the CPU; ``test_sharded_plan_backend``
+on both shard axes), the 14 of
 ``tests/test_service_robustness.py``,
 ``tests/test_tuner.py::test_service_background_tune_and_warm_health``,
 and the five service tests of ``tests/test_telemetry_integration.py``
 (span structure, failure outcomes, traced against untraced output,
 concurrent services, and the ``health()`` schema, whose key sets must be
-the two packages' same).
+the two packages' same).  Then the port alone serves, updates and
+warm-starts a rows-sharded plan on a 4-way CPU mesh.
 
 Every wait on a worker thread has a time limit of its own (an event or a
 future waited with a timeout, ``drain_compactions(timeout=)``,
 ``drain_tunings(timeout=)``); time-dependent tests run on an injected
 clock (``svc._clock``), never on sleeps.
 """
+import dataclasses
 import os
 import threading
 import time
@@ -45,6 +46,7 @@ from repro.dynamic import GraphDelta as JaxGraphDelta  # noqa: E402
 from repro.dynamic import PlanRegistry as JaxPlanRegistry  # noqa: E402
 from repro.exec import fused_trace_count as jax_fused_trace_count  # noqa
 from repro.exec.health import HEALTH as JAX_HEALTH  # noqa: E402
+from repro.launch.mesh import make_spmm_mesh as jax_make_spmm_mesh  # noqa
 from repro.obs import TRACES as JAX_TRACES  # noqa: E402
 from repro.robust import faults as jax_faults  # noqa: E402
 from repro.serve import ADMISSION_POLICIES as JAX_POLICIES  # noqa: E402
@@ -55,6 +57,7 @@ import repro_torch.serve.spmm_service as svc_mod  # noqa: E402
 from repro_torch.core import spmm, tuner  # noqa: E402
 from repro_torch.core.plan_ir import general_format_sig  # noqa: E402
 from repro_torch.data import graphs  # noqa: E402
+from repro_torch.distributed import make_spmm_mesh  # noqa: E402
 from repro_torch.dynamic import GraphDelta, PlanRegistry  # noqa: E402
 from repro_torch.exec import fused_trace_count  # noqa: E402
 from repro_torch.exec.health import HEALTH  # noqa: E402
@@ -69,7 +72,7 @@ TOL = 1e-5
 WAIT = 30.0   # seconds any single wait on a worker thread may take
 
 PORT = types.SimpleNamespace(
-    name="port", Service=SpmmService, impl="torch",
+    name="port", Service=SpmmService, impl="torch", spmm=spmm,
     SpmmConfig=spmm.SpmmConfig, GraphDelta=GraphDelta,
     PlanRegistry=PlanRegistry, errors=errors, svc_mod=svc_mod,
     HEALTH=HEALTH, faults=faults, TRACES=TRACES, tuner=tuner,
@@ -77,7 +80,7 @@ PORT = types.SimpleNamespace(
     fused_trace_count=fused_trace_count, policies=ADMISSION_POLICIES,
 )
 REF = types.SimpleNamespace(
-    name="ref", Service=JaxSpmmService, impl="xla",
+    name="ref", Service=JaxSpmmService, impl="xla", spmm=jax_spmm,
     SpmmConfig=jax_spmm.SpmmConfig, GraphDelta=JaxGraphDelta,
     PlanRegistry=JaxPlanRegistry, errors=jax_errors, svc_mod=jax_svc_mod,
     HEALTH=JAX_HEALTH, faults=jax_faults, TRACES=JAX_TRACES,
@@ -303,15 +306,86 @@ def test_non_pow2_max_batch_rounds_up():
     _both(scenario)
 
 
-def test_sharded_entry_points_raise_naming_a_queue_6(tmp_path):
-    """The port's stand-in for the two sharded tests: sharding is not
-    ported, so its entry points raise a typed error that names it."""
-    svc = SpmmService(_cfg(PORT), registry=PlanRegistry(str(tmp_path)))
-    with pytest.raises(errors.ReproError, match="A-queue 6"):
-        svc.register_sharded("g", object())
-    with pytest.raises(errors.ReproError, match="A-queue 6"):
-        svc.warm_start("g", mesh=object())
-    assert svc.health()["matrices"] == {}
+def _mesh(p, n=1):
+    """A mesh of ``n`` shards: the reference's over its CPU device, the
+    port's over the CPU repeated."""
+    if p is REF:
+        return jax_make_spmm_mesh(n)
+    return make_spmm_mesh(devices=["cpu"] * n)
+
+
+def test_submit_rejects_indivisible_n_for_rhs_plan():
+    """rhs-sharded divisibility is enforced at submit, while the request is
+    still the caller's problem (a flush-time raise would strand batches)."""
+    def scenario(p, rng):
+        svc = p.Service(_cfg(p), max_batch=4)
+        real = p.spmm.prepare_sharded(
+            np.array([0], np.int64), np.array([0], np.int64),
+            np.array([1.0], np.float32), (8, 8), _mesh(p), _cfg(p),
+            shard_axis="rhs")
+        svc.register_sharded("g", dataclasses.replace(real, n_shards=4))
+        with pytest.raises(ValueError, match="divisible"):
+            svc.submit("g", np.zeros((8, 30), np.float32))
+        svc.submit("g", np.zeros((8, 32), np.float32))  # divisible
+        return {"stats": _stats(svc)}
+
+    _both(scenario)
+
+
+@pytest.mark.parametrize("shard_axis", ["rows", "rhs"])
+def test_sharded_plan_backend(shard_axis):
+    """The same service front drains through a multi-device plan (the
+    reference's test on the rows axis; the rhs axis beside it)."""
+    def scenario(p, rng):
+        a, rows, cols, vals = make_sparse(rng, 90, 70, 0.08, n_dense_rows=3)
+        cfg = _cfg(p)
+        splan = p.spmm.prepare_sharded(rows, cols, vals, a.shape, _mesh(p),
+                                       cfg, shard_axis=shard_axis)
+        svc = p.Service(cfg, max_batch=2)
+        svc.register_sharded("g", splan)
+        panel = rng.randn(70, 12).astype(np.float32)
+        t = svc.submit("g", panel)
+        svc.flush()
+        out = svc.fetch(t)
+        _mirror(out, a.astype(np.float64), panel)
+        return {"out": [out], "stats": _stats(svc)}
+
+    _both(scenario)
+
+
+def test_sharded_service_over_a_four_way_mesh(tmp_path):
+    """The port alone, at 4 shards of the repeated CPU (the reference's
+    tests run a 1-device mesh in process): a rows-sharded dynamic plan
+    serves, takes a structural update, persists and warm-starts onto a
+    new mesh bit-equal, and ``health()`` reports it serving."""
+    rng = np.random.RandomState(5)
+    a, rows, cols, vals = make_sparse(rng, 400, 90, 0.05, n_dense_rows=4)
+    reg = PlanRegistry(str(tmp_path))
+    svc = SpmmService(_cfg(PORT), max_batch=4, registry=reg)
+    splan = spmm.prepare_sharded(rows, cols, vals, a.shape, _mesh(PORT, 4),
+                                 _cfg(PORT), shard_axis="rows")
+    svc.register_sharded("g", splan)
+    assert svc.plan("g").is_sharded
+    dense = a.astype(np.float64)
+    panels = [rng.randn(90, 8).astype(np.float32) for _ in range(3)]
+    tickets = [svc.submit("g", x) for x in panels]
+    assert svc.flush() == 3
+    for t, x in zip(tickets, panels):
+        _mirror(svc.fetch(t), dense, x)
+    zr, zc = np.nonzero(dense == 0)
+    svc.update_matrix("g", GraphDelta.inserts(zr[:5], zc[:5], np.ones(5)))
+    dense[zr[:5], zc[:5]] += 1.0
+    t = svc.submit("g", panels[0])
+    svc.flush()
+    before = svc.fetch(t)
+    _mirror(before, dense, panels[0])
+    reg.save("g", svc.plan("g"))
+    svc.warm_start("g", mesh=_mesh(PORT, 4))
+    assert svc.plan("g").is_sharded and svc.plan("g").delta_nnz == 5
+    t = svc.submit("g", panels[0])
+    svc.flush()
+    assert torch.equal(svc.fetch(t), before)
+    assert svc.health()["matrices"]["g"]["state"] == "serving"
     svc.close()
 
 

@@ -8,7 +8,8 @@ and fails when a package imports a layer above itself.  The graph, from
 the bottom up:
 
     errors, obs, robust,    (taxonomy, telemetry, fault harness, the
-    checkpoint               numpy checkpoint layout)
+    checkpoint,              numpy checkpoint layout, the device mesh of
+    distributed              the sharded executor)
     kernels                 (kernels and their plain versions)
         -> core             (plan IR + plan builders)
         -> exec             (executor pipeline + health table)
@@ -82,6 +83,7 @@ FORBIDDEN = {
     "obs": ("repro_torch",),
     "robust": ("repro_torch",),
     "checkpoint": ("repro_torch",),
+    "distributed": ("repro_torch",),
     "kernels": ("repro_torch.core", "repro_torch.data") + _ABOVE_CORE,
     "core": _ABOVE_CORE + ("repro_torch.data",),
     "exec": _ABOVE_CORE[1:] + ("repro_torch.data",),
@@ -104,6 +106,7 @@ NO_FAULT_SEAMS = ("core", "kernels")
 ALLOWED_PREFIXES = {
     "obs": ("repro_torch.obs",),
     "checkpoint": ("repro_torch.checkpoint",),
+    "distributed": ("repro_torch.distributed",),
     "robust": ("repro_torch.errors", "repro_torch.obs", "repro_torch.robust"),
     "kernels": ("repro_torch.core.cost_model", "repro_torch.core.plan_ir"),
 }
