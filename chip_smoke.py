@@ -186,7 +186,28 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    (per step the fringe kernel twice per shard); a registry save and a
    ``SpmmService.warm_start(mesh=)`` re-sharded, bit-equal; and
    ``register_sharded`` with flushes of 8, 4, 2 and 1 requests, each
-   against the library.  The kernels line adds this path's launches.
+   against the library.  The kernels line adds this path's launches;
+11. LM serving (``lm_serving_path``; ``bench_torch/lm_serving_probe.py``
+   runs it alone): the model zoo's inference path, no kernel of the
+   port's own.  ``qwen1.5-4b`` and ``granite-moe-3b-a800m`` at full width
+   and depth (the repo's configs; bf16 compute, fp32 params from a seeded
+   generator on the card), one after the other, each served through
+   ``ServeEngine.generate``: batch 8, 128-token prompts from
+   ``data.pipeline.make_batch`` (seed 0), 32 tokens; then qwen once more
+   with 2,048-token prompts and 8 tokens (the cached decode crosses
+   ``kv_chunk`` 1,024).  Checks: bf16 ``prefill`` against ``forward``'s
+   last position within 5e-2 * max(1, max |ref|), finite logits, tokens
+   below ``vocab_size``; ``blockwise_attention`` at qwen's 2,048-token
+   shapes against a plain fp32 softmax, also with ``kv_len`` short of
+   the cache; each model at fp32 compute with 2 layers (granite's
+   capacity factor 8, as the reference's decode test sets it): ``prefill``
+   and every ``decode_step`` teacher-forced against ``forward``, and
+   greedy ``generate`` equal to greedy over ``forward``; the smoke
+   configs of qwen, granite-moe, gemma2, mamba2 and zamba2 at fp32 on the
+   card against the CPU from one carried-over tree.  Prints parameters,
+   GB, peak device memory, prefill ms (CUDA events), decode ms a token
+   (median), tokens/s, one decode step's device time (profiler) against
+   its wall time, and the phase's seconds.
 
 Tolerance everywhere: max |x - ref| <= 1e-4 * max(1, max |ref|) (fp32 on
 both sides, different summation orders; the kernels' tensor-core path is
@@ -2752,6 +2773,337 @@ def sharded_path(ctx, reddit, graph):
     return out
 
 
+# LM serving: two published models at full width and depth, served
+# through the port's ServeEngine (launch/serve.py's max_len rule)
+LM_MODELS = ("qwen1.5-4b", "granite-moe-3b-a800m")
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 128, 32
+LM_LONG_PROMPT, LM_LONG_GEN = 2048, 8   # qwen only: crosses kv_chunk
+LM_BF16_TOL = 5e-2
+LM_SMOKE_FAMILIES = ("qwen1.5-4b", "granite-moe-3b-a800m", "gemma2-9b",
+                     "mamba2-1.3b", "zamba2-1.2b")
+
+
+def lm_serving_path(ctx):
+    """LM serving on the card (phase 11): the model zoo's inference path
+    through ``ServeEngine``.  Returns the phase's numbers; any failed check
+    raises."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.interop import lm_params_from_arrays
+    from repro_torch.models import layers, model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    log, require, dev = ctx.log, ctx.require, ctx.dev
+    t_path = time.perf_counter()
+    out = {}
+
+    def scaled_err(got, want, tol):
+        """Max |got - want| within ``tol * max(1, max |want|)``.  Entries of
+        magnitude 1e29 and more are the head's -1e30 masks of padded vocab
+        columns: they must be equal, and they stay out of the scale."""
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float().to(got.device)
+        require(got.shape == want.shape, (got.shape, want.shape))
+        require(bool(torch.isfinite(got).all()), "non-finite logits")
+        real = want.abs() < 1e29
+        require(torch.equal(got[~real], want[~real]),
+                "masked vocab columns differ")
+        err = (got - want)[real].abs().max().item()
+        scale = max(1.0, want[real].abs().max().item())
+        require(err <= tol * scale, f"max |diff| {err} > {tol} * {scale}")
+        return err
+
+    def prompts_of(cfg, seq):
+        return torch.from_numpy(pipeline.make_batch(pipeline.DataConfig(
+            seed=0, global_batch=LM_BATCH, seq_len=seq,
+            vocab_size=cfg.vocab_size), 0)["tokens"]).to(dev)
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def serve(eng, cfg, prompts, gen):
+        """``eng.generate`` with CUDA events around each prefill/decode call
+        (wrapping the engine's own functions) and a running finite check
+        of their logits."""
+        spans, finite = [], torch.ones((), dtype=torch.bool, device=dev)
+        prefill_fn, decode_fn = eng.prefill_fn, eng.decode_fn
+
+        def timed(fn):
+            def run(*a, **k):
+                nonlocal finite
+                s, e = events()
+                s.record()
+                logits, cache = fn(*a, **k)
+                e.record()
+                spans.append((s, e))
+                finite = finite & torch.isfinite(logits).all()
+                return logits, cache
+            return run
+
+        eng.prefill_fn, eng.decode_fn = timed(prefill_fn), timed(decode_fn)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens, meta = eng.generate(prompts, gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            eng.prefill_fn, eng.decode_fn = prefill_fn, decode_fn
+        ms = [s.elapsed_time(e) for s, e in spans]
+        require(bool(finite), "non-finite logits while serving")
+        require(tokens.shape == (LM_BATCH, gen), tokens.shape)
+        require(int(tokens.min()) >= 0
+                and int(tokens.max()) < cfg.vocab_size,
+                "a generated token is a padded vocab column")
+        dec = sorted(ms[1:])
+        rec = {"prefill_ms": ms[0],
+               "decode_ms_median": dec[len(dec) // 2] if dec else None,
+               "generate_s": wall, "tokens_per_s": LM_BATCH * gen / wall}
+        log(f"    prompt {prompts.shape[1]}, {gen} tokens: prefill "
+            f"{ms[0]:.2f} ms, decode {rec['decode_ms_median']} ms a token "
+            f"(median), generate {wall:.3f} s, {rec['tokens_per_s']:.1f} "
+            f"tokens/s")
+        return rec
+
+    def decode_idle(eng, prompts):
+        """One decode step's device time (profiler, summed kernel time)
+        against its synchronised wall time (median of 5 without the
+        profiler)."""
+        with torch.inference_mode():
+            cache = eng.fresh_cache()
+            logits, cache = eng.prefill_fn(eng.params, {"tokens": prompts},
+                                           cache=cache)
+            tok = torch.argmax(logits, -1)[:, None]
+            n = prompts.shape[1]
+            walls = []
+            for i in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.decode_fn(eng.params, tok, cache, n + i)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            wall = sorted(walls[1:])[2]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.decode_fn(eng.params, tok, cache, n + 6)
+                torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        if dev_ms <= 0:
+            log("    decode step device time: not measured (the profiler "
+                "saw no kernels)")
+            return {"wall_ms": wall, "device_ms": None, "idle_share": None}
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+        top = [{"kernel": e.key[:70], "calls": e.count,
+                "ms": e.self_device_time_total / 1e3} for e in top]
+        log(f"    decode step: device {dev_ms:.2f} ms (profiler, "
+            f"{sum(e.count for e in kernels)} kernels) against wall "
+            f"{wall:.2f} ms: idle share {1 - dev_ms / wall:.2f}; top "
+            f"kernels {top}")
+        return {"wall_ms": wall, "device_ms": dev_ms,
+                "idle_share": 1 - dev_ms / wall, "top_kernels": top}
+
+    # --- both models at full width and depth, one after the other -------
+    for name in LM_MODELS:
+        cfg = get_arch(name).full
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _lm_leaves(params))
+        gb = sum(t.numel() * t.element_size()
+                 for t in _lm_leaves(params)) / 1e9
+        rec = {"params_b": n_params / 1e9, "params_gb": gb,
+               "init_s": time.perf_counter() - t0,
+               "layers": cfg.num_layers, "d_model": cfg.d_model,
+               "padded_vocab": cfg.padded_vocab}
+        log(f"  {name} (full, {cfg.num_layers} layers, d {cfg.d_model}): "
+            f"{n_params / 1e9:.3f} B parameters, {gb:.2f} GB "
+            f"({cfg.param_dtype}), init {rec['init_s']:.2f} s")
+
+        prompts = prompts_of(cfg, LM_PROMPT)
+        eng = ServeEngine(cfg, params, ServeConfig(
+            batch_size=LM_BATCH, max_len=LM_PROMPT + LM_GEN + 8), device=dev)
+        # check 1: bf16 prefill against forward's last position
+        with torch.inference_mode():
+            full_logits, _ = model.forward(params, {"tokens": prompts}, cfg)
+            last = full_logits[:, -1].clone()
+            del full_logits
+            pre, _ = eng.prefill_fn(params, {"tokens": prompts},
+                                    cache=eng.fresh_cache())
+        rec["prefill_vs_forward_err"] = scaled_err(pre, last, LM_BF16_TOL)
+        rec["forward_max_abs"] = last[:, :cfg.vocab_size].abs().max().item()
+        require(int(torch.argmax(pre, -1).max()) < cfg.vocab_size,
+                "argmax on a padded column")
+        log(f"    bf16 prefill against forward: max |diff| "
+            f"{rec['prefill_vs_forward_err']:.3e} (max |forward| "
+            f"{rec['forward_max_abs']:.3f})")
+        del pre, last
+        rec["serve"] = serve(eng, cfg, prompts, LM_GEN)
+        rec["decode_step"] = decode_idle(eng, prompts)
+        if name == LM_MODELS[0]:
+            long_prompts = prompts_of(cfg, LM_LONG_PROMPT)
+            eng_long = ServeEngine(cfg, params, ServeConfig(
+                batch_size=LM_BATCH,
+                max_len=LM_LONG_PROMPT + LM_LONG_GEN + 8), device=dev)
+            rec["serve_long"] = serve(eng_long, cfg, long_prompts,
+                                      LM_LONG_GEN)
+            rec["decode_step_long"] = decode_idle(eng_long, long_prompts)
+            del eng_long, long_prompts
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"    peak device memory {rec['peak_gb']:.2f} GB")
+        out[name] = rec
+        del eng, params, prompts
+        torch.cuda.empty_cache()
+
+    # --- check 2: blockwise attention at qwen's 2,048-token shapes -------
+    qcfg = get_arch(LM_MODELS[0]).full
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, s, h, hd = LM_BATCH, LM_LONG_PROMPT, qcfg.num_heads, \
+        qcfg.resolved_head_dim
+    s_cache = LM_LONG_PROMPT + LM_LONG_GEN + 8
+    q = torch.randn((b, s, h, hd), generator=gen, device=dev)
+    k = torch.randn((b, s_cache, qcfg.num_kv_heads, hd), generator=gen,
+                    device=dev)
+    v = torch.randn((b, s_cache, qcfg.num_kv_heads, hd), generator=gen,
+                    device=dev)
+
+    def plain(q, k, v, q_offset):
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / hd ** 0.5
+        qp = q_offset + torch.arange(q.shape[1], device=dev)
+        kp = torch.arange(k.shape[1], device=dev)
+        logits = logits.masked_fill(kp[None, :] > qp[:, None], -float("inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v)
+
+    with torch.inference_mode():
+        got = layers.blockwise_attention(
+            q, k[:, :s], v[:, :s], causal=True, kv_chunk=qcfg.kv_chunk)
+        attn_err = scaled_err(got, plain(q, k[:, :s], v[:, :s], 0), TOL)
+        del got
+        kv_len = LM_LONG_PROMPT + 3
+        got = layers.blockwise_attention(
+            q[:, -1:], k, v, causal=True, q_offset=kv_len - 1,
+            kv_chunk=qcfg.kv_chunk, kv_len=kv_len)
+        attn_dec_err = scaled_err(
+            got, plain(q[:, -1:], k[:, :kv_len], v[:, :kv_len], kv_len - 1),
+            TOL)
+    out["attention_vs_plain"] = {"prefill_err": attn_err,
+                                 "decode_err": attn_dec_err}
+    log(f"  blockwise_attention (B {b}, {h} heads of {hd}, {s} tokens, "
+        f"chunks of {qcfg.kv_chunk}) against plain fp32 softmax: "
+        f"{attn_err:.3e}; one query at kv_len {kv_len} of {s_cache}: "
+        f"{attn_dec_err:.3e}")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # --- check 3: decode against forward, teacher-forced, fp32 -----------
+    forced = {}
+    for name in LM_MODELS:
+        cfg = dataclasses.replace(get_arch(name).full, num_layers=2,
+                                  compute_dtype=torch.float32)
+        if cfg.moe_num_experts:  # as the reference's decode test
+            cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+        params = model.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(2), dev)
+        n_pre, n_dec = 16, 6
+        seq = torch.from_numpy(pipeline.make_batch(pipeline.DataConfig(
+            seed=0, global_batch=2, seq_len=n_pre + n_dec,
+            vocab_size=cfg.vocab_size), 0)["tokens"]).to(dev)
+        with torch.inference_mode():
+            ref, _ = model.forward(params, {"tokens": seq}, cfg)
+            cache = model.init_cache(cfg, 2, n_pre + n_dec + 8, device=dev)
+            lp, cache = model.prefill(params, {"tokens": seq[:, :n_pre]},
+                                      cfg, cache)
+            errs = [scaled_err(lp, ref[:, n_pre - 1], TOL)]
+            for i in range(n_dec - 1):
+                ld, cache = model.decode_step(
+                    params, seq[:, n_pre + i:n_pre + i + 1], cache,
+                    n_pre + i, cfg)
+                errs.append(scaled_err(ld, ref[:, n_pre + i], TOL))
+            eng = ServeEngine(cfg, params, ServeConfig(batch_size=2,
+                                                       max_len=48),
+                              device=dev)
+            toks, _ = eng.generate(seq[:, :8], 6)
+            cur = seq[:, :8]
+            for i in range(6):
+                logits, _ = model.forward(params, {"tokens": cur}, cfg)
+                nxt = torch.argmax(logits[:, -1], -1)
+                require(torch.equal(nxt.to(torch.int32), toks[:, i]),
+                        f"{name}: greedy generate differs from greedy "
+                        f"forward at token {i}")
+                cur = torch.cat([cur, nxt[:, None]], dim=1)
+        forced[name] = {"max_err": max(errs), "steps": len(errs)}
+        log(f"  {name} (2 layers, full width, fp32): prefill and "
+            f"{n_dec - 1} decode steps against forward, max |diff| "
+            f"{max(errs):.3e}; greedy generate equals greedy forward")
+        del params, ref, cache, eng
+        torch.cuda.empty_cache()
+    out["decode_vs_forward"] = forced
+
+    # --- check 4: every family on the card against the CPU ---------------
+    families = {}
+    for name in LM_SMOKE_FAMILIES:
+        cfg = dataclasses.replace(get_arch(name).smoke,
+                                  compute_dtype=torch.float32)
+        if cfg.moe_num_experts:
+            cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+        tree = _lm_tree_numpy(model.init_params(
+            cfg, torch.Generator().manual_seed(3), "cpu"))
+        batch = {"tokens": pipeline.make_batch(pipeline.DataConfig(
+            seed=0, global_batch=2, seq_len=24,
+            vocab_size=cfg.vocab_size), 0)["tokens"]}
+        res = {}
+        for where in ("cpu", "cuda"):
+            p = lm_params_from_arrays(tree, cfg, device=where)
+            tb = {"tokens": torch.from_numpy(batch["tokens"]).to(where)}
+            with torch.inference_mode():
+                fl, _ = model.forward(p, tb, cfg)
+                cache = model.init_cache(cfg, 2, 40, device=where)
+                lp, cache = model.prefill(p, tb, cfg, cache)
+                tok = torch.argmax(lp, -1)[:, None]
+                steps = []
+                for i in range(4):
+                    ld, cache = model.decode_step(p, tok, cache, 24 + i, cfg)
+                    steps.append(ld)
+                    tok = torch.argmax(ld, -1)[:, None]
+            res[where] = (fl, lp, steps)
+        cpu, gpu = res["cpu"], res["cuda"]
+        err = max([scaled_err(gpu[0], cpu[0], TOL),
+                   scaled_err(gpu[1], cpu[1], TOL)]
+                  + [scaled_err(g, c, TOL) for g, c in zip(gpu[2], cpu[2])])
+        families[name] = {"family": cfg.family, "max_err": err}
+        log(f"  {name} smoke ({cfg.family}, fp32): card against CPU, "
+            f"forward, prefill and 4 decode steps, max |diff| {err:.3e}")
+    out["card_vs_cpu"] = families
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"  LM serving path wall time: {out['wall_s']:.1f} s")
+    return out
+
+
+def _lm_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _lm_leaves(v)
+    else:
+        yield tree
+
+
+def _lm_tree_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _lm_tree_numpy(v) for k, v in tree.items()}
+    return tree.cpu().numpy()
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -3580,6 +3932,13 @@ def main() -> int:
     log(f"  {json.dumps({'sharded': sharded}, default=str)}")
     for r in report:
         r["launches"] += sharded["launches"].get(r["name"], 0)
+
+    # --- phase 11: LM serving ---------------------------------------------
+    torch.cuda.empty_cache()
+    log(f"LM serving: {torch.cuda.memory_allocated() / 1e9:.2f} GB held by "
+        f"earlier phases")
+    lm = lm_serving_path(ctx8)
+    log(f"  {json.dumps({'lm_serving': lm})}")
     require(len(report) == 7 and all(r["launches"] > 0 for r in report),
             [(r["name"], r["launches"]) for r in report])
     print(json.dumps({"kernels": report}), flush=True)

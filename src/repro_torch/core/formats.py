@@ -3,6 +3,11 @@
 - ``COOMatrix``        — row-sorted, padded COO triplets as tensors (the
                          vector-path layout: the gather kernel walks a row's
                          nonzeros contiguously).
+- ``CSRMatrix``        — host-side scratch for preprocessing scans.
+- ``BlockELL``         — the windowed, block-compacted format of the matrix
+                         path: ``bm``-row windows, each storing only its
+                         active ``bk``-wide column blocks.  A dataclass of
+                         tensors (the reference's is a JAX pytree).
 - ``BlockStructure``   — the active (window, k-block) pairs of the dense
                          core: the skeleton of the flat tile stream.
 - ``detect_nm_pattern`` / ``detect_block_diagonal`` — structure scans
@@ -21,7 +26,8 @@
   stream) and both are payload-only alternatives: the general stream is
   always kept beside them, so SDDMM and value updates keep reading it.
 
-Host-side scans and packers are numpy, copies of ``repro.core.formats``.
+Host-side constructors, scans and packers are numpy, copies of
+``repro.core.formats``; the built containers hold tensors on ``device``.
 """
 from __future__ import annotations
 
@@ -46,6 +52,15 @@ class COOMatrix:
     def density(self) -> float:
         m, k = self.shape
         return self.nnz / float(max(m * k, 1))
+
+
+def coo_from_dense(a: np.ndarray, pad_to: int = 8,
+                   device: str = "cpu") -> COOMatrix:
+    """Build a row-sorted, padded COOMatrix from a dense numpy array."""
+    rows, cols = np.nonzero(a)
+    vals = a[rows, cols]
+    return coo_from_arrays(rows, cols, vals, a.shape, pad_to=pad_to,
+                           device=device)
 
 
 def coo_from_arrays(
@@ -89,6 +104,80 @@ def dense_from_coo(coo: COOMatrix) -> np.ndarray:
     return out
 
 
+# ---------------------------------------------------------------------------
+# CSR (host-side scratch)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class CSRMatrix:
+    indptr: np.ndarray  # (m+1,)
+    indices: np.ndarray  # (nnz,)
+    data: np.ndarray  # (nnz,)
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indices.shape[0])
+
+    def row_lengths(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
+
+def csr_from_coo_np(
+    rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, shape: Tuple[int, int]
+) -> CSRMatrix:
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    indptr = np.zeros(shape[0] + 1, np.int64)
+    np.add.at(indptr, rows + 1, 1)
+    np.cumsum(indptr, out=indptr)
+    return CSRMatrix(indptr=indptr, indices=cols.astype(np.int32), data=vals,
+                     shape=tuple(shape))
+
+
+def csr_from_dense(a: np.ndarray) -> CSRMatrix:
+    rows, cols = np.nonzero(a)
+    return csr_from_coo_np(rows.astype(np.int32), cols.astype(np.int32),
+                           a[rows, cols], a.shape)
+
+
+# ---------------------------------------------------------------------------
+# BlockELL — the matrix-path execution format
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class BlockELL:
+    """Windowed, block-compacted sparse format for the matrix path.
+
+    Rows are grouped into ``num_windows`` windows of ``bm`` rows.  Each window
+    stores up to ``max_blocks`` *active* ``bk``-wide column blocks.  Inactive
+    slots point at block 0 with all-zero values.  ``row_map`` maps a packed
+    row back to its original row (-1 for the padding rows of the last
+    window).
+    """
+
+    block_cols: torch.Tensor  # (num_windows, max_blocks) int32 — column-block ids
+    num_blocks: torch.Tensor  # (num_windows,) int32 — active block count per window
+    values: torch.Tensor      # (num_windows, max_blocks, bm, bk)
+    row_map: torch.Tensor     # (num_windows * bm,) int32 — packed row -> original row
+    shape: Tuple[int, int]
+    bm: int
+    bk: int
+    nnz: int
+
+    @property
+    def num_windows(self) -> int:
+        return int(self.block_cols.shape[0])
+
+    @property
+    def max_blocks(self) -> int:
+        return int(self.block_cols.shape[1])
+
+    @property
+    def tile_density(self) -> float:
+        """Mean nonzero fraction inside stored (active) tiles."""
+        total = float(self.num_blocks.sum().item()) * self.bm * self.bk
+        return self.nnz / total if total else 0.0
+
+
 @dataclasses.dataclass
 class BlockStructure:
     """Active (window, k-block) pairs of a packed sparse matrix.
@@ -127,6 +216,113 @@ def block_structure_from_coo(
         uw=uw, ub=ub, slot=slot, inv_idx=inv_idx, counts=counts,
         max_blocks=max(1, max_blocks),
     )
+
+
+def block_ell_from_coo(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    shape: Tuple[int, int],
+    bm: int,
+    bk: int,
+    row_order: np.ndarray | None = None,
+    max_blocks: int | None = None,
+    dtype=np.float32,
+    device: str = "cpu",
+) -> BlockELL:
+    """Pack COO triplets into BlockELL, optionally under a row permutation.
+
+    ``row_order`` gives the packed order of original rows (reordering output);
+    identity if None.  Windows are consecutive ``bm``-row groups of that order.
+    """
+    m, k = shape
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    vals = np.asarray(vals)
+    if row_order is None:
+        row_order = np.arange(m, dtype=np.int64)
+    else:
+        row_order = np.asarray(row_order, np.int64)
+    if row_order.shape[0] != m:
+        raise ValueError("row_order must cover every row")
+
+    inv = np.empty(m, np.int64)
+    inv[row_order] = np.arange(m)
+    prow = inv[rows]  # packed row index of each nnz
+
+    num_windows = (m + bm - 1) // bm
+    m_pad = num_windows * bm
+    wids = prow // bm
+    kblk = cols // bk
+    num_kblocks = (k + bk - 1) // bk
+
+    st = block_structure_from_coo(wids, kblk, num_windows, num_kblocks)
+    if max_blocks is None:
+        max_blocks = st.max_blocks
+    elif st.max_blocks > max_blocks and st.counts.size:
+        raise ValueError(
+            f"max_blocks={max_blocks} < needed {st.max_blocks}"
+        )
+
+    block_cols = np.zeros((num_windows, max_blocks), np.int32)
+    block_cols[st.uw, st.slot] = st.ub.astype(np.int32)
+    num_blocks = st.counts.astype(np.int32)
+
+    # accumulate on flat linear indices: 1-D np.add.at keeps duplicate-sum
+    # semantics
+    nz_slot = st.slot[st.inv_idx]
+    lin = ((wids * max_blocks + nz_slot) * bm + prow % bm) * bk + cols % bk
+    values = np.zeros(num_windows * max_blocks * bm * bk, dtype)
+    np.add.at(values, lin, vals.astype(dtype))
+    values = values.reshape(num_windows, max_blocks, bm, bk)
+
+    row_map = np.full(m_pad, -1, np.int64)
+    row_map[: m] = row_order
+    return BlockELL(
+        block_cols=torch.from_numpy(block_cols).to(device),
+        num_blocks=torch.from_numpy(num_blocks).to(device),
+        values=torch.from_numpy(values).to(device),
+        row_map=torch.from_numpy(row_map.astype(np.int32)).to(device),
+        shape=tuple(shape),
+        bm=bm,
+        bk=bk,
+        nnz=int(vals.shape[0]),
+    )
+
+
+def dense_from_block_ell(be: BlockELL) -> np.ndarray:
+    """Reconstruct the dense matrix (oracle / tests)."""
+    m, k = be.shape
+    vv = be.values.cpu().numpy()
+    out = np.zeros((m, k), vv.dtype)
+    bc = be.block_cols.cpu().numpy()
+    nb = be.num_blocks.cpu().numpy()
+    rm = be.row_map.cpu().numpy()
+    for w in range(be.num_windows):
+        for s in range(int(nb[w])):
+            c0 = int(bc[w, s]) * be.bk
+            klen = min(be.bk, k - c0)
+            for i in range(be.bm):
+                orig = rm[w * be.bm + i]
+                if orig < 0:
+                    continue
+                out[orig, c0 : c0 + klen] += vv[w, s, i, :klen]
+    return out
+
+
+def active_tile_zero_fraction(
+    rows: np.ndarray, cols: np.ndarray, shape: Tuple[int, int], t: int
+) -> float:
+    """Fraction of zeros inside active t×t tiles (paper Table 1 metric)."""
+    m, k = shape
+    tr = np.asarray(rows) // t
+    tc = np.asarray(cols) // t
+    keys = tr.astype(np.int64) * ((k + t - 1) // t) + tc
+    active = np.unique(keys).size
+    if active == 0:
+        return 0.0
+    total_cells = active * t * t
+    return 1.0 - len(rows) / total_cells
 
 
 NM_CANDIDATE_M = (4, 8, 16, 32)

@@ -1,1 +1,2 @@
-"""Synthetic sparse-matrix generators (copy of ``repro.data``)."""
+"""Synthetic data (copies of ``repro.data``): the sparse-matrix generators
+and the deterministic LM batch pipeline."""

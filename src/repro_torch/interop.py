@@ -8,6 +8,9 @@
   maps, which ``sddmm`` and ``with_values`` need.
 - ``graph_conv_from_arrays`` and ``graph_attention_from_arrays`` build the
   port's layers from the JAX layers' weights.
+- ``lm_params_from_arrays`` carries an LM's params across: the nested dict
+  that ``jax.tree.map(np.asarray, params)`` gives becomes the port's tree
+  with the same keys, layout and dtypes.
 
 This module imports nothing of the JAX package: the caller turns JAX state
 into numpy arrays.
@@ -23,6 +26,8 @@ import torch
 from .core.plan_ir import (
     IMPL_DEVICE, NeutronPlan, SpmmConfig, UpdateMaps, plan_from_leaves,
 )
+from .models import model as lm_model
+from .models.config import ModelConfig, resolve_device
 from .models.layers import SparseGraphAttention, SparseGraphConv
 
 
@@ -79,3 +84,38 @@ def graph_attention_from_arrays(a, wq, wk, wv) -> SparseGraphAttention:
     """The port's ``SparseGraphAttention`` on graph ``a`` with the JAX
     layer's three (d_in, d_head) projections as numpy arrays."""
     return SparseGraphAttention(a, _weight(wq), _weight(wk), _weight(wv))
+
+
+def lm_params_from_arrays(tree: Dict[str, Any], cfg: ModelConfig,
+                          device=None) -> Dict[str, Any]:
+    """The port's LM params for ``cfg`` from the reference's, as numpy.
+
+    ``tree`` is the nested dict of arrays that
+    ``jax.tree.map(np.asarray, params)`` gives for
+    ``repro.models.model.init_params``.  Every leaf's key path and shape is
+    checked against ``init_params``' tree for ``cfg`` (``groups`` leaves
+    keep their leading ``n_groups`` axis); a missing or extra key or a
+    wrong shape raises ``ValueError`` naming the leaf's path.  Leaves are
+    copied to ``device`` (``"cuda"`` unless named) in ``cfg.param_dtype``.
+    """
+    device = resolve_device(device)
+    want = lm_model.init_params(cfg, None, device="meta")
+
+    def carry(got, spec, path):
+        if isinstance(spec, dict):
+            if not isinstance(got, dict):
+                raise ValueError(f"{path or '<root>'}: expected a dict")
+            extra = sorted(set(got) - set(spec))
+            missing = sorted(set(spec) - set(got))
+            if extra or missing:
+                raise ValueError(f"{path or '<root>'}: missing keys "
+                                 f"{missing}, unexpected keys {extra}")
+            return {k: carry(got[k], spec[k], f"{path}/{k}".lstrip("/"))
+                    for k in spec}
+        arr = np.asarray(got)
+        if tuple(arr.shape) != tuple(spec.shape):
+            raise ValueError(f"{path}: shape {tuple(arr.shape)}, expected "
+                             f"{tuple(spec.shape)}")
+        return torch.from_numpy(np.array(arr)).to(device, spec.dtype)
+
+    return carry(tree, want, "")

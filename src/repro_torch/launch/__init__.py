@@ -1,0 +1,3 @@
+"""Launchers: ``python -m repro_torch.launch.serve`` (the rest of the
+reference's ``launch/``, the dry-run, HLO and TPU-roofline tools, is not
+ported)."""

@@ -1,9 +1,10 @@
-"""Serving: the request-batching SpMM service (bounded admission,
+"""Serving: the LM engine (``ServeEngine``: prefill + greedy decode over a
+KV/SSM cache) and the request-batching SpMM service (bounded admission,
 deadlines, quarantine, async compaction, background tunes; see
-``SpmmService.health()``).  The reference's LM engine
-(``repro.serve.engine``) waits for the LM stack (ROADMAP A-queue 9)."""
-from . import spmm_service
+``SpmmService.health()``)."""
+from . import engine, spmm_service
+from .engine import ServeConfig, ServeEngine
 from .spmm_service import ADMISSION_POLICIES, ServiceStats, SpmmService
 
-__all__ = ["spmm_service", "ADMISSION_POLICIES", "ServiceStats",
-           "SpmmService"]
+__all__ = ["engine", "spmm_service", "ServeConfig", "ServeEngine",
+           "ADMISSION_POLICIES", "ServiceStats", "SpmmService"]

@@ -46,7 +46,11 @@ def test_port_files_exist():
                    "checkpoint/checkpoint.py", "dynamic/registry.py",
                    "dynamic/delta.py", "dynamic/tuning.py",
                    "serve/spmm_service.py", "examples/dynamic_serving.py",
-                   "distributed/mesh.py"):
+                   "distributed/mesh.py", "models/config.py",
+                   "models/moe.py", "models/ssm.py", "models/transformer.py",
+                   "models/model.py", "configs/base.py",
+                   "data/pipeline.py", "serve/engine.py", "launch/serve.py",
+                   "examples/moe_serving.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) > 20
 
@@ -233,6 +237,65 @@ t = svc.submit("g", torch.ones((40, 4)))
 svc.flush()
 assert torch.equal(svc.fetch(t), out)
 svc.close()
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
+               for m, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_layer_check_places_the_lm_stack(tmp_path):
+    """``configs`` sits above ``models``; ``launch`` sits on top beside
+    ``examples``; the LM batch pipeline sits in ``data``."""
+    check = _layer_checker()
+    src = _fake_port(tmp_path, {
+        "__init__.py": "",
+        # allowed: each imports only layers below it
+        "configs/base.py": "from ..models.config import ModelConfig\n",
+        "serve/engine.py": "from ..models import model\n",
+        "launch/serve.py": ("from ..configs import get_arch\n"
+                            "from ..serve import ServeEngine\n"
+                            "from ..data import pipeline\n"),
+        "examples/moe_serving.py": "from ..configs import get_arch\n",
+        "interop.py": "from .models import model\n",
+        # upward: models must not reach the registry, nor data the models
+        "models/model.py": "from ..configs import get_arch\n",
+        "data/pipeline.py": "def f():\n    from ..models import model\n",
+        "serve/spmm_service.py": "from ..launch import serve\n",
+        "launch/train.py": "from ..examples import moe_serving\n",
+        "examples/demo.py": "from ..launch.serve import main\n",
+        "configs/gemma.py": "from ..interop import lm_params_from_arrays\n",
+    })
+    found = check.check_tree(src, extra_files=())
+    joined = "\n".join(found)
+    assert ("repro_torch/models/model.py:1: models must not import "
+            "repro_torch.configs") in joined
+    assert ("repro_torch/data/pipeline.py:2: data must not import "
+            "repro_torch.models") in joined
+    assert "serve must not import repro_torch.launch" in joined
+    assert "launch must not import repro_torch.examples" in joined
+    assert "examples must not import repro_torch.launch" in joined
+    assert "configs must not import repro_torch.interop" in joined
+    assert len(found) == 6, found
+
+
+def test_lm_entry_points_run_with_jax_and_the_reference_unimportable():
+    """The serve launcher and the MoE serving example run on the CPU with
+    ``jax`` and ``repro`` blocked."""
+    code = """
+import sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+from repro_torch.examples import moe_serving
+from repro_torch.launch import serve
+assert serve.main(["--arch", "zamba2-1.2b", "--smoke", "--batch", "2",
+                   "--prompt-len", "8", "--gen", "3", "--device", "cpu"]) > 0
+assert moe_serving.main("cpu").sum() == 64
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")

@@ -17,15 +17,21 @@ the bottom up:
                              sidecar, the registry; the graph generators
                              and the mutation stream)
         -> sparse           (the user-facing operator facade)
-        -> models           (graph layers over the facade)
-        -> interop          (JAX <-> port state, layers included)
+        -> models           (graph layers over the facade; the LM stack:
+                             config, layers, moe, ssm, transformer, model)
+        -> configs          (the arch registry over models.config)
+        -> interop          (JAX <-> port state, layers and LM params)
         -> serve            (the batching SpMM service over dynamic
-                             plans, the registry and the tuner)
-        -> examples         (scripts; imported by nothing)
+                             plans, the registry and the tuner; the LM
+                             engine over models)
+        -> launch, examples (the serve launcher and the scripts; each
+                             imported by nothing, neither imports the
+                             other)
 
-``data`` sits beside ``dynamic``: its generators import numpy alone,
-and ``mutate`` builds ``dynamic.GraphDelta`` batches (a function-local
-import, as in the reference).  Nothing below ``dynamic`` imports it.
+``data`` sits beside ``dynamic``: its generators and the LM batch
+pipeline import numpy alone, and ``mutate`` builds ``dynamic.GraphDelta``
+batches (a function-local import, as in the reference).  Nothing below
+``dynamic`` imports it.
 
 ``models`` and ``interop`` sit above ``sparse`` here, as the port's
 imports place them: the graph layers call the facade (the reference's
@@ -74,7 +80,8 @@ FOREIGN = ("jax", "jaxlib", "repro")
 
 _ABOVE_CORE = ("repro_torch.exec", "repro_torch.dynamic",
                "repro_torch.sparse", "repro_torch.models",
-               "repro_torch.interop", "repro_torch.serve",
+               "repro_torch.configs", "repro_torch.interop",
+               "repro_torch.serve", "repro_torch.launch",
                "repro_torch.examples")
 
 # package -> layers it must never import (prefix match on absolute module)
@@ -91,8 +98,11 @@ FORBIDDEN = {
     "data": _ABOVE_CORE[2:],
     "sparse": _ABOVE_CORE[3:],
     "models": _ABOVE_CORE[4:],
-    "interop": _ABOVE_CORE[5:],
-    "serve": _ABOVE_CORE[6:],
+    "configs": _ABOVE_CORE[5:],
+    "interop": _ABOVE_CORE[6:],
+    "serve": _ABOVE_CORE[7:],
+    "launch": ("repro_torch.examples",),
+    "examples": ("repro_torch.launch",),
 }
 
 # the tuner's store hook may only be *called* from these layers, and no
