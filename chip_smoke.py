@@ -207,7 +207,27 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    card against the CPU from one carried-over tree.  Prints parameters,
    GB, peak device memory, prefill ms (CUDA events), decode ms a token
    (median), tokens/s, one decode step's device time (profiler) against
-   its wall time, and the phase's seconds.
+   its wall time, and the phase's seconds;
+12. LM training (``lm_training_path``; ``bench_torch/lm_training_probe.py``
+   runs it alone): no kernel of the port's own.  ``qwen1.5-4b`` and
+   ``granite-moe-3b-a800m`` at full width and depth (bf16 compute, fp32
+   params, ``remat="full"``), one after the other, each 4 steps of
+   ``make_train_step`` under ``TrainController`` (``launch/train.py``'s
+   AdamW with fp32 moments, batch 8 x 128 from ``data.pipeline`` seed 0,
+   2 microbatches, no checkpoint written); prints per step the wall and
+   device ms (CUDA events), tokens/s, loss and grad norm, the peak device
+   memory, and one more step's device time by kernel (profiler, top 8)
+   against the steps' median wall (idle share).  Checks: every loss and
+   grad norm finite; at full width with 4 layers, ``remat="full"`` and
+   ``"none"`` give the same loss and gradients bit for bit (deterministic
+   kernels); the smoke configs of qwen, granite-moe, mamba2, zamba2 and
+   phi-3-vision at fp32: one loss and every gradient on the card within
+   1e-4 * max(1, max |ref|) of the CPU's, and two ``apply_updates`` with
+   the CPU's gradients within 1e-6 * max(1, max |ref|); the restart drill
+   on qwen's smoke config (a checkpoint every 5 steps, a failure at step
+   6, 10 steps) ends in the uninterrupted run's params, moments and step
+   bit for bit (deterministic kernels); ``examples/lm_training.py`` at its
+   defaults passes its own assertion on the card.
 
 Tolerance everywhere: max |x - ref| <= 1e-4 * max(1, max |ref|) (fp32 on
 both sides, different summation orders; the kernels' tensor-core path is
@@ -220,7 +240,9 @@ or of the JAX package, and needs no network.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -3090,6 +3112,394 @@ def lm_serving_path(ctx):
     return out
 
 
+# LM training: the two served models at full width and depth, trained
+# through the port's TrainController with launch/train.py's optimizer
+LM_TRAIN_STEPS = 4
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MICRO = 8, 128, 2
+LM_TRAIN_FAMILIES = ("qwen1.5-4b", "granite-moe-3b-a800m", "mamba2-1.3b",
+                     "zamba2-1.2b", "phi-3-vision-4.2b")
+LM_REMAT_LAYERS = 4
+LM_UPDATE_TOL = 1e-6
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """Deterministic kernels inside the block (``warn_only``: cuBLAS needs
+    an environment setting to promise it, and its GEMMs are deterministic
+    on one stream anyway): the embedding's and the MoE gather's backward
+    otherwise add with atomics, in an order that varies run to run."""
+    import torch
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def lm_training_path(ctx, split_compare=False):
+    """LM training on the card (phase 12): the train step, the optimizer
+    and the controller at full size, then the checks.  With
+    ``split_compare`` (``bench_torch/lm_training_probe.py``), one forward
+    and backward of qwen at full size with the stacked leaves split by
+    ``torch.unbind`` and by indexing each group, under the profiler.
+    Returns the phase's numbers; any failed check raises."""
+    import dataclasses
+    import gc
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.examples import lm_training
+    from repro_torch.interop import lm_params_from_arrays
+    from repro_torch.models import model
+    from repro_torch.train import controller, optimizer as opt_lib
+    from repro_torch.train import train_loop
+
+    log, require, dev = ctx.log, ctx.require, ctx.dev
+    t_path = time.perf_counter()
+    out = {}
+
+    def scaled_err(got, want, tol):
+        got, want = got.float(), want.float().to(got.device)
+        require(got.shape == want.shape, (got.shape, want.shape))
+        require(bool(torch.isfinite(got).all()), "non-finite values")
+        err = (got - want).abs().max().item() if got.numel() else 0.0
+        scale = max(1.0, want.abs().max().item() if want.numel() else 0.0)
+        require(err <= tol * scale, f"max |diff| {err} > {tol} * {scale}")
+        return err
+
+    def data_cfg(cfg, batch, seq):
+        return pipeline.DataConfig(
+            seed=0, global_batch=batch, seq_len=seq,
+            vocab_size=cfg.vocab_size, frontend=cfg.frontend,
+            frontend_dim=cfg.frontend_dim, num_patches=cfg.num_patches)
+
+    def train_cfg(steps, micro):
+        # launch/train.py's optimizer for --steps
+        return train_loop.TrainConfig(
+            optimizer=opt_lib.OptimizerConfig(
+                lr=3e-4, warmup_steps=min(20, steps // 4),
+                total_steps=steps),
+            num_microbatches=micro)
+
+    def step_profile(step_fn, wall_ms):
+        """One step's device time by kernel (profiler, device activity
+        only: a step's tens of thousands of host ops would take the
+        profiler longer to sort than the step takes) against the
+        controller's median step wall time."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step_fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        if dev_ms <= 0:
+            log("    step device time by kernel: not measured (the profiler "
+                "saw no kernels)")
+            return {"device_ms": None, "idle_share": None}
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        top = [{"kernel": e.key[:70], "calls": e.count,
+                "ms": e.self_device_time_total / 1e3} for e in top]
+        n = sum(e.count for e in kernels)
+        log(f"    one step under the profiler: {dev_ms:.1f} ms of device "
+            f"time in {n} kernels against the steps' median wall "
+            f"{wall_ms:.1f} ms: idle share {1 - dev_ms / wall_ms:.3f}")
+        for t in top:
+            log(f"      {t['ms']:9.2f} ms {t['calls']:6d} x {t['kernel']}")
+        return {"device_ms": dev_ms, "kernels": n,
+                "idle_share": 1 - dev_ms / wall_ms, "top_kernels": top}
+
+    # --- both models at full width and depth, one after the other -------
+    for name in LM_MODELS:
+        cfg = get_arch(name).full
+        gc.collect()      # qwen's step peaks near 79 GB of the card's 85
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tcfg = train_cfg(LM_TRAIN_STEPS, LM_TRAIN_MICRO)
+        t0 = time.perf_counter()
+        params, opt = train_loop.init_train_state(
+            cfg, tcfg, torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        leaves = opt_lib.tree_leaves(params)
+        n_params = sum(t.numel() for t in leaves)
+        state_gb = 4 * n_params * 4 / 1e9   # params, grads, m, v in fp32
+        rec = {"params_b": n_params / 1e9, "state_gb": state_gb,
+               "init_s": time.perf_counter() - t0,
+               "layers": cfg.num_layers, "d_model": cfg.d_model,
+               "remat": cfg.remat}
+        log(f"  {name} (full, {cfg.num_layers} layers, d {cfg.d_model}, "
+            f"remat {cfg.remat}, {cfg.compute_dtype} compute): "
+            f"{n_params / 1e9:.3f} B parameters; params, grads and fp32 "
+            f"moments {state_gb:.1f} GB; init {rec['init_s']:.2f} s")
+        step_fn = train_loop.make_train_step(cfg, tcfg)
+        spans, metrics = [], []
+
+        def timed_step(p, o, b):
+            s, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            s.record()
+            res = step_fn(p, o, b)
+            e.record()
+            spans.append((s, e))
+            metrics.append(res[-1])
+            return res
+
+        dcfg = data_cfg(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+        with tempfile.TemporaryDirectory() as ckpt:
+            ctl = controller.TrainController(
+                timed_step, lambda s: pipeline.make_batch(dcfg, s),
+                controller.ControllerConfig(
+                    ckpt_dir=ckpt, save_every=LM_TRAIN_STEPS + 1))
+            params, opt, steps = ctl.run(params, opt, LM_TRAIN_STEPS)
+            require(not os.listdir(ckpt), "a checkpoint was written")
+        torch.cuda.synchronize()
+        dev_ms = [s.elapsed_time(e) for s, e in spans]
+        wall_ms = [entry["dt"] * 1e3 for entry in steps]
+        losses = [float(m["loss"]) for m in metrics]
+        norms = [float(m["grad_norm"]) for m in metrics]
+        # check 1: every loss and grad norm finite
+        require(len(losses) == LM_TRAIN_STEPS
+                and all(np.isfinite(losses + norms)), (losses, norms))
+        warm = sorted(wall_ms[1:])[len(wall_ms[1:]) // 2]
+        tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+        rec.update({
+            "step_wall_ms": wall_ms, "step_device_ms": dev_ms,
+            "tokens_per_s": [tokens / (w / 1e3) for w in wall_ms],
+            "loss": losses, "grad_norm": norms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        for i in range(LM_TRAIN_STEPS):
+            log(f"    step {i}: wall {wall_ms[i]:.1f} ms, device "
+                f"{dev_ms[i]:.1f} ms (events), {tokens / wall_ms[i] * 1e3:.0f}"
+                f" tokens/s; loss {losses[i]:.4f}, grad_norm {norms[i]:.4f}")
+        log(f"    peak device memory {rec['peak_gb']:.2f} GB")
+        batch = pipeline.make_batch(dcfg, LM_TRAIN_STEPS)
+        rec["profile"] = step_profile(lambda: step_fn(params, opt, batch),
+                                      warm)
+        out[name] = rec
+        del params, opt, leaves, metrics, spans, ctl, step_fn
+        torch.cuda.empty_cache()
+
+    # --- the stacked leaves split by unbind against by indexing ---------
+    if split_compare:
+        out["split"] = split_comparison(ctx)
+
+    # --- check 2: remat full and none give the same gradients -----------
+    cfg = dataclasses.replace(get_arch(LM_MODELS[0]).full,
+                              num_layers=LM_REMAT_LAYERS)
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                               dev)
+    leaves = opt_lib.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = pipeline.make_batch(data_cfg(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ),
+                                0)
+    grads = {}
+    with deterministic_algorithms(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for remat in ("full", "none"):
+            c = dataclasses.replace(cfg, remat=remat)
+            torch.cuda.reset_peak_memory_stats()
+            loss, _ = model.loss_fn(params, batch, c)
+            grads[remat] = (loss.detach(),
+                            torch.autograd.grad(loss, leaves))
+            grads[remat + "_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del loss
+    same = torch.equal(grads["full"][0], grads["none"][0]) and all(
+        torch.equal(a, b) for a, b in zip(grads["full"][1], grads["none"][1]))
+    require(same, "remat='full' and 'none' gradients differ")
+    out["remat_check"] = {"layers": LM_REMAT_LAYERS, "bit_equal": same,
+                          "peak_gb_full": grads["full_peak_gb"],
+                          "peak_gb_none": grads["none_peak_gb"]}
+    log(f"  {LM_MODELS[0]} at full width, {LM_REMAT_LAYERS} layers: "
+        f"remat 'full' and 'none' give the same loss and {len(leaves)} "
+        f"gradients bit for bit (deterministic kernels); peak "
+        f"{grads['full_peak_gb']:.2f} GB against "
+        f"{grads['none_peak_gb']:.2f} GB")
+    del params, leaves, grads
+    torch.cuda.empty_cache()
+
+    # --- check 3: five families, one step on the card against the CPU --
+    families = {}
+    for name in LM_TRAIN_FAMILIES:
+        cfg = dataclasses.replace(get_arch(name).smoke,
+                                  compute_dtype=torch.float32)
+        tree = _lm_tree_numpy(model.init_params(
+            cfg, torch.Generator().manual_seed(3), "cpu"))
+        batch = pipeline.make_batch(data_cfg(cfg, 2, 24), 0)
+        res = {}
+        for where in ("cpu", dev):
+            p = lm_params_from_arrays(tree, cfg, device=where)
+            leaves = opt_lib.tree_leaves(p)
+            for t in leaves:
+                t.requires_grad_(True)
+            loss, _ = model.loss_fn(p, batch, cfg)
+            g = torch.autograd.grad(loss, leaves, allow_unused=True)
+            res["cpu" if where == "cpu" else "card"] = (loss.detach(), [
+                x if x is not None else torch.zeros_like(t)
+                for x, t in zip(g, leaves)], p)
+        (lc, gc, pc), (lg, gg, pg) = res["cpu"], res["card"]
+        err_loss = scaled_err(lg.reshape(1), lc.reshape(1), TOL)
+        err_grad = max(scaled_err(a, b, TOL) for a, b in zip(gg, gc))
+        # apply_updates on each device, given the CPU's gradients twice
+        ocfg = opt_lib.OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                       total_steps=10)
+        states = {}
+        for where, p in (("cpu", pc), ("card", pg)):
+            st = opt_lib.init_opt_state(p, ocfg)
+            flat = {id(t): x.to(t.device) for t, x in
+                    zip(opt_lib.tree_leaves(p), gc)}
+            grads = opt_lib.tree_map(lambda t: flat[id(t)], p)
+            for _ in range(2):
+                p, st, _ = opt_lib.apply_updates(p, grads, st, ocfg)
+            states[where] = opt_lib.tree_leaves((p, st.m, st.v))
+        err_upd = max(scaled_err(a.detach(), b.detach(), LM_UPDATE_TOL)
+                      for a, b in zip(states["card"], states["cpu"]))
+        families[name] = {"family": cfg.family, "loss_err": err_loss,
+                          "grad_err": err_grad, "update_err": err_upd}
+        log(f"  {name} smoke ({cfg.family}, fp32): card against CPU, loss "
+            f"{err_loss:.3e}, gradients {err_grad:.3e} (tolerance {TOL}); "
+            f"two apply_updates {err_upd:.3e} (tolerance {LM_UPDATE_TOL})")
+    out["card_vs_cpu"] = families
+
+    # --- check 4: the restart drill on qwen's smoke config --------------
+    cfg = dataclasses.replace(get_arch(LM_MODELS[0]).smoke,
+                              compute_dtype=torch.float32)
+    tcfg = train_cfg(10, 1)
+    dcfg = data_cfg(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    finals = {}
+    with deterministic_algorithms(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for label, fail in (("uninterrupted", None), ("restarted", 6)):
+            params, opt = train_loop.init_train_state(
+                cfg, tcfg, torch.Generator(device=dev).manual_seed(0), dev)
+            with tempfile.TemporaryDirectory() as ckpt:
+                ctl = controller.TrainController(
+                    train_loop.make_train_step(cfg, tcfg),
+                    lambda s: pipeline.make_batch(dcfg, s),
+                    controller.ControllerConfig(ckpt_dir=ckpt, save_every=5))
+                params, opt, steps = ctl.run(
+                    params, opt, 10, failure_at=None if fail is None else
+                    (lambda s, c=ctl: s == fail and not c.restart_events))
+            finals[label] = (opt_lib.tree_leaves((params, opt)),
+                             ctl.restart_events, len(steps))
+    (a, ra, na), (b, rb, nb) = finals["uninterrupted"], finals["restarted"]
+    require(ra == [] and rb == [6] and nb == na + 1, (ra, rb, na, nb))
+    same = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    require(same, "the restarted run's state differs from the "
+            "uninterrupted run's")
+    out["restart_drill"] = {"restarts": rb, "steps_logged": nb,
+                            "bit_equal": same}
+    log(f"  restart drill ({LM_MODELS[0]} smoke, save every 5, failure at "
+        f"step 6, 10 steps): restarted at {rb}, {nb} steps logged; params, "
+        f"moments and step equal the uninterrupted run's bit for bit")
+    del finals, a, b
+
+    # --- check 5: the example at its defaults on the card ---------------
+    t0 = time.perf_counter()
+    example = lm_training.main(["--device", "cuda"])
+    out["example"] = {"steps_logged": len(example),
+                      "loss_first": example[0]["loss"],
+                      "loss_last": example[-1]["loss"],
+                      "wall_s": time.perf_counter() - t0}
+    log(f"  examples/lm_training.py at its defaults: loss "
+        f"{example[0]['loss']:.3f} -> {example[-1]['loss']:.3f} over "
+        f"{len(example)} logged steps, {out['example']['wall_s']:.1f} s")
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"  LM training path wall time: {out['wall_s']:.1f} s")
+    return out
+
+
+def split_comparison(ctx):
+    """One forward and backward of qwen at full size (batch 8 x 128, remat
+    full), the stacked leaves split per call by ``torch.unbind`` (the
+    port's) and by indexing each leaf ``a[g]`` per group (before): device
+    time by kernel (profiler), wall time and peak memory of each, and the
+    gradients equal."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.models import model, transformer
+    from repro_torch.train import optimizer as opt_lib
+
+    log, require, dev = ctx.log, ctx.require, ctx.dev
+    cfg = get_arch(LM_MODELS[0]).full
+    params = model.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dev)
+    leaves = opt_lib.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = pipeline.make_batch(pipeline.DataConfig(
+        seed=0, global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+        vocab_size=cfg.vocab_size), 0)
+    unbind = transformer.split_groups
+
+    def indexed(tree, n_groups):
+        return [transformer.tree_map(lambda a: a[g], tree)
+                for g in range(n_groups)]
+
+    def fwd_bwd():
+        loss, _ = model.loss_fn(params, batch, cfg)
+        loss.backward()
+
+    res = {}
+    try:
+        for label, split in (("unbind", unbind), ("index", indexed),
+                             ("unbind_again", unbind)):
+            transformer.split_groups = split
+            for p in leaves:
+                p.grad = None
+            fwd_bwd()      # warm
+            for p in leaves:
+                p.grad = None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fwd_bwd()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            grads = [p.grad.clone() for p in leaves[:4]]
+            for p in leaves:
+                p.grad = None
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fwd_bwd()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+            top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+            res[label] = {
+                "wall_ms": wall, "device_ms": dev_ms, "peak_gb": peak,
+                "top_kernels": [{"kernel": e.key[:70], "calls": e.count,
+                                 "ms": e.self_device_time_total / 1e3}
+                                for e in top]}
+            res[label + "_grads"] = grads
+            log(f"  split by {label}: forward + backward wall {wall:.1f} ms,"
+                f" device {dev_ms:.1f} ms (profiler), peak {peak:.2f} GB; "
+                f"top kernels {res[label]['top_kernels']}")
+    finally:
+        transformer.split_groups = unbind
+    for a, b in zip(res.pop("unbind_grads"), res.pop("index_grads")):
+        require(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6)),
+                "the gradients differ between the two splits")
+    res.pop("unbind_again_grads")
+    for p in leaves:
+        p.grad = None
+    del params, leaves
+    torch.cuda.empty_cache()
+    return res
+
+
 def _lm_leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3939,6 +4349,13 @@ def main() -> int:
         f"earlier phases")
     lm = lm_serving_path(ctx8)
     log(f"  {json.dumps({'lm_serving': lm})}")
+
+    # --- phase 12: LM training --------------------------------------------
+    torch.cuda.empty_cache()
+    log(f"LM training: {torch.cuda.memory_allocated() / 1e9:.2f} GB held by "
+        f"earlier phases")
+    lm_train = lm_training_path(ctx8)
+    log(f"  {json.dumps({'lm_training': lm_train})}")
     require(len(report) == 7 and all(r["launches"] > 0 for r in report),
             [(r["name"], r["launches"]) for r in report])
     print(json.dumps({"kernels": report}), flush=True)

@@ -1,5 +1,9 @@
-"""repro_torch.distributed — the single-process device mesh of the sharded
-SpMM executor (:mod:`.mesh`)."""
-from .mesh import SpmmMesh, make_spmm_mesh
+"""repro_torch.distributed — single-process device meshes: the sharded
+SpMM executor's 1-D mesh and the LM stack's named mesh (:mod:`.mesh`),
+and the LM stack's sharding rules (:mod:`.sharding`)."""
+from .mesh import (
+    DeviceMesh, SpmmMesh, active_mesh, make_mesh, make_spmm_mesh, use_mesh,
+)
 
-__all__ = ["SpmmMesh", "make_spmm_mesh"]
+__all__ = ["DeviceMesh", "SpmmMesh", "active_mesh", "make_mesh",
+           "make_spmm_mesh", "use_mesh"]

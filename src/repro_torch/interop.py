@@ -11,6 +11,9 @@
 - ``lm_params_from_arrays`` carries an LM's params across: the nested dict
   that ``jax.tree.map(np.asarray, params)`` gives becomes the port's tree
   with the same keys, layout and dtypes.
+- ``opt_state_from_arrays`` carries the reference's optimizer state
+  (``repro.train.optimizer.OptState`` as numpy) beside those params, so
+  that one train step can run in both packages from the same state.
 
 This module imports nothing of the JAX package: the caller turns JAX state
 into numpy arrays.
@@ -29,6 +32,7 @@ from .core.plan_ir import (
 from .models import model as lm_model
 from .models.config import ModelConfig, resolve_device
 from .models.layers import SparseGraphAttention, SparseGraphConv
+from .train.optimizer import OptState, tree_leaves, tree_map
 
 
 def plan_from_arrays(leaves: Dict[str, np.ndarray],
@@ -119,3 +123,42 @@ def lm_params_from_arrays(tree: Dict[str, Any], cfg: ModelConfig,
         return torch.from_numpy(np.array(arr)).to(device, spec.dtype)
 
     return carry(tree, want, "")
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A CPU tensor of ``arr``; an ml_dtypes bfloat16 array keeps its
+    bits as ``torch.bfloat16``."""
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def opt_state_from_arrays(state: Any, params: Dict[str, Any]) -> OptState:
+    """The port's :class:`~repro_torch.train.optimizer.OptState` from the
+    reference's, as numpy (``jax.tree.map(np.asarray, opt_state)``: a
+    NamedTuple, or a tuple, of ``step``, ``m`` and ``v``).
+
+    ``params`` is the port's tree the state belongs to (from
+    :func:`lm_params_from_arrays`): each moment leaf must have its param's
+    shape and lands on its param's device in the moment's own dtype (fp32,
+    or bfloat16 for ``moment_dtype=bfloat16``); ``step`` becomes a 0-d
+    int32 tensor there.
+    """
+    step, m, v = state
+
+    def carry(arr, p):
+        t = _tensor(arr)
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"moment shape {tuple(t.shape)}, param shape "
+                             f"{tuple(p.shape)}")
+        return t.to(p.device)
+
+    device = tree_leaves(params)[0].device
+    return OptState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=device),
+        m=tree_map(carry, m, params),
+        v=tree_map(carry, v, params),
+    )
+

@@ -2,10 +2,11 @@
 
 A copy of ``repro.models.config.ModelConfig`` with torch dtypes: the
 same fields, defaults and derived methods, so that the arch files in
-``repro_torch.configs`` copy over field for field.  ``remat``,
-``scan_layers`` and ``attn_unroll`` are kept for that reason; at inference
-they change nothing.  ``resolve_device`` is the device rule of the LM
-entry points.
+``repro_torch.configs`` copy over field for field.  ``remat="full"``
+recomputes each layer group in the backward (``transformer.apply_stack``);
+at inference, and with a cache, it changes nothing.  ``scan_layers`` and
+``attn_unroll`` are kept so the fields copy over; they change nothing.
+``resolve_device`` is the device rule of the LM entry points.
 """
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ Batch conventions (all synthetic-friendly; see ``data/pipeline.py``):
   vlm         : {"tokens": (B, S_text), "patches": (B, P, F)}   text CE
 
 Batches may hold tensors or numpy arrays; they move to the params' device.
-``loss_fn`` is forward-only here (training is not ported yet).
+``loss_fn`` is differentiable (``train/`` takes its gradient).
 """
 from __future__ import annotations
 

@@ -25,6 +25,7 @@ bit.)
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -48,7 +49,7 @@ class MoESpec:
     d_shared: int = 0
     fringe_overflow: bool = False  # route capacity overflow via fringe pass
     router_jitter: float = 0.0
-    impl: str = "dense"  # dense | shard_map (not ported yet)
+    impl: str = "dense"  # dense | shard_map (local dispatch per shard)
 
     def capacity(self, tokens: int) -> int:
         c = int(np.ceil(tokens * self.top_k * self.capacity_factor / self.num_experts))
@@ -96,25 +97,16 @@ def apply_moe(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatches to the configured implementation."""
     if spec.impl == "shard_map":
-        raise NotImplementedError(
-            "moe_impl='shard_map' needs the LM half of "
-            "distributed/sharding.py, which is not ported yet (ROADMAP.md, "
-            "A-queue 9b); use moe_impl='dense'")
+        return apply_moe_shard_map(params, x, spec)
     return apply_moe_dense(params, x, spec)
 
 
-def apply_moe_dense(
-    params: Params,
-    x: torch.Tensor,  # (B, S, D)
-    spec: MoESpec,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output, aux_loss). Sort-based capacity dispatch."""
-    b, s, d = x.shape
-    t = b * s
+def _route(xt: torch.Tensor, router: torch.Tensor, spec: MoESpec):
+    """Top-k routing of ``xt`` (T, d): (gate values (T, k), expert ids
+    (T*k,) token-major, each pair's 0-based slot in its expert, the
+    Switch-style load-balancing loss)."""
     e, k = spec.num_experts, spec.top_k
-    xt = x.reshape(t, d)
-
-    logits = xt.float() @ params["router"].float()
+    logits = xt.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = torch.topk(probs, k, dim=-1)  # (T, k)
     gate_vals = gate_vals / torch.clamp(
@@ -129,20 +121,53 @@ def apply_moe_dense(
     flat_e = expert_ids.reshape(-1)                      # (T*k,)
     onehot = F.one_hot(flat_e, e)                        # (T*k, E)
     slot = (torch.cumsum(onehot, dim=0) * onehot).sum(dim=-1) - 1  # 0-based
+    return gate_vals, flat_e, slot, aux
+
+
+def _dispatch(weights: Params, xt: torch.Tensor, gate_vals: torch.Tensor,
+              flat_e: torch.Tensor, slot: torch.Tensor, spec: MoESpec):
+    """Pack the pairs within capacity into ``[E, C, d]``, run the expert
+    GEMMs on ``weights`` and combine: (out (T, d), per-pair ``within``,
+    token ids, gates)."""
+    t, d = xt.shape
+    e, k = spec.num_experts, spec.top_k
     cap = spec.capacity(t)
     within = slot < cap
 
-    tok_ids = torch.arange(t, device=x.device).repeat_interleave(k)
+    tok_ids = torch.arange(t, device=xt.device).repeat_interleave(k)
     safe_slot = torch.where(within, slot, 0)
     contrib = torch.where(within[:, None], xt[tok_ids], 0.0)
-    xs = torch.zeros((e, cap, d), dtype=x.dtype, device=x.device)
+    xs = torch.zeros((e, cap, d), dtype=xt.dtype, device=xt.device)
     xs.index_put_((flat_e, safe_slot), contrib, accumulate=True)  # pack
 
-    ys = _expert_ffn(params, xs, spec.mlp_kind)          # (E, C, d)
+    ys = _expert_ffn(weights, xs, spec.mlp_kind)         # (E, C, d)
 
     gathered = torch.where(within[:, None], ys[flat_e, safe_slot], 0.0)
-    gates = gate_vals.reshape(-1)[:, None].to(x.dtype)
+    gates = gate_vals.reshape(-1)[:, None].to(xt.dtype)
     out = (gathered * gates).reshape(t, k, d).sum(dim=1)  # segment_sum
+    return out, within, tok_ids, gates
+
+
+def _shared_expert(params: Params, xt: torch.Tensor) -> torch.Tensor:
+    g = xt @ params["shared_w_gate"].to(xt.dtype)
+    hh = xt @ params["shared_w_in"].to(xt.dtype)
+    return (silu(g) * hh) @ params["shared_w_out"].to(xt.dtype)
+
+
+def apply_moe_dense(
+    params: Params,
+    x: torch.Tensor,  # (B, S, D)
+    spec: MoESpec,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output, aux_loss). Sort-based capacity dispatch."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = spec.num_experts, spec.top_k
+    xt = x.reshape(t, d)
+
+    gate_vals, flat_e, slot, aux = _route(xt, params["router"], spec)
+    out, within, tok_ids, gates = _dispatch(params, xt, gate_vals, flat_e,
+                                            slot, spec)
 
     if spec.fringe_overflow:
         # fringe pass for dropped pairs: one gather-FFN-scatter over all
@@ -164,8 +189,101 @@ def apply_moe_dense(
         out = out + (fr_y * gates).reshape(t, k, d).sum(dim=1)
 
     if spec.shared_expert:
-        g = xt @ params["shared_w_gate"].to(x.dtype)
-        hh = xt @ params["shared_w_in"].to(x.dtype)
-        out = out + (silu(g) * hh) @ params["shared_w_out"].to(x.dtype)
+        out = out + _shared_expert(params, xt)
 
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def _gathered(w: torch.Tensor, dim: int, n: int,
+              device: torch.device) -> torch.Tensor:
+    """``w`` as an all-gather over ``n`` FSDP shards gives it on
+    ``device``: the shards' slices along ``dim``, concatenated."""
+    return torch.cat([piece.to(device) for piece in w.chunk(n, dim=dim)],
+                     dim=dim)
+
+
+def apply_moe_shard_map(
+    params: Params,
+    x: torch.Tensor,  # (B, S, D) — batch split over the DP axes
+    spec: MoESpec,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Local dispatch per shard of the ambient mesh, as the reference's
+    ``shard_map`` block runs it.
+
+    Every (data, model) shard packs only its local tokens, at
+    ``capacity(t_local)``, runs the expert GEMMs on its slice of the ff
+    dimension, and combines locally; the shards' outputs are summed over
+    the TP axis (the reference's ``psum``) and concatenated over the DP
+    axes, and the load-balancing loss is averaged over the shards (its
+    ``pmean``).  With ``moe_fsdp`` the weights enter split over the FSDP
+    axes along d, cast to the compute dtype first, and are gathered inside
+    each shard; without it they are replicated over DP.  The shared
+    expert runs on the whole batch after the block.
+
+    Needs installed :class:`~repro_torch.distributed.sharding.AxisRules`
+    (``use_rules``) and a mesh (``distributed.mesh.use_mesh``) whose axes
+    they name.  Shards run one after another from this process, each on
+    its mesh device; the result lands on ``x``'s device.
+    """
+    from ..distributed.mesh import active_mesh
+    from ..distributed.sharding import active_rules
+
+    rules, mesh = active_rules(), active_mesh()
+    if rules is None or mesh is None:
+        raise RuntimeError(
+            "the shard_map MoE needs installed AxisRules "
+            "(distributed.sharding.use_rules) and a mesh "
+            "(distributed.mesh.use_mesh)")
+    sizes = mesh.shape
+    dp_axes = tuple(rules.batch_axes)
+    tp = rules.tp_axis
+    fsdp_axes = tuple(rules.fsdp_axes) if rules.moe_fsdp else ()
+    n_dp = math.prod(sizes[a] for a in dp_axes)
+    n_tp = sizes[tp] if tp else 1
+    n_fsdp = math.prod(sizes[a] for a in fsdp_axes)
+    b, s, d = x.shape
+    f = params["w_in"].shape[-1]
+    if b % n_dp or f % n_tp or d % n_fsdp:
+        raise ValueError(
+            f"batch {b}, d_expert {f} and d_model {d} must divide over "
+            f"{n_dp} data, {n_tp} model and {n_fsdp} FSDP shards")
+    bl, fl = b // n_dp, f // n_tp
+    w_gate = params.get("w_gate", params["w_in"])
+
+    outs, auxes = [], []
+    for i in range(n_dp):
+        # the data shard's coordinates over the DP axes, row-major
+        coords, rest = {}, i
+        for a in reversed(dp_axes):
+            coords[a], rest = rest % sizes[a], rest // sizes[a]
+        partial = None
+        for j in range(n_tp):
+            if tp:
+                coords[tp] = j
+            dev = mesh.device(coords)
+            ff = slice(j * fl, (j + 1) * fl)
+            local = {"w_in": params["w_in"][:, :, ff],
+                     "w_gate": w_gate[:, :, ff],
+                     "w_out": params["w_out"][:, ff, :]}
+            if n_fsdp > 1:
+                local = {k: _gathered(w.to(x.dtype), 2 if k == "w_out" else 1,
+                                      n_fsdp, dev)
+                         for k, w in local.items()}
+            else:
+                local = {k: w.to(dev) for k, w in local.items()}
+            xt = x[i * bl:(i + 1) * bl].to(dev).reshape(bl * s, d)
+            gate_vals, flat_e, slot, aux = _route(
+                xt, params["router"].to(dev), spec)
+            out, *_ = _dispatch(local, xt, gate_vals, flat_e, slot, spec)
+            out = out.to(x.device)
+            partial = out if partial is None else partial + out  # psum
+            if j == 0:
+                auxes.append(aux.to(x.device))
+        outs.append(partial.reshape(bl, s, d))
+    out = torch.cat(outs, dim=0)
+    aux = torch.stack(auxes).sum() / n_dp                       # pmean
+
+    if spec.shared_expert:
+        out = out + _shared_expert(params, x.reshape(b * s, d)).reshape(
+            b, s, d)
+    return out.to(x.dtype), aux

@@ -6,7 +6,17 @@ zamba2 = 5×ssm + shared-attn).  The parameter layout is the reference's:
 ``groups/slot{i}`` leaves stacked on a leading ``n_groups`` axis,
 ``tail/slot{i}`` for the remainder, and ``shared`` for zamba2's shared
 attention block, so weights carry over one to one.  The groups run as a
-Python loop over views ``params[g]`` (the reference scans over them).
+Python loop (the reference scans over them) over per-group views that
+:func:`split_groups` takes once per call with ``torch.unbind``: under
+autograd the views' gradients then meet in one ``UnbindBackward``, which
+stacks them, where indexing each leaf ``a[g]`` would write a zero-filled
+gradient of the whole stacked leaf per group and sum ``n_groups`` of them.
+
+``cfg.remat == "full"`` recomputes each group in the backward
+(``torch.utils.checkpoint``, non-reentrant), as the reference wraps its
+group body in ``jax.checkpoint``: when grad is enabled and no cache is
+passed.  Then a step keeps only the groups' inputs, not their
+activations.
 
 Layer kinds:
   "attn"        attention + dense MLP
@@ -24,6 +34,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers, moe as moe_lib, ssm as ssm_lib
 from .config import ModelConfig
@@ -200,6 +211,15 @@ def _run_layer(lp: Params, lc: Optional[Dict[str, torch.Tensor]],
     return x, aux
 
 
+def split_groups(tree: Any, n_groups: int) -> list:
+    """``n_groups`` trees of views, group ``g``'s the ``[g]`` slice of
+    every stacked leaf (one ``torch.unbind`` per leaf)."""
+    if isinstance(tree, dict):
+        parts = {k: split_groups(v, n_groups) for k, v in tree.items()}
+        return [{k: parts[k][g] for k in tree} for g in range(n_groups)]
+    return list(torch.unbind(tree, 0))
+
+
 def apply_stack(
     params: Params,
     x: torch.Tensor,
@@ -215,17 +235,31 @@ def apply_stack(
     use_cache = cache is not None
     if use_cache:
         cache_len = int(cache_len)
+    remat = cfg.remat == "full" and not use_cache and torch.is_grad_enabled()
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(n_groups):
+    def group(gp, gc, x, aux):
         for slot, kind in enumerate(pattern):
             key = f"slot{slot}"
-            lp = tree_map(lambda a: a[g], params["groups"][key])
-            lc = (tree_map(lambda a: a[g], cache["groups"][key])
-                  if use_cache else None)
-            x, a = _run_layer(lp, lc, x, cfg, kind, slot, positions,
+            lc = gc[key] if use_cache else None
+            x, a = _run_layer(gp[key], lc, x, cfg, kind, slot, positions,
                               cache_len, shared)
             aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if n_groups:
+        gps = split_groups(params["groups"], n_groups)
+        # the cache's groups as select views, which may be written in
+        # place (unbind's multi-output views may not be, under autograd)
+        gcs = ([tree_map(lambda a: a[g], cache["groups"])
+                for g in range(n_groups)] if use_cache
+               else [None] * n_groups)
+        for gp, gc in zip(gps, gcs):
+            if remat:
+                x, aux = checkpoint(group, gp, gc, x, aux,
+                                    use_reentrant=False)
+            else:
+                x, aux = group(gp, gc, x, aux)
     for slot, kind in enumerate(tail):
         key = f"slot{slot}"
         lc = cache["tail"][key] if use_cache else None

@@ -50,7 +50,10 @@ def test_port_files_exist():
                    "models/moe.py", "models/ssm.py", "models/transformer.py",
                    "models/model.py", "configs/base.py",
                    "data/pipeline.py", "serve/engine.py", "launch/serve.py",
-                   "examples/moe_serving.py"):
+                   "examples/moe_serving.py", "train/optimizer.py",
+                   "train/compression.py", "train/train_loop.py",
+                   "train/controller.py", "launch/train.py",
+                   "examples/lm_training.py", "distributed/sharding.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) > 20
 
@@ -296,6 +299,67 @@ from repro_torch.launch import serve
 assert serve.main(["--arch", "zamba2-1.2b", "--smoke", "--batch", "2",
                    "--prompt-len", "8", "--gen", "3", "--device", "cpu"]) > 0
 assert moe_serving.main("cpu").sum() == 64
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
+               for m, mod in sys.modules.items() if mod is not None)
+print("ok")
+"""
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_layer_check_places_train(tmp_path):
+    """``train`` sits above ``configs`` and below ``interop``: it may
+    import the models, the checkpoint layout and the data pipeline; the
+    train launcher and the example may import it; nothing below it may,
+    and it imports no layer above it."""
+    check = _layer_checker()
+    src = _fake_port(tmp_path, {
+        "__init__.py": "",
+        # allowed
+        "train/train_loop.py": ("from ..models import model\n"
+                                "from ..data import pipeline\n"),
+        "train/controller.py": "from ..checkpoint import checkpoint\n",
+        "interop.py": "from .train.optimizer import OptState\n",
+        "launch/train.py": "from ..train import controller\n",
+        "examples/lm_training.py": "from ..train import train_loop\n",
+        # upward
+        "models/moe.py": "from ..train import optimizer\n",
+        "configs/base.py": "def f():\n    from ..train import optimizer\n",
+        "train/optimizer.py": "from ..interop import lm_params_from_arrays\n",
+        "train/compression.py": "from ..serve import ServeEngine\n",
+    })
+    found = check.check_tree(src, extra_files=())
+    joined = "\n".join(found)
+    assert "models must not import repro_torch.train" in joined
+    assert "configs must not import repro_torch.train" in joined
+    assert "train must not import repro_torch.interop" in joined
+    assert "train must not import repro_torch.serve" in joined
+    assert len(found) == 4, found
+
+
+def test_lm_training_entry_points_run_with_jax_and_the_reference_unimportable():
+    """The train launcher and the LM training example run on the CPU with
+    ``jax`` and ``repro`` blocked."""
+    code = """
+import sys, tempfile
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None
+from repro_torch.examples import lm_training
+from repro_torch.launch import train
+from repro_torch.distributed import sharding
+with tempfile.TemporaryDirectory() as d:
+    log = train.main(["--arch", "granite-moe-3b-a800m", "--smoke",
+                      "--steps", "2", "--global-batch", "2", "--seq-len",
+                      "16", "--device", "cpu", "--ckpt-dir", d])
+assert len(log) == 2
+log = lm_training.main(["--device", "cpu", "--steps", "24", "--d-model",
+                        "64", "--layers", "2", "--batch", "4", "--seq",
+                        "32"])
+assert len(log) > 24
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m, mod in sys.modules.items() if mod is not None)
 print("ok")

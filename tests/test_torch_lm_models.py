@@ -203,12 +203,25 @@ def test_lm_params_from_arrays_refuses_a_wrong_tree():
 
 
 def test_moe_shard_map_names_the_roadmap_item():
+    """``moe_impl="shard_map"`` (A-queue 9b, ported): without installed
+    rules and a mesh it raises, naming what it needs; with a 1 x 1 mesh
+    the forward equals the dense dispatch's."""
+    from repro_torch.distributed import make_mesh, sharding, use_mesh
+
     cfg = dataclasses.replace(pconfigs.get_arch(
         "granite-moe-3b-a800m").smoke, moe_impl="shard_map",
         compute_dtype=torch.float32)
     pp = pm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="A-queue 9b"):
-        pm.forward(pp, _tbatch(_batch(cfg)), cfg)
+    batch = _tbatch(_batch(cfg))
+    with pytest.raises(RuntimeError, match="AxisRules"):
+        pm.forward(pp, batch, cfg)
+    with use_mesh(make_mesh((1, 1), devices=["cpu"])), \
+            sharding.use_rules(sharding.AxisRules()):
+        got, aux = pm.forward(pp, batch, cfg)
+    want, want_aux = pm.forward(
+        pp, batch, dataclasses.replace(cfg, moe_impl="dense"))
+    close(got, want)
+    close(aux, want_aux)
     assert pmoe.MoESpec(8, 8, 4, 2).capacity(10) == 8
 
 

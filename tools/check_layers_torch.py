@@ -20,13 +20,16 @@ the bottom up:
         -> models           (graph layers over the facade; the LM stack:
                              config, layers, moe, ssm, transformer, model)
         -> configs          (the arch registry over models.config)
-        -> interop          (JAX <-> port state, layers and LM params)
+        -> train            (AdamW, the train step, gradient compression,
+                             the controller over checkpoint/)
+        -> interop          (JAX <-> port state, layers, LM params and
+                             optimizer state)
         -> serve            (the batching SpMM service over dynamic
                              plans, the registry and the tuner; the LM
                              engine over models)
-        -> launch, examples (the serve launcher and the scripts; each
-                             imported by nothing, neither imports the
-                             other)
+        -> launch, examples (the serve and train launchers and the
+                             scripts; each imported by nothing, neither
+                             imports the other)
 
 ``data`` sits beside ``dynamic``: its generators and the LM batch
 pipeline import numpy alone, and ``mutate`` builds ``dynamic.GraphDelta``
@@ -80,9 +83,9 @@ FOREIGN = ("jax", "jaxlib", "repro")
 
 _ABOVE_CORE = ("repro_torch.exec", "repro_torch.dynamic",
                "repro_torch.sparse", "repro_torch.models",
-               "repro_torch.configs", "repro_torch.interop",
-               "repro_torch.serve", "repro_torch.launch",
-               "repro_torch.examples")
+               "repro_torch.configs", "repro_torch.train",
+               "repro_torch.interop", "repro_torch.serve",
+               "repro_torch.launch", "repro_torch.examples")
 
 # package -> layers it must never import (prefix match on absolute module)
 FORBIDDEN = {
@@ -99,8 +102,9 @@ FORBIDDEN = {
     "sparse": _ABOVE_CORE[3:],
     "models": _ABOVE_CORE[4:],
     "configs": _ABOVE_CORE[5:],
-    "interop": _ABOVE_CORE[6:],
-    "serve": _ABOVE_CORE[7:],
+    "train": _ABOVE_CORE[6:],
+    "interop": _ABOVE_CORE[7:],
+    "serve": _ABOVE_CORE[8:],
     "launch": ("repro_torch.examples",),
     "examples": ("repro_torch.launch",),
 }
