@@ -227,7 +227,20 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    on qwen's smoke config (a checkpoint every 5 steps, a failure at step
    6, 10 steps) ends in the uninterrupted run's params, moments and step
    bit for bit (deterministic kernels); ``examples/lm_training.py`` at its
-   defaults passes its own assertion on the card.
+   defaults passes its own assertion on the card;
+13. the dry run against the card (``dryrun_path``;
+   ``bench_torch/dryrun_probe.py`` runs it alone): no kernel of the
+   port's own.  ``launch.dryrun.run_cell`` traces ``qwen1.5-4b``'s train
+   cell on the ``meta`` device on a 1 x 1 mesh at phase 12's size (8 x
+   128, 2 microbatches, remat full, fp32 moments), then one step of the
+   same cell runs on the card under ``FlopCounterMode`` with the peak
+   memory reset first, and one more under the profiler.  Checks: the
+   card's FLOP count equals the dry run's traced count exactly;
+   ``argument_bytes`` equals the summed ``nbytes`` of the params,
+   optimizer state and batch on the card; ``argument_bytes +
+   temp_bytes`` is within 5 % of the step's peak
+   (``max_memory_allocated`` less the bytes earlier phases hold).  Prints
+   the dry run's H100 roofline bound beside the step's device time.
 
 Tolerance everywhere: max |x - ref| <= 1e-4 * max(1, max |ref|) (fp32 on
 both sides, different summation orders; the kernels' tensor-core path is
@@ -3500,6 +3513,164 @@ def split_comparison(ctx):
     return res
 
 
+# the dry run against the card: qwen1.5-4b's train cell on a 1 x 1 mesh at
+# phase 12's size (8 x 128 tokens, 2 microbatches, remat full, fp32
+# moments), through launch.specs.build_cell's overrides
+DRYRUN_ARCH = "qwen1.5-4b"
+DRYRUN_OVERRIDES = {"global_batch": LM_TRAIN_BATCH, "seq_len": LM_TRAIN_SEQ,
+                    "num_microbatches": LM_TRAIN_MICRO}
+DRYRUN_PEAK_TOL = 0.05
+
+
+def dryrun_path(ctx):
+    """The dry run against the card (phase 13): ``launch.dryrun.run_cell``
+    on the ``meta`` device for qwen1.5-4b's train cell on a 1 x 1 mesh,
+    then one step of the same cell (its ``fn``) on the card, from random
+    params, under ``FlopCounterMode`` with the peak memory reset first,
+    and one more step under the profiler.  Checks: the card's FLOP count
+    equals the dry run's traced count; ``argument_bytes`` equals the
+    summed ``nbytes`` of the params, optimizer state and batch on the
+    card; ``argument_bytes + temp_bytes`` is within 5 % of the step's
+    peak (``max_memory_allocated`` less what earlier phases hold).
+    Prints the dry run's roofline bound beside the step's device time.
+    Returns the phase's numbers; any failed check raises."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    log, require = ctx.log, ctx.require
+    t_path = time.perf_counter()
+    overrides = dict(DRYRUN_OVERRIDES, moment_dtype=torch.float32)
+    mesh = make_debug_mesh(1, 1)
+
+    # --- the dry run, on meta ---------------------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        rec = dryrun.run_cell(DRYRUN_ARCH, "train_4k", False, out_dir,
+                              overrides=dict(overrides), mesh=mesh)
+    dry_s = time.perf_counter() - t0
+    require(rec["status"] == "ok", rec.get("traceback", rec))
+    mem, rl, traced = rec["memory"], rec["roofline"], rec["traced"]
+    log(f"  dry run of {DRYRUN_ARCH} train_4k on a 1 x 1 mesh "
+        f"({LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, {LM_TRAIN_MICRO} microbatches, "
+        f"remat full, fp32 moments): {dry_s:.1f} s on the host (trace "
+        f"{rec['t_trace_s']} s); traced {traced['flops']:.6e} FLOPs, "
+        f"{traced['bytes']:.6e} bytes; argument {mem['argument_bytes']} B, "
+        f"temp {mem['temp_bytes']} B; roofline compute {rl['compute_s']:.4f}"
+        f" s, memory {rl['memory_s']:.4f} s, bound {rl['bound_s']:.4f} s "
+        f"({rl['dominant']})")
+
+    # --- the same cell on the card --------------------------------------
+    cell = specs.build_cell(get_arch(DRYRUN_ARCH), "train_4k", mesh,
+                            overrides=dict(overrides), analysis_mode=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    # the step peaks within a few GB of the card's capacity, beside the
+    # blocks earlier phases hold: segments that grow in place keep the
+    # caching allocator from splitting that room into pieces too small
+    # for the step's largest tensors (peak accounting is unchanged)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        return _dryrun_on_card(ctx, rec, cell, held, t_path, dry_s)
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def _dryrun_on_card(ctx, rec, cell, held, t_path, dry_s):
+    """Phase 13's card half: one step of ``cell`` from random params under
+    ``FlopCounterMode``, one under the profiler, the checks and the
+    phase's numbers."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import model
+    from repro_torch.train import optimizer as opt_lib
+
+    log, require, dev = ctx.log, ctx.require, ctx.dev
+    cfg = cell.cfg
+    mem, rl, traced = rec["memory"], rec["roofline"], rec["traced"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init_params(cfg, gen, dev)
+    for p in opt_lib.tree_leaves(params):
+        p.requires_grad_(True)
+    _, opt_struct, batch_struct = cell.args
+    opt = opt_lib.OptState(
+        step=torch.zeros((), dtype=torch.int32, device=dev),
+        m=opt_lib.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                                 device=dev), opt_struct.m),
+        v=opt_lib.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                                 device=dev), opt_struct.v))
+    batch = {k: torch.randint(0, cfg.vocab_size, t.shape, dtype=t.dtype,
+                              device=dev, generator=gen)
+             for k, t in batch_struct.items()}
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      opt_lib.tree_leaves((params, opt, batch)))
+    require(state_bytes == mem["argument_bytes"],
+            (state_bytes, mem["argument_bytes"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as counter:
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        s.record()
+        *_, metrics = cell.fn(params, opt, batch)
+        e.record()
+        torch.cuda.synchronize()
+    card_flops = counter.get_total_flops()
+    peak = torch.cuda.max_memory_allocated() - held
+    step_ms = s.elapsed_time(e)
+    require(bool(torch.isfinite(metrics["loss"])), metrics)
+    reckoned = mem["argument_bytes"] + mem["temp_bytes"]
+    rel = abs(reckoned - peak) / peak
+    log(f"  one step on the card (events {step_ms:.1f} ms, under the FLOP "
+        f"counter): {card_flops:.6e} FLOPs against the dry run's traced "
+        f"{traced['flops']:.6e} and probed {rec['cost']['flops_per_device']:.6e};"
+        f" peak {peak} B ({peak / 1e9:.3f} GB, {held} B held before) against"
+        f" argument + temp {reckoned} B ({reckoned / 1e9:.3f} GB): "
+        f"{100 * rel:.3f} % apart; loss {float(metrics['loss']):.4f}")
+    require(card_flops == traced["flops"], (card_flops, traced["flops"]))
+    require(rel <= DRYRUN_PEAK_TOL, (reckoned, peak, rel))
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cell.fn(params, opt, batch)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(ev.self_device_time_total for ev in kernels) / 1e3
+    share = rl["bound_s"] * 1e3 / dev_ms if dev_ms > 0 else None
+    log(f"  the step's device time {dev_ms:.1f} ms (profiler, "
+        f"{sum(ev.count for ev in kernels)} kernels) against the dry run's "
+        f"H100 bound {rl['bound_s'] * 1e3:.1f} ms: the step runs at "
+        f"{share if share is None else round(share, 4)} of its bound")
+    out = {"arch": DRYRUN_ARCH, "dryrun_s": dry_s,
+           "t_trace_s": rec["t_trace_s"], "traced_flops": traced["flops"],
+           "probed_flops": rec["cost"]["flops_per_device"],
+           "card_flops": card_flops, "traced_bytes": traced["bytes"],
+           "argument_bytes": mem["argument_bytes"],
+           "state_bytes": state_bytes, "temp_bytes": mem["temp_bytes"],
+           "reckoned_peak_bytes": reckoned, "card_peak_bytes": peak,
+           "held_bytes": held, "peak_rel_diff": rel,
+           "step_event_ms": step_ms, "step_device_ms": dev_ms,
+           "roofline": rl, "bound_share": share,
+           "model_flops_total": rec["model_flops_total"]}
+    del params, opt, batch, metrics, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"  dry-run path wall time: {out['wall_s']:.1f} s")
+    return out
+
+
 def _lm_leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4356,6 +4527,13 @@ def main() -> int:
         f"earlier phases")
     lm_train = lm_training_path(ctx8)
     log(f"  {json.dumps({'lm_training': lm_train})}")
+
+    # --- phase 13: the dry run against the card ---------------------------
+    torch.cuda.empty_cache()
+    log(f"dry run: {torch.cuda.memory_allocated() / 1e9:.2f} GB held by "
+        f"earlier phases")
+    dry = dryrun_path(ctx8)
+    log(f"  {json.dumps({'dryrun': dry})}")
     require(len(report) == 7 and all(r["launches"] > 0 for r in report),
             [(r["name"], r["launches"]) for r in report])
     print(json.dumps({"kernels": report}), flush=True)

@@ -13,10 +13,12 @@ axis; the batch runs DP over ("pod", "data").
 The port has no GSPMD: nothing places a tensor by these specs, and
 :func:`constrain` returns its input unchanged.  It resolves the logical
 names as the reference does (:func:`logical_spec`), so the rules can be
-compared; the one consumer of the installed rules is
+compared; the one consumer of the installed rules at run time is
 ``models.moe.apply_moe_shard_map``, which reads the batch, FSDP and TP
-axes from them.  ``named_shardings`` (a ``NamedSharding`` per leaf for
-the reference's TPU dry-run tooling) has no counterpart.
+axes from them.  :class:`NamedSharding` pairs a spec with a mesh and
+gives each device's block (:meth:`NamedSharding.shard_shape`), from
+which the dry run (``launch.dryrun``) reckons per-device memory;
+:func:`named_shardings` gives one per param leaf, as the reference's.
 """
 from __future__ import annotations
 
@@ -266,6 +268,58 @@ def cache_specs(cache: Any, rules: AxisRules,
         lambda path, leaf: _cache_leaf_spec(path, tuple(leaf.shape), rules,
                                             sizes),
         cache)
+
+
+class NamedSharding:
+    """A spec over a named mesh, as ``jax.sharding.NamedSharding``:
+    ``mesh`` (anything with ``axis_names`` and a name -> size ``shape``,
+    such as :class:`~repro_torch.distributed.mesh.DeviceMesh`) and
+    ``spec``.  Nothing is placed; :meth:`shard_shape` gives the block one
+    device holds."""
+
+    def __init__(self, mesh: Any, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, PartitionSpec) \
+            else PartitionSpec(*spec)
+
+    def shard_shape(self, global_shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        """Each dimension over the product of the mesh axes its spec entry
+        names.  An uneven split rounds up, as XLA pads the last block (JAX
+        raises there instead)."""
+        sizes = dict(self.mesh.shape)
+        spec = tuple(self.spec) + (None,) * (len(global_shape)
+                                             - len(self.spec))
+        if len(spec) > len(global_shape):
+            raise ValueError(f"spec {self.spec} has more entries than "
+                             f"shape {tuple(global_shape)}")
+        return tuple(-(-int(d) // _axes_size(axes, sizes))
+                     for d, axes in zip(global_shape, spec))
+
+    def __repr__(self) -> str:
+        return f"NamedSharding(mesh={self.mesh.shape}, spec={self.spec!r})"
+
+
+def named_shardings(params: Any, rules: AxisRules, mesh: Any) -> Any:
+    """A :class:`NamedSharding` per leaf of ``params``: the reference's
+    ``named_shardings``.  As there, the specs come from
+    :func:`param_specs` without the mesh's sizes, so every ``_fit`` sees
+    axes of size 1 and every leaf is replicated; the dry run builds its
+    shardings from ``param_specs(params, rules, sizes)`` instead."""
+    specs = param_specs(params, rules)
+    return _map_specs(lambda s: NamedSharding(mesh, s), specs)
+
+
+def _map_specs(fn, tree: Any) -> Any:
+    """``fn`` on every :class:`PartitionSpec` of a spec tree."""
+    if isinstance(tree, PartitionSpec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return type(tree)(*[_map_specs(fn, v) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_specs(fn, v) for v in tree)
+    return tree
 
 
 def batch_spec(

@@ -53,7 +53,11 @@ def test_port_files_exist():
                    "examples/moe_serving.py", "train/optimizer.py",
                    "train/compression.py", "train/train_loop.py",
                    "train/controller.py", "launch/train.py",
-                   "examples/lm_training.py", "distributed/sharding.py"):
+                   "examples/lm_training.py", "distributed/sharding.py",
+                   "launch/mesh.py", "launch/step_analysis.py",
+                   "launch/specs.py", "launch/roofline.py",
+                   "launch/dryrun.py", "launch/report.py",
+                   "launch/perf.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(names) > 20
 
@@ -370,3 +374,33 @@ print("ok")
         timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("ok")
+
+
+def test_layer_check_puts_the_dry_run_above_the_model_stack(tmp_path):
+    """``launch``'s dry-run modules may import ``configs``, ``models``,
+    ``train`` and ``distributed``; none of those imports ``launch``."""
+    check = _layer_checker()
+    src = _fake_port(tmp_path, {
+        "__init__.py": "",
+        "launch/dryrun.py": ("from ..configs import get_arch\n"
+                             "from ..distributed import sharding\n"
+                             "from .specs import build_cell\n"),
+        "launch/specs.py": ("from ..models import model\n"
+                            "from ..train import train_loop\n"
+                            "from ..distributed.mesh import use_mesh\n"),
+        "launch/step_analysis.py": "from ..core.cost_model import HBM\n",
+        "models/model.py": "def f():\n    from ..launch import specs\n",
+        "train/train_loop.py": "from ..launch.dryrun import run_cell\n",
+        "configs/base.py": "from ..launch import mesh\n",
+        "distributed/sharding.py": "from ..launch import step_analysis\n",
+    })
+    found = check.check_tree(src, extra_files=())
+    joined = "\n".join(found)
+    assert "launch/" not in joined.replace("repro_torch.launch", "")
+    for rel, layer in (("models/model.py:2", "models"),
+                       ("train/train_loop.py:1", "train"),
+                       ("configs/base.py:1", "configs"),
+                       ("distributed/sharding.py:1", "distributed")):
+        assert f"repro_torch/{rel}: {layer} must not import " \
+            "repro_torch.launch" in joined, (rel, joined)
+    assert len(found) == 4, found

@@ -27,7 +27,10 @@ the bottom up:
         -> serve            (the batching SpMM service over dynamic
                              plans, the registry and the tuner; the LM
                              engine over models)
-        -> launch, examples (the serve and train launchers and the
+        -> launch, examples (the serve and train launchers, the dry
+                             run over configs, models, train and
+                             distributed: mesh, specs, step_analysis,
+                             roofline, dryrun, report, perf; and the
                              scripts; each imported by nothing, neither
                              imports the other)
 
