@@ -7,7 +7,7 @@ NVIDIA GPU.
 Run from the root of a checkout.  It runs ``chip_smoke.dryrun_path``:
 ``launch.dryrun.run_cell`` on the ``meta`` device for ``qwen1.5-4b``'s
 train cell on a 1 x 1 mesh (8 x 128 tokens, 2 microbatches, remat full,
-fp32 moments), then one step of the same cell on the card under
+the cell's bf16 moments), then one step of the same cell on the card under
 ``FlopCounterMode`` and one under the profiler (see its docstring for
 the checks).  The path builds no kernel.  It prints the card's
 ``memory.total``, one JSON line with the path's numbers, then the card's

@@ -232,10 +232,12 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    ``bench_torch/dryrun_probe.py`` runs it alone): no kernel of the
    port's own.  ``launch.dryrun.run_cell`` traces ``qwen1.5-4b``'s train
    cell on the ``meta`` device on a 1 x 1 mesh at phase 12's size (8 x
-   128, 2 microbatches, remat full, fp32 moments), then one step of the
-   same cell runs on the card under ``FlopCounterMode`` with the peak
-   memory reset first, and one more under the profiler.  Checks: the
-   card's FLOP count equals the dry run's traced count exactly;
+   128, 2 microbatches, remat full; the cell's bf16 moments), then one
+   step of the same cell runs on the card under ``FlopCounterMode`` with
+   the peak memory reset first, and one more under the profiler.
+   Checks: the card's FLOP count equals the dry run's traced count
+   exactly (the counter applies the same shape formulas on both devices,
+   so this holds the op sequence, not the count);
    ``argument_bytes`` equals the summed ``nbytes`` of the params,
    optimizer state and batch on the card; ``argument_bytes +
    temp_bytes`` is within 5 % of the step's peak
@@ -3514,8 +3516,8 @@ def split_comparison(ctx):
 
 
 # the dry run against the card: qwen1.5-4b's train cell on a 1 x 1 mesh at
-# phase 12's size (8 x 128 tokens, 2 microbatches, remat full, fp32
-# moments), through launch.specs.build_cell's overrides
+# phase 12's size (8 x 128 tokens, 2 microbatches, remat full; the cell's
+# bf16 moments), through launch.specs.build_cell's overrides
 DRYRUN_ARCH = "qwen1.5-4b"
 DRYRUN_OVERRIDES = {"global_batch": LM_TRAIN_BATCH, "seq_len": LM_TRAIN_SEQ,
                     "num_microbatches": LM_TRAIN_MICRO}
@@ -3528,7 +3530,10 @@ def dryrun_path(ctx):
     then one step of the same cell (its ``fn``) on the card, from random
     params, under ``FlopCounterMode`` with the peak memory reset first,
     and one more step under the profiler.  Checks: the card's FLOP count
-    equals the dry run's traced count; ``argument_bytes`` equals the
+    equals the dry run's traced count (``FlopCounterMode`` applies the
+    same shape formulas to the same ops on ``meta`` and on the card, so
+    this checks that both ran the same op sequence, not the count
+    itself); ``argument_bytes`` equals the
     summed ``nbytes`` of the params, optimizer state and batch on the
     card; ``argument_bytes + temp_bytes`` is within 5 % of the step's
     peak (``max_memory_allocated`` less what earlier phases hold).
@@ -3545,7 +3550,7 @@ def dryrun_path(ctx):
 
     log, require = ctx.log, ctx.require
     t_path = time.perf_counter()
-    overrides = dict(DRYRUN_OVERRIDES, moment_dtype=torch.float32)
+    overrides = dict(DRYRUN_OVERRIDES)
     mesh = make_debug_mesh(1, 1)
 
     # --- the dry run, on meta ---------------------------------------------
@@ -3558,7 +3563,7 @@ def dryrun_path(ctx):
     mem, rl, traced = rec["memory"], rec["roofline"], rec["traced"]
     log(f"  dry run of {DRYRUN_ARCH} train_4k on a 1 x 1 mesh "
         f"({LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, {LM_TRAIN_MICRO} microbatches, "
-        f"remat full, fp32 moments): {dry_s:.1f} s on the host (trace "
+        f"remat full, bf16 moments): {dry_s:.1f} s on the host (trace "
         f"{rec['t_trace_s']} s); traced {traced['flops']:.6e} FLOPs, "
         f"{traced['bytes']:.6e} bytes; argument {mem['argument_bytes']} B, "
         f"temp {mem['temp_bytes']} B; roofline compute {rl['compute_s']:.4f}"
@@ -3572,15 +3577,7 @@ def dryrun_path(ctx):
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
-    # the step peaks within a few GB of the card's capacity, beside the
-    # blocks earlier phases hold: segments that grow in place keep the
-    # caching allocator from splitting that room into pieces too small
-    # for the step's largest tensors (peak accounting is unchanged)
-    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
-    try:
-        return _dryrun_on_card(ctx, rec, cell, held, t_path, dry_s)
-    finally:
-        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    return _dryrun_on_card(ctx, rec, cell, held, t_path, dry_s)
 
 
 def _dryrun_on_card(ctx, rec, cell, held, t_path, dry_s):

@@ -100,7 +100,7 @@ def trace_cell(arch, shape_name: str, cell, overrides, rules
     traced = {"global_batch": shard_batch}
     if meta["kind"] == "train":
         m = meta["microbatches"]
-        micro = max(shard_batch // m, 1)
+        micro = step_analysis.device_microbatch(meta["global_batch"], m, n_b)
         tm = min(m, TRACED_MICROBATCHES)
         ov.update(num_microbatches=tm, global_batch=micro * tm)
         traced.update(global_batch=micro * tm, microbatches=tm)

@@ -14,10 +14,9 @@ program is not partitioned, and the dry run reckons per-device numbers
 from the specs (``launch.step_analysis``).
 
 ``build_cell``'s ``meta`` dict and spec trees equal the reference's, key
-for key.  Two overrides are the port's own, for checking the dry run
-against one step on a card (``chip_smoke.py``'s phase 13): ``seq_len``
-(the cell's sequence length) and ``moment_dtype`` (the optimizer's
-moments; the reference's cells keep bf16).
+for key.  One override is the port's own, for checking the dry run
+against one step on a card (``chip_smoke.py``'s phase 13): ``seq_len``,
+the cell's sequence length.
 """
 from __future__ import annotations
 
@@ -152,7 +151,7 @@ def build_cell(
 
     ``overrides`` patches ModelConfig fields (hillclimb knob), besides
     ``num_microbatches``, ``global_batch``, ``kv_cache_dtype`` and the
-    port's ``seq_len`` and ``moment_dtype``.  ``analysis_mode`` sets the
+    port's ``seq_len``.  ``analysis_mode`` sets the
     reference's unroll fields (``scan_layers``, ``attn_unroll``), which
     the port reads not: it runs layers, microbatches and KV chunks as
     Python loops either way, and its counts are exact at any depth.  The
@@ -167,7 +166,6 @@ def build_cell(
     gb_override = overrides.pop("global_batch", None)
     kv_dtype_override = overrides.pop("kv_cache_dtype", None)
     seq_override = overrides.pop("seq_len", None)
-    moment_dtype = overrides.pop("moment_dtype", torch.bfloat16)
     if kv_dtype_override:
         arch = dataclasses.replace(arch, kv_cache_dtype=kv_dtype_override)
     if gb_override:
@@ -200,7 +198,7 @@ def build_cell(
     if cell.kind == "train":
         n_micro = micro_override or arch.microbatches.get(shape_name, 1)
         tcfg = train_loop.TrainConfig(
-            optimizer=opt_lib.OptimizerConfig(moment_dtype=moment_dtype),
+            optimizer=opt_lib.OptimizerConfig(moment_dtype=torch.bfloat16),
             num_microbatches=n_micro,
             unroll_microbatches=analysis_mode,
         )

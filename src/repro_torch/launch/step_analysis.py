@@ -32,30 +32,52 @@ implies, per device, from its spec trees and mesh sizes, because there
 is no partitioned program to read them from.  Keys and the result-bytes
 convention are the reference's (an all-reduce counts its result, the
 whole buffer; an all-gather the gathered tensor; a reduce-scatter its
-shard; ``count`` the number of collectives).  The rules:
+shard; ``count`` the number of collectives).  The rules follow what
+XLA's SPMD partitioner emits for the reference's step (held against its
+partitioned module for a dense train cell in
+``tests/test_torch_launch.py``).  Per microbatch:
 
-- FSDP all-gather: each param leaf sharded over an FSDP axis is gathered
-  (over those axes; TP axes stay split) once per pass per microbatch, in
-  the param's dtype: the forward, the remat recompute (``remat="full"``,
-  train only) and the backward.  A stacked leaf is one gather per group.
-- Gradient reduction (train, once per microbatch): a leaf FSDP-sharded
-  over an axis that carries the batch is reduce-scattered over those
-  axes; over the batch axes that do not shard it, its shard is
-  all-reduced.  Results are shards in the param's dtype.
-- TP all-reduce of the residual stream (``micro batch x seq x d_model``
-  in the compute dtype, one token per sequence for decode) after each
-  row-parallel product (``wo``, ``w_out``, ``out_proj``,
-  ``shared_w_out``) whose in-dimension is split over the TP axis: per
-  layer, per microbatch and per direction (forward, remat recompute,
-  backward; inference runs the forward only).  zamba2's shared block
-  counts once per application.
+- FSDP all-gather of each FSDP-sharded leaf (over those axes; TP axes
+  stay split), in the compute dtype: the layer casts the leaf on its
+  shard, then gathers the cast.  A leaf of the layer stack is gathered
+  in the forward and, in a train step with ``remat="full"``, once more
+  for the recompute, whose gathered copy the backward reuses; without
+  remat the backward reuses the forward's.  A leaf outside the stack
+  (the head) is gathered once.  A stacked leaf is one gather per group.
+- Gradient reduction (train): a leaf FSDP-sharded over an axis that
+  carries the batch is reduce-scattered over those axes; over the batch
+  axes that do not shard it, its shard is all-reduced.  Results are
+  shards, in the compute dtype for a leaf the layers cast (a product's
+  weight), else in the param dtype (norm scales, biases, the router).
+- TP all-reduce of the residual stream (one device's tokens of the
+  microbatch x ``d_model``, in the compute dtype; one token per
+  sequence for decode): after each row-parallel product (``wo``,
+  ``w_out``, ``out_proj``, ``shared_w_out``) whose in-dimension is split
+  over the TP axis, in the forward, and again in the recompute for
+  ``wo`` where an MLP or MoE follows it in the layer (the recompute
+  stops before a layer's last product, whose output only feeds the
+  residual); in the backward, after each column-parallel product whose
+  out-dimension is split over the TP axis (``wq``, ``wk``, ``wv``,
+  ``w_in``, ``w_gate``, ``in_proj``, the head, ...): its input's
+  gradient, summed over the TP shards.  ``frontend_proj`` reads the
+  batch, which needs no gradient.  zamba2's shared block counts once per
+  application.  A device's tokens of a microbatch are rounded up to a
+  whole sequence (:func:`device_microbatch`), as XLA pads an uneven
+  split.
 - Expert parallelism (``AxisRules.expert_axis``): two all-to-alls per
-  MoE layer, microbatch and direction (dispatch and combine), each the
-  packed ``(E, C, d_model)`` buffer of the local tokens.
+  MoE layer and direction (dispatch and combine), each the packed
+  ``(E, C, d_model)`` buffer of the local tokens.
 
-Left out: the vocab-parallel softmax's statistics, the vocab-parallel
-embedding, sequence parallelism and any collective the layer code would
-add for a layout change.
+Left out: the embedding lookup and its gradient's scatter-add (XLA
+partitions them into their own collectives: the token ids gathered, the
+looked-up rows all-reduced over the vocab axis, all-to-alls and
+permutes; a tied table is still gathered and reduced as the head), the
+vocab-parallel softmax's statistics (three float32 all-reduces of one
+number per token), scalar all-reduces (the loss, the gradient norm), the
+shard_map MoE's and the SSM's own layout changes, and sequence
+parallelism.  The reduce-scatters are what XLA's GPU pipeline forms; the
+CPU partitioner leaves each as an all-reduce of the whole TP shard
+followed by a slice.
 
 The H100 constants price the three terms, as ``hlo_analysis``'s TPU
 constants did for the reference.  ``LINK_BW`` is one card's 400 Gb/s NDR
@@ -78,7 +100,8 @@ from torch.utils._pytree import tree_leaves
 
 from ..core.cost_model import H100_HBM_BYTES_PER_S
 from ..distributed.sharding import (
-    _ROW_PARALLEL, AxisRules, NamedSharding, _batch_axes_fit, _axes_size,
+    _COL_PARALLEL, _ROW_PARALLEL, AxisRules, NamedSharding, _batch_axes_fit,
+    _axes_size,
 )
 
 # NVIDIA H100 80GB HBM3 (SXM5) at its 700 W limit:
@@ -178,14 +201,19 @@ def count_step(fn: Callable[..., Any], *args: Any,
 # ---------------------------------------------------------------------------
 # collectives reckoned from the specs
 # ---------------------------------------------------------------------------
-def _leaves(tree: Any, specs: Any, path: Tuple[str, ...] = ()
-            ) -> Iterator[Tuple[str, torch.Tensor, Tuple[Any, ...]]]:
-    """(path, leaf, spec) over a param tree and its spec tree."""
+def _leaves(tree: Any, specs: Any, path: Tuple[str, ...] = (),
+            layer: Any = None
+            ) -> Iterator[Tuple[str, torch.Tensor, Tuple[Any, ...], Any]]:
+    """(path, leaf, spec, layer) over a param tree and its spec tree;
+    ``layer`` is the dict two levels up (the layer that holds the leaf's
+    block, e.g. ``attn`` and ``mlp``)."""
     if isinstance(tree, dict):
         for k in tree:
-            yield from _leaves(tree[k], specs[k], path + (str(k),))
+            sub = tree[k]
+            yield from _leaves(sub, specs[k], path + (str(k),),
+                               tree if isinstance(sub, dict) else layer)
     else:
-        yield "/".join(path), tree, tuple(specs)
+        yield "/".join(path), tree, tuple(specs), layer
 
 
 def _axes(entry: Any) -> Tuple[str, ...]:
@@ -196,6 +224,16 @@ def _axes(entry: Any) -> Tuple[str, ...]:
 
 def _bytes_of(shape, itemsize: int) -> int:
     return math.prod(shape) * itemsize
+
+
+def device_microbatch(batch: int, microbatches: int, n_batch: int) -> int:
+    """Sequences one device holds of one microbatch: the microbatch
+    (``batch // microbatches``) over the ``n_batch`` devices of the batch
+    axes, rounded up (so at least one), as XLA pads an uneven split."""
+    return max(-(-(batch // microbatches) // n_batch), 1)
+
+
+_CAST = _COL_PARALLEL | _ROW_PARALLEL | {"table"}  # read in the compute dtype
 
 
 def collective_bytes(
@@ -225,21 +263,31 @@ def collective_bytes(
     mesh = types.SimpleNamespace(shape=dict(sizes))  # as NamedSharding reads it
     train = kind == "train"
     m = microbatches if train else 1
-    passes = (3 if cfg.remat == "full" else 2) if train else 1
+    recompute = train and cfg.remat == "full"
     batch_axes = tuple(a for a in _axes(_batch_axes_fit(rules, batch, sizes))
                        if sizes.get(a, 1) > 1)
     fsdp = set(rules.fsdp_axes)
     tp = rules.tp_axis if rules.tp_axis and sizes.get(rules.tp_axis, 1) > 1 \
         else None
     n_shared = sum(1 for k in cfg.layer_kinds() if k == "shared_attn")
+    cd = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    n_b = _axes_size(batch_axes, sizes) if batch_axes else 1
+    tokens = device_microbatch(batch, m, n_b) * (
+        1 if kind == "decode" else seq_len)
+    residual = tokens * cfg.d_model * cd
 
-    for path, leaf, spec in _leaves(params, param_specs):
+    for path, leaf, spec, layer in _leaves(params, param_specs):
+        name = path.split("/")[-1]
+        if name == "table" and not cfg.tie_embeddings:
+            continue  # the lookup: left out
+        in_stack = path.startswith("stack/")
         # a stacked leaf is one collective per group, of one group's slice
         stacked = path.startswith("stack/groups/")
         ops = int(leaf.shape[0]) if stacked else 1
+        apps = ops * (n_shared if path.startswith("stack/shared/") else 1)
         shape = tuple(leaf.shape[1:]) if stacked else tuple(leaf.shape)
         spec = spec[1:] if stacked else spec
-        itemsize = leaf.element_size()
+        itemsize = cd if name in _CAST else leaf.element_size()
         shard_bytes = _bytes_of(
             NamedSharding(mesh, spec).shard_shape(shape), itemsize)
         f_axes = {a for e in spec for a in _axes(e)
@@ -248,6 +296,7 @@ def collective_bytes(
             gathered = tuple(e if not (set(_axes(e)) & f_axes) else None
                              for e in spec)
             g_shape = NamedSharding(mesh, gathered).shard_shape(shape)
+            passes = 2 if recompute and in_stack else 1
             add("all-gather", _bytes_of(g_shape, itemsize), ops * passes * m)
         if train:
             rs = f_axes & set(batch_axes)
@@ -256,26 +305,23 @@ def collective_bytes(
                 add("reduce-scatter", shard_bytes, ops * m)
             if ar:
                 add("all-reduce", shard_bytes, ops * m)
-
-    d_bytes = torch.empty((), dtype=cfg.compute_dtype).element_size()
-    n_b = _axes_size(batch_axes, sizes) if batch_axes else 1
-    tokens = (batch // n_b) // m * (1 if kind == "decode" else seq_len)
-    residual = tokens * cfg.d_model * d_bytes
-    if tp is not None:
-        for path, leaf, spec in _leaves(params, param_specs):
-            name = path.split("/")[-1]
-            if name not in _ROW_PARALLEL or leaf.ndim < 2 \
-                    or tp not in _axes(spec[-2]):
-                continue
-            apps = (int(leaf.shape[0]) if path.startswith("stack/groups/")
-                    else n_shared if path.startswith("stack/shared/") else 1)
-            add("all-reduce", residual, apps * passes * m)
+        if tp is None or len(shape) < 2:
+            continue
+        if name in _ROW_PARALLEL and tp in _axes(spec[-2]):
+            again = recompute and name == "wo" and (
+                "mlp" in layer or "moe" in layer)
+            add("all-reduce", residual, apps * (2 if again else 1) * m)
+        elif train and name != "frontend_proj" and (
+                name in _COL_PARALLEL and tp in _axes(spec[-1])
+                or name == "table" and tp in _axes(spec[0])):
+            add("all-reduce", residual, apps * m)
     if rules.expert_axis and sizes.get(rules.expert_axis, 1) > 1 \
             and cfg.moe_num_experts:
         spec_moe = cfg.moe_spec()
         n_moe = sum(1 for k in cfg.layer_kinds() if k == "attn_moe")
         packed = (spec_moe.num_experts * spec_moe.capacity(tokens)
-                  * cfg.d_model * d_bytes)
+                  * cfg.d_model * cd)
+        passes = (3 if recompute else 2) if train else 1
         add("all-to-all", packed, 2 * n_moe * passes * m)
     return out
 

@@ -1,21 +1,38 @@
 """The reference side of ``tests/test_torch_launch.py``: the JAX package's
 launch tooling in a process of its own with 512 forced host devices, so
 the device count never leaks into other tests.  Prints one JSON object:
-the mesh shapes, the tiny train cell's shard shapes and compiled argument
-bytes on the 2 x 4 debug mesh, every arch x shape cell's ``applicable``,
+the mesh shapes; the tiny train cell on the 2 x 4 debug mesh, compiled
+as ``build_cell``'s analysis mode builds it (layers and microbatches
+unrolled, bf16 moments): its shard shapes, compiled argument bytes and
+the collectives of its module after SPMD partitioning (by
+``hlo_analysis.collective_bytes``, and op by op); every arch x shape
+cell's ``applicable``,
 ``build_cell`` meta and sharding specs on the 16 x 16 mesh (through
 ``jax.eval_shape``; nothing is compiled there), the model-FLOPs formula
 per cell, and the perf hillclimb's cells.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_launch_reference_worker.py
 """
+import glob
 import os
+import shutil
+import tempfile
 
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
+# the tiny cell's module is dumped after SPMD partitioning: before the
+# CPU backend promotes bf16 all-reduces to fp32, turns bf16 collectives
+# into fp32 ones and combines all-reduces
+DUMP = tempfile.mkdtemp(prefix="launch_ref_")
+XLA_FLAGS = (
+    "--xla_force_host_platform_device_count=512 "
+    f"--xla_dump_to={DUMP} --xla_dump_hlo_as_text "
+    "--xla_dump_hlo_module_re=tiny_train_step "
+    "--xla_dump_hlo_pass_re=spmd-partitioning")
+os.environ["XLA_FLAGS"] = XLA_FLAGS
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import dataclasses  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -23,13 +40,17 @@ from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
 from repro.configs import SHAPES, get_arch, list_archs  # noqa: E402
 from repro.distributed import sharding as shd  # noqa: E402
-from repro.launch import dryrun, perf, specs  # noqa: E402
+from repro.launch import dryrun, hlo_analysis, perf, specs  # noqa: E402
 from repro.launch.mesh import (  # noqa: E402
     make_debug_mesh, make_production_mesh, mesh_axis_sizes,
 )
 from repro.models import model as M  # noqa: E402
 from repro.models.config import ModelConfig  # noqa: E402
 from repro.train import optimizer as opt_lib, train_loop  # noqa: E402
+
+# repro.launch.dryrun and perf set XLA_FLAGS when imported; the backend
+# reads them when first used
+os.environ["XLA_FLAGS"] = XLA_FLAGS
 
 
 def key_str(path) -> str:
@@ -63,16 +84,38 @@ def meshes():
     return out
 
 
+def partitioned_collectives(hlo_text):
+    """[kind, result bytes, shapes, op_name] of each collective of an HLO
+    module, parsed as ``hlo_analysis.collective_bytes`` parses it."""
+    ops = []
+    for line in hlo_text.splitlines():
+        m = hlo_analysis._OP_RE.search(line)
+        if not m or "-done" in line:
+            continue
+        shapes = hlo_analysis._SHAPE_RE.findall(m.group(1))
+        name = re.search(r'op_name="([^"]*)"', line)
+        ops.append([m.group(2),
+                    sum(hlo_analysis._shape_bytes(d, s) for d, s in shapes),
+                    " ".join(f"{d}[{s}]" for d, s in shapes),
+                    name.group(1) if name else ""])
+    return ops
+
+
 def tiny_cell():
-    """``tests/test_dryrun_small.py``'s train cell on the 2 x 4 mesh."""
+    """``tests/test_dryrun_small.py``'s train cell on the 2 x 4 mesh, as
+    ``build_cell(analysis_mode=True)`` builds a cell: layers, KV chunks
+    and microbatches unrolled, bf16 moments."""
     mesh = make_debug_mesh(2, 4)
     sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
     rules = shd.AxisRules(batch_axes=("data",), fsdp_axes=("data",),
                           tp_axis="model")
     cfg = ModelConfig(name="tiny", family="dense", num_layers=2,
                       d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
-                      vocab_size=256, kv_chunk=32)
-    tcfg = train_loop.TrainConfig()
+                      vocab_size=256, kv_chunk=32, scan_layers=False,
+                      attn_unroll=1 << 20)
+    tcfg = train_loop.TrainConfig(
+        optimizer=opt_lib.OptimizerConfig(moment_dtype=jnp.bfloat16),
+        unroll_microbatches=True)
     step = train_loop.make_train_step(cfg, tcfg)
     params = jax.eval_shape(lambda: M.init_params(jax.random.PRNGKey(0), cfg))
     opt = jax.eval_shape(lambda: opt_lib.init_opt_state(params, tcfg.optimizer))
@@ -95,21 +138,26 @@ def tiny_cell():
                 in_sh, is_leaf=lambda x: isinstance(x, NamedSharding))[0]):
         shard_shapes[key_str(path)] = list(sh.shard_shape(leaf.shape))
 
-    def fn(p, o, b):
+    def tiny_train_step(p, o, b):
         with shd.use_rules(rules):
             return step(p, o, b)
 
     with mesh:
         compiled = jax.jit(
-            fn, in_shardings=in_sh,
+            tiny_train_step, in_shardings=in_sh,
             out_shardings=(ns(pspecs), ns(ospecs),
                            jax.tree.map(lambda _: NamedSharding(mesh, P()),
                                         {"loss": 0, "grad_norm": 0, "lr": 0})),
         ).lower(*args).compile()
     mem = compiled.memory_analysis()
+    (dumped,) = glob.glob(os.path.join(DUMP, "*after_spmd-partitioning*"))
+    with open(dumped) as f:
+        partitioned = f.read()
     named = shd.named_shardings(params, shd.AxisRules(), mesh)
     return {"shard_shapes": shard_shapes,
             "argument_bytes": int(mem.argument_size_in_bytes),
+            "collectives": hlo_analysis.collective_bytes(partitioned),
+            "collective_ops": partitioned_collectives(partitioned),
             "named_shardings": flat_specs(named)}
 
 
@@ -147,8 +195,11 @@ def _jsonable(x):
 
 
 def main():
-    out = {"meshes": meshes(), "tiny": tiny_cell(), "cells": cells(),
-           "hillclimb": _jsonable(perf.HILLCLIMB)}
+    try:
+        out = {"meshes": meshes(), "tiny": tiny_cell(), "cells": cells(),
+               "hillclimb": _jsonable(perf.HILLCLIMB)}
+    finally:
+        shutil.rmtree(DUMP, ignore_errors=True)
     print(json.dumps(out))
 
 

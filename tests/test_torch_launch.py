@@ -6,8 +6,9 @@ the CPU.
 The reference side runs once, in a subprocess with 512 forced host
 devices (``tests/_launch_reference_worker.py``), as
 ``tests/test_dryrun_small.py`` runs it: the mesh shapes, the tiny train
-cell of ``test_dryrun_small.py`` on the 2 x 4 debug mesh (shard shapes
-and the compiled ``argument_size_in_bytes``), and every arch x shape cell
+cell of ``test_dryrun_small.py`` on the 2 x 4 debug mesh (shard shapes,
+the compiled ``argument_size_in_bytes`` and the collectives of the
+partitioned module), and every arch x shape cell
 on the 16 x 16 mesh through ``jax.eval_shape`` (``applicable``,
 ``build_cell``'s meta and sharding specs, the model-FLOPs formula);
 nothing of those 40 cells is compiled.  The port side traces on
@@ -41,9 +42,8 @@ CELLS = [(a, s) for a in list_archs() for s in SHAPES]
 TINY = ModelConfig(name="tiny", family="dense", num_layers=2, d_model=64,
                    num_heads=4, num_kv_heads=4, d_ff=128, vocab_size=256,
                    kv_chunk=32)
-# test_dryrun_small.py's cell: batch 8 x 64, one microbatch, fp32 moments
-TINY_OVERRIDES = {"global_batch": 8, "seq_len": 64, "num_microbatches": 1,
-                  "moment_dtype": torch.float32}
+# test_dryrun_small.py's cell: batch 8 x 64, one microbatch
+TINY_OVERRIDES = {"global_batch": 8, "seq_len": 64, "num_microbatches": 1}
 
 
 @pytest.fixture(scope="module")
@@ -83,11 +83,12 @@ def _tiny_arch(cfg=TINY, microbatches=None):
                    microbatches=microbatches or {})
 
 
-def _tiny_cell():
+def _tiny_cell(**overrides):
     rules = shd.AxisRules(batch_axes=("data",), fsdp_axes=("data",),
                           tp_axis="model")
     return specs.build_cell(_tiny_arch(), "train_4k", make_debug_mesh(2, 4),
-                            rules=rules, overrides=dict(TINY_OVERRIDES))
+                            rules=rules,
+                            overrides=dict(TINY_OVERRIDES, **overrides))
 
 
 # ---------------------------------------------------------------------------
@@ -203,40 +204,106 @@ def test_probes_equal_full_trace(family, shape):
                                         else [1])
 
 
-def test_tiny_cell_collectives_hand_count():
+@pytest.mark.parametrize("micro", [1, 8])
+def test_tiny_cell_collectives_hand_count(micro):
     """Each kind against a count by hand: tiny cell, 2 x 4 mesh, batch
-    8 x 64 over data (4 a device), one microbatch, remat full (3
-    passes), 2 stacked layers, fp32 params, bf16 residual."""
-    coll = roofline.cell_collectives(_tiny_cell())
-    f4 = 4
-    passes, groups = 3, 2
-    # all-gather over data, TP still split: (gathered elements, ops)
-    gathers = [
-        (64 * 64, 1),          # embed/table (256/4 vocab, 64)
-        (64 * 64, 1),          # head/lm_head (64, 256/4)
-        (64 * 16, groups),     # wq: (64, 64/4) per group
-        (64 * 16, groups),     # wk
-        (64 * 16, groups),     # wv
-        (16 * 64, groups),     # wo: (64/4, 64)
-        (64 * 32, groups),     # mlp w_in: (64, 128/4)
-        (64 * 32, groups),     # mlp w_gate
-        (32 * 64, groups),     # mlp w_out: (128/4, 64)
-    ]
-    assert coll["all-gather"] == sum(n * f4 * ops * passes
-                                     for n, ops in gathers)
-    # gradient reduce-scatters of the FSDP leaves: their shards
-    shards = [(64 * 32, 1), (32 * 64, 1)] + [
-        (n // 2, ops) for n, ops in gathers[2:]]
-    assert coll["reduce-scatter"] == sum(n * f4 * ops for n, ops in shards)
-    # all-reduces: replicated leaves' gradients over data (final norm,
-    # 2 x 2 stacked norm scales), then the residual after wo and w_out
+    8 x 64 over data, remat full, 2 stacked layers, fp32 params, bf16
+    compute.  With 8 microbatches a device's share of the batch (4
+    sequences) is smaller than the microbatch count: each microbatch
+    (one sequence over 2 data shards) is rounded up to one sequence a
+    device."""
+    coll = roofline.cell_collectives(_tiny_cell(num_microbatches=micro))
+    bf16, f4, groups = 2, 4, 2
+    seqs = 4 if micro == 1 else 1      # a device's sequences of a microbatch
+    # all-gather over data in bf16, TP still split: (gathered elements,
+    # gathers a microbatch): a stacked leaf in the forward and the
+    # recompute, the head once; the embedding table is looked up, not
+    # gathered
+    stack = [(64 * 16, groups)] * 3 + [   # wq, wk, wv: (64, 64/4)
+        (16 * 64, groups),                # wo: (64/4, 64)
+        (64 * 32, groups), (64 * 32, groups),   # w_in, w_gate: (64, 128/4)
+        (32 * 64, groups)]                # w_out: (128/4, 64)
+    head = (64 * 64, 1)                   # lm_head: (64, 256/4)
+    assert coll["all-gather"] == micro * bf16 * (
+        sum(n * ops * 2 for n, ops in stack) + head[0])
+    # gradient reduce-scatters over data, bf16, of the gathered leaves
+    assert coll["reduce-scatter"] == micro * bf16 * sum(
+        n // 2 * ops for n, ops in stack + [head])
+    # all-reduces: the norm scales' fp32 gradients over data (final norm,
+    # 2 x 2 stacked), then the bf16 residual over model: per layer wo in
+    # the forward and the recompute, w_out in the forward, and the input
+    # gradients of wq, wk, wv, w_in and w_gate; the head's input gradient
     norms = 64 * f4 * (1 + 2 * groups)
-    residual = 4 * 64 * 64 * 2
-    assert coll["all-reduce"] == norms + residual * 2 * groups * passes
+    residual = seqs * 64 * 64 * bf16
+    tp_reduces = (2 + 1 + 5) * groups + 1
+    assert coll["all-reduce"] == micro * (norms + residual * tp_reduces)
     assert coll["all-to-all"] == coll["collective-permute"] == 0
-    assert coll["count"] == (sum(ops * passes for _, ops in gathers)
-                             + sum(ops for _, ops in shards)
-                             + 1 + 2 * groups + 2 * groups * passes)
+    assert coll["count"] == micro * (
+        sum(ops * 2 for _, ops in stack) + 1
+        + sum(ops for _, ops in stack) + 1
+        + 1 + 2 * groups + tp_reduces)
+
+
+# the embedding lookup and its gradient's scatter-add, as XLA partitions
+# them for the tiny cell (the rules leave them out): the token ids
+# permuted and gathered over data, the looked-up rows all-reduced over
+# the vocab's model axis and moved back to the batch split by an
+# all-to-all; the scatter-add's mirror, whose data all-reduce of the
+# table's gradient rows stands for the table's gradient reduction
+TINY_LOOKUP = sorted([
+    ["collective-permute", "s32[4,64,1]"], ["all-gather", "s32[8,64,1]"],
+    ["all-reduce", "bf16[8,64,32]"], ["all-to-all", "bf16[2,4,64,32]"],
+    ["all-gather", "bf16[128,32]"], ["all-to-all", "bf16[4,64,2,32]"],
+    ["all-reduce", "bf16[128,32]"], ["collective-permute", "bf16[64,32]"],
+])
+
+
+def test_tiny_cell_collectives_match_xla(ref):
+    """The tiny cell's reckoned collectives against XLA's: the
+    reference's step for the same cell on the same mesh, after SPMD
+    partitioning, summed by the reference's
+    ``hlo_analysis.collective_bytes``.  XLA's ops fall in four groups:
+
+    - the embedding lookup and its gradient (ops from ``gather`` and
+      ``scatter-add``), which the rules leave out: ``TINY_LOOKUP``;
+    - the vocab-parallel softmax's statistics, left out: three fp32
+      all-reduces over model of one number per predicted token (4 x 63 a
+      device);
+    - scalar all-reduces (the loss, the gradient norm), left out;
+    - the rest, which the rules reckon.  Kind by kind it equals the
+      port's exactly, but for one difference: XLA's CPU partitioner
+      leaves each gradient's reduce-scatter over data as an all-reduce of
+      the whole TP shard (twice the shard on 2 data shards) and a slice,
+      where the GPU pipeline forms the reduce-scatter the rules count.
+    """
+    xla, ops = ref["tiny"]["collectives"], ref["tiny"]["collective_ops"]
+    coll = roofline.cell_collectives(_tiny_cell())
+    for k in step_analysis.COLLECTIVES:
+        assert sum(b for kind, b, _, _ in ops if kind == k) == xla[k]
+    assert len(ops) == xla["count"]
+
+    lookup = [o for o in ops if o[3].endswith(("/gather", "/scatter-add"))]
+    stats = [o for o in ops if o[2] == "f32[4,63]"]
+    scalars = [o for o in ops if o[2] == "f32[]"]
+    assert sorted([kind, shapes] for kind, _, shapes, _ in lookup) \
+        == TINY_LOOKUP
+    assert [o[0] for o in stats] == ["all-reduce"] * 3
+    assert sum(o[1] for o in stats) == 3 * 4 * 63 * 4
+    assert {o[0] for o in scalars} == {"all-reduce"}
+    assert all(o[1] == 4 for o in scalars)
+
+    rest = [o for o in ops if not (o in lookup or o in stats or o in scalars)]
+    assert len(rest) == len(ops) - len(lookup) - len(stats) - len(scalars)
+    got = {k: sum(b for kind, b, _, _ in rest if kind == k)
+           for k in step_analysis.COLLECTIVES}
+    n_data = 2
+    assert got["all-gather"] == coll["all-gather"]
+    assert got["reduce-scatter"] == 0
+    assert got["all-reduce"] == coll["all-reduce"] \
+        + n_data * coll["reduce-scatter"]
+    assert got["all-to-all"] == coll["all-to-all"] == 0
+    assert got["collective-permute"] == coll["collective-permute"] == 0
+    assert len(rest) == coll["count"]
 
 
 def test_single_device_mesh_has_no_collectives():
