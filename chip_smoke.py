@@ -227,7 +227,12 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    on qwen's smoke config (a checkpoint every 5 steps, a failure at step
    6, 10 steps) ends in the uninterrupted run's params, moments and step
    bit for bit (deterministic kernels); ``examples/lm_training.py`` at its
-   defaults passes its own assertion on the card;
+   defaults passes its own assertion on the card; granite-moe's smoke
+   config with the ``shard_map`` MoE on a 2 x 2 mesh of ``cuda:0``: loss
+   and gradients within 1e-4 * max(1, max |ref|) of a 2 x 2 CPU mesh's;
+   ``launch.train --grad-compression`` on qwen's smoke config, two steps
+   from params drawn on the CPU: both losses within the same of the
+   CPU's;
 13. the dry run against the card (``dryrun_path``;
    ``bench_torch/dryrun_probe.py`` runs it alone): no kernel of the
    port's own.  ``launch.dryrun.run_cell`` traces ``qwen1.5-4b``'s train
@@ -243,6 +248,13 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    temp_bytes`` is within 5 % of the step's peak
    (``max_memory_allocated`` less the bytes earlier phases hold).  Prints
    the dry run's H100 roofline bound beside the step's device time.
+   Then the partitioned program: the same cell on a 1 x 2 (data x model)
+   mesh, traced as rank 0 of a DTensor program over a ``fake`` process
+   group, and rank 0's step of it on the card under a ``fake`` group of
+   2 ranks (the collectives do no work; their values are held on the
+   CPU): its counted FLOPs and collectives equal the dry run's per-device
+   ones, its state's local ``nbytes`` equal ``argument_bytes``, and its
+   peak is within 5 % of ``argument_bytes + temp_bytes``.
 
 Tolerance everywhere: max |x - ref| <= 1e-4 * max(1, max |ref|) (fp32 on
 both sides, different summation orders; the kernels' tensor-core path is
@@ -3427,9 +3439,106 @@ def lm_training_path(ctx, split_compare=False):
     log(f"  examples/lm_training.py at its defaults: loss "
         f"{example[0]['loss']:.3f} -> {example[-1]['loss']:.3f} over "
         f"{len(example)} logged steps, {out['example']['wall_s']:.1f} s")
+    # --- check 6: the shard_map MoE on a 2 x 2 mesh of the card ---------
+    out["shard_map_moe"] = shard_map_moe_check(ctx, scaled_err, data_cfg)
+
+    # --- check 7: launch.train with gradient compression ----------------
+    out["compression"] = compression_check(ctx, scaled_err)
     out["wall_s"] = time.perf_counter() - t_path
     log(f"  LM training path wall time: {out['wall_s']:.1f} s")
     return out
+
+
+# the shard_map MoE's mesh in phase 12 (data x model, every shard on the
+# card) and its smoke batch
+LM_MOE_MESH = (2, 2)
+LM_MOE_BATCH, LM_MOE_SEQ = 4, 24
+
+
+def shard_map_moe_check(ctx, scaled_err, data_cfg):
+    """granite-moe's smoke config (fp32) with ``moe_impl="shard_map"``
+    on a 2 x 2 mesh of ``cuda:0`` (the one-process loop over the shards,
+    each weight gathered over FSDP), its loss and gradients against the
+    same on a 2 x 2 mesh of the CPU, from the same params and batch,
+    within ``TOL``.  Returns the errors; raises on a failure."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.mesh import make_mesh, use_mesh
+    from repro_torch.interop import lm_params_from_arrays
+    from repro_torch.models import model
+    from repro_torch.train import optimizer as opt_lib
+
+    log, dev = ctx.log, ctx.dev
+    cfg = dataclasses.replace(get_arch("granite-moe-3b-a800m").smoke,
+                              compute_dtype=torch.float32,
+                              moe_impl="shard_map")
+    tree = _lm_tree_numpy(model.init_params(
+        cfg, torch.Generator().manual_seed(5), "cpu"))
+    batch = pipeline.make_batch(data_cfg(cfg, LM_MOE_BATCH, LM_MOE_SEQ), 0)
+    n = LM_MOE_MESH[0] * LM_MOE_MESH[1]
+    res = {}
+    for where in ("cpu", dev):
+        p = lm_params_from_arrays(tree, cfg, device=where)
+        leaves = opt_lib.tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        mesh = make_mesh(LM_MOE_MESH, devices=[where] * n)
+        with shd.use_rules(shd.AxisRules()), use_mesh(mesh):
+            loss, _ = model.loss_fn(p, batch, cfg)
+            g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        res[where] = (loss.detach(), [x if x is not None else
+                                      torch.zeros_like(t)
+                                      for x, t in zip(g, leaves)])
+    (lc, gc), (lg, gg) = res["cpu"], res[dev]
+    err_loss = scaled_err(lg.reshape(1), lc.reshape(1), TOL)
+    err_grad = max(scaled_err(a, b, TOL) for a, b in zip(gg, gc))
+    log(f"  granite-moe-3b-a800m smoke (fp32) with the shard_map MoE on a "
+        f"{LM_MOE_MESH[0]} x {LM_MOE_MESH[1]} mesh of {dev} against a CPU "
+        f"mesh: loss {float(lg):.6f}, |diff| {err_loss:.3e}; {len(gg)} "
+        f"gradients {err_grad:.3e} (tolerance {TOL})")
+    return {"mesh": list(LM_MOE_MESH), "loss": float(lg),
+            "loss_err": err_loss, "grad_err": err_grad}
+
+
+LM_COMPRESSION_STEPS = 2
+
+
+def compression_check(ctx, scaled_err):
+    """``python -m repro_torch.launch.train --arch qwen1.5-4b --smoke
+    --grad-compression`` for two steps on the card and on the CPU, the
+    params drawn on the CPU for both (``--init-device cpu``): the second
+    step's loss reads the first step's compressed update; both losses
+    within ``TOL``.  Returns the numbers; raises on a failure."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train as launch_train
+
+    log, dev = ctx.log, ctx.dev
+    logs = {}
+    for where in ("cpu", dev):
+        with tempfile.TemporaryDirectory() as ckpt:
+            logs[where] = launch_train.main([
+                "--arch", LM_MODELS[0], "--smoke", "--steps",
+                str(LM_COMPRESSION_STEPS), "--grad-compression",
+                "--device", str(where), "--init-device", "cpu", "--ckpt-dir",
+                ckpt, "--save-every", str(LM_COMPRESSION_STEPS + 1)])
+    card = torch.tensor([e["loss"] for e in logs[dev]])
+    cpu = torch.tensor([e["loss"] for e in logs["cpu"]])
+    err = scaled_err(card, cpu, TOL)
+    log(f"  launch.train --grad-compression ({LM_MODELS[0]} smoke, "
+        f"{LM_COMPRESSION_STEPS} steps) on {dev}: losses "
+        f"{[round(float(x), 6) for x in card]} against the CPU's "
+        f"{[round(float(x), 6) for x in cpu]}: |diff| {err:.3e} "
+        f"(tolerance {TOL})")
+    return {"steps": LM_COMPRESSION_STEPS, "loss_card": card.tolist(),
+            "loss_cpu": cpu.tolist(), "loss_err": err}
 
 
 def split_comparison(ctx):
@@ -3577,7 +3686,150 @@ def dryrun_path(ctx):
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
-    return _dryrun_on_card(ctx, rec, cell, held, t_path, dry_s)
+    out = _dryrun_on_card(ctx, rec, cell, held, t_path, dry_s)
+    out["partitioned"] = dryrun_partitioned_on_card(ctx)
+    out["wall_s"] = time.perf_counter() - t_path
+    log(f"  dry-run path wall time: {out['wall_s']:.1f} s")
+    return out
+
+
+# the partitioned check of phase 13: the same cell on a (data, model)
+# mesh, rank 0 of it on the card under a fake process group
+DRYRUN_PART_MESH = (1, 2)
+
+
+def _card_place(tree, shardings, dmesh, gen, dev, vocab):
+    """``tree``'s ``meta`` tensors as DTensors over ``dmesh`` whose local
+    blocks are on the card at their ``NamedSharding.shard_shape``:
+    params random, moments and the step count 0, tokens random ids."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as shd
+
+    def one(t, ns, role):
+        shape = ns.shard_shape(tuple(t.shape))
+        if role == "param":
+            local = (torch.randn(shape, generator=gen, device=dev)
+                     * 0.02).to(t.dtype)
+        elif t.is_floating_point() or role == "step":
+            local = torch.zeros(shape, dtype=t.dtype, device=dev)
+        else:
+            local = torch.randint(0, vocab, shape, generator=gen,
+                                  dtype=t.dtype, device=dev)
+        out = DTensor.from_local(local, dmesh,
+                                 shd.placements(ns.spec, dmesh, t.ndim),
+                                 run_check=False, shape=t.shape,
+                                 stride=t.stride())
+        return out.requires_grad_(True) if role == "param" else out
+
+    def walk(t, ns, role):
+        if isinstance(t, dict):
+            return {k: walk(t[k], ns[k], role) for k in t}
+        if isinstance(t, tuple) and hasattr(type(t), "_fields"):
+            return type(t)(*[walk(getattr(t, f), getattr(ns, f),
+                                  "step" if f == "step" else role)
+                             for f in type(t)._fields])
+        return one(t, ns, role)
+
+    params, opt, batch = tree
+    ps, os_, bs = shardings
+    return (walk(params, ps, "param"), walk(opt, os_, "moment"),
+            walk(batch, bs, "batch"))
+
+
+def dryrun_partitioned_on_card(ctx):
+    """Rank 0 of qwen1.5-4b's train cell at phase 12's size on a 1 x 2
+    (data x model) mesh: the dry run on ``meta`` (``run_cell``, a
+    partitioned program over a ``fake`` group), then one step of the same
+    partitioned program on ``cuda:0`` under a ``fake`` process group of 2
+    ranks, its local blocks random on the card, with the peak reset
+    first.  The collectives do no work, so the values are not checked
+    (``tests/test_torch_partitioned.py`` holds them on the CPU).  Checks:
+    the card's FLOP count of the local ops equals the dry run's per-device
+    count; the state's local ``nbytes`` equal ``argument_bytes``; the
+    peak is within 5 % of ``argument_bytes + temp_bytes``."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun, specs, step_analysis
+    from repro_torch.launch.mesh import fake_dtensor_mesh, make_debug_mesh
+    from repro_torch.train import optimizer as opt_lib
+
+    log, require, dev = ctx.log, ctx.require, ctx.dev
+    mesh = make_debug_mesh(*DRYRUN_PART_MESH)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        rec = dryrun.run_cell(DRYRUN_ARCH, "train_4k", False, out_dir,
+                              overrides=dict(DRYRUN_OVERRIDES), mesh=mesh)
+    dry_s = time.perf_counter() - t0
+    require(rec["status"] == "ok", rec.get("traceback", rec))
+    require(rec["partitioned"] is True, rec)
+    mem, traced = rec["memory"], rec["traced"]
+    log(f"  dry run of {DRYRUN_ARCH} train_4k on a {DRYRUN_PART_MESH[0]} x "
+        f"{DRYRUN_PART_MESH[1]} (data x model) mesh, partitioned: "
+        f"{dry_s:.1f} s; per device {traced['flops']:.6e} FLOPs, argument "
+        f"{mem['argument_bytes']} B, temp {mem['temp_bytes']} B; "
+        f"collectives {rec['collective_schedule']}")
+
+    cell = specs.build_cell(get_arch(DRYRUN_ARCH), "train_4k", mesh,
+                            overrides=dict(DRYRUN_OVERRIDES),
+                            analysis_mode=False)
+    dmesh = fake_dtensor_mesh(mesh, torch.device(dev).type)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    args = _card_place(cell.args, cell.in_shardings, dmesh, gen, dev,
+                       cell.cfg.vocab_size)
+    fn = specs._in_context(cell.fn.__wrapped__, cell.rules, cell.mesh,
+                           dmesh)
+    state_bytes = sum(t.to_local().numel() * t.to_local().element_size()
+                      for t in opt_lib.tree_leaves(args))
+    require(state_bytes == mem["argument_bytes"],
+            (state_bytes, mem["argument_bytes"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s, e = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    s.record()
+    count = step_analysis.count_step(fn, *args, memory=False)
+    e.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    reckoned = mem["argument_bytes"] + mem["temp_bytes"]
+    rel = abs(reckoned - peak) / peak
+    log(f"  rank 0's step on the card under a fake group of "
+        f"{DRYRUN_PART_MESH[0] * DRYRUN_PART_MESH[1]} (events "
+        f"{s.elapsed_time(e):.1f} ms, counted): {count.flops:.6e} FLOPs "
+        f"against the dry run's {traced['flops']:.6e} (probed "
+        f"{rec['cost']['flops_per_device']:.6e}); state {state_bytes} B; "
+        f"peak {peak} B ({held} B held before) against argument + temp "
+        f"{reckoned} B: {100 * rel:.3f} % apart; collectives "
+        f"{count.collectives}")
+    require(count.flops == traced["flops"], (count.flops, traced["flops"]))
+    require(count.collectives == traced["collectives"],
+            (count.collectives, traced["collectives"]))
+    require(rel <= DRYRUN_PEAK_TOL, (reckoned, peak, rel))
+    out = {"mesh": list(DRYRUN_PART_MESH), "dryrun_s": dry_s,
+           "traced_flops": traced["flops"], "card_flops": count.flops,
+           "argument_bytes": mem["argument_bytes"],
+           "state_bytes": state_bytes, "temp_bytes": mem["temp_bytes"],
+           "reckoned_peak_bytes": reckoned, "card_peak_bytes": peak,
+           "held_bytes": held, "peak_rel_diff": rel,
+           "step_event_ms": s.elapsed_time(e),
+           "collectives": count.collectives}
+    del args, fn, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return out
 
 
 def _dryrun_on_card(ctx, rec, cell, held, t_path, dry_s):
@@ -3663,8 +3915,6 @@ def _dryrun_on_card(ctx, rec, cell, held, t_path, dry_s):
     del params, opt, batch, metrics, cell
     gc.collect()
     torch.cuda.empty_cache()
-    out["wall_s"] = time.perf_counter() - t_path
-    log(f"  dry-run path wall time: {out['wall_s']:.1f} s")
     return out
 
 

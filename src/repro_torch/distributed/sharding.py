@@ -10,21 +10,31 @@ model's params by leaf name, :func:`cache_specs` for a decode cache, and
 on the "model" axis with ZeRO-3/FSDP parameter sharding on the "data"
 axis; the batch runs DP over ("pod", "data").
 
-The port has no GSPMD: nothing places a tensor by these specs, and
-:func:`constrain` returns its input unchanged.  It resolves the logical
-names as the reference does (:func:`logical_spec`), so the rules can be
-compared; the one consumer of the installed rules at run time is
-``models.moe.apply_moe_shard_map``, which reads the batch, FSDP and TP
-axes from them.  :class:`NamedSharding` pairs a spec with a mesh and
-gives each device's block (:meth:`NamedSharding.shard_shape`), from
-which the dry run (``launch.dryrun``) reckons per-device memory;
-:func:`named_shardings` gives one per param leaf, as the reference's.
+:class:`NamedSharding` pairs a spec with a mesh and gives each device's
+block (:meth:`NamedSharding.shard_shape`); :func:`named_shardings` gives
+one per param leaf, as the reference's.
+
+A partitioned program is a DTensor program, the port's counterpart of
+``jax.jit`` with shardings.  :func:`placements` turns a spec into one
+DTensor placement per mesh dimension, :func:`place` turns a tree of
+tensors into DTensors by their shardings, and :func:`use_dtensor_mesh`
+installs a ``torch.distributed`` device mesh for the program.  Under an
+installed mesh :func:`constrain` redistributes to the resolved spec, as
+``jax.lax.with_sharding_constraint`` does (at the reference's constraint
+points, and at the port's own where GSPMD's choice has to be spelled
+out: a row-parallel product's output is summed over TP there), and
+:func:`gather_weight` gathers a product's weight over its FSDP axes at
+its use (after the cast to the compute dtype, as XLA orders it).
+Without one, both return their input unchanged: every entry point runs
+as an unpartitioned program.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 
 class PartitionSpec(tuple):
@@ -111,11 +121,35 @@ def logical_spec(*logical: Optional[str]) -> Optional[PartitionSpec]:
 
 
 def constrain(x: Any, *logical: Optional[str]) -> Any:
-    """The reference's sharding constraint: ``x`` itself (the port places
-    nothing by spec), after resolving ``logical`` under the installed
-    rules."""
-    logical_spec(*logical)
-    return x
+    """The reference's sharding constraint.  Under an installed DTensor
+    mesh (:func:`use_dtensor_mesh`) a DTensor ``x`` is redistributed to
+    the spec ``logical`` resolves to; otherwise ``x`` itself, after
+    resolving ``logical`` under the installed rules."""
+    spec = logical_spec(*logical)
+    mesh = dtensor_mesh()
+    if mesh is None or spec is None or not _is_dtensor(x):
+        return x
+    return to_placements(x, placements(_even(spec, x.shape, mesh), mesh,
+                                      x.ndim))
+
+
+def _even(spec: PartitionSpec, shape, mesh: Any) -> PartitionSpec:
+    """``spec`` with each entry cut to the longest prefix of its axes
+    whose sizes divide the dimension (a batch of 1 stays whole, as the
+    batch's own spec leaves it, where XLA would pad)."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        keep, n = [], 1
+        for a in axes:
+            if dim % (n * sizes[a]):
+                break
+            keep.append(a)
+            n *= sizes[a]
+        out.append(None if not keep else keep[0] if len(keep) == 1
+                   else tuple(keep))
+    return PartitionSpec(*out)
 
 
 # ---------------------------------------------------------------------------
@@ -331,3 +365,176 @@ def batch_spec(
     """Batch sharding over the longest divisible prefix of the DP axes."""
     axes = _batch_axes_fit(rules, batch_dim, sizes or {})
     return P(axes, *([None] * extra_dims))
+
+
+# ---------------------------------------------------------------------------
+# DTensor programs
+# ---------------------------------------------------------------------------
+_ACTIVE["dtensor_mesh"] = None
+
+
+def _is_dtensor(x: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+@contextlib.contextmanager
+def use_dtensor_mesh(mesh: Any):
+    """Run the ``with`` block as a partitioned program over ``mesh`` (a
+    ``torch.distributed.device_mesh.DeviceMesh`` with the rules' axis
+    names): :func:`constrain`, :func:`gather_weight` and
+    :func:`grad_reduced` act, and a plain tensor that meets a DTensor is
+    taken as replicated (``implicit_replication``: positions, masks).
+    ``None`` installs nothing."""
+    if mesh is None:
+        yield None
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    prev = _ACTIVE["dtensor_mesh"]
+    _ACTIVE["dtensor_mesh"] = mesh
+    try:
+        with implicit_replication():
+            yield mesh
+    finally:
+        _ACTIVE["dtensor_mesh"] = prev
+
+
+def dtensor_mesh() -> Any:
+    """The installed DTensor mesh, or ``None``."""
+    return _ACTIVE["dtensor_mesh"]
+
+
+def placements(spec: Any, mesh: Any, ndim: Optional[int] = None) -> tuple:
+    """One DTensor placement per dimension of ``mesh``: ``Shard(d)`` on
+    every mesh axis that entry ``d`` of ``spec`` names (a dimension split
+    over several axes is ``Shard(d)`` on each, in the spec's order, which
+    must be the mesh's), ``Replicate()`` on the others.  ``ndim`` checks
+    the spec's length against the tensor's."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    spec = tuple(spec or ())
+    if ndim is not None and len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than {ndim} dims")
+    for d, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"spec {spec} splits a dimension over axes "
+                             f"out of the mesh's order {names}")
+        for i in dims:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def logical_placements(ndim: int, logical) -> Optional[tuple]:
+    """The placements ``logical`` resolves to for a tensor of ``ndim``
+    dimensions under the installed rules and DTensor mesh; ``None``
+    without either."""
+    spec = logical_spec(*logical)
+    mesh = dtensor_mesh()
+    if spec is None or mesh is None:
+        return None
+    return placements(spec, mesh, ndim)
+
+
+def _dtensor_of(t: Any, sharding: "NamedSharding", mesh: Any) -> Any:
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    pl = placements(sharding.spec, mesh, t.ndim)
+    grad = t.requires_grad
+    t = t.detach()
+    if t.device.type == "meta" or _is_fake(t):
+        local = torch.empty(sharding.shard_shape(tuple(t.shape)),
+                            dtype=t.dtype, device=t.device)
+        out = DTensor.from_local(local, mesh, pl, run_check=False,
+                                 shape=t.shape, stride=t.stride())
+    else:
+        out = distribute_tensor(t, mesh, pl)
+    return out.requires_grad_(grad) if grad else out
+
+
+def _is_fake(t: Any) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
+def place(tree: Any, shardings: Any, mesh: Any) -> Any:
+    """``tree``'s tensors as DTensors over ``mesh`` by the matching
+    :class:`NamedSharding` of ``shardings`` (a tree of the same shape):
+    real data through ``distribute_tensor``; ``meta`` or fake data as
+    each device's block at ``NamedSharding.shard_shape`` (an uneven split
+    rounds up, as XLA pads; DTensor's own split does so on rank 0).  A
+    leaf that requires grad is a leaf DTensor that requires grad.
+    Anything that is not a tensor (the decode length) is kept."""
+    if isinstance(tree, dict):
+        return {k: place(v, shardings[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return type(tree)(*[place(v, s, mesh)
+                            for v, s in zip(tree, shardings)])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place(v, s, mesh) for v, s in zip(tree, shardings))
+    if isinstance(tree, torch.Tensor):
+        return _dtensor_of(tree, shardings, mesh)
+    return tree
+
+
+def _fsdp_dims(mesh: Any) -> set:
+    rules = _ACTIVE["rules"]
+    axes = set(rules.fsdp_axes) if rules is not None else set()
+    return {i for i, n in enumerate(mesh.mesh_dim_names) if n in axes}
+
+
+def gather_weight(w: Any, dtype: Any) -> Any:
+    """A product's weight at its use: cast to ``dtype``, then, under an
+    installed DTensor mesh, all-gathered over the FSDP axes that split
+    it (the TP split stays).  Casting on the shard first is XLA's order
+    and FSDP2's; under ``torch.utils.checkpoint`` the recompute gathers
+    again."""
+    w = w.to(dtype)
+    mesh = dtensor_mesh()
+    if mesh is None or not _is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    fsdp = _fsdp_dims(mesh)
+    target = tuple(Replicate() if i in fsdp and p.is_shard() else p
+                   for i, p in enumerate(w.placements))
+    return to_placements(w, target)
+
+
+class _ReduceGrad(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient into ``x``'s own
+    placements (an all-reduce of a TP-partial gradient)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return to_placements(g, ctx.placements)
+
+
+def grad_reduced(x: Any) -> Any:
+    """``x`` as the input of a column-parallel product: under an
+    installed DTensor mesh its gradient, partial over TP, is summed there
+    (XLA all-reduces each such product's input gradient); else ``x``."""
+    if dtensor_mesh() is None or not _is_dtensor(x) \
+            or not torch.is_grad_enabled():
+        return x
+    return _ReduceGrad.apply(x)
+
+
+def to_placements(x: Any, target: tuple) -> Any:
+    """A DTensor ``x`` redistributed to ``target``; ``x`` itself when it
+    is no DTensor or is already there."""
+    target = tuple(target)
+    if not _is_dtensor(x) or tuple(x.placements) == target:
+        return x
+    return x.redistribute(x.device_mesh, target)

@@ -1,6 +1,7 @@
 """Dry run: trace every (arch x shape) cell at full size on the production
-meshes on the ``meta`` device, and record its memory, costs, collectives
-and H100 roofline terms.  A port of ``repro.launch.dryrun``.
+meshes as a partitioned program on the ``meta`` device, and record each
+device's memory, costs, collectives and H100 roofline terms.  A port of
+``repro.launch.dryrun``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\
         --shape all --mesh both --out artifacts/dryrun_torch
@@ -9,25 +10,36 @@ Each cell writes ``<out>/<arch>__<shape>__<mesh>.json``.  No data is
 ever allocated: params, optimizer state, caches and batches are ``meta``
 tensors, and no card is needed.
 
+A cell is a DTensor program, as the reference's is XLA's partitioned
+module: its args are placed by their ``NamedSharding``\\ s over a
+``fake``-backend device mesh of the cell's names and sizes, and the step
+runs as rank 0 of it (``specs.build_cell(..., partitioned=True)``), on
+that device's shards, issuing its collectives (``"partitioned": true``).
+
 Per cell:
 
-1. The build proof: the cell's step traced at full depth on ``meta`` at
-   one data shard's batch (``count_step``), timed as ``t_trace_s`` (the
-   reference's lower and compile times).  A train cell traces at most 2
-   of its microbatches (``traced_microbatches``): the temp peak is
-   reached in the second, once the fp32 accumulators exist, and every
-   later microbatch repeats it.
+1. The build proof: the cell's step traced at full depth
+   (``count_step``), timed as ``t_trace_s`` (the reference's lower and
+   compile times).  A train cell traces at most 2 of its microbatches
+   (``traced_microbatches``), each of one device's share of a microbatch
+   (rounded up to one sequence): the temp peak is reached in the second,
+   once the fp32 accumulators exist, and every later microbatch repeats
+   it.
 2. Memory per device: ``argument_bytes`` sums the params, optimizer
    state, cache and batch by their ``NamedSharding.shard_shape``;
-   ``temp_bytes`` is the trace's temp peak.  The port's model code has
-   no tensor parallelism, so the trace keeps TP-sharded dimensions (and
-   the gradients of FSDP-sharded leaves) whole: ``temp_bytes`` is an
-   upper bound (``"temp_bound": "upper"``).
-3. On the single-pod mesh, the probe-extrapolated costs
-   (``roofline.probe_roofline``).  The port's program is not
-   partitioned (``"partitioned": false``): per-device FLOPs and bytes are
-   the traced totals over the mesh's devices, and the collectives are
-   reckoned from the specs (``step_analysis.collective_bytes``).
+   ``temp_bytes`` is the trace's peak of rank 0's local storages above
+   them (``"temp_bound": "device"``: that device's own peak, not a bound
+   over the cell).
+   A dense-impl MoE cell is marked ``"port_partition": "dense_moe"``:
+   the port's partitioned dense MoE gathers the batch and routes, packs
+   and combines all of it on every device (its capacity slots come from
+   a cumulative sum over the whole batch), which XLA's partition of the
+   reference does not, so its memory and collective terms are the
+   port's partition's, not the model's.
+3. The probe-extrapolated costs (``roofline.probe_roofline``): FLOPs and
+   bytes accessed of one device's local ops, and the collectives it
+   issues (``collective_schedule``), for the whole step.  The roofline
+   table reads the single-pod mesh's.
 """
 import argparse
 import json
@@ -41,10 +53,9 @@ import torch
 
 from ..configs import SHAPES, get_arch, list_archs
 from ..distributed import sharding as shd
-from ..distributed.mesh import DeviceMesh
 from . import step_analysis
 from .mesh import make_production_mesh
-from .roofline import cell_collectives, probe_roofline
+from .roofline import probe_roofline
 from .specs import build_cell, optimized_cell_config
 
 TRACED_MICROBATCHES = 2
@@ -79,39 +90,30 @@ def _output_bytes(cell) -> int:
     return out
 
 
-def _shard_mesh(mesh, rules) -> DeviceMesh:
-    """The mesh one data shard sees: the batch axes at size 1."""
-    sizes = tuple(1 if a in rules.batch_axes else s
-                  for a, s in zip(mesh.axis_names, mesh.axis_sizes))
-    return DeviceMesh((torch.device("meta"),) * math.prod(sizes),
-                      mesh.axis_names, sizes)
-
-
 def trace_cell(arch, shape_name: str, cell, overrides, rules
                ) -> Dict[str, Any]:
-    """The full-depth trace at one data shard's batch (see the module
-    docstring): counts, the temp peak and the trace's seconds."""
+    """The full-depth trace of the partitioned cell (see the module
+    docstring): one device's counts, temp peak and collectives, and the
+    trace's seconds."""
     meta, mesh = cell.meta, cell.mesh
     sizes = dict(mesh.shape)
     n_b = shd._axes_size(
         shd._batch_axes_fit(cell.rules, meta["global_batch"], sizes), sizes)
-    shard_batch = max(meta["global_batch"] // n_b, 1)
     ov = dict(overrides or {})
-    traced = {"global_batch": shard_batch}
+    traced = {"global_batch": meta["global_batch"]}
     if meta["kind"] == "train":
         m = meta["microbatches"]
         micro = step_analysis.device_microbatch(meta["global_batch"], m, n_b)
         tm = min(m, TRACED_MICROBATCHES)
-        ov.update(num_microbatches=tm, global_batch=micro * tm)
-        traced.update(global_batch=micro * tm, microbatches=tm)
-    else:
-        ov["global_batch"] = shard_batch
-    tcell = build_cell(arch, shape_name, _shard_mesh(mesh, cell.rules),
-                       overrides=ov, analysis_mode=False, rules=cell.rules)
+        ov.update(num_microbatches=tm, global_batch=micro * n_b * tm)
+        traced.update(global_batch=micro * n_b * tm, microbatches=tm)
+    tcell = build_cell(arch, shape_name, mesh, overrides=ov,
+                       analysis_mode=False, rules=rules, partitioned=True)
     t0 = time.perf_counter()
     count = step_analysis.count_step(tcell.fn, *tcell.args)
     traced.update(flops=count.flops, bytes=count.bytes_accessed,
                   temp_peak_bytes=count.temp_peak_bytes,
+                  collectives=count.collectives,
                   t_trace_s=round(time.perf_counter() - t0, 2))
     return traced
 
@@ -162,21 +164,26 @@ def run_cell(
         rec.update({
             "status": "ok",
             "meta": cell.meta,
-            "partitioned": False,
+            "partitioned": True,
             "t_trace_s": traced["t_trace_s"],
             "traced": traced,
             "memory": {
                 "argument_bytes": arg_bytes,
                 "output_bytes": _output_bytes(cell),
                 "temp_bytes": temp,
-                "temp_bound": "upper",
+                "temp_bound": "device",
                 "total_per_device_gb": round(total / 2**30, 3),
                 "fits_80gb_hbm": bool(total < step_analysis.HBM_BYTES),
             },
-            "collective_schedule": cell_collectives(cell),
+            # the traced microbatches' until the probes give the step's
+            "collective_schedule": traced["collectives"],
         })
         if cell.meta["kind"] == "train":
             rec["traced_microbatches"] = traced["microbatches"]
+        if cell.cfg.moe_num_experts and cell.cfg.moe_impl == "dense":
+            # the port's own partition, not the reference's: every device
+            # routes, packs and combines the whole batch
+            rec["port_partition"] = "dense_moe"
 
         # 2) probe-extrapolated cost metrics (single-pod roofline table only)
         if probe:
@@ -185,6 +192,9 @@ def run_cell(
                 rules=rules,
             )
             n_chips = math.prod(mesh.axis_sizes)
+            rec["collective_schedule"] = {
+                k: int(round(pr["est"][f"coll_{k}"]))
+                for k in step_analysis.COLLECTIVES + ("count",)}
             # MODEL_FLOPS: 6·N·D for training (fwd+bwd), 2·N·D for inference
             flops_per_param_token = 6.0 if cell.meta["kind"] == "train" else 2.0
             model_flops = (flops_per_param_token
@@ -251,10 +261,10 @@ def main(argv=None) -> None:
     for a in archs:
         for s in shapes:
             for mp in meshes:
-                # probes feed the single-pod roofline table only
+                # the probes give every cell's step collectives; the
+                # roofline table reads the single-pod mesh's
                 rec = run_cell(a, s, mp, args.out,
-                               probe=(not args.no_probe) and not mp,
-                               opt=args.opt)
+                               probe=not args.no_probe, opt=args.opt)
                 tag = rec["status"]
                 n_ok += tag == "ok"
                 n_skip += tag == "skip"

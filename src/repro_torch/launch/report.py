@@ -1,9 +1,12 @@
 """Markdown tables of the dry run's records: the dry-run table, the
 single-pod roofline table and a summary.  A port of
 ``repro.launch.report`` with the H100 in place of the TPU: "fits 80 GB"
-for "fits 16GB", the trace's seconds for the compile's, the collectives
-reckoned from the specs for those parsed from the scanned HLO, and
-``mfu_at_bound`` at the H100's dense bf16 peak.
+for "fits 16GB" (decided by each device's own peak of the partitioned
+program: argument plus temp bytes), the trace's seconds for the
+compile's, the collectives the partitioned program issues (counted) for
+those parsed from the scanned HLO, and ``mfu_at_bound`` at the H100's
+dense bf16 peak.  A cell of the port's own dense-MoE partition
+(``"port_partition"``) is marked with a dagger in both tables.
 
     PYTHONPATH=src python -m repro_torch.launch.report [--dir artifacts/dryrun_torch]
 
@@ -30,9 +33,20 @@ def load(dirname: str) -> List[Dict]:
     return recs
 
 
+PORT_PARTITION_NOTE = (
+    "† the port's own partition of the dense MoE: every device routes, "
+    "packs and combines the whole batch (ROADMAP A12), which XLA's "
+    "partition of the reference does not; memory and collectives are "
+    "that partition's, not the model's.")
+
+
+def _mark(rec: Dict) -> str:
+    return "†" if rec.get("port_partition") else ""
+
+
 def dryrun_table(recs: List[Dict]) -> str:
     lines = [
-        "| arch | shape | mesh | status | per-device mem | fits 80 GB | trace | collectives (reckoned) |",
+        "| arch | shape | mesh | status | per-device mem | fits 80 GB | trace | collectives (counted) |",
         "|---|---|---|---|---|---|---|---|",
     ]
     for r in recs:
@@ -51,7 +65,7 @@ def dryrun_table(recs: List[Dict]) -> str:
         lines.append(
             f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok | "
             f"{m['total_per_device_gb']} GB | "
-            f"{'yes' if m['fits_80gb_hbm'] else 'NO'} | "
+            f"{'yes' if m['fits_80gb_hbm'] else 'NO'}{_mark(r)} | "
             f"{r['t_trace_s']}s | count={c.get('count', 0)} ({csum[:80]}) |")
     return "\n".join(lines)
 
@@ -89,7 +103,7 @@ def roofline_table(recs: List[Dict]) -> str:
         lines.append(
             f"| {r['arch']} | {r['shape']} | {rl['compute_s']:.4f} | "
             f"{rl['memory_s']:.4f} | {rl['collective_s']:.4f} | "
-            f"**{rl['dominant']}** | {mfu_at_bound(r):.3f} | "
+            f"**{rl['dominant']}**{_mark(r)} | {mfu_at_bound(r):.3f} | "
             f"{r.get('useful_flops_ratio', 0):.2f} | "
             f"{r['memory']['total_per_device_gb']} |")
     return "\n".join(lines)
@@ -101,8 +115,12 @@ def summary(recs: List[Dict]) -> str:
     err = sum(1 for r in recs if r["status"] == "error")
     fits = sum(1 for r in recs if r["status"] == "ok"
                and r["memory"]["fits_80gb_hbm"])
-    return (f"**{ok} cells traced OK** ({fits} fit 80 GB HBM/device at the "
-            f"upper bound), {skip} spec'd skips, {err} errors.")
+    out = (f"**{ok} cells traced OK** ({fits} fit 80 GB HBM/device at "
+           f"their device's own peak), {skip} spec'd skips, {err} errors.")
+    marked = sum(1 for r in recs if r["status"] == "ok" and _mark(r))
+    if marked:
+        out += f" {marked} cells marked: {PORT_PARTITION_NOTE}"
+    return out
 
 
 def main(argv=None):

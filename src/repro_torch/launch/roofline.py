@@ -1,40 +1,41 @@
 """Roofline terms by probe extrapolation.  A port of
 ``repro.launch.roofline``.
 
-A full-depth trace of a big cell takes a minute or more on ``meta``
-(nemotron-4-340b's train cell runs 96 layers and 16 microbatches; its
-trace of 2 microbatches at one shard's batch took about 100 s on one
-core of a Linux x86 host), so, as the reference compiles probes, the
-port traces *probe* builds at depth L groups and M microbatches and
-solves
+A full-depth trace of a big cell takes minutes (nemotron-4-340b's train
+cell runs 96 layers and 16 microbatches), so, as the reference compiles
+probes, the port traces *probe* builds at depth L groups and M
+microbatches and solves
 
     metric(L, M) = a + b*L + c*M + d*L*M
 
 exactly.  Every counted metric (FLOPs, bytes accessed, collective bytes
 and count) is bilinear in (L, M) for an eager step: each extra group
-adds the same layer ops and its optimizer update, each extra microbatch
-re-runs the per-group forward and backward.  One exception sits at
-M = 1: a one-microbatch step keeps the backward's gradients, where more
-microbatches add each into an fp32 accumulator (``train_loop``).  So a
-cell with M > 1 is probed at M in {2, 3}, both on the accumulating path,
-and the solve runs in M - 1; a cell with M = 1 needs only L.  The
-full-cell value is the polynomial at (num_layers / pattern_len, M);
-fractional L handles pattern tails (zamba2: 38 = 6 x 6 + 2).
+adds the same layer ops, collectives and optimizer update, each extra
+microbatch re-runs the per-group forward and backward.  One exception
+sits at M = 1: a one-microbatch step keeps the backward's gradients,
+where more microbatches add each into an fp32 accumulator
+(``train_loop``).  So a cell with M > 1 is probed at M in {2, 3}, both
+on the accumulating path, and the solve runs in M - 1; a cell with M = 1
+needs only L.  The full-cell value is the polynomial at
+(num_layers / pattern_len, M); fractional L handles pattern tails
+(zamba2: 38 = 6 x 6 + 2).
 
-Probes are traced at the cell's global batch (microbatch size held at
-the cell's): the counts are the whole program's, and the per-device
-figures are those over the mesh's device count.  The full-depth trace
-that proves the cell builds, and gives its memory, is ``dryrun.py``'s.
+Probes are traced as partitioned programs (``specs.build_cell(...,
+partitioned=True)``) on the cell's mesh, as rank 0: every metric is one
+device's, counted on its local tensors, and the collectives are those
+the program issues.  A probe holds the size of one device's share of a
+microbatch at the cell's (:func:`~.step_analysis.device_microbatch`,
+rounded up to one sequence as XLA pads).  The full-depth trace that
+proves the cell builds, and gives its memory, is ``dryrun.py``'s.
 """
 from __future__ import annotations
 
-import math
 from typing import Any, Dict, Optional
 
 from ..configs.base import SHAPES, ArchDef
 from ..distributed import sharding as shd
 from . import step_analysis
-from .specs import build_cell
+from .specs import build_cell, default_rules, partition
 
 
 def _probe_metrics(
@@ -58,23 +59,34 @@ def _probe_metrics(
         ov["num_microbatches"] = m_micro
         ov["global_batch"] = micro_size * m_micro
     cell = build_cell(arch, shape_name, mesh, overrides=ov, analysis_mode=True,
-                      rules=rules)
+                      rules=rules, partitioned=True)
     count = step_analysis.count_step(cell.fn, *cell.args, memory=False)
-    coll = cell_collectives(cell)
-    n = math.prod(mesh.axis_sizes)
+    coll = count.collectives
     out = {
-        "flops": count.flops / n,
-        "bytes": count.bytes_accessed / n,
-        "coll_total": float(sum(v for k, v in coll.items() if k != "count")),
+        "flops": float(count.flops),
+        "bytes": float(count.bytes_accessed),
+        "coll_total": float(sum(coll.get(k, 0)
+                                for k in step_analysis.COLLECTIVES)),
         "coll_count": float(coll["count"]),
     }
     for k in step_analysis.COLLECTIVES:
-        out[f"coll_{k}"] = float(coll[k])
+        out[f"coll_{k}"] = float(coll.get(k, 0))
     return out
 
 
 def cell_collectives(cell) -> Dict[str, int]:
-    """``step_analysis.collective_bytes`` of a built cell."""
+    """The collectives one device's partitioned program of a built cell
+    issues, counted (``step_analysis.count_step``): result bytes by kind
+    and ``count``."""
+    pcell = cell if cell.dmesh is not None else partition(cell)
+    count = step_analysis.count_step(pcell.fn, *pcell.args, memory=False)
+    return count.collectives
+
+
+def reckoned_collectives(cell) -> Dict[str, int]:
+    """``step_analysis.collective_bytes`` of a built cell: the hand
+    reckoning from its specs, kept as a cross-check of the counted
+    collectives."""
     sizes = dict(cell.mesh.shape)
     meta = cell.meta
     return step_analysis.collective_bytes(
@@ -117,7 +129,10 @@ def probe_roofline(
          or arch.microbatches.get(shape_name, 1))
     is_train = cell.kind == "train"
     global_batch = (overrides or {}).get("global_batch") or cell.global_batch
-    micro_size = max(global_batch // M, 1)
+    r = rules or default_rules(mesh)
+    sizes = dict(mesh.shape)
+    n_b = shd._axes_size(shd._batch_axes_fit(r, global_batch, sizes), sizes)
+    micro_size = step_analysis.device_microbatch(global_batch, M, n_b) * n_b
 
     def probe(l_groups, m_micro):
         return _probe_metrics(arch, shape_name, mesh, l_groups, m_micro,

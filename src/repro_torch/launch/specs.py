@@ -9,9 +9,12 @@ batches made on ``meta``.  The shardings are
 :class:`~repro_torch.distributed.sharding.NamedSharding`\\ s over the
 port's mesh; ``fn`` runs the port's step (``train_loop.make_train_step``,
 ``model.prefill``, ``model.forward`` or ``model.decode_step``) under the
-cell's rules and mesh.  Nothing places a tensor by them: the port's
-program is not partitioned, and the dry run reckons per-device numbers
-from the specs (``launch.step_analysis``).
+cell's rules and mesh.  With ``partitioned=True`` the cell is a DTensor
+program: its args are placed by ``in_shardings`` over a ``fake``-backend
+device mesh with the mesh's names and sizes (``launch.mesh.
+fake_dtensor_mesh``, this process as rank 0), and ``fn`` runs under that
+mesh (``distributed.sharding.use_dtensor_mesh``), so a trace of it runs
+one device's shards and issues its collectives.
 
 ``build_cell``'s ``meta`` dict and spec trees equal the reference's, key
 for key.  One override is the port's own, for checking the dry run
@@ -48,6 +51,8 @@ class CellSpec:
     cfg: Optional[ModelConfig] = None
     rules: Optional[shd.AxisRules] = None
     mesh: Any = None
+    # the torch DeviceMesh the args are placed over (partitioned cells)
+    dmesh: Any = None
 
 
 def _sds(shape, dtype) -> torch.Tensor:
@@ -130,13 +135,28 @@ def _ns(mesh, spec_tree):
     return shd._map_specs(lambda s: NamedSharding(mesh, s), spec_tree)
 
 
-def _in_context(fn, rules, mesh):
+def _in_context(fn, rules, mesh, dmesh=None):
     """``fn`` under the cell's rules and ambient mesh (the shard_map MoE
-    reads both)."""
+    reads both), and under ``dmesh`` for a partitioned cell."""
     def run(*args):
-        with shd.use_rules(rules), use_mesh(mesh):
+        with shd.use_rules(rules), use_mesh(mesh), \
+                shd.use_dtensor_mesh(dmesh):
             return fn(*args)
+    run.__wrapped__ = fn
     return run
+
+
+def partition(cell: CellSpec, device_type: str = "cuda") -> CellSpec:
+    """``cell`` as a partitioned DTensor program: its args placed by its
+    ``in_shardings`` over a ``fake`` device mesh of its mesh's names and
+    sizes (rank 0), its ``fn`` run under that mesh."""
+    from .mesh import fake_dtensor_mesh
+
+    dmesh = fake_dtensor_mesh(cell.mesh, device_type)
+    args = shd.place(cell.args, cell.in_shardings, dmesh)
+    return dataclasses.replace(
+        cell, args=args, dmesh=dmesh,
+        fn=_in_context(cell.fn.__wrapped__, cell.rules, cell.mesh, dmesh))
 
 
 def build_cell(
@@ -146,6 +166,7 @@ def build_cell(
     rules: Optional[shd.AxisRules] = None,
     overrides: Optional[Dict[str, Any]] = None,
     analysis_mode: bool = True,
+    partitioned: bool = False,
 ) -> CellSpec:
     """Build the step + specs for one cell.
 
@@ -157,8 +178,16 @@ def build_cell(
     Python loops either way, and its counts are exact at any depth.  The
     reference's analysis KV chunk (2,048, or 8,192 for decode) is left
     out: attention pads K and V to whole chunks, so the chunk changes the
-    work, and the probes count the program that runs.
+    work, and the probes count the program that runs.  ``partitioned``
+    returns the cell as a DTensor program (:func:`partition`).
     """
+    cell = _build_cell(arch, shape_name, mesh, rules, overrides,
+                       analysis_mode)
+    return partition(cell) if partitioned else cell
+
+
+def _build_cell(arch, shape_name, mesh, rules, overrides, analysis_mode
+                ) -> CellSpec:
     cell = SHAPES[shape_name]
     cfg = arch.full
     overrides = dict(overrides or {})

@@ -1,41 +1,52 @@
 """Step analysis for the dry run: what one step costs, counted on the
 ``meta`` device, and its H100 roofline terms.  The port's counterpart of
 ``repro.launch.hlo_analysis``: the reference reads XLA's compiled,
-partitioned program; the port has no compiler and no partitioner, so it
-runs the step eagerly on ``meta`` tensors (shapes, no data) and counts.
+partitioned program; the port runs its partitioned DTensor program
+eagerly as one device (rank 0) on ``meta`` tensors (shapes, no data)
+and counts.
 
-:func:`count_step` runs ``fn(*args)`` once under three dispatch modes
-and returns three numbers:
+:func:`count_step` runs ``fn(*args)`` once under its dispatch modes and
+returns four numbers, each one device's when the args are DTensors (an
+op on DTensors is handed to DTensor, whose local ops and collectives are
+counted, so each op counts once; the tensor ops DTensor's sharding
+propagation and redistribution planning run for themselves are not):
 
-- ``flops``: ``torch.utils.flop_counter.FlopCounterMode``'s total.  It
-  counts the products it has formulas for: ``mm``, ``bmm``, ``addmm``,
-  ``baddbmm``, convolutions and scaled-dot-product attention, forward
-  and backward (einsums reach it as ``bmm``).  Elementwise work,
-  reductions, softmax, norms, RoPE, casts and the optimizer's update are
-  left out.  ``model_flops_total`` in the dry run's record (6·N·D or
-  2·N·D) is the count that does not depend on the implementation.
+- ``flops``: ``torch.utils.flop_counter.FlopCounterMode``'s formulas on
+  the local ops.  It counts the products it has formulas for: ``mm``,
+  ``bmm``, ``addmm``, ``baddbmm``, convolutions and scaled-dot-product
+  attention, forward and backward (einsums reach it as ``bmm``).
+  Elementwise work, reductions, softmax, norms, RoPE, casts and the
+  optimizer's update are left out.  ``model_flops_total`` in the dry
+  run's record (6·N·D or 2·N·D) is the count that does not depend on the
+  implementation.
 - ``bytes_accessed``: the operand bytes plus the output bytes of every
-  aten op the step dispatches, the eager analogue of XLA's ``bytes
-  accessed``.  View ops (``is_view``, ``_unsafe_view``) and bare
-  allocations (``empty*``) move no bytes and are left out; an in-place
-  op reads and writes its first operand; an ``out=`` op's buffer counts
-  as written, not read.
-- ``temp_peak_bytes``: the peak of live storage bytes above the state
-  passed in, from ``torch.distributed._tools.mem_tracker.MemTracker``
-  (storages tracked by weak reference from a dispatch mode; ``args`` are
-  registered with ``track_external`` first and their bytes subtracted).
-  On a card it rounds each storage up to 512 bytes, as the caching
-  allocator does; on ``meta`` it counts exact bytes.
+  local aten op the step dispatches, the eager analogue of XLA's ``bytes
+  accessed``.  View ops (``is_view``, ``_unsafe_view``), bare
+  allocations (``empty*``) and collectives move no bytes here and are
+  left out; an in-place op reads and writes its first operand; an
+  ``out=`` op's buffer counts as written, not read.
+- ``temp_peak_bytes``: the peak of live (local) storage bytes above the
+  state passed in, from ``torch.distributed._tools.mem_tracker.
+  MemTracker`` (storages tracked by weak reference from a dispatch mode;
+  ``args``' local blocks are registered with ``track_external`` first and
+  their bytes subtracted).  On a card it rounds each storage up to 512
+  bytes, as the caching allocator does; on ``meta`` it counts exact
+  bytes.
+- ``collectives``: every collective the program issues
+  (``torch.ops._c10d_functional`` and DTensor's all-to-all, the ops
+  ``CommDebugMode`` counts), by kind, in the reference's result-bytes
+  convention (an all-reduce counts its result, the whole buffer; an
+  all-gather the gathered tensor; a reduce-scatter its shard; ``count``
+  the number of collectives).
 
 :func:`collective_bytes` reckons the collectives a cell's sharding
-implies, per device, from its spec trees and mesh sizes, because there
-is no partitioned program to read them from.  Keys and the result-bytes
-convention are the reference's (an all-reduce counts its result, the
-whole buffer; an all-gather the gathered tensor; a reduce-scatter its
-shard; ``count`` the number of collectives).  The rules follow what
-XLA's SPMD partitioner emits for the reference's step (held against its
-partitioned module for a dense train cell in
-``tests/test_torch_launch.py``).  Per microbatch:
+implies, per device, from its spec trees and mesh sizes, with the rules
+below: the dry run records the counted collectives and keeps this
+reckoning as a cross-check (``tests/test_torch_launch.py`` holds the two
+equal on a dense cell for the groups the rules cover, and the counted
+ones against XLA's partitioned module group by group).  The rules follow
+what XLA's SPMD partitioner emits for the reference's step.  Per
+microbatch:
 
 - FSDP all-gather of each FSDP-sharded leaf (over those axes; TP axes
   stay split), in the compute dtype: the layer casts the leaf on its
@@ -68,16 +79,15 @@ partitioned module for a dense train cell in
   MoE layer and direction (dispatch and combine), each the packed
   ``(E, C, d_model)`` buffer of the local tokens.
 
-Left out: the embedding lookup and its gradient's scatter-add (XLA
-partitions them into their own collectives: the token ids gathered, the
-looked-up rows all-reduced over the vocab axis, all-to-alls and
-permutes; a tied table is still gathered and reduced as the head), the
-vocab-parallel softmax's statistics (three float32 all-reduces of one
-number per token), scalar all-reduces (the loss, the gradient norm), the
-shard_map MoE's and the SSM's own layout changes, and sequence
-parallelism.  The reduce-scatters are what XLA's GPU pipeline forms; the
-CPU partitioner leaves each as an all-reduce of the whole TP shard
-followed by a slice.
+The rules leave out what the counted program issues besides: the
+embedding lookup (the ids gathered over the axes that split the table's
+d_model, the looked-up rows summed over the vocab axis and moved to the
+batch split, and back in the backward), the vocab-parallel softmax's
+statistics (three float32 all-reduces of one number per token), scalar
+all-reduces (the loss, the token count, the gradient norm), the MoE's and
+the SSM's own layout collectives, and sequence parallelism.  The
+reduce-scatters are what XLA's GPU pipeline forms; the CPU partitioner
+leaves each as an all-reduce of the whole TP shard followed by a slice.
 
 The H100 constants price the three terms, as ``hlo_analysis``'s TPU
 constants did for the reference.  ``LINK_BW`` is one card's 400 Gb/s NDR
@@ -125,6 +135,14 @@ class StepCount(NamedTuple):
     flops: int
     bytes_accessed: int
     temp_peak_bytes: int
+    # result bytes by kind (COLLECTIVES) and ``count``: the collectives
+    # the step issued (none for an unpartitioned program)
+    collectives: Dict[str, int] = {}
+
+
+def _local_of(t: Any) -> Any:
+    """A DTensor's local block; any other value itself."""
+    return t.to_local() if hasattr(t, "placements") else t
 
 
 def _nbytes(tree: Any) -> int:
@@ -146,22 +164,178 @@ def _moves_no_bytes(func) -> bool:
     return hit
 
 
-class _BytesMode(TorchDispatchMode):
-    """Sums operand and output bytes of every op that moves data."""
+# collective ops as DTensor issues them (``torch.ops._c10d_functional``
+# and DTensor's own all-to-all), by the reference's kind names
+_COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+    "broadcast": "collective-permute", "broadcast_": "collective-permute",
+}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional", "_dtensor")
+
+
+def _collective_kind(func) -> Any:
+    """The kind of a collective op, ``"wait"`` for its wait, else None."""
+    if func.namespace not in _COLLECTIVE_NAMESPACES:
+        return None
+    name = func.overloadpacket.__name__
+    if name == "wait_tensor":
+        return "wait"
+    return _COLLECTIVE_KINDS.get(name)
+
+
+class _LocalMode(TorchDispatchMode):
+    """A dispatch mode that sees one device's program: an op on DTensors
+    is handed to DTensor (``NotImplemented``), which runs it as local ops
+    and collectives that come back here; ops DTensor runs under its own
+    fake mode to propagate shardings are run uncounted."""
+
+    def __enter__(self):
+        from torch._guards import active_fake_mode
+
+        self._fake_on_entry = active_fake_mode()
+        return super().__enter__()
+
+    def _counted(self, types) -> bool:
+        from torch._guards import active_fake_mode
+        from torch.distributed.tensor import DTensor
+
+        if _PLANNING[0] or any(issubclass(t, DTensor) for t in types):
+            return False
+        return active_fake_mode() is self._fake_on_entry
+
+
+# DTensor's sharding propagation and redistribution planning run a few
+# tensor ops of their own (shard sizes and offsets) the first time they
+# meet an op or a layout, then cache the plan: they are not the
+# program's, and counting them would make a count depend on what ran
+# before it in the process
+_PLANNING = [0]
+
+
+def _uncounted(fn):
+    def run(*args, **kwargs):
+        _PLANNING[0] += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _PLANNING[0] -= 1
+    return run
+
+
+_PLANNERS = {
+    "redistribute": ("_gen_transform_infos_non_cached",),
+    "propagator": ("propagate", "propagate_op_sharding",
+                   "propagate_op_sharding_non_cached",
+                   "_propagate_tensor_meta",
+                   "_propagate_tensor_meta_non_cached"),
+}
+
+
+@contextlib.contextmanager
+def _planning_uncounted():
+    """Keep DTensor's planning functions out of the counts.  They are
+    private, so a torch release may rename them: if either group has none
+    of its names, this raises rather than count the planning ops."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import _redistribute
+
+    owners = {"redistribute": _redistribute,
+              "propagator": DTensor._op_dispatcher.sharding_propagator}
+    saved = []
+    for group, names in _PLANNERS.items():
+        found = [(owners[group], n) for n in names
+                 if hasattr(owners[group], n)]
+        if not found:
+            raise RuntimeError(
+                f"DTensor's {group} has none of {names} in torch "
+                f"{torch.__version__}: count_step cannot keep its planning "
+                f"ops out of the counts")
+        saved += found
+    before = [(obj, name, obj.__dict__.get(name)) for obj, name in saved]
+    for obj, name in saved:
+        setattr(obj, name, _uncounted(getattr(obj, name)))
+    try:
+        yield
+    finally:
+        for obj, name, old in before:
+            if old is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old)
+
+
+class _BytesMode(_LocalMode):
+    """Sums operand and output bytes of every op that moves data, and the
+    result bytes of every collective, by kind."""
 
     def __init__(self):
         super().__init__()
         self.total = 0
+        self.collectives = {k: 0 for k in COLLECTIVES}
+        self.collectives["count"] = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
+        if not self._counted(types):
+            return func(*args, **kwargs)
+        kind = _collective_kind(func)
+        if kind == "wait":
+            # a meta collective's result is complete; its wait is no op
+            return args[0] if args[0].device.type == "meta" \
+                else func(*args, **kwargs)
         out = func(*args, **kwargs)
-        if not _moves_no_bytes(func):
+        if kind is not None:
+            self.collectives[kind] = self.collectives.get(kind, 0) \
+                + _nbytes(out)
+            self.collectives["count"] += 1
+        elif not _moves_no_bytes(func):
             reads = kwargs
             if func._overloadname.startswith("out") and "out" in kwargs:
                 reads = {k: v for k, v in kwargs.items() if k != "out"}
             self.total += _nbytes(args) + _nbytes(reads) + _nbytes(out)
         return out
+
+
+def _flop_mode(counter):
+    """``FlopCounterMode``'s dispatch mode counting local ops only."""
+    from torch.utils.flop_counter import _FlopCounterMode
+
+    class _LocalFlops(_FlopCounterMode, _LocalMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            from torch.distributed.tensor import DTensor
+
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            if not self._counted(types):
+                return func(*args, **(kwargs or {}))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return _LocalFlops(counter)
+
+
+def _mem_tracker():
+    """torch's ``MemTracker``, blind to DTensor's planning ops (some
+    releases run sharding propagation on ``meta`` inputs as they are,
+    not under a fake mode, where the tracker would count them)."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    class _LocalMemTracker(MemTracker):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if _PLANNING[0]:
+                return func(*args, **(kwargs or {}))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return _LocalMemTracker()
 
 
 def _tracked_total(snapshot: Dict[Any, Dict[str, int]]) -> int:
@@ -172,30 +346,34 @@ def count_step(fn: Callable[..., Any], *args: Any,
                memory: bool = True) -> StepCount:
     """Run ``fn(*args)`` once and count it (see the module docstring).
     ``memory=False`` skips the memory tracker (``temp_peak_bytes`` 0).
-    The result of ``fn`` is dropped before the count returns."""
+    The result of ``fn`` is dropped before the count returns.
+
+    On a partitioned program (DTensor args) every number is one
+    device's: FLOPs and bytes of the local ops only, each op once (an op
+    on DTensors is counted as the local ops DTensor runs for it), the
+    temp peak of the local storages, and the collectives issued."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    flop_mode = FlopCounterMode(display=False)
+    counter = FlopCounterMode(display=False)
     bytes_mode = _BytesMode()
     base = 0
     with contextlib.ExitStack() as stack:
         tracker = None
         if memory:
-            from torch.distributed._tools.mem_tracker import MemTracker
-
-            tracker = MemTracker()
-            tracker.track_external(*[t for t in tree_leaves(args)
+            tracker = _mem_tracker()
+            tracker.track_external(*[_local_of(t) for t in tree_leaves(args)
                                      if isinstance(t, torch.Tensor)])
             base = _tracked_total(tracker.get_tracker_snapshot("current"))
             stack.enter_context(tracker)
-        stack.enter_context(flop_mode)
+        stack.enter_context(_planning_uncounted())
+        stack.enter_context(_flop_mode(counter))
         stack.enter_context(bytes_mode)
         out = fn(*args)
         del out
     peak = (_tracked_total(tracker.get_tracker_snapshot("peak"))
             if tracker is not None else base)
-    return StepCount(int(flop_mode.get_total_flops()), int(bytes_mode.total),
-                     max(peak - base, 0))
+    return StepCount(int(counter.get_total_flops()), int(bytes_mode.total),
+                     max(peak - base, 0), dict(bytes_mode.collectives))
 
 
 # ---------------------------------------------------------------------------

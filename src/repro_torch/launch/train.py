@@ -3,14 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch <id> \\
         [--smoke] [--steps N] [--global-batch 8] [--seq-len 128] \\
         [--microbatches 1] [--ckpt-dir DIR] [--save-every 25] \\
-        [--grad-compression] [--device cpu]
+        [--grad-compression] [--device cpu] [--init-device cpu]
 
 A port of ``repro.launch.train`` on one device: random params from seed
 0, AdamW (lr 3e-4, ``min(20, steps // 4)`` warm-up steps, cosine over
 ``--steps``), batches from ``data.pipeline`` (seed 0), a checkpoint every
 ``--save-every`` steps.  Runs on the card unless ``--device`` names
-another; ``--smoke`` takes the arch's reduced config at fp32 compute.  A
-checkpoint directory that holds a later step than 0 resumes from it.
+another; ``--smoke`` takes the arch's reduced config at fp32 compute.
+``--init-device`` draws the random params on another device than the
+run's (the same values on the card and on the CPU).  A checkpoint
+directory that holds a later step than 0 resumes from it.
 """
 import argparse
 import dataclasses
@@ -39,6 +41,8 @@ def main(argv=None):
     ap.add_argument("--save-every", type=int, default=25)
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--init-device", default=None,
+                    help="draw the random params here (default: --device)")
     args = ap.parse_args(argv)
 
     arch = get_arch(args.arch)
@@ -59,8 +63,9 @@ def main(argv=None):
         vocab_size=cfg.vocab_size, frontend=cfg.frontend,
         frontend_dim=cfg.frontend_dim, num_patches=cfg.num_patches,
     )
+    gen_device = resolve_device(args.init_device or args.device)
     params, opt_state = train_loop.init_train_state(
-        cfg, tcfg, torch.Generator(device).manual_seed(0), device)
+        cfg, tcfg, torch.Generator(gen_device).manual_seed(0), device)
     step = train_loop.make_train_step(cfg, tcfg)
 
     ctl = controller.TrainController(

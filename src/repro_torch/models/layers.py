@@ -43,6 +43,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import sparse as sp
+from ..distributed.sharding import (
+    constrain, gather_weight, grad_reduced as _rg, logical_placements,
+    to_placements,
+)
 
 Params = Dict[str, Any]
 NEG = -1e30  # the reference's mask value (never -inf)
@@ -165,21 +169,44 @@ def blockwise_attention(
     """
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
+    kw = dict(causal=causal, q_offset=q_offset, window=window,
+              softcap=softcap, kv_chunk=kv_chunk, kv_len=kv_len)
+    if hasattr(q, "placements") and sq != 1:
+        if h != kv:
+            # a partitioned program splits the heads over TP, which a KV
+            # head count below the TP degree cannot follow: each KV head
+            # is repeated for its query group (the same products)
+            k, v = _repeat_kv(k, h // kv), _repeat_kv(v, h // kv)
+        return _local_attention(q, k, v, kw)
+    if sq == 1:
+        # decode: the reference pins q and the cache to head-dim TP
+        # sharding; contracting over it costs one small logits sum
+        q = constrain(q, "batch", None, None, "heads")
+        k = constrain(k, "batch", None, None, "heads")
+        v = constrain(v, "batch", None, None, "heads")
     groups = h // kv
     scale = 1.0 / np.sqrt(d)
 
     qf = (q * scale).to(q.dtype).reshape(b, sq, kv, groups, d).float()
+    if sq == 1:
+        qf = constrain(qf, "batch", None, None, None, "heads")
     q_pos = q_offset + torch.arange(sq, device=q.device)  # (Sq,)
 
     n_chunks = max(1, (sk + kv_chunk - 1) // kv_chunk)
     valid_len = sk if kv_len is None else int(kv_len)
 
-    m = torch.full((b, sq, kv, groups), NEG, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, sq, kv, groups), dtype=torch.float32,
-                    device=q.device)
-    acc = torch.zeros((b, sq, kv, groups, d), dtype=torch.float32,
-                      device=q.device)
+    if hasattr(qf, "placements"):
+        # a partitioned decode: the statistics take the placements of the
+        # first chunk's
+        m = l = None
+        acc = torch.zeros_like(qf)
+    else:
+        m = torch.full((b, sq, kv, groups), NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, sq, kv, groups), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((b, sq, kv, groups, d), dtype=torch.float32,
+                          device=q.device)
     for c_idx in range(n_chunks):
         lo = c_idx * kv_chunk
         k_blk, v_blk = k[:, lo:lo + kv_chunk], v[:, lo:lo + kv_chunk]
@@ -189,7 +216,7 @@ def blockwise_attention(
             v_blk = F.pad(v_blk, (0, 0, 0, 0, 0, short))
         kv_pos = lo + torch.arange(kv_chunk, device=q.device)  # (C,)
         # (B, Sq, KV, G, C): fp32 products of the compute-dtype operands
-        logits = torch.einsum("bskgd,bckd->bskgc", qf, k_blk.float())
+        logits = _qk(qf, k_blk.float())
         logits = _softcap(logits, softcap)
         mask = (kv_pos < valid_len)[None, :]  # (1, C)
         if causal:
@@ -198,15 +225,111 @@ def blockwise_attention(
             mask = mask & (q_pos[:, None] - kv_pos[None, :] < window)
         logits = logits.masked_fill(~mask[None, :, None, None, :], NEG)
         m_cur = logits.amax(dim=-1)
+        if m is None:
+            m = torch.full_like(m_cur, NEG)
+            l = torch.zeros_like(m_cur)
         m_new = torch.maximum(m, m_cur)
         p = torch.exp(logits - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bskgc,bckd->bskgd", p.to(v_blk.dtype).float(), v_blk.float())
+        acc = acc * alpha[..., None] + _pv(p.to(v_blk.dtype).float(),
+                                           v_blk.float())
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def _qk(qf: torch.Tensor, kf: torch.Tensor) -> torch.Tensor:
+    """(B, Sq, KV, G, D) x (B, C, KV, D) -> logits (B, Sq, KV, G, C).  On
+    DTensors split over D (decode), each device's product of its D slice,
+    summed over those devices."""
+    if not hasattr(qf, "placements"):
+        return torch.einsum("bskgd,bckd->bskgc", qf, kf)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    out = [Partial() if p.is_shard(4) else p for p in qf.placements]
+    logits = local_map(
+        lambda a, b: torch.einsum("bskgd,bckd->bskgc", a, b),
+        out_placements=out, in_placements=(tuple(qf.placements),
+                                           tuple(kf.placements)),
+        device_mesh=qf.device_mesh)(qf, kf)
+    return to_placements(logits, tuple(
+        Replicate() if p.is_partial() else p for p in logits.placements))
+
+
+def _pv(p: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
+    """(B, Sq, KV, G, C) x (B, C, KV, D) -> (B, Sq, KV, G, D); on DTensors
+    each device's D slice of V."""
+    if not hasattr(p, "placements"):
+        return torch.einsum("bskgc,bckd->bskgd", p, vf)
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    out = [Shard(4) if q.is_shard(3) else q for q in vf.placements]
+    return local_map(
+        lambda a, b: torch.einsum("bskgc,bckd->bskgd", a, b),
+        out_placements=out, in_placements=(tuple(p.placements),
+                                           tuple(vf.placements)),
+        device_mesh=vf.device_mesh)(p, vf)
+
+
+def _local_attention(q, k, v, kw) -> torch.Tensor:
+    """Attention of a partitioned program: every device attends its own
+    sequences and heads (q's placements; K and V moved there), on its
+    local blocks (the counterpart of a ``shard_map`` body), as XLA
+    partitions it: no collective inside.  (``local_map`` would infer the
+    output's global shape from an even split; a head count that does not
+    divide over TP is split unevenly, so the output takes q's.)"""
+    from torch.distributed.tensor import DTensor
+
+    pl = tuple(q.placements)
+    k, v = to_placements(k, pl), to_placements(v, pl)
+    out = blockwise_attention(q.to_local(), k.to_local(), v.to_local(),
+                              **kw)
+    return DTensor.from_local(out, q.device_mesh, pl, run_check=False,
+                              shape=q.shape, stride=q.stride())
+
+
+def _repeat_kv(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, S, KV * groups, D), each KV head repeated for
+    the ``groups`` query heads that read it (head ``i`` reads KV head
+    ``i // groups``, as the grouped reshape pairs them)."""
+    b, s, kv, d = t.shape
+    t = _whole(t, 2)
+    return t[:, :, :, None, :].expand(b, s, kv, groups, d).reshape(
+        b, s, kv * groups, d)
+
+
+def _whole(t: torch.Tensor, dim: int, n: Optional[int] = None
+           ) -> torch.Tensor:
+    """A DTensor split over ``dim`` where ``n`` (the dimension's size, or
+    the count of heads it holds) does not divide over the mesh axis,
+    gathered over that axis: DTensor reshapes only even splits.  Anything
+    else unchanged."""
+    if not hasattr(t, "placements"):
+        return t
+    n = t.shape[dim] if n is None else n
+    mesh = t.device_mesh
+    if not any(p.is_shard(dim) and n % mesh.size(i)
+               for i, p in enumerate(t.placements)):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return to_placements(t, tuple(Replicate() if p.is_shard(dim) else p
+                                  for p in t.placements))
+
+
+def _heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n * hd) -> (B, S, n, hd).  Under a partitioned program the
+    heads are split over TP (an uneven split rounds up on rank 0, as XLA
+    pads); a projection whose head count does not divide over TP is
+    gathered before the reshape."""
+    b, s, _ = t.shape
+    t = _whole(t, 2, n).reshape(b, s, n, hd)
+    pl = logical_placements(t.ndim, ("batch", None, "heads", None))
+    return to_placements(t, pl) if pl is not None and hasattr(
+        t, "placements") else t
 
 
 # ---------------------------------------------------------------------------
@@ -263,16 +386,14 @@ def apply_attention(
     """
     b, s, _ = x.shape
     h, kv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
-    q = x @ params["wq"].to(x.dtype)
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
+    q = _rg(x) @ gather_weight(params["wq"], x.dtype)
+    k = _rg(x) @ gather_weight(params["wk"], x.dtype)
+    v = _rg(x) @ gather_weight(params["wv"], x.dtype)
     if spec.qkv_bias:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    q, k, v = _heads(q, h, hd), _heads(k, kv, hd), _heads(v, kv, hd)
     q = apply_rope(q, positions, spec.rope_theta)
     k = apply_rope(k, positions, spec.rope_theta)
 
@@ -287,8 +408,8 @@ def apply_attention(
         k_cache, v_cache, length = cache
         length = int(length)
         start = min(max(length, 0), k_cache.shape[1] - s)
-        k_cache[:, start:start + s] = k.to(k_cache.dtype)
-        v_cache[:, start:start + s] = v.to(v_cache.dtype)
+        k_cache[:, start:start + s] = _like(k.to(k_cache.dtype), k_cache)
+        v_cache[:, start:start + s] = _like(v.to(v_cache.dtype), v_cache)
         out = blockwise_attention(
             q, k_cache.to(q.dtype), v_cache.to(q.dtype),
             causal=spec.causal, q_offset=length, window=spec.window,
@@ -297,8 +418,17 @@ def apply_attention(
         )
         new_cache = (k_cache, v_cache, length + s)
 
-    y = out.reshape(b, s, h * hd) @ params["wo"].to(x.dtype)
-    return y, new_cache
+    # (a gathered uneven split takes its gradient whole, too)
+    merged = _rg(_whole(out, 2).reshape(b, s, h * hd))
+    y = merged @ gather_weight(params["wo"], x.dtype)
+    return constrain(y, "batch", "seq", None), new_cache
+
+
+def _like(t: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``t`` in ``dst``'s placements, for an in-place write into ``dst``
+    (a cache) under a partitioned program; else ``t``."""
+    return to_placements(t, dst.placements) if hasattr(dst, "placements") \
+        else t
 
 
 # ---------------------------------------------------------------------------
@@ -328,18 +458,19 @@ def init_mlp(init: Init, d: int, f: int, kind: str) -> Params:
 
 
 def apply_mlp(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
-    h = x @ params["w_in"].to(x.dtype)
+    h = _rg(x) @ gather_weight(params["w_in"], x.dtype)
     if kind == "swiglu":
-        h = silu(x @ params["w_gate"].to(x.dtype)) * h
+        h = silu(_rg(x) @ gather_weight(params["w_gate"], x.dtype)) * h
     elif kind == "geglu":
-        h = gelu(x @ params["w_gate"].to(x.dtype)) * h
+        h = gelu(_rg(x) @ gather_weight(params["w_gate"], x.dtype)) * h
     elif kind == "squared_relu":  # nemotron-4
         h = torch.square(F.relu(h))
     elif kind == "gelu":
         h = gelu(h)
     else:
         raise ValueError(f"unknown mlp kind {kind}")
-    return h @ params["w_out"].to(x.dtype)
+    y = h @ gather_weight(params["w_out"], x.dtype)
+    return constrain(y, "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,10 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import (
+    constrain, dtensor_mesh, gather_weight, grad_reduced, logical_placements,
+    to_placements,
+)
 from . import layers, transformer
 from .config import ModelConfig, resolve_device
 from .layers import Init
@@ -59,13 +63,59 @@ def params_device(params: Params) -> torch.device:
 
 
 def _on(x, device) -> torch.Tensor:
+    if hasattr(x, "placements"):  # a placed batch stays where it is
+        return x
     return torch.as_tensor(x).to(device)
 
 
 def _embed(params: Params, tokens: torch.Tensor, cd) -> torch.Tensor:
+    table = params["embed"]["table"]
+    if hasattr(table, "placements"):
+        return _embed_sharded(table.to(cd), tokens)
     # index, then cast: the same values as the reference's cast-then-index,
     # without a compute-dtype copy of the whole table per call
-    return params["embed"]["table"][tokens.long()].to(cd)
+    return table[tokens.long()].to(cd)
+
+
+def _embed_sharded(table: torch.Tensor, tokens: torch.Tensor
+                   ) -> torch.Tensor:
+    """The lookup of a partitioned program, as XLA partitions the
+    reference's cast-then-index: the token ids gathered over the axes
+    that split the table's d_model, each device's rows of its vocab slice
+    looked up (0 for an id outside it) on its d_model slice, partial over
+    the axes that split the vocab; the caller's constraint sums them and
+    moves them to the batch split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    (n_v, _), (v0, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, table.placements)
+    tok_pl, out_pl = [], []
+    for tp, kp in zip(table.placements, tokens.placements):
+        if tp.is_shard(1):
+            tok_pl.append(Replicate())
+            out_pl.append(Shard(tokens.ndim))
+        elif tp.is_shard(0):
+            tok_pl.append(Replicate())
+            out_pl.append(Partial())
+        else:
+            tok_pl.append(kp)
+            out_pl.append(kp)
+    tokens = to_placements(tokens, tuple(tok_pl))
+
+    def lookup(tab, tok):
+        idx = tok.long() - v0
+        inside = (idx >= 0) & (idx < n_v)
+        rows = torch.nn.functional.embedding(idx.clamp(0, n_v - 1), tab)
+        return torch.where(inside[..., None], rows, 0.0).to(tab.dtype)
+
+    return local_map(lookup, out_placements=out_pl,
+                     in_placements=(tuple(table.placements), tuple(tok_pl)),
+                     device_mesh=mesh)(table, tokens)
 
 
 def _embed_batch(
@@ -75,31 +125,63 @@ def _embed_batch(
     cd = cfg.compute_dtype
     dev = params_device(params)
     if cfg.frontend == "audio":
-        x = _on(batch["frames"], dev).to(cd) \
-            @ params["frontend"]["frontend_proj"].to(cd)
+        x = constrain(_on(batch["frames"], dev).to(cd)
+                      @ gather_weight(params["frontend"]["frontend_proj"],
+                                      cd),
+                      "batch", "seq", None)
     elif cfg.frontend == "vision":
-        patches = _on(batch["patches"], dev).to(cd) \
-            @ params["frontend"]["frontend_proj"].to(cd)
-        text = _embed(params, _on(batch["tokens"], dev), cd)
+        patches = constrain(
+            _on(batch["patches"], dev).to(cd)
+            @ gather_weight(params["frontend"]["frontend_proj"], cd),
+            "batch", "seq", None)
+        text = constrain(_embed(params, _on(batch["tokens"], dev), cd),
+                         "batch", "seq", None)
         x = torch.cat([patches, text], dim=1)
     else:
         x = _embed(params, _on(batch["tokens"], dev), cd)
     positions = torch.arange(x.shape[1], device=dev)
-    return x, positions
+    return constrain(x, "batch", "seq", None), positions
 
 
 def _head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = layers.rms_norm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
-        w = params["embed"]["table"].to(x.dtype).t()
+        w = gather_weight(params["embed"]["table"], x.dtype).t()
     else:
-        w = params["head"]["lm_head"].to(x.dtype)
-    logits = (x @ w).float()
+        w = gather_weight(params["head"]["lm_head"], x.dtype)
+    logits = (grad_reduced(x) @ w).float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     if cfg.padded_vocab != cfg.vocab_size:  # mask padding columns
-        logits[..., cfg.vocab_size:] = layers.NEG
-    return logits
+        if dtensor_mesh() is not None:
+            # a vocab-split DTensor takes no in-place write to a slice
+            logits = torch.where(_vocab_ids(logits) < cfg.vocab_size,
+                                 logits, layers.NEG)
+        else:
+            logits[..., cfg.vocab_size:] = layers.NEG
+    return constrain(logits, "batch", "seq", "vocab")
+
+
+def _vocab_ids(logits: torch.Tensor) -> torch.Tensor:
+    """The vocab index of each entry of the last dimension of ``logits``
+    (V,), split over the mesh as that dimension is (a DTensor), or a
+    plain ``arange``."""
+    v = logits.shape[-1]
+    if not hasattr(logits, "placements"):
+        return torch.arange(v, device=logits.device)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    last = logits.ndim - 1
+    pl = tuple(Shard(0) if p.is_shard(last) else Replicate()
+               for p in logits.placements)
+    mesh = logits.device_mesh
+    (n,), (off,) = compute_local_shape_and_global_offset((v,), mesh, pl)
+    local = torch.arange(off, off + n, device=logits.to_local().device)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size([v]), stride=(1,))
 
 
 def forward(
@@ -126,14 +208,82 @@ def loss_fn(
     else:
         preds = logits[:, :-1]
         labels = _on(batch["tokens"], dev)[:, 1:].long()
-    valid = torch.ones(labels.shape, dtype=torch.float32, device=dev)
-    logz = torch.logsumexp(preds, dim=-1)
-    gold = torch.gather(preds, -1, labels[..., None])[..., 0]
+    valid = torch.ones_like(labels, dtype=torch.float32)
+    if dtensor_mesh() is not None:
+        logz, gold = _vocab_parallel_stats(preds, labels)
+    else:
+        logz = torch.logsumexp(preds, dim=-1)
+        gold = torch.gather(preds, -1, labels[..., None])[..., 0]
     ce = (logz - gold) * valid
     denom = torch.clamp(valid.sum(), min=1.0)
     loss = ce.sum() / denom
     total = loss + cfg.moe_aux_weight * aux
+    if dtensor_mesh() is not None:
+        total, loss, aux, denom = (_replicated(t)
+                                   for t in (total, loss, aux, denom))
     return total, {"ce": loss, "aux": aux, "tokens": denom}
+
+
+def _vocab_parallel_stats(preds: torch.Tensor, labels: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logsumexp and the gold logit of a vocab-split ``preds`` (a
+    DTensor): a max, a sum of exponentials and a masked sum over each
+    device's vocab slice, each summed (or maxed) over TP, as XLA
+    partitions the reference's softmax."""
+    spec = logical_placements(preds.ndim - 1, ("batch", None))
+    m = _vocab_max(preds.detach(), spec)
+    sumexp = _vocab_sumexp(preds, m)
+    if spec is not None:
+        sumexp = to_placements(sumexp, spec)
+    logz = m + torch.log(sumexp)
+    hit = _vocab_ids(preds) == labels[..., None]
+    gold = torch.where(hit, preds, 0.0).sum(dim=-1)
+    if spec is not None:
+        gold = to_placements(gold, spec)
+    return logz, gold
+
+
+def _vocab_max(preds: torch.Tensor, spec) -> torch.Tensor:
+    """The max over the vocab of a vocab-split DTensor: each device's
+    max of its slice, then a max over TP (DTensor's own ``amax`` would
+    gather the slices first)."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    last = preds.ndim - 1
+    local = preds.to_local().amax(dim=-1)
+    pl = tuple(Partial("max") if p.is_shard(last) else p
+               for p in preds.placements)
+    m = DTensor.from_local(local, preds.device_mesh, pl, run_check=False,
+                           shape=preds.shape[:-1],
+                           stride=torch.empty(preds.shape[:-1],
+                                              device="meta").stride())
+    return to_placements(m, spec) if spec is not None else m
+
+
+def _vocab_sumexp(preds: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``exp(preds - m).sum(-1)`` of a vocab-split DTensor as each
+    device's sum over its slice, partial over TP (DTensor's broadcast
+    against ``m`` would gather the slices first)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    last = preds.ndim - 1
+    out = [Partial() if p.is_shard(last) else p for p in preds.placements]
+    body = local_map(lambda p, m: torch.exp(p - m[..., None]).sum(dim=-1),
+                     out_placements=out,
+                     in_placements=(tuple(preds.placements),
+                                    tuple(m.placements)),
+                     device_mesh=preds.device_mesh)
+    return body(preds, m)
+
+
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor scalar summed (or taken) over the mesh: replicated."""
+    if not hasattr(t, "placements"):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return to_placements(t, (Replicate(),) * t.device_mesh.ndim)
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +327,7 @@ def decode_step(
     dev = params_device(params)
     cache_len = int(cache_len)
     x = _embed(params, _on(token, dev), cfg.compute_dtype)
+    x = constrain(x, "batch", None, None)
     positions = cache_len + torch.arange(1, device=dev)
     x, cache, _ = transformer.apply_stack(
         params["stack"], x, cfg, positions, cache=cache, cache_len=cache_len

@@ -25,13 +25,17 @@ bit.)
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (
+    constrain, gather_weight, grad_reduced, to_placements,
+)
 from .layers import Init, gelu, silu
 
 Params = Dict[str, Any]
@@ -79,15 +83,20 @@ def _act(kind: str):
 
 
 def _expert_ffn(params: Params, xs: torch.Tensor, kind: str) -> torch.Tensor:
-    """xs: (E, C, d) -> (E, C, d) grouped GEMMs (block-diagonal SpMM)."""
-    h = torch.bmm(xs, params["w_in"].to(xs.dtype))
+    """xs: (E, C, d) -> (E, C, d) grouped GEMMs (block-diagonal SpMM).
+    On DTensors each weight is gathered over FSDP and the output summed
+    over TP (its ff split)."""
+    xin = grad_reduced(xs)
+    h = torch.bmm(xin, gather_weight(params["w_in"], xs.dtype))
     if kind in ("swiglu", "geglu"):
-        h = _act(kind)(torch.bmm(xs, params["w_gate"].to(xs.dtype))) * h
+        h = _act(kind)(torch.bmm(grad_reduced(xs), gather_weight(
+            params["w_gate"], xs.dtype))) * h
     elif kind == "squared_relu":
         h = torch.square(F.relu(h))
     else:
         h = gelu(h)
-    return torch.bmm(h, params["w_out"].to(xs.dtype))
+    return constrain(torch.bmm(h, gather_weight(params["w_out"], xs.dtype)),
+                     None, None, None)
 
 
 def apply_moe(
@@ -124,34 +133,73 @@ def _route(xt: torch.Tensor, router: torch.Tensor, spec: MoESpec):
     return gate_vals, flat_e, slot, aux
 
 
+def _pack(xt: torch.Tensor, flat_e: torch.Tensor, slot: torch.Tensor,
+          spec: MoESpec):
+    """Pack the (token, k) pairs within capacity into ``[E, C, d]``:
+    (packed, per-pair ``within``, slots with the dropped pairs' at 0)."""
+    t, d = xt.shape
+    cap = spec.capacity(t)
+    within = slot < cap
+    tok_ids = torch.arange(t, device=xt.device).repeat_interleave(spec.top_k)
+    safe_slot = torch.where(within, slot, 0)
+    contrib = torch.where(within[:, None], xt[tok_ids], 0.0)
+    xs = torch.zeros((spec.num_experts, cap, d), dtype=xt.dtype,
+                     device=xt.device)
+    xs.index_put_((flat_e, safe_slot), contrib, accumulate=True)  # pack
+    return xs, within, safe_slot
+
+
+def _combine(ys: torch.Tensor, gate_vals: torch.Tensor, flat_e: torch.Tensor,
+             safe_slot: torch.Tensor, within: torch.Tensor):
+    """Each token's expert outputs (``ys`` [E, C, d]) weighted by its
+    gates and summed: (out (T, d), the gates per pair)."""
+    t, k = gate_vals.shape
+    gathered = torch.where(within[:, None], ys[flat_e, safe_slot], 0.0)
+    gates = gate_vals.reshape(-1)[:, None].to(ys.dtype)
+    out = (gathered * gates).reshape(t, k, -1).sum(dim=1)  # segment_sum
+    return out, gates
+
+
 def _dispatch(weights: Params, xt: torch.Tensor, gate_vals: torch.Tensor,
               flat_e: torch.Tensor, slot: torch.Tensor, spec: MoESpec):
     """Pack the pairs within capacity into ``[E, C, d]``, run the expert
     GEMMs on ``weights`` and combine: (out (T, d), per-pair ``within``,
-    token ids, gates)."""
-    t, d = xt.shape
-    e, k = spec.num_experts, spec.top_k
-    cap = spec.capacity(t)
-    within = slot < cap
-
-    tok_ids = torch.arange(t, device=xt.device).repeat_interleave(k)
-    safe_slot = torch.where(within, slot, 0)
-    contrib = torch.where(within[:, None], xt[tok_ids], 0.0)
-    xs = torch.zeros((e, cap, d), dtype=xt.dtype, device=xt.device)
-    xs.index_put_((flat_e, safe_slot), contrib, accumulate=True)  # pack
-
+    gates)."""
+    xs, within, safe_slot = _pack(xt, flat_e, slot, spec)
     ys = _expert_ffn(weights, xs, spec.mlp_kind)         # (E, C, d)
+    out, gates = _combine(ys, gate_vals, flat_e, safe_slot, within)
+    return out, within, gates
 
-    gathered = torch.where(within[:, None], ys[flat_e, safe_slot], 0.0)
-    gates = gate_vals.reshape(-1)[:, None].to(xt.dtype)
-    out = (gathered * gates).reshape(t, k, d).sum(dim=1)  # segment_sum
-    return out, within, tok_ids, gates
+
+def _fringe(xt: torch.Tensor, flat_e: torch.Tensor, within: torch.Tensor,
+            gates: torch.Tensor, w_in: torch.Tensor,
+            w_gate: Optional[torch.Tensor], w_out: torch.Tensor,
+            spec: MoESpec) -> torch.Tensor:
+    """The fringe pass for dropped pairs: one gather-FFN-scatter over all
+    experts, selected per pair (the reference applies the activation only
+    for the gated kinds here), weighted by the gates and summed per
+    token.  The weights come in ``xt``'s dtype."""
+    t, d = xt.shape
+    tok_ids = torch.arange(t, device=xt.device).repeat_interleave(spec.top_k)
+    dropped = ~within
+    fr_x = torch.where(dropped[:, None], xt[tok_ids], 0.0)
+    fr_h = torch.einsum("td,edf->tef", fr_x, w_in)
+    fr_sel = F.one_hot(flat_e, spec.num_experts).to(xt.dtype)
+    if spec.mlp_kind in ("swiglu", "geglu"):
+        fr_g = torch.einsum("td,edf->tef", fr_x, w_gate)
+        fr_h = _act(spec.mlp_kind)(fr_g) * fr_h
+    fr_h = torch.einsum("tef,te->tf", fr_h, fr_sel)
+    fr_y = torch.einsum("tf,efd,te->td", fr_h, w_out, fr_sel)
+    fr_y = torch.where(dropped[:, None], fr_y, 0.0)
+    return (fr_y * gates).reshape(t, spec.top_k, d).sum(dim=1)
 
 
 def _shared_expert(params: Params, xt: torch.Tensor) -> torch.Tensor:
-    g = xt @ params["shared_w_gate"].to(xt.dtype)
-    hh = xt @ params["shared_w_in"].to(xt.dtype)
-    return (silu(g) * hh) @ params["shared_w_out"].to(xt.dtype)
+    g = grad_reduced(xt) @ gather_weight(params["shared_w_gate"], xt.dtype)
+    hh = grad_reduced(xt) @ gather_weight(params["shared_w_in"], xt.dtype)
+    return constrain((silu(g) * hh)
+                     @ gather_weight(params["shared_w_out"], xt.dtype),
+                     "batch", None)
 
 
 def apply_moe_dense(
@@ -160,38 +208,78 @@ def apply_moe_dense(
     spec: MoESpec,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux_loss). Sort-based capacity dispatch."""
+    if hasattr(x, "placements"):
+        return _moe_dense_partitioned(params, x, spec)
     b, s, d = x.shape
     t = b * s
-    e, k = spec.num_experts, spec.top_k
     xt = x.reshape(t, d)
 
     gate_vals, flat_e, slot, aux = _route(xt, params["router"], spec)
-    out, within, tok_ids, gates = _dispatch(params, xt, gate_vals, flat_e,
-                                            slot, spec)
+    out, within, gates = _dispatch(params, xt, gate_vals, flat_e, slot,
+                                   spec)
 
     if spec.fringe_overflow:
-        # fringe pass for dropped pairs: one gather-FFN-scatter over all
-        # experts, selected per pair (the reference applies the activation
-        # only for the gated kinds here)
-        dropped = ~within
-        fr_x = torch.where(dropped[:, None], xt[tok_ids], 0.0)
-        w_in = params["w_in"].to(x.dtype)
-        fr_h = torch.einsum("td,edf->tef", fr_x, w_in)
-        fr_sel = F.one_hot(flat_e, e).to(x.dtype)
-        if spec.mlp_kind in ("swiglu", "geglu"):
-            fr_g = torch.einsum("td,edf->tef", fr_x,
-                                params["w_gate"].to(x.dtype))
-            fr_h = _act(spec.mlp_kind)(fr_g) * fr_h
-        fr_h = torch.einsum("tef,te->tf", fr_h, fr_sel)
-        fr_y = torch.einsum("tf,efd,te->td", fr_h,
-                            params["w_out"].to(x.dtype), fr_sel)
-        fr_y = torch.where(dropped[:, None], fr_y, 0.0)
-        out = out + (fr_y * gates).reshape(t, k, d).sum(dim=1)
+        w_gate = params.get("w_gate")
+        out = out + _fringe(
+            xt, flat_e, within, gates, params["w_in"].to(x.dtype),
+            None if w_gate is None else w_gate.to(x.dtype),
+            params["w_out"].to(x.dtype), spec)
 
     if spec.shared_expert:
         out = out + _shared_expert(params, xt)
 
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def _moe_dense_partitioned(params: Params, x: torch.Tensor, spec: MoESpec
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense MoE of a partitioned program.  Its capacity slots come
+    from a cumulative sum over every token of the batch, so each device
+    routes, packs and combines the whole batch (gathered over the batch
+    axes, replicated); the expert GEMMs run on each device's share of the
+    slots (over the batch axes) and of ff (over TP); the output is each
+    device's rows again."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    b, s, d = x.shape
+    t = b * s
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim      # a list: one output's placements
+    xt = to_placements(x, tuple(rep)).reshape(t, d)
+    router = to_placements(params["router"], tuple(rep))
+
+    def route_pack(xt, router):
+        gate_vals, flat_e, slot, aux = _route(xt, router, spec)
+        return (*_pack(xt, flat_e, slot, spec), gate_vals, flat_e, aux)
+
+    xs, within, safe_slot, gate_vals, flat_e, aux = local_map(
+        route_pack, out_placements=(rep,) * 6, in_placements=(rep, rep),
+        device_mesh=mesh)(xt, router)
+    # each device runs the expert GEMMs on its slice of the capacity slots
+    # (split over the batch axes, a local slice) and of ff (TP); the
+    # outputs are gathered for the combine
+    xs = to_placements(xs, tuple(Shard(1) if p.is_shard(0) else Replicate()
+                                 for p in x.placements))
+    ys = _expert_ffn(params, xs, spec.mlp_kind)           # (E, C, d)
+    out, gates = local_map(
+        _combine, out_placements=(rep, rep), in_placements=(rep,) * 5,
+        device_mesh=mesh)(ys, gate_vals, flat_e, safe_slot, within)
+    if spec.fringe_overflow:
+        # every device runs the fringe pass on the whole batch, with the
+        # expert weights gathered
+        w = [None if k not in params else to_placements(
+            params[k].to(x.dtype), tuple(rep))
+            for k in ("w_in", "w_gate", "w_out")]
+        w_pl = [None if v is None else rep for v in w]
+        out = out + local_map(
+            functools.partial(_fringe, spec=spec), out_placements=rep,
+            in_placements=(rep,) * 4 + tuple(w_pl),
+            device_mesh=mesh)(xt, flat_e, within, gates, *w)
+    out = to_placements(out.reshape(b, s, d), tuple(x.placements))
+    if spec.shared_expert:
+        out = out + _shared_expert(params, x.reshape(t, d)).reshape(b, s, d)
+    return out.to(x.dtype), aux
 
 
 def _gathered(w: torch.Tensor, dim: int, n: int,
@@ -228,6 +316,8 @@ def apply_moe_shard_map(
     from ..distributed.mesh import active_mesh
     from ..distributed.sharding import active_rules
 
+    if hasattr(x, "placements"):
+        return _moe_shard_map_partitioned(params, x, spec)
     rules, mesh = active_rules(), active_mesh()
     if rules is None or mesh is None:
         raise RuntimeError(
@@ -283,6 +373,77 @@ def apply_moe_shard_map(
     out = torch.cat(outs, dim=0)
     aux = torch.stack(auxes).sum() / n_dp                       # pmean
 
+    if spec.shared_expert:
+        out = out + _shared_expert(params, x.reshape(b * s, d)).reshape(
+            b, s, d)
+    return out.to(x.dtype), aux
+
+
+def _moe_shard_map_partitioned(params: Params, x: torch.Tensor,
+                               spec: MoESpec
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``shard_map`` MoE of a partitioned program: the block body runs
+    once, on this device's tokens and its ff slice of the expert weights
+    (``local_map``, the counterpart of ``jax.shard_map``); the weights
+    enter gathered over FSDP (``moe_fsdp``) after the cast, the output is
+    summed over TP (the reference's ``psum``) and the load-balancing loss
+    averaged over the batch axes (its ``pmean``), each an explicit
+    collective."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import active_rules
+
+    rules = active_rules()
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    b, s, d = x.shape
+    w_gate = params.get("w_gate", params["w_in"])
+    weights = {k: gather_weight(w, x.dtype) for k, w in
+               (("w_in", params["w_in"]), ("w_gate", w_gate),
+                ("w_out", params["w_out"]))}
+    tp = names.index(rules.tp_axis) if rules.tp_axis in names else None
+    x_pl = tuple(x.placements)
+    batch_dims = [i for i, p in enumerate(x_pl) if p.is_shard(0)]
+    n_b = math.prod(mesh.size(i) for i in batch_dims)
+    first_tp = tp is None or mesh.get_coordinate()[tp] == 0
+    # each output is partial over TP (an ff slice); the loss is each data
+    # shard's over n_b, counted on the first TP shard only, so that
+    # summing over the mesh gives the mean, and its gradient reaches the
+    # router once
+    out_pl = [Partial() if i == tp else p for i, p in enumerate(x_pl)]
+    aux_pl = [Partial() if i == tp or i in batch_dims else Replicate()
+              for i in range(mesh.ndim)]
+    rep = (Replicate(),) * mesh.ndim
+    router = to_placements(params["router"], rep)
+
+    def body(x, router, w_in, w_gate, w_out):
+        bl = x.shape[0]
+        xt = x.reshape(bl * s, d)
+        gate_vals, flat_e, slot, aux = _route(xt, router, spec)
+        local = {"w_in": w_in, "w_gate": w_gate, "w_out": w_out}
+        out, *_ = _dispatch(local, xt, gate_vals, flat_e, slot, spec)
+        aux = aux / n_b if first_tp else aux * 0.0
+        return out.reshape(bl, s, d), aux
+
+    w_pl = [tuple(weights[k].placements) for k in ("w_in", "w_gate",
+                                                   "w_out")]
+    for pl in w_pl:   # only the ff split over TP may remain
+        if any(p.is_shard() and i != tp for i, p in enumerate(pl)):
+            raise ValueError(f"shard_map MoE weights placed {pl}")
+    # the gradients a shard computes are its own tokens' (partial over
+    # the batch axes) through its own ff slice (partial over TP)
+    x_grad = [Partial() if i == tp else p for i, p in enumerate(x_pl)]
+    w_grad = [tuple(Partial() if i in batch_dims else p
+                    for i, p in enumerate(pl)) for pl in w_pl]
+    out, aux = local_map(
+        body, out_placements=(out_pl, aux_pl),
+        in_placements=(x_pl, rep, *w_pl),
+        in_grad_placements=(x_grad, (Partial(),) * mesh.ndim, *w_grad),
+        device_mesh=mesh)(x, router, weights["w_in"], weights["w_gate"],
+                          weights["w_out"])
+    out = to_placements(out, x_pl)                                  # psum
+    aux = to_placements(aux, rep)                                   # pmean
     if spec.shared_expert:
         out = out + _shared_expert(params, x.reshape(b * s, d)).reshape(
             b, s, d)

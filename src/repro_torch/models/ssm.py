@@ -19,6 +19,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.sharding import (
+    constrain, gather_weight, grad_reduced, to_placements,
+)
 from .layers import Init, silu
 
 Params = Dict[str, Any]
@@ -147,35 +150,145 @@ def apply_ssm(
     # state = (ssd_state (B,H,P,N), conv_tail (B, d_conv-1, di+2N)) — decode
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     b, s, _ = x.shape
-    di, n, h, p = spec.d_inner, spec.state_dim, spec.num_heads, spec.head_dim
-    proj = x @ params["in_proj"].to(x.dtype)
+    di, n, h = spec.d_inner, spec.state_dim, spec.num_heads
+    proj = grad_reduced(x) @ gather_weight(params["in_proj"], x.dtype)
+    partitioned = hasattr(proj, "placements")
+    if partitioned:
+        # the fused projection's TP split does not follow its parts:
+        # gather it over TP, then split each part by heads
+        proj = constrain(proj, "batch", "seq", None)
     z, xbc, dt_raw = torch.split(proj, [di, di + 2 * n, h], dim=-1)
+    scan = _scan_partitioned if partitioned else _scan
+    y, final_state, new_tail = scan(params, xbc, dt_raw, spec, state,
+                                    x.dtype)
+    # gated RMSNorm (mamba2)
+    if partitioned:
+        z = to_placements(z, y.placements)
+    y32 = y.float() * silu(z.float())
+    var = torch.mean(y32 * y32, dim=-1, keepdim=True)
+    scale = params["norm_scale"].float()
+    if partitioned:
+        from torch.distributed.tensor import Shard
+
+        scale = to_placements(scale, tuple(
+            Shard(0) if p.is_shard(2) else p for p in y.placements))
+    y = (y32 * torch.rsqrt(var + 1e-6) * scale).to(x.dtype)
+    out = y @ gather_weight(params["out_proj"], x.dtype)
+    new_state = None if state is None else (final_state, new_tail)
+    return constrain(out, "batch", "seq", None), new_state
+
+
+def _scan(params: Params, xbc: torch.Tensor, dt_raw: torch.Tensor,
+          spec: SSMSpec, state, dtype):
+    """Causal conv, softplus, chunked SSD and the skip: (y (B, S, di) in
+    ``dtype``, final SSD state, new conv tail)."""
+    b, s, _ = xbc.shape
+    di, n, h, p = spec.d_inner, spec.state_dim, spec.num_heads, spec.head_dim
     conv_tail = None if state is None else state[1]
     xbc, new_tail = _causal_conv(
-        xbc, params["conv_w"].to(x.dtype), params["conv_b"].to(x.dtype),
+        xbc, params["conv_w"].to(dtype), params["conv_b"].to(dtype),
         tail=conv_tail,
     )
     xs, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
-    # jax.nn.softplus is logaddexp(x, 0)
-    dt = torch.logaddexp(dt_raw.float() + params["dt_bias"].float(),
-                         torch.zeros((), device=x.device))
-    a = -torch.exp(params["a_log"].float())
-    xh = xs.reshape(b, s, h, p)
+    y, final_state = _heads_scan(xs, bmat, cmat, dt_raw, params["dt_bias"],
+                                 params["a_log"], params["d_skip"], spec,
+                                 None if state is None else state[0])
+    return y.reshape(b, s, di).to(dtype), final_state, new_tail
 
-    y, final_state = _ssd_chunked(
-        xh, dt, a, bmat, cmat,
-        spec.chunk,
-        initial_state=None if state is None else state[0],
-    )
-    y = y + params["d_skip"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(b, s, di).to(x.dtype)
-    # gated RMSNorm (mamba2)
-    y32 = y.float() * silu(z.float())
-    var = torch.mean(y32 * y32, dim=-1, keepdim=True)
-    y = (y32 * torch.rsqrt(var + 1e-6) * params["norm_scale"].float()).to(x.dtype)
-    out = y @ params["out_proj"].to(x.dtype)
-    new_state = None if state is None else (final_state, new_tail)
-    return out, new_state
+
+def _heads_scan(xs, bmat, cmat, dt_raw, dt_bias, a_log, d_skip,
+                spec: SSMSpec, initial_state):
+    """The SSD scan and skip of ``xs``'s heads (any number of them):
+    (y (B, S, H, P) fp32, final state)."""
+    b, s, c = xs.shape
+    p = spec.head_dim
+    h = c // p
+    # jax.nn.softplus is logaddexp(x, 0)
+    dt = torch.logaddexp(dt_raw.float() + dt_bias.float(),
+                         torch.zeros((), device=xs.device))
+    a = -torch.exp(a_log.float())
+    xh = xs.reshape(b, s, h, p)
+    y, final_state = _ssd_chunked(xh, dt, a, bmat, cmat, spec.chunk,
+                                  initial_state=initial_state)
+    y = y + d_skip.float()[None, None, :, None] * xh.float()
+    return y, final_state
+
+
+def _scan_partitioned(params: Params, xbc: torch.Tensor,
+                      dt_raw: torch.Tensor, spec: SSMSpec, state, dtype):
+    """:func:`_scan` of a partitioned program.  ``xbc`` and ``dt_raw``
+    come replicated over TP; every device convolves and scans its own
+    heads (its TP slice of x's channels, of dt and of the per-head
+    params) with the whole B and C (``local_map``, no collective inside),
+    as the SSD state cache is split, by heads.  y comes out split over TP
+    by channel, the state by heads."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..distributed.sharding import active_rules
+
+    b, s, _ = xbc.shape
+    di, n = spec.d_inner, spec.state_dim
+    mesh = xbc.device_mesh
+    names = list(mesh.mesh_dim_names)
+    rules = active_rules()
+    tp = names.index(rules.tp_axis) if rules.tp_axis in names else None
+    batch = [i for i, q in enumerate(xbc.placements) if q.is_shard(0)]
+    rep = (Replicate(),) * mesh.ndim
+
+    def pl(dim):   # the batch split, and TP over ``dim`` (None: no TP)
+        return tuple(Shard(0) if i in batch else
+                     Shard(dim) if i == tp and dim is not None
+                     else Replicate() for i in range(mesh.ndim))
+
+    def w_pl(dim):   # a weight: TP over ``dim`` or replicated
+        return tuple(Shard(dim) if i == tp and dim is not None
+                     else Replicate() for i in range(mesh.ndim))
+
+    def partial_over(dims, keep):   # a gradient summed over ``dims``
+        return tuple(Partial() if i in dims else q
+                     for i, q in enumerate(keep))
+
+    conv_w = to_placements(params["conv_w"].to(dtype), rep)
+    conv_b = to_placements(params["conv_b"].to(dtype), rep)
+    xs_raw, bc_raw = torch.split(xbc, [di, 2 * n], dim=-1)
+    args = [to_placements(xs_raw, pl(2)), bc_raw, to_placements(
+        dt_raw, pl(2)),
+        to_placements(conv_w[:, :di], w_pl(1)), conv_w[:, di:],
+        to_placements(conv_b[:di], w_pl(0)), conv_b[di:]]
+    args += [to_placements(params[k], w_pl(0))
+             for k in ("dt_bias", "a_log", "d_skip")]
+    in_pl = [pl(2), pl(None), pl(2), w_pl(1), rep, w_pl(0), rep,
+             w_pl(0), w_pl(0), w_pl(0)]
+    # each device's gradients cover its own tokens (partial over the
+    # batch axes) and, for what every head reads (B, C and their conv
+    # weights), its own heads (partial over TP)
+    grad_pl = [pl(2), partial_over([tp], pl(None)), pl(2)]
+    grad_pl += [partial_over(batch, w) for w in in_pl[3:]]
+    grad_pl[4] = grad_pl[6] = (Partial(),) * mesh.ndim
+    if state is not None:
+        tail_x, tail_bc = torch.split(to_placements(state[1], pl(None)),
+                                      [di, 2 * n], dim=-1)
+        args += [to_placements(state[0], pl(1)),
+                 to_placements(tail_x, pl(2)), tail_bc]
+        in_pl += [pl(1), pl(2), pl(None)]
+        grad_pl += [pl(1), pl(2), partial_over([tp], pl(None))]
+
+    def body(xs_raw, bc_raw, dt_raw, cw_x, cw_bc, cb_x, cb_bc, dt_bias,
+             a_log, d_skip, init=None, tail_x=None, tail_bc=None):
+        xs, new_x = _causal_conv(xs_raw, cw_x, cb_x, tail=tail_x)
+        bc, new_bc = _causal_conv(bc_raw, cw_bc, cb_bc, tail=tail_bc)
+        bmat, cmat = torch.split(bc, [n, n], dim=-1)
+        y, final = _heads_scan(xs, bmat, cmat, dt_raw, dt_bias, a_log,
+                               d_skip, spec, init)
+        return (y.reshape(xs.shape).to(dtype), final, new_x, new_bc)
+
+    y, final, new_x, new_bc = local_map(
+        body, out_placements=(pl(2), pl(1), pl(2), pl(None)),
+        in_placements=tuple(in_pl), in_grad_placements=tuple(grad_pl),
+        device_mesh=mesh)(*args)
+    new_tail = torch.cat([to_placements(new_x, pl(None)), new_bc], dim=-1)
+    return y, final, new_tail
 
 
 def init_ssm_state(

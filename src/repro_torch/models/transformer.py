@@ -36,6 +36,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.sharding import (
+    constrain, gather_weight, grad_reduced,
+)
 from . import layers, moe as moe_lib, ssm as ssm_lib
 from .config import ModelConfig
 from .layers import Init
@@ -111,7 +114,9 @@ def apply_layer(
     if kind == "shared_attn":
         spec = _attn_spec(cfg, kind_idx)
         xin = layers.rms_norm(params["norm1"], x, cfg.norm_eps)
-        xin = xin + xin @ params["adapter"].to(x.dtype)
+        xin = xin + constrain(
+            grad_reduced(xin) @ gather_weight(params["adapter"], x.dtype),
+            "batch", "seq", None)
         h, new_cache = layers.apply_attention(
             shared["attn"], xin, spec, positions, cache=cache
         )
@@ -206,8 +211,8 @@ def _run_layer(lp: Params, lc: Optional[Dict[str, torch.Tensor]],
     x, new_c, aux = apply_layer(lp, x, cfg, kind, slot, positions,
                                 layer_cache, shared)
     if lc is not None and kind == "ssm":
-        lc["ssd"].copy_(new_c[0])
-        lc["conv"].copy_(new_c[1])
+        lc["ssd"].copy_(layers._like(new_c[0], lc["ssd"]))
+        lc["conv"].copy_(layers._like(new_c[1], lc["conv"]))
     return x, aux
 
 
@@ -244,7 +249,8 @@ def apply_stack(
             x, a = _run_layer(gp[key], lc, x, cfg, kind, slot, positions,
                               cache_len, shared)
             aux = aux + a
-        return x, aux
+        # sequence-parallel residual between groups (no-op unless seq_axis)
+        return constrain(x, "batch", "seq", None), aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if n_groups:

@@ -7,7 +7,9 @@ into the next step, so the compression bias telescopes away (Seide et al.,
 1-bit SGD; Karimireddy et al. 2019).  The port runs on one device and
 sends nothing: what it keeps is the arithmetic, which decides the update.
 ``quantize``/``dequantize`` are separate so that tests can bound the
-per-step error and check the telescoping.
+per-step error and check the telescoping.  On DTensors (a partitioned
+step) the arithmetic is elementwise on each shard but for the absmax, a
+max over the leaf that DTensor reduces over the mesh.
 """
 from __future__ import annotations
 
@@ -51,6 +53,6 @@ def compress_grads_with_feedback(grads: Any, error: Any) -> Tuple[Any, Any]:
 
 def init_error_feedback(grads_like: Any) -> Any:
     """fp32 zeros beside each leaf of ``grads_like``."""
-    return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
-                                          device=g.device), grads_like)
+    return tree_map(lambda g: torch.zeros_like(g, dtype=torch.float32),
+                    grads_like)
 

@@ -113,12 +113,40 @@ def _chunks(t: torch.Tensor) -> Iterator[torch.Tensor]:
 
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, summed leaf by leaf in
-    flatten order; fp32."""
+    flatten order; fp32.  On DTensors each device sums its shards (a
+    replicated dimension once, on its first device) and the sum is
+    all-reduced over the mesh, one scalar per mesh axis."""
+    leaves = tree_leaves(tree)
+    if hasattr(leaves[0], "placements"):
+        return _global_norm_sharded(leaves)
     total = None
-    for g in tree_leaves(tree):
+    for g in leaves:
         sq = sum(torch.sum(torch.square(c.float())) for c in _chunks(g))
         total = sq if total is None else total + sq
     return torch.sqrt(total)
+
+
+def _global_norm_sharded(leaves: List[Any]) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = leaves[0].device_mesh
+    coord = mesh.get_coordinate()
+    total = None
+    for g in leaves:
+        local = g.to_local()
+        sq = sum(torch.sum(torch.square(c.float())) for c in _chunks(local))
+        if any(not p.is_shard() and coord[i]
+               for i, p in enumerate(g.placements)):
+            sq = sq * 0.0    # a replica: its first device counts it
+        total = sq if total is None else total + sq
+    total = DTensor.from_local(total, mesh, (Partial(),) * mesh.ndim,
+                               run_check=False)
+    return torch.sqrt(total.redistribute(mesh, (Replicate(),) * mesh.ndim))
+
+
+def _local(t: Any) -> Any:
+    """A DTensor's own block (a replicated scalar's value); ``t`` else."""
+    return t.to_local() if hasattr(t, "placements") else t
 
 
 def _update_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
@@ -158,8 +186,11 @@ def apply_updates(params: Any, grads: Any, state: OptState,
     stepf = step.to(torch.float32)
     b1c = 1.0 - torch.pow(cfg.b1, stepf)
     b2c = 1.0 - torch.pow(cfg.b2, stepf)
+    # on DTensors the update is elementwise on each device's shards
+    scalars = [_local(t) for t in (scale, lr, b1c, b2c)]
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state.m), tree_leaves(state.v)):
-        _update_leaf(p, g, m, v, scale, lr, b1c, b2c, cfg)
+        _update_leaf(_local(p), _local(g), _local(m), _local(v), *scalars,
+                     cfg)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, OptState(step=step, m=state.m, v=state.v), metrics

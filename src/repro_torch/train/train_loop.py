@@ -21,6 +21,7 @@ backward's own, in the params' dtype, as the reference's are.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -43,7 +44,11 @@ class TrainConfig:
 
 def _split_micro(batch: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
     """``n`` microbatches of consecutive rows, as the reference's reshape
-    to ``(n, b // n, ...)`` gives."""
+    to ``(n, b // n, ...)`` gives.  A placed batch (DTensors split over
+    the batch axes) is moved so that each microbatch is split over them
+    in turn."""
+    if any(hasattr(x, "placements") for x in batch.values()):
+        return _split_micro_local(batch, n)
     b = len(next(iter(batch.values())))
     if any(len(x) != b for x in batch.values()) or b % n:
         raise ValueError(f"batch {b} not divisible by microbatches {n}")
@@ -52,18 +57,54 @@ def _split_micro(batch: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
             for i in range(n)]
 
 
+def _split_micro_local(batch: Dict[str, Any], n: int
+                       ) -> List[Dict[str, Any]]:
+    from torch.distributed.tensor import Replicate, Shard
+
+    out: List[Dict[str, Any]] = [{} for _ in range(n)]
+    for k, x in batch.items():
+        b = x.shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} not divisible by microbatches {n}")
+        # (n, b // n, ...) with the batch split moved to each microbatch's
+        # rows, so microbatch i holds rows i*m..(i+1)*m: an all-to-all
+        # where n divides over the batch axes, else gathered and sliced
+        mesh = x.device_mesh
+        split = [i for i, p in enumerate(x.placements) if p.is_shard(0)]
+        if n % math.prod(mesh.size(i) for i in split):
+            x = x.redistribute(mesh, tuple(
+                Replicate() if i in split else p
+                for i, p in enumerate(x.placements)))
+        xr = x.reshape((n, b // n) + tuple(x.shape[1:]))
+        xr = xr.redistribute(mesh, tuple(
+            Shard(1) if i in split else p
+            for i, p in enumerate(xr.placements)))
+        for i in range(n):
+            out[i][k] = xr[i]
+    return out
+
+
 def _accumulate_into(acc: List[Optional[torch.Tensor]], i: int, n: int
                      ) -> Callable[[torch.Tensor], None]:
     """A post-accumulate hook that moves leaf ``i``'s fresh gradient into
     ``acc[i]`` as ``acc + g.float() / n`` and frees ``p.grad``."""
     def hook(p: torch.Tensor) -> None:
-        g = p.grad.to(torch.float32).div_(n)
+        g = _as_param(p.grad, p).to(torch.float32).div_(n)
         if acc[i] is None:
             acc[i] = g        # 0 + g / n
         else:
             acc[i].add_(g)
         p.grad = None
     return hook
+
+
+def _as_param(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its param's placements: a partial sum is
+    reduced (all-reduced onto a replicated leaf, reduce-scattered onto a
+    split one), as XLA reduces each gradient to its param's sharding."""
+    if not hasattr(g, "placements") or g.placements == p.placements:
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def _grads(params: Any, batch: Dict[str, Any], cfg: ModelConfig, n: int
@@ -78,8 +119,8 @@ def _grads(params: Any, batch: Dict[str, Any], cfg: ModelConfig, n: int
         with torch.enable_grad():
             loss, _ = model_lib.loss_fn(params, batch, cfg)
             loss.backward()
-        flat = [p.grad if p.grad is not None else torch.zeros_like(p)
-                for p in leaves]
+        flat = [_as_param(p.grad, p) if p.grad is not None
+                else torch.zeros_like(p) for p in leaves]
         for p in leaves:
             p.grad = None
         loss = loss.detach()
@@ -97,9 +138,9 @@ def _grads(params: Any, batch: Dict[str, Any], cfg: ModelConfig, n: int
         finally:
             for h in hooks:
                 h.remove()
-        flat = [a if a is not None else torch.zeros(
-            p.shape, dtype=torch.float32, device=p.device)
-            for a, p in zip(acc, leaves)]
+        flat = [a if a is not None
+                else torch.zeros_like(p, dtype=torch.float32)
+                for a, p in zip(acc, leaves)]
     by_leaf = {id(p): g for p, g in zip(leaves, flat)}
     return loss, tree_map(lambda p: by_leaf[id(p)], params)
 

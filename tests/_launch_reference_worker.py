@@ -3,9 +3,10 @@ launch tooling in a process of its own with 512 forced host devices, so
 the device count never leaks into other tests.  Prints one JSON object:
 the mesh shapes; the tiny train cell on the 2 x 4 debug mesh, compiled
 as ``build_cell``'s analysis mode builds it (layers and microbatches
-unrolled, bf16 moments): its shard shapes, compiled argument bytes and
-the collectives of its module after SPMD partitioning (by
-``hlo_analysis.collective_bytes``, and op by op); every arch x shape
+unrolled, bf16 moments): its shard shapes, compiled argument and temp
+bytes and the collectives of its module after SPMD partitioning (by
+``hlo_analysis.collective_bytes``, and op by op); the same for a tiny
+MoE cell (both implementations) and a tiny SSM cell; every arch x shape
 cell's ``applicable``,
 ``build_cell`` meta and sharding specs on the 16 x 16 mesh (through
 ``jax.eval_shape``; nothing is compiled there), the model-FLOPs formula
@@ -25,7 +26,7 @@ DUMP = tempfile.mkdtemp(prefix="launch_ref_")
 XLA_FLAGS = (
     "--xla_force_host_platform_device_count=512 "
     f"--xla_dump_to={DUMP} --xla_dump_hlo_as_text "
-    "--xla_dump_hlo_module_re=tiny_train_step "
+    "--xla_dump_hlo_module_re=tiny_.*_step "
     "--xla_dump_hlo_pass_re=spmd-partitioning")
 os.environ["XLA_FLAGS"] = XLA_FLAGS
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -101,18 +102,43 @@ def partitioned_collectives(hlo_text):
     return ops
 
 
-def tiny_cell():
+TINY = dict(name="tiny", num_layers=2, d_model=64, num_heads=4,
+            num_kv_heads=4, d_ff=128, vocab_size=256, kv_chunk=32,
+            scan_layers=False, attn_unroll=1 << 20)
+# the tiny cells of other families, as tests/test_torch_launch.py builds
+# them: granite-moe's family (both MoE implementations) and mamba2's
+TINY_CELLS = {
+    "moe_dense": dict(TINY, family="moe", moe_num_experts=4, moe_top_k=2,
+                      moe_d_expert=64),
+    "moe_shard_map": dict(TINY, family="moe", moe_num_experts=4,
+                          moe_top_k=2, moe_d_expert=64,
+                          moe_impl="shard_map"),
+    "ssm": dict(TINY, family="ssm", ssm_state=16, ssm_head_dim=16,
+                ssm_chunk=32),
+}
+
+
+def _dumped(module):
+    (path,) = [f for f in glob.glob(os.path.join(
+        DUMP, "*after_spmd-partitioning*"))
+        if re.search(rf"jit_{module}\b", f) or f".jit_{module}." in f]
+    with open(path) as f:
+        return f.read()
+
+
+def tiny_cell(name="dense", fields=None):
     """``tests/test_dryrun_small.py``'s train cell on the 2 x 4 mesh, as
     ``build_cell(analysis_mode=True)`` builds a cell: layers, KV chunks
-    and microbatches unrolled, bf16 moments."""
+    and microbatches unrolled, bf16 moments.  ``fields`` gives another
+    family's tiny config (the shard_map MoE's weights DP-replicated, as
+    ``optimized_cell_config`` places small experts)."""
     mesh = make_debug_mesh(2, 4)
     sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    fields = dict(fields or dict(TINY, family="dense"))
     rules = shd.AxisRules(batch_axes=("data",), fsdp_axes=("data",),
-                          tp_axis="model")
-    cfg = ModelConfig(name="tiny", family="dense", num_layers=2,
-                      d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
-                      vocab_size=256, kv_chunk=32, scan_layers=False,
-                      attn_unroll=1 << 20)
+                          tp_axis="model",
+                          moe_fsdp=fields.get("moe_impl") != "shard_map")
+    cfg = ModelConfig(**fields)
     tcfg = train_loop.TrainConfig(
         optimizer=opt_lib.OptimizerConfig(moment_dtype=jnp.bfloat16),
         unroll_microbatches=True)
@@ -142,7 +168,10 @@ def tiny_cell():
         with shd.use_rules(rules):
             return step(p, o, b)
 
-    with mesh:
+    module = "tiny_train_step" if name == "dense" else f"tiny_{name}_step"
+    tiny_train_step.__name__ = tiny_train_step.__qualname__ = module
+    ctx = mesh if name == "dense" else jax.set_mesh(mesh)
+    with ctx:
         compiled = jax.jit(
             tiny_train_step, in_shardings=in_sh,
             out_shardings=(ns(pspecs), ns(ospecs),
@@ -150,15 +179,16 @@ def tiny_cell():
                                         {"loss": 0, "grad_norm": 0, "lr": 0})),
         ).lower(*args).compile()
     mem = compiled.memory_analysis()
-    (dumped,) = glob.glob(os.path.join(DUMP, "*after_spmd-partitioning*"))
-    with open(dumped) as f:
-        partitioned = f.read()
-    named = shd.named_shardings(params, shd.AxisRules(), mesh)
-    return {"shard_shapes": shard_shapes,
-            "argument_bytes": int(mem.argument_size_in_bytes),
-            "collectives": hlo_analysis.collective_bytes(partitioned),
-            "collective_ops": partitioned_collectives(partitioned),
-            "named_shardings": flat_specs(named)}
+    partitioned = _dumped(module)
+    out = {"shard_shapes": shard_shapes,
+           "argument_bytes": int(mem.argument_size_in_bytes),
+           "temp_bytes": int(mem.temp_size_in_bytes),
+           "collectives": hlo_analysis.collective_bytes(partitioned),
+           "collective_ops": partitioned_collectives(partitioned)}
+    if name == "dense":
+        named = shd.named_shardings(params, shd.AxisRules(), mesh)
+        out["named_shardings"] = flat_specs(named)
+    return out
 
 
 def cells():
@@ -196,8 +226,10 @@ def _jsonable(x):
 
 def main():
     try:
-        out = {"meshes": meshes(), "tiny": tiny_cell(), "cells": cells(),
-               "hillclimb": _jsonable(perf.HILLCLIMB)}
+        out = {"meshes": meshes(), "tiny": tiny_cell(),
+               "tiny_cells": {k: tiny_cell(k, v)
+                              for k, v in TINY_CELLS.items()},
+               "cells": cells(), "hillclimb": _jsonable(perf.HILLCLIMB)}
     finally:
         shutil.rmtree(DUMP, ignore_errors=True)
     print(json.dumps(out))

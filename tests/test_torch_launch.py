@@ -8,11 +8,13 @@ devices (``tests/_launch_reference_worker.py``), as
 ``tests/test_dryrun_small.py`` runs it: the mesh shapes, the tiny train
 cell of ``test_dryrun_small.py`` on the 2 x 4 debug mesh (shard shapes,
 the compiled ``argument_size_in_bytes`` and the collectives of the
-partitioned module), and every arch x shape cell
+partitioned module; the same for a tiny MoE cell, both implementations,
+and a tiny SSM cell), and every arch x shape cell
 on the 16 x 16 mesh through ``jax.eval_shape`` (``applicable``,
 ``build_cell``'s meta and sharding specs, the model-FLOPs formula);
 nothing of those 40 cells is compiled.  The port side traces on
-``meta``.  Counts compare exactly.
+``meta``, as rank 0 of a partitioned DTensor program over a ``fake``
+process group where a cell is partitioned.  Counts compare exactly.
 """
 import dataclasses
 import json
@@ -83,12 +85,14 @@ def _tiny_arch(cfg=TINY, microbatches=None):
                    microbatches=microbatches or {})
 
 
-def _tiny_cell(**overrides):
+def _tiny_cell(cfg=TINY, partitioned=False, **overrides):
     rules = shd.AxisRules(batch_axes=("data",), fsdp_axes=("data",),
-                          tp_axis="model")
-    return specs.build_cell(_tiny_arch(), "train_4k", make_debug_mesh(2, 4),
-                            rules=rules,
-                            overrides=dict(TINY_OVERRIDES, **overrides))
+                          tp_axis="model",
+                          moe_fsdp=cfg.moe_impl != "shard_map")
+    return specs.build_cell(_tiny_arch(cfg), "train_4k",
+                            make_debug_mesh(2, 4), rules=rules,
+                            overrides=dict(TINY_OVERRIDES, **overrides),
+                            partitioned=partitioned)
 
 
 # ---------------------------------------------------------------------------
@@ -186,33 +190,36 @@ FAMILIES = {
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 def test_probes_equal_full_trace(family, shape):
     """3 groups and 3 microbatches: the probes' bilinear solve equals a
-    full trace's FLOPs, bytes and collectives exactly."""
+    full trace's per-device FLOPs, bytes and collectives exactly (one
+    device of the partitioned program on the 2 x 4 mesh)."""
     arch = _tiny_arch(FAMILIES[family], {"train_4k": 3})
     mesh = make_debug_mesh(2, 4)
     ov = {"seq_len": 128 if shape == "decode_32k" else 64,
           "global_batch": 12 if shape == "train_4k" else 4}
     pr = roofline.probe_roofline(arch, shape, mesh, overrides=ov)
-    cell = specs.build_cell(arch, shape, mesh, overrides=ov)
+    cell = specs.build_cell(arch, shape, mesh, overrides=ov,
+                            partitioned=True)
     count = step_analysis.count_step(cell.fn, *cell.args, memory=False)
     coll = roofline.cell_collectives(cell)
-    assert pr["est"]["flops"] * 8 == count.flops
-    assert pr["est"]["bytes"] * 8 == count.bytes_accessed
+    assert pr["est"]["flops"] == count.flops
+    assert pr["est"]["bytes"] == count.bytes_accessed
     for k in step_analysis.COLLECTIVES:
         assert pr["est"][f"coll_{k}"] == coll[k]
-    assert pr["est"]["coll_count"] == coll["count"]
+    assert pr["est"]["coll_count"] == coll["count"] > 0
     assert pr["probes"]["M_probes"] == ([2, 3] if shape == "train_4k"
                                         else [1])
 
 
 @pytest.mark.parametrize("micro", [1, 8])
 def test_tiny_cell_collectives_hand_count(micro):
-    """Each kind against a count by hand: tiny cell, 2 x 4 mesh, batch
+    """The hand reckoning (``step_analysis.collective_bytes``), each kind
+    against a count by hand: tiny cell, 2 x 4 mesh, batch
     8 x 64 over data, remat full, 2 stacked layers, fp32 params, bf16
     compute.  With 8 microbatches a device's share of the batch (4
     sequences) is smaller than the microbatch count: each microbatch
     (one sequence over 2 data shards) is rounded up to one sequence a
     device."""
-    coll = roofline.cell_collectives(_tiny_cell(num_microbatches=micro))
+    coll = roofline.reckoned_collectives(_tiny_cell(num_microbatches=micro))
     bf16, f4, groups = 2, 4, 2
     seqs = 4 if micro == 1 else 1      # a device's sequences of a microbatch
     # all-gather over data in bf16, TP still split: (gathered elements,
@@ -244,66 +251,340 @@ def test_tiny_cell_collectives_hand_count(micro):
         + 1 + 2 * groups + tp_reduces)
 
 
-# the embedding lookup and its gradient's scatter-add, as XLA partitions
-# them for the tiny cell (the rules leave them out): the token ids
-# permuted and gathered over data, the looked-up rows all-reduced over
-# the vocab's model axis and moved back to the batch split by an
-# all-to-all; the scatter-add's mirror, whose data all-reduce of the
-# table's gradient rows stands for the table's gradient reduction
-TINY_LOOKUP = sorted([
-    ["collective-permute", "s32[4,64,1]"], ["all-gather", "s32[8,64,1]"],
-    ["all-reduce", "bf16[8,64,32]"], ["all-to-all", "bf16[2,4,64,32]"],
-    ["all-gather", "bf16[128,32]"], ["all-to-all", "bf16[4,64,2,32]"],
-    ["all-reduce", "bf16[128,32]"], ["collective-permute", "bf16[64,32]"],
-])
+# ---------------------------------------------------------------------------
+# the partitioned program's collectives, by group, against XLA's
+# ---------------------------------------------------------------------------
+TINY_FAMILIES = {
+    "dense": TINY,
+    "moe_dense": dataclasses.replace(TINY, family="moe", moe_num_experts=4,
+                                     moe_top_k=2, moe_d_expert=64),
+    "moe_shard_map": dataclasses.replace(TINY, family="moe",
+                                         moe_num_experts=4, moe_top_k=2,
+                                         moe_d_expert=64,
+                                         moe_impl="shard_map"),
+    "ssm": dataclasses.replace(TINY, family="ssm", ssm_state=16,
+                               ssm_head_dim=16, ssm_chunk=32),
+}
+# a port collective's group: the first of these functions on its Python
+# stack (a collective the backward issues has none of the model's frames
+# but ``_ReduceGrad``'s or DTensor's own)
+PORT_GROUPS = (
+    ("_embed_sharded", "lookup"), ("_vocab_max", "stats"),
+    ("_vocab_sumexp", "stats"), ("_vocab_parallel_stats", "stats"),
+    ("_global_norm_sharded", "scalars"), ("_replicated", "scalars"),
+    ("_as_param", "grad reduction"), ("gather_weight", "weights"),
+    ("_moe_dense_partitioned", "moe"), ("_moe_shard_map_partitioned", "moe"),
+    ("_scan_partitioned", "ssm"), ("apply_ssm", "ssm"),
+    ("backward", "backward"), ("apply_attention", "tp"),
+    ("apply_mlp", "tp"), ("constrain", "layout"),
+    ("_grads", "scalars"),
+)
 
 
-def test_tiny_cell_collectives_match_xla(ref):
-    """The tiny cell's reckoned collectives against XLA's: the
-    reference's step for the same cell on the same mesh, after SPMD
-    partitioning, summed by the reference's
-    ``hlo_analysis.collective_bytes``.  XLA's ops fall in four groups:
+def _port_groups(cell):
+    """(group, kind) -> [count, result bytes] of the collectives one
+    device's partitioned program issues, grouped by ``PORT_GROUPS``; the
+    backward's are grouped by kind and whether ``_ReduceGrad`` (a
+    column-parallel product's input gradient) issued them."""
+    import traceback
 
-    - the embedding lookup and its gradient (ops from ``gather`` and
-      ``scatter-add``), which the rules leave out: ``TINY_LOOKUP``;
-    - the vocab-parallel softmax's statistics, left out: three fp32
-      all-reduces over model of one number per predicted token (4 x 63 a
-      device);
-    - scalar all-reduces (the loss, the gradient norm), left out;
-    - the rest, which the rules reckon.  Kind by kind it equals the
-      port's exactly, but for one difference: XLA's CPU partitioner
-      leaves each gradient's reduce-scatter over data as an all-reduce of
-      the whole TP shard (twice the shard on 2 data shards) and a slice,
-      where the GPU pipeline forms the reduce-scatter the rules count.
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    out = {}
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            res = func(*args, **(kwargs or {}))
+            kind = step_analysis._collective_kind(func)
+            if kind and kind != "wait":
+                stack = traceback.extract_stack()
+                names = {f.name for f in stack}
+                group = next(g for f, g in PORT_GROUPS if f in names)
+                if group == "backward" and any(
+                        "_ReduceGrad" in (f.line or "") or
+                        f.name == "backward" and "sharding.py" in f.filename
+                        for f in stack):
+                    group = "tp"
+                row = out.setdefault((group, kind), [0, 0])
+                row[0] += 1
+                row[1] += step_analysis._nbytes(res)
+            return res
+
+    with Mode():
+        cell.fn(*cell.args)
+    return out
+
+
+def _xla_groups(ops):
+    """(group, kind) -> [count, result bytes] of XLA's collectives, by
+    the op that XLA attributes each to (``dot_general``: a product's;
+    ``gather``/``scatter-add``: the lookup, the MoE's dispatch; and so
+    on), the softmax statistics (f32 of one number per predicted token)
+    and the scalars apart."""
+    out = {}
+    for kind, nbytes, shapes, name in ops:
+        group = name.split("/")[-1] or "(none)"
+        if shapes == "f32[4,63]":
+            group = "stats"
+        elif shapes == "f32[]":
+            group = "scalars"
+        row = out.setdefault((group, kind), [0, 0])
+        row[0] += 1
+        row[1] += nbytes
+    return out
+
+
+def _flat_groups(groups):
+    return {f"{g}/{k}": v for (g, k), v in sorted(groups.items())}
+
+
+@pytest.fixture(scope="module")
+def port_tiny_groups():
+    return {name: _flat_groups(_port_groups(_tiny_cell(cfg,
+                                                       partitioned=True)))
+            for name, cfg in TINY_FAMILIES.items()}
+
+
+def _ref_tiny(ref, name):
+    return ref["tiny"] if name == "dense" else ref["tiny_cells"][name]
+
+
+def test_counted_collectives_equal_comm_debug_mode():
+    """``count_step``'s collectives are the ones ``CommDebugMode`` sees,
+    op for op, and every kind counted has bytes."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    cell = _tiny_cell(partitioned=True)
+    with CommDebugMode() as comm:
+        count = step_analysis.count_step(cell.fn, *cell.args, memory=False)
+    assert count.collectives["count"] == sum(comm.get_comm_counts().values())
+    assert count.collectives["count"] == 76
+    assert roofline.cell_collectives(_tiny_cell()) == count.collectives
+
+
+def test_tiny_cell_collectives_match_xla(ref, port_tiny_groups):
+    """The dense tiny cell's counted collectives against XLA's module
+    after SPMD partitioning (the reference's step for the same cell on
+    the same mesh), group by group.  Equal: the FSDP gathers of the
+    products' weights (29, bf16), the TP sums of the residual stream (17
+    bf16 all-reduces: ``wo`` and ``w_out`` forward and recompute, each
+    column-parallel product's input gradient), the three softmax
+    statistics (f32 of one number per predicted token), the norm scales'
+    gradient sums (the same bytes; XLA sums each group's slice of a
+    stacked scale, the port the stacked leaf once).  Named differences:
+
+    - the weight gradients: XLA's CPU partitioner leaves each
+      reduce-scatter over data an all-reduce of the whole TP shard
+      (twice the bytes on 2 data shards), where the port's program (and
+      XLA's GPU pipeline) reduce-scatters;
+    - the lookup: XLA gathers the ids over data (the port too, the same
+      bytes), sums the rows over model (the same), moves them to the
+      batch split by an all-to-all (the same bytes) and mirrors it in
+      the backward (the same all-to-all), with collective-permutes of
+      the ids and an all-gather, all-reduce and permute of the table's
+      gradient rows besides; the port looks up all ids of its d_model
+      slice, so the table's gradient is complete on each device;
+    - the scalars: XLA's 19 f32 all-reduces (loss, norms of each leaf),
+      the port's 5 (the loss, the token count, the gradient norm once
+      over each mesh axis).
     """
-    xla, ops = ref["tiny"]["collectives"], ref["tiny"]["collective_ops"]
+    xla = _flat_groups(_xla_groups(ref["tiny"]["collective_ops"]))
+    port = port_tiny_groups["dense"]
+    weights = port["weights/all-gather"]
+    assert weights == xla["dot_general/all-gather"] == [29, 90112]
+    tp = [o for o in ref["tiny"]["collective_ops"]
+          if o[3].endswith("dot_general") and o[2] == "bf16[4,64,64]"]
+    # the recompute's two run in the backward
+    port_tp = [a + b for a, b in zip(port["tp/all-reduce"],
+                                     port["backward/all-reduce"])]
+    assert port_tp == [len(tp), sum(o[1] for o in tp)] \
+        == [17, 17 * 4 * 64 * 64 * 2]
+    assert port["stats/all-reduce"] == xla["stats/all-reduce"] \
+        == [3, 3 * 4 * 63 * 4]
+    assert port["grad reduction/all-reduce"] == [3, 1280]
+    assert xla["reduce_sum/all-reduce"] == [5, 1280]
+    # the weight gradients: reduce-scatters, all-reduces of the TP shard
+    wgrad = xla["dot_general/all-reduce"][1] - port_tp[1]
+    assert port["backward/reduce-scatter"] == [15, 24576]
+    assert wgrad == 2 * 24576
+    # the lookup
+    assert port["lookup/all-gather"] == xla["gather/all-gather"] \
+        == [1, 8 * 64 * 4]
+    assert port["layout/all-reduce"] == xla["gather/all-reduce"] \
+        == [1, 8 * 64 * 32 * 2]
+    assert port["layout/all-to-all"] == xla["gather/all-to-all"] \
+        == port["backward/all-to-all"] == xla["scatter-add/all-to-all"] \
+        == [1, 32768]
+    assert xla["gather/collective-permute"] == [1, 4 * 64 * 4]
+    assert [xla[f"scatter-add/{k}"] for k in
+            ("all-gather", "all-reduce", "collective-permute")] \
+        == [[1, 128 * 32 * 2], [1, 128 * 32 * 2], [1, 64 * 32 * 2]]
+    assert xla["scalars/all-reduce"] == [19, 76]
+    assert port["scalars/all-reduce"] == [5, 20]
+    # nothing else on either side
+    assert set(port) == {
+        "weights/all-gather", "tp/all-reduce", "stats/all-reduce",
+        "grad reduction/all-reduce", "backward/reduce-scatter",
+        "backward/all-reduce",
+        "lookup/all-gather", "layout/all-reduce", "layout/all-to-all",
+        "backward/all-to-all", "scalars/all-reduce"}
+    assert set(xla) == {
+        "dot_general/all-gather", "dot_general/all-reduce",
+        "stats/all-reduce", "reduce_sum/all-reduce", "gather/all-gather",
+        "gather/all-reduce", "gather/all-to-all", "gather/collective-permute",
+        "scatter-add/all-to-all", "scatter-add/all-gather",
+        "scatter-add/all-reduce", "scatter-add/collective-permute",
+        "scalars/all-reduce"}
+
+
+def test_tiny_cell_counted_collectives_equal_the_reckoning():
+    """On the dense tiny cell the counted collectives equal
+    ``step_analysis.collective_bytes``'s reckoning for the groups its
+    rules cover: the weights' gathers, the weight gradients'
+    reduce-scatters, and the all-reduces of the residual stream and the
+    norm scales' gradients; what the rules leave out (the lookup, the
+    softmax statistics, the scalars) is counted besides."""
+    rules_count = roofline.reckoned_collectives(_tiny_cell())
     coll = roofline.cell_collectives(_tiny_cell())
-    for k in step_analysis.COLLECTIVES:
-        assert sum(b for kind, b, _, _ in ops if kind == k) == xla[k]
-    assert len(ops) == xla["count"]
+    lookup = 8 * 64 * 4 + 8 * 64 * 32 * 2 + 2 * 32768
+    stats, scalars = 3 * 4 * 63 * 4, 5 * 4
+    assert coll["all-gather"] == rules_count["all-gather"] + 8 * 64 * 4
+    assert coll["reduce-scatter"] == rules_count["reduce-scatter"]
+    assert coll["all-reduce"] == rules_count["all-reduce"] \
+        + 8 * 64 * 32 * 2 + stats + scalars
+    assert coll["all-to-all"] == 2 * 32768
+    assert sum(coll[k] for k in step_analysis.COLLECTIVES) == sum(
+        rules_count[k] for k in step_analysis.COLLECTIVES) + lookup \
+        + stats + scalars
+    # the rules' 96 ops less the 2 norm-scale reductions the port makes
+    # once per stacked leaf, plus the lookup's 4, 3 statistics, 5 scalars
+    assert coll["count"] == rules_count["count"] - 2 + 4 + 3 + 5
 
-    lookup = [o for o in ops if o[3].endswith(("/gather", "/scatter-add"))]
-    stats = [o for o in ops if o[2] == "f32[4,63]"]
-    scalars = [o for o in ops if o[2] == "f32[]"]
-    assert sorted([kind, shapes] for kind, _, shapes, _ in lookup) \
-        == TINY_LOOKUP
-    assert [o[0] for o in stats] == ["all-reduce"] * 3
-    assert sum(o[1] for o in stats) == 3 * 4 * 63 * 4
-    assert {o[0] for o in scalars} == {"all-reduce"}
-    assert all(o[1] == 4 for o in scalars)
 
-    rest = [o for o in ops if not (o in lookup or o in stats or o in scalars)]
-    assert len(rest) == len(ops) - len(lookup) - len(stats) - len(scalars)
-    got = {k: sum(b for kind, b, _, _ in rest if kind == k)
-           for k in step_analysis.COLLECTIVES}
-    n_data = 2
-    assert got["all-gather"] == coll["all-gather"]
-    assert got["reduce-scatter"] == 0
-    assert got["all-reduce"] == coll["all-reduce"] \
-        + n_data * coll["reduce-scatter"]
-    assert got["all-to-all"] == coll["all-to-all"] == 0
-    assert got["collective-permute"] == coll["collective-permute"] == 0
-    assert len(rest) == coll["count"]
+# the other families' collectives by group, XLA's and the port's, pinned:
+# (count, result bytes) per (group, kind).  XLA's groups are the ops it
+# attributes each collective to; the port's are the functions that issue
+# them (see PORT_GROUPS).
+PINNED = {'moe_dense': {'port': {'backward/all-gather': [4, 458752],
+                        'backward/all-reduce': [2, 65536],
+                        'backward/all-to-all': [1, 32768],
+                        'backward/reduce-scatter': [15, 36864],
+                        'grad reduction/all-reduce': [3, 1280],
+                        'layout/all-reduce': [1, 32768],
+                        'layout/all-to-all': [1, 32768],
+                        'lookup/all-gather': [1, 2048],
+                        'moe/all-gather': [8, 917504],
+                        'moe/all-reduce': [4, 327680],
+                        'scalars/all-reduce': [5, 20],
+                        'stats/all-reduce': [3, 3024],
+                        'tp/all-reduce': [13, 622592],
+                        'weights/all-gather': [29, 139264]},
+               'xla': {'broadcast_in_dim/all-gather': [8, 8192],
+                       'dot_general/all-gather': [17, 40960],
+                       'dot_general/all-reduce': [40, 1452032],
+                       'gather/all-gather': [7, 395264],
+                       'gather/all-reduce': [7, 425984],
+                       'gather/all-to-all': [1, 32768],
+                       'gather/collective-permute': [9, 336896],
+                       'mul/all-gather': [4, 8192],
+                       'reduce_sum/all-reduce': [13, 5472],
+                       'reduce_window_sum/all-gather': [4, 65536],
+                       'scalars/all-reduce': [19, 76],
+                       'scatter-add/all-gather': [1, 8192],
+                       'scatter-add/all-reduce': [7, 499712],
+                       'scatter-add/all-to-all': [7, 294912],
+                       'scatter-add/collective-permute': [7, 28672],
+                       'stats/all-reduce': [3, 3024],
+                       'top_k/all-gather': [4, 32768]}},
+ 'moe_shard_map': {'port': {'backward/all-gather': [4, 81920],
+                            'backward/all-reduce': [4, 131072],
+                            'backward/all-to-all': [1, 32768],
+                            'backward/reduce-scatter': [11, 20480],
+                            'grad reduction/all-reduce': [9, 104192],
+                            'layout/all-reduce': [1, 32768],
+                            'layout/all-to-all': [1, 32768],
+                            'lookup/all-gather': [1, 2048],
+                            'moe/all-reduce': [6, 65552],
+                            'scalars/all-reduce': [5, 20],
+                            'stats/all-reduce': [3, 3024],
+                            'tp/all-reduce': [9, 294912],
+                            'tp/reduce-scatter': [2, 16384],
+                            'weights/all-gather': [17, 40960]},
+                   'xla': {'dot_general/all-gather': [17, 40960],
+                           'dot_general/all-reduce': [20, 385024],
+                           'gather/all-gather': [1, 2048],
+                           'gather/all-reduce': [1, 32768],
+                           'gather/all-to-all': [1, 32768],
+                           'gather/collective-permute': [1, 1024],
+                           'psum_invariant/all-reduce': [16, 446464],
+                           'reduce_sum/all-reduce': [5, 1280],
+                           'scalars/all-reduce': [22, 88],
+                           'scatter-add/all-gather': [1, 8192],
+                           'scatter-add/all-reduce': [1, 8192],
+                           'scatter-add/all-to-all': [1, 32768],
+                           'scatter-add/collective-permute': [1, 4096],
+                           'stats/all-reduce': [3, 3024]}},
+ 'ssm': {'port': {'backward/all-gather': [24, 277696],
+                  'backward/all-reduce': [14, 6336],
+                  'backward/all-to-all': [19, 589824],
+                  'backward/reduce-scatter': [11, 94592],
+                  'grad reduction/all-reduce': [4, 3328],
+                  'layout/all-reduce': [1, 32768],
+                  'layout/all-to-all': [1, 32768],
+                  'lookup/all-gather': [1, 2048],
+                  'scalars/all-reduce': [5, 20],
+                  'ssm/all-gather': [24, 630784],
+                  'ssm/all-reduce': [2, 65536],
+                  'ssm/reduce-scatter': [4, 1024],
+                  'stats/all-reduce': [3, 3024],
+                  'tp/all-reduce': [3, 98304],
+                  'weights/all-gather': [9, 62464]},
+         'xla': {'(none)/all-gather': [15, 4992],
+                 'concatenate/all-to-all': [16, 233472],
+                 'dot_general/all-gather': [19, 209920],
+                 'dot_general/all-reduce': [20, 461312],
+                 'dot_general/all-to-all': [2, 65536],
+                 'gather/all-gather': [1, 2048],
+                 'gather/all-reduce': [1, 32768],
+                 'gather/all-to-all': [1, 32768],
+                 'gather/collective-permute': [1, 1024],
+                 'reduce_sum/all-reduce': [27, 8016],
+                 'scalars/all-reduce': [15, 60],
+                 'scatter-add/all-gather': [1, 8192],
+                 'scatter-add/all-reduce': [1, 8192],
+                 'scatter-add/all-to-all': [1, 32768],
+                 'scatter-add/collective-permute': [1, 4096],
+                 'split/collective-permute': [60, 454656],
+                 'stats/all-reduce': [3, 3024]}}}
+
+
+@pytest.mark.parametrize("name", ["moe_dense", "moe_shard_map", "ssm"])
+def test_tiny_family_collectives_against_xla(ref, port_tiny_groups, name):
+    """The MoE (both implementations) and SSM tiny cells, group by group
+    against XLA's partitioned module.  Equal: the softmax statistics, and
+    the products' weight gathers outside the MoE block.  Every other
+    group is a named difference, pinned here with its bytes on both
+    sides: XLA partitions the dense MoE's capacity dispatch (a cumulative
+    sum over every token) into gathers, all-to-alls and permutes of the
+    one-hot, the slots and the packed tokens, where the port's program
+    gathers the tokens and routes the whole batch on each device; XLA
+    moves the SSM's fused projection into its parts with collective-
+    permutes and all-to-alls, where the port gathers it over TP and
+    scans each device's heads; the lookup, the scalars and the weight
+    gradients differ as in the dense cell."""
+    xla = _flat_groups(_xla_groups(_ref_tiny(ref, name)["collective_ops"]))
+    port = port_tiny_groups[name]
+    assert port["stats/all-reduce"] == xla["stats/all-reduce"]
+    if name == "moe_shard_map":   # the experts are DP-replicated
+        assert port["weights/all-gather"] == xla["dot_general/all-gather"]
+    assert port["lookup/all-gather"] == [1, 8 * 64 * 4]
+    family = "ssm" if name == "ssm" else "moe"
+    assert any(k.startswith(f"{family}/") for k in port)
+    want = PINNED[name]
+    assert {"xla": xla, "port": port} == want
 
 
 def test_single_device_mesh_has_no_collectives():
@@ -311,8 +592,137 @@ def test_single_device_mesh_has_no_collectives():
                           tp_axis="model")
     cell = specs.build_cell(_tiny_arch(), "train_4k", make_debug_mesh(1, 1),
                             rules=rules, overrides=dict(TINY_OVERRIDES))
-    coll = roofline.cell_collectives(cell)
-    assert all(v == 0 for v in coll.values())
+    assert all(v == 0 for v in roofline.cell_collectives(cell).values())
+    assert all(v == 0 for v in roofline.reckoned_collectives(cell).values())
+
+
+def test_tiny_cell_flops_per_device_by_hand():
+    """One device's FLOPs of the partitioned tiny cell, by hand: 4 of the
+    8 sequences (data) of 64 tokens, one of 4 heads, a quarter of d_ff
+    and of the vocab (model); each product once, not once as a DTensor
+    op and again as its local op."""
+    tokens, d, hd, ff_l, vocab_l, layers = 4 * 64, 64, 16, 32, 64, 2
+    qkv_o = 4 * 2 * tokens * d * hd                 # wq, wk, wv, wo
+    mlp = 3 * 2 * tokens * d * ff_l                 # w_in, w_gate, w_out
+    attn = 2 * 2 * (4 * 64) * 32 * hd * 2           # q.k, p.v; 2 chunks
+    head = 2 * tokens * d * vocab_l
+    fwd = layers * (qkv_o + mlp + attn) + head
+    # the backward twice the forward; the recompute re-runs each layer
+    # but its last product (w_out), whose output only feeds the residual
+    recompute = layers * (qkv_o + mlp + attn - 2 * tokens * ff_l * d)
+    count = step_analysis.count_step(
+        *(lambda c: (c.fn, *c.args))(_tiny_cell(partitioned=True)),
+        memory=False)
+    assert count.flops == 3 * fwd + recompute == 54525952
+    whole = step_analysis.count_step(
+        *(lambda c: (c.fn, *c.args))(_tiny_cell()), memory=False)
+    assert whole.flops == 8 * count.flops
+
+
+def test_count_step_is_the_same_twice_in_a_fresh_process():
+    """The first count of a partitioned cell in a process equals the
+    second: DTensor plans each op and layout once and caches the plan,
+    and its planning ops stay out of every count (run in a fresh
+    interpreter, so that no count before it has filled the caches)."""
+    code = (
+        "import json, sys; sys.path.insert(0, sys.argv[1])\n"
+        "import test_torch_launch as t\n"
+        "from repro_torch.launch import step_analysis\n"
+        "out = {}\n"
+        "for name, cfg in t.TINY_FAMILIES.items():\n"
+        "    c = [step_analysis.count_step(cell.fn, *cell.args) for cell in\n"
+        "         (t._tiny_cell(cfg, partitioned=True) for _ in range(2))]\n"
+        "    out[name] = [list(x[:3]) + [x.collectives] for x in c]\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    run = subprocess.run([sys.executable, "-c", code,
+                          os.path.dirname(__file__)], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    counts = json.loads(run.stdout.strip().splitlines()[-1])
+    assert set(counts) == set(TINY_FAMILIES)
+    for name, (first, second) in counts.items():
+        assert first == second, name
+        assert first[2] > 0, name              # a temp peak was tracked
+
+
+def test_count_step_raises_without_dtensor_planners(monkeypatch):
+    """A torch whose DTensor has none of the planning functions that
+    ``count_step`` keeps out of its counts makes it raise, not count
+    them."""
+    monkeypatch.setitem(step_analysis._PLANNERS, "redistribute",
+                        ("_no_such_planner",))
+    cell = _tiny_cell(partitioned=True)
+    with pytest.raises(RuntimeError, match="planning ops"):
+        step_analysis.count_step(cell.fn, *cell.args, memory=False)
+
+
+@pytest.mark.parametrize("name", list(TINY_FAMILIES))
+def test_tiny_cell_partitioned_memory(ref, name):
+    """Each tiny cell's ``argument_bytes`` per device equals XLA's
+    ``argument_size_in_bytes``, and the partitioned program's temp peak
+    is at most the unpartitioned trace's at one data shard's batch (the
+    upper bound the dry run recorded before it traced a device's own
+    program)."""
+    cfg = TINY_FAMILIES[name]
+    cell = _tiny_cell(cfg, partitioned=True)
+    assert dryrun._shard_bytes(_tiny_cell(cfg).args, cell.in_shardings) \
+        == _ref_tiny(ref, name)["argument_bytes"]
+    part = step_analysis.count_step(cell.fn, *cell.args).temp_peak_bytes
+    shard = specs.build_cell(
+        _tiny_arch(cfg), "train_4k", make_debug_mesh(1, 4),
+        rules=cell.rules, overrides=dict(TINY_OVERRIDES, global_batch=4))
+    bound = step_analysis.count_step(shard.fn, *shard.args).temp_peak_bytes
+    assert 0 < part <= bound
+
+
+def test_placements_and_place():
+    """A spec's placements (a dimension over two axes is ``Shard`` on
+    each), and ``place``'s local blocks, an uneven split rounded up on
+    rank 0 as ``NamedSharding.shard_shape`` gives it."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import fake_dtensor_mesh
+
+    dmesh = fake_dtensor_mesh(make_debug_mesh(2, 4))
+    assert shd.placements(shd.P("model", None), dmesh) == (Replicate(),
+                                                           Shard(0))
+    pod = fake_dtensor_mesh(make_production_mesh(multi_pod=True))
+    assert pod.mesh.shape == (2, 16, 16)
+    assert shd.placements(shd.P(("pod", "data"), "model"), pod) == (
+        Shard(0), Shard(0), Shard(1))
+    mesh = make_debug_mesh(2, 4)
+    ns = shd.NamedSharding(mesh, shd.P("model", "data"))
+    t = torch.empty(10, 6, device="meta", requires_grad=True)
+    placed = shd.place({"w": t}, {"w": ns}, dmesh)["w"]
+    assert tuple(placed.shape) == (10, 6)
+    assert tuple(placed.to_local().shape) == ns.shard_shape((10, 6)) \
+        == (3, 3)
+    assert placed.is_leaf and placed.requires_grad
+
+
+def test_constrain_redistributes_under_a_dtensor_mesh():
+    """Without a DTensor mesh ``constrain`` returns its input; under one
+    it redistributes a DTensor to the resolved spec, as
+    ``with_sharding_constraint`` does."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch.mesh import fake_dtensor_mesh
+
+    dmesh = fake_dtensor_mesh(make_debug_mesh(2, 4))
+    mesh = make_debug_mesh(2, 4)
+    x = shd.place(torch.empty(8, 16, 32, device="meta"),
+                  shd.NamedSharding(mesh, shd.P("data", None, "model")),
+                  dmesh)
+    rules = shd.AxisRules()
+    with shd.use_rules(rules):
+        assert shd.constrain(x, "batch", None, None) is x
+        with shd.use_dtensor_mesh(dmesh), CommDebugMode() as comm:
+            y = shd.constrain(x, "batch", None, None)
+    assert y.placements == (Shard(0), Replicate())
+    assert tuple(y.to_local().shape) == (4, 16, 32)
+    assert sum(comm.get_comm_counts().values()) == 1
 
 
 def test_count_step_memory_and_flops_by_hand():
@@ -348,8 +758,13 @@ def test_run_cell_records_model_flops(tmp_path, monkeypatch):
     assert rec["useful_flops_ratio"] == rec["model_flops_total"] \
         / rec["traced_flops_total"]
     assert rec["traced_flops_total"] == rec["cost"]["flops_per_device"] * 8
-    assert rec["memory"]["temp_bound"] == "upper"
-    assert rec["partitioned"] is False and rec["traced_microbatches"] == 2
+    assert rec["memory"]["temp_bound"] == "device"
+    assert rec["partitioned"] is True and rec["traced_microbatches"] == 2
+    # the step's collectives, counted (the probes' solve)
+    sched = rec["collective_schedule"]
+    assert sched["count"] == round(rec["collectives"]["count"]) > 0
+    assert all(sched[k] == round(rec["collectives"][k])
+               for k in step_analysis.COLLECTIVES)
     assert rec["mesh"] == "mesh2x4"
     saved = json.load(open(tmp_path / "tiny__train_4k__mesh2x4.json"))
     assert saved["status"] == "ok"
@@ -397,9 +812,10 @@ def test_report_tables_match_reference():
 
     ref_recs, recs = _as(_records(), "repro"), _as(_records(), "repro_torch")
     swap = [("fits 16GB", "fits 80 GB"), ("| compile |", "| trace |"),
-            ("collectives (scanned HLO)", "collectives (reckoned)"),
+            ("collectives (scanned HLO)", "collectives (counted)"),
             ("cells compiled OK", "cells traced OK"),
-            ("fit 16 GB HBM/device", "fit 80 GB HBM/device at the upper bound"),
+            ("fit 16 GB HBM/device",
+             "fit 80 GB HBM/device at their device's own peak"),
             ("MODEL/HLO flops", "MODEL/traced flops")]
     want = ref_report.dryrun_table(ref_recs) + "\n" + ref_report.summary(
         ref_recs)
@@ -418,6 +834,38 @@ def test_report_tables_match_reference():
     drop = lambda row: row.split("|")[:7] + row.split("|")[8:]  # noqa: E731
     assert drop(got_rows[2]) == drop(want_rows[2])
     assert report.PEAK == step_analysis.PEAK_FLOPS_BF16 == 989.4e12
+
+
+def test_report_marks_the_ports_dense_moe_partition():
+    """A record of the port's own dense-MoE partition carries a dagger in
+    both tables and the summary says what it means; the others none."""
+    recs = _as(_records(), "repro_torch")
+    marked = dict(recs[0], port_partition="dense_moe")
+    rows = report.dryrun_table([marked, recs[0]]).splitlines()
+    assert "| yes† |" in rows[2] and "| yes |" in rows[3]
+    rows = report.roofline_table([marked, recs[0]]).splitlines()
+    assert "**memory**†" in rows[2] and "**memory** |" in rows[3]
+    assert report.summary([marked, recs[0]]).endswith(
+        "1 cells marked: " + report.PORT_PARTITION_NOTE)
+    assert "marked" not in report.summary(recs)
+
+
+@pytest.mark.parametrize("family,marked", [("moe_dense", True),
+                                           ("moe_shard_map", False),
+                                           ("dense", False)])
+def test_run_cell_marks_the_ports_dense_moe_partition(
+        tmp_path, monkeypatch, family, marked):
+    """``run_cell`` marks a dense-impl MoE cell's record, and only that."""
+    monkeypatch.setattr(dryrun, "get_arch",
+                        lambda name: _tiny_arch(TINY_FAMILIES[family]))
+    rules = shd.AxisRules(batch_axes=("data",), fsdp_axes=("data",),
+                          tp_axis="model",
+                          moe_fsdp=family != "moe_shard_map")
+    rec = dryrun.run_cell("tiny", "train_4k", False, str(tmp_path),
+                          overrides=dict(TINY_OVERRIDES), probe=False,
+                          rules=rules, mesh=make_debug_mesh(2, 4))
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert (rec.get("port_partition") == "dense_moe") is marked
 
 
 def test_h100_constants():
