@@ -10,10 +10,12 @@ train cell on a 1 x 1 mesh (8 x 128 tokens, 2 microbatches, remat full,
 the cell's bf16 moments), then one step of the same cell on the card under
 ``FlopCounterMode`` and one under the profiler, then rank 0 of the same
 cell partitioned over a 1 x 2 (data x model) mesh, traced and stepped on
-the card under a ``fake`` process group (see its docstring for the
-checks).  The path builds no kernel.  It prints the card's
-``memory.total``, one JSON line with the path's numbers, then the card's
-name and power limit.  It needs a card; without one it exits nonzero.
+the card under a ``fake`` process group, then the same for
+``granite-moe-3b-a800m``'s train cell (the dense MoE) on a 2 x 1 mesh (see
+its docstring for the checks).  The path builds no kernel.  It prints the
+card's ``memory.total``, one JSON line with the path's numbers, then the
+card's name and power limit.  It needs a card; without one it exits
+nonzero.
 """
 from __future__ import annotations
 

@@ -74,6 +74,8 @@ def reddit_like_fringe(seed: int = 10, m: int = M, k: int = K,
     module docstring, as int32 numpy arrays, and its row count."""
     import numpy as np
 
+    from repro_torch.core.arrays import sorted_unique
+
     rng = np.random.RandomState(seed)
     deg = rng.pareto(skew, m) + 1.0
     deg = np.maximum(np.minimum(deg / deg.mean() * avg_degree, k)
@@ -82,7 +84,7 @@ def reddit_like_fringe(seed: int = 10, m: int = M, k: int = K,
     rng.shuffle(deg)
     rows = np.repeat(np.arange(deg.size, dtype=np.int64), deg)
     cols = (k * rng.power(0.3, rows.size)).astype(np.int64) % k
-    key = np.unique(rows * k + cols)
+    key = sorted_unique(rows * k + cols)
     return ((key // k).astype(np.int32), (key % k).astype(np.int32),
             int(deg.size))
 

@@ -254,7 +254,11 @@ from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    2 ranks (the collectives do no work; their values are held on the
    CPU): its counted FLOPs and collectives equal the dry run's per-device
    ones, its state's local ``nbytes`` equal ``argument_bytes``, and its
-   peak is within 5 % of ``argument_bytes + temp_bytes``.
+   peak is within 5 % of ``argument_bytes + temp_bytes``.  The same
+   checks for ``granite-moe-3b-a800m``'s train cell (the dense MoE, full
+   width and depth, phase 12's size) on a 2 x 1 mesh, where the MoE's
+   capacity slots, expert outputs and token rows are split along d over
+   data.
 
 Tolerance everywhere: max |x - ref| <= 1e-4 * max(1, max |ref|) (fp32 on
 both sides, different summation orders; the kernels' tensor-core path is
@@ -2580,6 +2584,7 @@ def sharded_path(ctx, reddit, graph):
     import torch
 
     from repro_torch.core import spmm as core_spmm
+    from repro_torch.core.arrays import sorted_unique
     from repro_torch.data.graphs import mutate
     from repro_torch.distributed import make_spmm_mesh
     from repro_torch.dynamic import DynamicPlan, PlanRegistry
@@ -2702,7 +2707,7 @@ def sharded_path(ctx, reddit, graph):
     require(S.is_sharded, "from_coo(mesh=) gave no sharded plan")
     key = rows.astype(np.int64) * n + cols
     order = torch.from_numpy(np.argsort(key, kind="stable")).to(dev)
-    require(np.unique(key).size == key.size, "the GCN graph has duplicates")
+    require(sorted_unique(key).size == key.size, "the GCN graph has duplicates")
     x = torch.randn((n, N), device=dev, generator=gen)
     yt = torch.randn((n, N), device=dev, generator=gen)
     y = yt.t()
@@ -3688,14 +3693,20 @@ def dryrun_path(ctx):
     held = torch.cuda.memory_allocated()
     out = _dryrun_on_card(ctx, rec, cell, held, t_path, dry_s)
     out["partitioned"] = dryrun_partitioned_on_card(ctx)
+    out["partitioned_moe"] = dryrun_partitioned_on_card(
+        ctx, DRYRUN_MOE_ARCH, DRYRUN_MOE_MESH)
     out["wall_s"] = time.perf_counter() - t_path
     log(f"  dry-run path wall time: {out['wall_s']:.1f} s")
     return out
 
 
-# the partitioned check of phase 13: the same cell on a (data, model)
-# mesh, rank 0 of it on the card under a fake process group
+# the partitioned checks of phase 13: the same cell on a (data, model)
+# mesh, rank 0 of it on the card under a fake process group; then
+# granite-moe's (the dense MoE) on a 2 x 1 mesh, so that its dispatch is
+# split along d over data
 DRYRUN_PART_MESH = (1, 2)
+DRYRUN_MOE_ARCH = "granite-moe-3b-a800m"
+DRYRUN_MOE_MESH = (2, 1)
 
 
 def _card_place(tree, shardings, dmesh, gen, dev, vocab):
@@ -3738,10 +3749,14 @@ def _card_place(tree, shardings, dmesh, gen, dev, vocab):
             walk(batch, bs, "batch"))
 
 
-def dryrun_partitioned_on_card(ctx):
-    """Rank 0 of qwen1.5-4b's train cell at phase 12's size on a 1 x 2
-    (data x model) mesh: the dry run on ``meta`` (``run_cell``, a
-    partitioned program over a ``fake`` group), then one step of the same
+def dryrun_partitioned_on_card(ctx, arch=DRYRUN_ARCH,
+                                mesh_shape=DRYRUN_PART_MESH):
+    """Rank 0 of ``arch``'s train cell at phase 12's size (full width and
+    depth) on a ``mesh_shape`` (data x model) mesh: qwen1.5-4b's on 1 x 2,
+    and granite-moe's on 2 x 1, where the dense MoE's capacity slots,
+    expert outputs and token rows are split along d over data.  The dry
+    run on ``meta`` (``run_cell``, a partitioned program over a ``fake``
+    group), then one step of the same
     partitioned program on ``cuda:0`` under a ``fake`` process group of 2
     ranks, its local blocks random on the card, with the peak reset
     first.  The collectives do no work, so the values are not checked
@@ -3760,24 +3775,24 @@ def dryrun_partitioned_on_card(ctx):
     from repro_torch.train import optimizer as opt_lib
 
     log, require, dev = ctx.log, ctx.require, ctx.dev
-    mesh = make_debug_mesh(*DRYRUN_PART_MESH)
+    mesh = make_debug_mesh(*mesh_shape)
+    overrides = dict(DRYRUN_OVERRIDES)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out_dir:
-        rec = dryrun.run_cell(DRYRUN_ARCH, "train_4k", False, out_dir,
-                              overrides=dict(DRYRUN_OVERRIDES), mesh=mesh)
+        rec = dryrun.run_cell(arch, "train_4k", False, out_dir,
+                              overrides=dict(overrides), mesh=mesh)
     dry_s = time.perf_counter() - t0
     require(rec["status"] == "ok", rec.get("traceback", rec))
     require(rec["partitioned"] is True, rec)
     mem, traced = rec["memory"], rec["traced"]
-    log(f"  dry run of {DRYRUN_ARCH} train_4k on a {DRYRUN_PART_MESH[0]} x "
-        f"{DRYRUN_PART_MESH[1]} (data x model) mesh, partitioned: "
+    log(f"  dry run of {arch} train_4k ({overrides}) on a {mesh_shape[0]}"
+        f" x {mesh_shape[1]} (data x model) mesh, partitioned: "
         f"{dry_s:.1f} s; per device {traced['flops']:.6e} FLOPs, argument "
         f"{mem['argument_bytes']} B, temp {mem['temp_bytes']} B; "
         f"collectives {rec['collective_schedule']}")
 
-    cell = specs.build_cell(get_arch(DRYRUN_ARCH), "train_4k", mesh,
-                            overrides=dict(DRYRUN_OVERRIDES),
-                            analysis_mode=False)
+    cell = specs.build_cell(get_arch(arch), "train_4k", mesh,
+                            overrides=dict(overrides), analysis_mode=False)
     dmesh = fake_dtensor_mesh(mesh, torch.device(dev).type)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3804,7 +3819,7 @@ def dryrun_partitioned_on_card(ctx):
     reckoned = mem["argument_bytes"] + mem["temp_bytes"]
     rel = abs(reckoned - peak) / peak
     log(f"  rank 0's step on the card under a fake group of "
-        f"{DRYRUN_PART_MESH[0] * DRYRUN_PART_MESH[1]} (events "
+        f"{mesh_shape[0] * mesh_shape[1]} (events "
         f"{s.elapsed_time(e):.1f} ms, counted): {count.flops:.6e} FLOPs "
         f"against the dry run's {traced['flops']:.6e} (probed "
         f"{rec['cost']['flops_per_device']:.6e}); state {state_bytes} B; "
@@ -3815,7 +3830,8 @@ def dryrun_partitioned_on_card(ctx):
     require(count.collectives == traced["collectives"],
             (count.collectives, traced["collectives"]))
     require(rel <= DRYRUN_PEAK_TOL, (reckoned, peak, rel))
-    out = {"mesh": list(DRYRUN_PART_MESH), "dryrun_s": dry_s,
+    out = {"arch": arch, "mesh": list(mesh_shape), "overrides": overrides,
+           "dryrun_s": dry_s,
            "traced_flops": traced["flops"], "card_flops": count.flops,
            "argument_bytes": mem["argument_bytes"],
            "state_bytes": state_bytes, "temp_bytes": mem["temp_bytes"],
@@ -3987,6 +4003,14 @@ def main() -> int:
         f" numpy {np.__version__}")
     log(smi)
 
+    phase_s, t_phase = {}, [time.perf_counter()]
+
+    def phase_done(name):
+        """Wall seconds since the previous phase ended, under ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase[0]
+        t_phase[0] = now
+
     t0 = time.perf_counter()
     _build.build_all()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
@@ -4065,6 +4089,8 @@ def main() -> int:
                 tile_chunk=2048)
 
         return kern, plain
+
+    phase_done("1 device and kernel build")
 
     # --- phase 2: kernels against their plain versions on the stand-ins ----
     standin_err = {}
@@ -4222,6 +4248,8 @@ def main() -> int:
                                  "gather_spmm_ksharded", "dense_tile_sddmm",
                                  "gather_sddmm", "nm_tile_spmm",
                                  "bitmap_tile_spmm"}, standin_err)
+
+    phase_done("2 kernels on stand-ins")
 
     # --- phase 3: the main path through the entry points -------------------
     spec = GraphSpec(**REDDIT)
@@ -4409,6 +4437,8 @@ def main() -> int:
     del csr
     log(f"  spmm vs torch.sparse.mm: {e_spmm:.3e}; bspmm vs 4 x spmm: "
         f"{e_bspmm:.3e}; arxiv spmm vs torch.sparse.mm: {e_arxiv:.3e}")
+
+    phase_done("3 main path")
 
     # --- phase 4: kernels at their paths' shapes ---------------------------
     report = []
@@ -4716,6 +4746,8 @@ def main() -> int:
     log(f"end-to-end spmm at N={N}: {spmm_ms:.3f} ms (warm); "
         f"{check_cost_line(lambda: sp.spmm(A, b), spmm_ms)}")
 
+    phase_done("4 kernels at path shapes")
+
     # --- phase 5: the pruned-weight paths (the structured lane) ----------
     del A, p, c, cb, bp, b, bb, layer, x_att, A_arxiv, q, c_arxiv, segments
     del chunks
@@ -4729,6 +4761,8 @@ def main() -> int:
     report.extend(records)
     torch.cuda.empty_cache()
 
+    phase_done("5 pruned-weight paths")
+
     # --- phase 6: the two-hop path (spspmm) ---------------------------------
     ctx6 = types.SimpleNamespace(
         sp=sp, dev=dev, log=log, require=require, drive=drive,
@@ -4736,11 +4770,15 @@ def main() -> int:
     A2, P2, _, two_hop = two_hop_path(ctx6)
     log(f"  {json.dumps({'two_hop': two_hop})}")
 
+    phase_done("6 two-hop path")
+
     # --- phase 7: health, faults and deadlines --------------------------------
     health = health_phase(ctx6, A2, P2)
     log(f"  {json.dumps({'health': health})}")
     del A2, P2
     torch.cuda.empty_cache()
+
+    phase_done("7 health")
 
     # --- phase 8: the dynamic path -------------------------------------------
     ctx8 = types.SimpleNamespace(
@@ -4750,9 +4788,13 @@ def main() -> int:
     dynamic = dynamic_path(ctx8, arxiv_graph)
     log(f"  {json.dumps({'dynamic': dynamic})}")
 
+    phase_done("8 dynamic path")
+
     # --- phase 9: the serving path --------------------------------------------
     serving = serving_path(ctx8, arxiv_graph)
     log(f"  {json.dumps({'serving': serving})}")
+
+    phase_done("9 serving path")
 
     # --- phase 10: the sharded path -------------------------------------------
     sharded = sharded_path(ctx8, (rows, cols, vals, (spec.m, spec.k)),
@@ -4761,12 +4803,16 @@ def main() -> int:
     for r in report:
         r["launches"] += sharded["launches"].get(r["name"], 0)
 
+    phase_done("10 sharded path")
+
     # --- phase 11: LM serving ---------------------------------------------
     torch.cuda.empty_cache()
     log(f"LM serving: {torch.cuda.memory_allocated() / 1e9:.2f} GB held by "
         f"earlier phases")
     lm = lm_serving_path(ctx8)
     log(f"  {json.dumps({'lm_serving': lm})}")
+
+    phase_done("11 LM serving")
 
     # --- phase 12: LM training --------------------------------------------
     torch.cuda.empty_cache()
@@ -4775,12 +4821,16 @@ def main() -> int:
     lm_train = lm_training_path(ctx8)
     log(f"  {json.dumps({'lm_training': lm_train})}")
 
+    phase_done("12 LM training")
+
     # --- phase 13: the dry run against the card ---------------------------
     torch.cuda.empty_cache()
     log(f"dry run: {torch.cuda.memory_allocated() / 1e9:.2f} GB held by "
         f"earlier phases")
     dry = dryrun_path(ctx8)
     log(f"  {json.dumps({'dryrun': dry})}")
+    phase_done("13 dry run")
+    log(json.dumps({"phase_s": phase_s}))
     require(len(report) == 7 and all(r["launches"] > 0 for r in report),
             [(r["name"], r["launches"]) for r in report])
     print(json.dumps({"kernels": report}), flush=True)

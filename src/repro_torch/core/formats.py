@@ -37,6 +37,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .arrays import sorted_unique
+
 
 @dataclasses.dataclass
 class COOMatrix:
@@ -318,7 +320,7 @@ def active_tile_zero_fraction(
     tr = np.asarray(rows) // t
     tc = np.asarray(cols) // t
     keys = tr.astype(np.int64) * ((k + t - 1) // t) + tc
-    active = np.unique(keys).size
+    active = sorted_unique(keys).size
     if active == 0:
         return 0.0
     total_cells = active * t * t
@@ -352,7 +354,7 @@ def detect_nm_pattern(
     cols = np.asarray(cols, np.int64)
     if rows.size == 0:
         return None
-    cell = np.unique(rows * np.int64(k) + cols)
+    cell = sorted_unique(rows * np.int64(k) + cols)
     ucols = cell % k
     best = None
     for m_pat in candidates:

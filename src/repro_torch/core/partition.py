@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .arrays import sorted_unique
 from .cost_model import EngineCostModel
 
 
@@ -167,7 +168,7 @@ def migrate_core_to_fringe(
         core_rows=part.core_rows[~move],
         core_cols=part.core_cols[~move],
         core_vals=part.core_vals[~move],
-        core_row_ids=np.unique(part.core_rows[~move]) if (~move).any() else np.zeros(0, np.int64),
+        core_row_ids=sorted_unique(part.core_rows[~move]) if (~move).any() else np.zeros(0, np.int64),
         fringe_rows=np.concatenate([part.fringe_rows, part.core_rows[move]]),
         fringe_cols=np.concatenate([part.fringe_cols, part.core_cols[move]]),
         fringe_vals=np.concatenate([part.fringe_vals, part.core_vals[move]]),
@@ -190,7 +191,7 @@ def migrate_fringe_to_core(part: PartitionResult, row_ids: np.ndarray) -> Partit
         core_rows=new_core_rows,
         core_cols=np.concatenate([part.core_cols, part.fringe_cols[move]]),
         core_vals=np.concatenate([part.core_vals, part.fringe_vals[move]]),
-        core_row_ids=np.unique(new_core_rows),
+        core_row_ids=sorted_unique(new_core_rows),
         fringe_rows=part.fringe_rows[~move],
         fringe_cols=part.fringe_cols[~move],
         fringe_vals=part.fringe_vals[~move],

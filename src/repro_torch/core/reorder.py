@@ -23,6 +23,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .arrays import sorted_unique
+
 
 @dataclasses.dataclass
 class ReorderResult:
@@ -308,5 +310,5 @@ def density_improvement(
         cols = invc[cols]
     nkb = (k + bk - 1) // bk
     keys = (rows // bm) * nkb + (cols // bk)
-    active = np.unique(keys).size
+    active = sorted_unique(keys).size
     return rows.size / float(active * bm * bk)

@@ -28,6 +28,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .arrays import sorted_unique
 from .cost_model import MXU_DIM, SUBLANES, VMEM_BYTES, VPU_LANES
 
 
@@ -221,7 +222,7 @@ def plan_window_order(
         seg_of_pos = np.cumsum(is_boundary) - 1
         seg_of_entry = seg_of_pos[entry_window]
         span = int(blocks_flat.max()) + 1
-        pairs = np.unique(seg_of_entry * span + blocks_flat)
+        pairs = sorted_unique(seg_of_entry * span + blocks_flat)
         ws = int(np.bincount(pairs // span).max())
     return ReusePlan(
         window_order=order.astype(np.int64),

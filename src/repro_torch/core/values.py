@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..errors import PlanBuildError
+from .arrays import sorted_unique
 from .plan_ir import (
     LEAF_FLAT_VALUES, LEAF_FRINGE_VALS, LEAF_KB_VALS, PATH_FRINGE,
     NeutronPlan, PlanShard, ShardedPlan, UpdateMaps, unsplittable_flag,
@@ -73,7 +74,7 @@ def _recompute_core_slots(
         members = maps.core_members_sorted
         slot_of_member = np.cumsum(first) - 1
     else:
-        touched = np.unique(maps.core_lin[touched_ids])
+        touched = sorted_unique(maps.core_lin[touched_ids])
         lo = np.searchsorted(maps.core_lin_sorted, touched, "left")
         hi = np.searchsorted(maps.core_lin_sorted, touched, "right")
         counts = hi - lo
@@ -95,7 +96,7 @@ def _split_paths(
     # ids already sorted and unique (with_values passes arange(nnz)) skip
     # the sort
     if ids.size > 1 and not bool(np.all(ids[1:] > ids[:-1])):
-        ids = np.unique(ids)
+        ids = sorted_unique(ids)
     is_fringe = maps.path[ids] == PATH_FRINGE
     return ids[~is_fringe], ids[is_fringe]
 
@@ -220,7 +221,7 @@ def _update_values_sharded(splan: ShardedPlan, indices,
             leaves[t][li] = dest
 
     new_shard_maps = list(maps.shard_maps)
-    for s in np.unique(maps.shard_of_nnz[indices]):
+    for s in sorted_unique(maps.shard_of_nnz[indices]):
         s = int(s)
         sel = indices[maps.shard_of_nnz[indices] == s]
         um = maps.shard_maps[s]

@@ -27,6 +27,8 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
+from ..core.arrays import sorted_unique
+
 
 @dataclasses.dataclass(frozen=True)
 class GraphSpec:
@@ -43,7 +45,7 @@ class GraphSpec:
 
 def _dedupe(rows: np.ndarray, cols: np.ndarray, shape) -> Tuple[np.ndarray, np.ndarray]:
     keys = rows.astype(np.int64) * shape[1] + cols
-    keys = np.unique(keys)
+    keys = sorted_unique(keys)
     return (keys // shape[1]).astype(np.int64), (keys % shape[1]).astype(np.int64)
 
 
@@ -221,7 +223,7 @@ def dataset_stats(rows: np.ndarray, cols: np.ndarray, shape) -> Dict[str, float]
     top = np.sort(row_cnt)[::-1][: max(m // 10, 1)].sum()
     t = 16
     keys = (rows // t) * ((k + t - 1) // t) + (cols // t)
-    active = np.unique(keys).size
+    active = sorted_unique(keys).size
     total_tiles = ((m + t - 1) // t) * ((k + t - 1) // t)
     return {
         "nnz": float(nnz),

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 import repro_torch.sparse as sp
+from repro_torch.core.arrays import sorted_unique
 from repro_torch.exec import dispatch_count, fused_trace_count
 
 
@@ -34,7 +35,7 @@ def make_graph(n=2048, avg_deg=12, n_classes=16, seed=0, homophily=0.85):
     cols = np.where(same, intra, inter)
     rows = np.concatenate([rows, np.arange(n)])
     cols = np.concatenate([cols, np.arange(n)])
-    key = np.unique(rows * n + cols)
+    key = sorted_unique(rows * n + cols)
     rows, cols = key // n, key % n
     d = np.bincount(rows, minlength=n).astype(np.float32)
     vals = (d[rows] ** -0.5) * (d[cols] ** -0.5)

@@ -58,6 +58,7 @@ import torch
 
 from ..core import spmm as core_spmm
 from ..core import tuner
+from ..core.arrays import sorted_unique
 from ..core.coordinator import AdaptiveCoordinator
 from ..core.cost_model import (
     H100_FP32_FLOPS_PER_S, H100_HBM_BYTES_PER_S, default_cost_model,
@@ -498,7 +499,7 @@ def spspmm_symbolic(ma: UpdateMaps, mb: UpdateMaps, n: int, bm_b: int):
     # satisfy no A column that lands in it
     n_win = (mb.shape[0] + bm_b - 1) // bm_b
     active_win = np.zeros(n_win, bool)
-    active_win[np.unique(br // bm_b)] = True
+    active_win[sorted_unique(br // bm_b)] = True
     keep = np.flatnonzero(active_win[ac // bm_b])
     if keep.size == 0:
         return None

@@ -30,12 +30,6 @@ Per cell:
    ``temp_bytes`` is the trace's peak of rank 0's local storages above
    them (``"temp_bound": "device"``: that device's own peak, not a bound
    over the cell).
-   A dense-impl MoE cell is marked ``"port_partition": "dense_moe"``:
-   the port's partitioned dense MoE gathers the batch and routes, packs
-   and combines all of it on every device (its capacity slots come from
-   a cumulative sum over the whole batch), which XLA's partition of the
-   reference does not, so its memory and collective terms are the
-   port's partition's, not the model's.
 3. The probe-extrapolated costs (``roofline.probe_roofline``): FLOPs and
    bytes accessed of one device's local ops, and the collectives it
    issues (``collective_schedule``), for the whole step.  The roofline
@@ -180,10 +174,6 @@ def run_cell(
         })
         if cell.meta["kind"] == "train":
             rec["traced_microbatches"] = traced["microbatches"]
-        if cell.cfg.moe_num_experts and cell.cfg.moe_impl == "dense":
-            # the port's own partition, not the reference's: every device
-            # routes, packs and combines the whole batch
-            rec["port_partition"] = "dense_moe"
 
         # 2) probe-extrapolated cost metrics (single-pod roofline table only)
         if probe:

@@ -5,8 +5,7 @@ for "fits 16GB" (decided by each device's own peak of the partitioned
 program: argument plus temp bytes), the trace's seconds for the
 compile's, the collectives the partitioned program issues (counted) for
 those parsed from the scanned HLO, and ``mfu_at_bound`` at the H100's
-dense bf16 peak.  A cell of the port's own dense-MoE partition
-(``"port_partition"``) is marked with a dagger in both tables.
+dense bf16 peak.
 
     PYTHONPATH=src python -m repro_torch.launch.report [--dir artifacts/dryrun_torch]
 
@@ -33,17 +32,6 @@ def load(dirname: str) -> List[Dict]:
     return recs
 
 
-PORT_PARTITION_NOTE = (
-    "† the port's own partition of the dense MoE: every device routes, "
-    "packs and combines the whole batch (ROADMAP A12), which XLA's "
-    "partition of the reference does not; memory and collectives are "
-    "that partition's, not the model's.")
-
-
-def _mark(rec: Dict) -> str:
-    return "†" if rec.get("port_partition") else ""
-
-
 def dryrun_table(recs: List[Dict]) -> str:
     lines = [
         "| arch | shape | mesh | status | per-device mem | fits 80 GB | trace | collectives (counted) |",
@@ -65,7 +53,7 @@ def dryrun_table(recs: List[Dict]) -> str:
         lines.append(
             f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok | "
             f"{m['total_per_device_gb']} GB | "
-            f"{'yes' if m['fits_80gb_hbm'] else 'NO'}{_mark(r)} | "
+            f"{'yes' if m['fits_80gb_hbm'] else 'NO'} | "
             f"{r['t_trace_s']}s | count={c.get('count', 0)} ({csum[:80]}) |")
     return "\n".join(lines)
 
@@ -103,7 +91,7 @@ def roofline_table(recs: List[Dict]) -> str:
         lines.append(
             f"| {r['arch']} | {r['shape']} | {rl['compute_s']:.4f} | "
             f"{rl['memory_s']:.4f} | {rl['collective_s']:.4f} | "
-            f"**{rl['dominant']}**{_mark(r)} | {mfu_at_bound(r):.3f} | "
+            f"**{rl['dominant']}** | {mfu_at_bound(r):.3f} | "
             f"{r.get('useful_flops_ratio', 0):.2f} | "
             f"{r['memory']['total_per_device_gb']} |")
     return "\n".join(lines)
@@ -115,12 +103,8 @@ def summary(recs: List[Dict]) -> str:
     err = sum(1 for r in recs if r["status"] == "error")
     fits = sum(1 for r in recs if r["status"] == "ok"
                and r["memory"]["fits_80gb_hbm"])
-    out = (f"**{ok} cells traced OK** ({fits} fit 80 GB HBM/device at "
-           f"their device's own peak), {skip} spec'd skips, {err} errors.")
-    marked = sum(1 for r in recs if r["status"] == "ok" and _mark(r))
-    if marked:
-        out += f" {marked} cells marked: {PORT_PARTITION_NOTE}"
-    return out
+    return (f"**{ok} cells traced OK** ({fits} fit 80 GB HBM/device at "
+            f"their device's own peak), {skip} spec'd skips, {err} errors.")
 
 
 def main(argv=None):

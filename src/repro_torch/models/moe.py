@@ -84,19 +84,16 @@ def _act(kind: str):
 
 def _expert_ffn(params: Params, xs: torch.Tensor, kind: str) -> torch.Tensor:
     """xs: (E, C, d) -> (E, C, d) grouped GEMMs (block-diagonal SpMM).
-    On DTensors each weight is gathered over FSDP and the output summed
-    over TP (its ff split)."""
-    xin = grad_reduced(xs)
-    h = torch.bmm(xin, gather_weight(params["w_in"], xs.dtype))
+    Local tensors only; the partitioned program's products are
+    :func:`_expert_ffn_split`."""
+    h = torch.bmm(xs, params["w_in"].to(xs.dtype))
     if kind in ("swiglu", "geglu"):
-        h = _act(kind)(torch.bmm(grad_reduced(xs), gather_weight(
-            params["w_gate"], xs.dtype))) * h
+        h = _act(kind)(torch.bmm(xs, params["w_gate"].to(xs.dtype))) * h
     elif kind == "squared_relu":
         h = torch.square(F.relu(h))
     else:
         h = gelu(h)
-    return constrain(torch.bmm(h, gather_weight(params["w_out"], xs.dtype)),
-                     None, None, None)
+    return torch.bmm(h, params["w_out"].to(xs.dtype))
 
 
 def apply_moe(
@@ -233,37 +230,54 @@ def apply_moe_dense(
 
 def _moe_dense_partitioned(params: Params, x: torch.Tensor, spec: MoESpec
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dense MoE of a partitioned program.  Its capacity slots come
-    from a cumulative sum over every token of the batch, so each device
-    routes, packs and combines the whole batch (gathered over the batch
-    axes, replicated); the expert GEMMs run on each device's share of the
-    slots (over the batch axes) and of ff (over TP); the output is each
-    device's rows again."""
-    from torch.distributed.tensor import Replicate, Shard
+    """The dense MoE of a partitioned program, as XLA's SPMD partitioner
+    lays out the reference's: routing (logits, top-k, the slot cumsum
+    over every token) runs on the whole batch, gathered and replicated;
+    the dispatch is split along d over the mesh axes that split the
+    expert weights' d (the FSDP axes; ``data`` of the dry run's meshes,
+    also a batch axis): each device packs its d slice of every pair into
+    ``(E, C, d / n)``, its products contract that slice and sum the
+    ``(E, C, ff / TP)`` hidden slots over those axes, the ``w_out``
+    product is summed over TP, and the combine gathers the d-split
+    outputs into ``(T, d / n)``, moved back to each device's rows with d
+    whole.  The fringe pass runs on the whole batch, the shared expert
+    on each device's rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     b, s, d = x.shape
     t = b * s
     mesh = x.device_mesh
     rep = [Replicate()] * mesh.ndim      # a list: one output's placements
+    w_in_pl = tuple(getattr(params["w_in"], "placements", rep))
+    split = [i for i, p in enumerate(w_in_pl) if p == Shard(1)]
+    if d % math.prod(mesh.size(i) for i in split):
+        split = []
+
+    def d_pl(dim):
+        """The placements of slots or rows whose ``dim`` is d."""
+        return [Shard(dim) if i in split else Replicate()
+                for i in range(mesh.ndim)]
+
     xt = to_placements(x, tuple(rep)).reshape(t, d)
     router = to_placements(params["router"], tuple(rep))
-
-    def route_pack(xt, router):
-        gate_vals, flat_e, slot, aux = _route(xt, router, spec)
-        return (*_pack(xt, flat_e, slot, spec), gate_vals, flat_e, aux)
-
-    xs, within, safe_slot, gate_vals, flat_e, aux = local_map(
-        route_pack, out_placements=(rep,) * 6, in_placements=(rep, rep),
-        device_mesh=mesh)(xt, router)
-    # each device runs the expert GEMMs on its slice of the capacity slots
-    # (split over the batch axes, a local slice) and of ff (TP); the
-    # outputs are gathered for the combine
-    xs = to_placements(xs, tuple(Shard(1) if p.is_shard(0) else Replicate()
-                                 for p in x.placements))
-    ys = _expert_ffn(params, xs, spec.mlp_kind)           # (E, C, d)
-    out, gates = local_map(
-        _combine, out_placements=(rep, rep), in_placements=(rep,) * 5,
+    gate_vals, flat_e, slot, aux = local_map(
+        functools.partial(_route, spec=spec), out_placements=(rep,) * 4,
+        in_placements=(rep, rep), device_mesh=mesh)(xt, router)
+    xs, within, safe_slot = local_map(
+        functools.partial(_pack, spec=spec),
+        out_placements=(d_pl(2), rep, rep),
+        in_placements=(d_pl(1), rep, rep), device_mesh=mesh)(
+            to_placements(xt, tuple(d_pl(1))), flat_e, slot)
+    ys = _expert_ffn_split(params, xs, spec.mlp_kind, split)
+    # each device's gates meet its d slice only: their gradient is
+    # partial over ``split``
+    gate_grad = [Partial() if i in split else Replicate()
+                 for i in range(mesh.ndim)]
+    out = local_map(
+        lambda *a: _combine(*a)[0], out_placements=d_pl(1),
+        in_placements=(d_pl(2), rep, rep, rep, rep),
+        in_grad_placements=(d_pl(2), gate_grad, rep, rep, rep),
         device_mesh=mesh)(ys, gate_vals, flat_e, safe_slot, within)
     if spec.fringe_overflow:
         # every device runs the fringe pass on the whole batch, with the
@@ -272,14 +286,79 @@ def _moe_dense_partitioned(params: Params, x: torch.Tensor, spec: MoESpec
             params[k].to(x.dtype), tuple(rep))
             for k in ("w_in", "w_gate", "w_out")]
         w_pl = [None if v is None else rep for v in w]
+        gates = gate_vals.reshape(-1, 1).to(x.dtype)
         out = out + local_map(
             functools.partial(_fringe, spec=spec), out_placements=rep,
             in_placements=(rep,) * 4 + tuple(w_pl),
             device_mesh=mesh)(xt, flat_e, within, gates, *w)
-    out = to_placements(out.reshape(b, s, d), tuple(x.placements))
+    # to each device's rows: the batch split of the other axes first (a
+    # local slice), then d to rows over ``split`` (an all-to-all; in one
+    # move DTensor gathers over ``split`` where another axis splits rows)
+    x_pl = tuple(x.placements)
+    out = to_placements(out.reshape(b, s, d), tuple(
+        Shard(2) if i in split else p for i, p in enumerate(x_pl)))
+    out = to_placements(out, x_pl)
     if spec.shared_expert:
         out = out + _shared_expert(params, x.reshape(t, d)).reshape(b, s, d)
     return out.to(x.dtype), aux
+
+
+def _expert_ffn_split(params: Params, xs: torch.Tensor, kind: str,
+                      split) -> torch.Tensor:
+    """:func:`_expert_ffn` on slots split along d over the mesh dims
+    ``split``, each product on local blocks: the weights are cast and
+    placed with d split there too (their FSDP split) and ff over TP (any
+    other FSDP split gathered); the ``w_in``/``w_gate`` products leave
+    ``(E, C, ff / TP)`` partial over ``split``, summed there (XLA's
+    all-reduce at ``ecd,edf->ecf``), and the ``w_out`` product
+    ``(E, C, d / n)`` partial over TP, summed there (at
+    ``ecf,efd->ecd``).  Each weight's gradient is complete on its block:
+    every device holds every slot."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xs.device_mesh
+    tp = [i for i, p in enumerate(params["w_in"].placements) if p == Shard(2)]
+
+    def pl(split_p, tp_p):
+        return [split_p if i in split else tp_p if i in tp else Replicate()
+                for i in range(mesh.ndim)]
+
+    def weight(name, d_dim, ff_dim):
+        return to_placements(params[name].to(xs.dtype), tuple(
+            pl(Shard(d_dim), Shard(ff_dim))))
+
+    gated = kind in ("swiglu", "geglu")
+    w_in = [weight("w_in", 1, 2)] + ([weight("w_gate", 1, 2)] if gated
+                                     else [])
+    xs_pl, w_pl = pl(Shard(2), Replicate()), pl(Shard(1), Shard(2))
+    hs = local_map(
+        lambda x, *ws: tuple(torch.bmm(x, w) for w in ws),
+        out_placements=(pl(Partial(), Shard(2)),) * len(w_in),
+        in_placements=(xs_pl,) + (w_pl,) * len(w_in),
+        in_grad_placements=(pl(Shard(2), Partial()),) + (w_pl,) * len(w_in),
+        device_mesh=mesh)(xs, *w_in)
+    # the activation runs on the summed blocks; its gradient, like the
+    # w_out product's, is partial over ``split`` (each device's d slice)
+    h_pl = pl(Replicate(), Shard(2))
+    hs = [to_placements(h, tuple(h_pl)) for h in hs]
+    w_out_pl = pl(Shard(2), Shard(1))
+
+    def out_body(w_out, h, g=None):
+        if gated:
+            h = _act(kind)(g) * h
+        elif kind == "squared_relu":
+            h = torch.square(F.relu(h))
+        else:
+            h = gelu(h)
+        return torch.bmm(h, w_out)
+
+    y = local_map(
+        out_body, out_placements=pl(Shard(2), Partial()),
+        in_placements=(w_out_pl,) + (h_pl,) * len(hs),
+        in_grad_placements=(w_out_pl,) + (pl(Partial(), Shard(2)),) * len(hs),
+        device_mesh=mesh)(weight("w_out", 2, 1), *hs)
+    return to_placements(y, tuple(xs_pl))
 
 
 def _gathered(w: torch.Tensor, dim: int, n: int,

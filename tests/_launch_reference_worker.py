@@ -5,9 +5,12 @@ the mesh shapes; the tiny train cell on the 2 x 4 debug mesh, compiled
 as ``build_cell``'s analysis mode builds it (layers and microbatches
 unrolled, bf16 moments): its shard shapes, compiled argument and temp
 bytes and the collectives of its module after SPMD partitioning (by
-``hlo_analysis.collective_bytes``, and op by op); the same for a tiny
-MoE cell (both implementations) and a tiny SSM cell; every arch x shape
-cell's ``applicable``,
+``hlo_analysis.collective_bytes``, and op by op with the shapes of their
+results and operands); the same for a tiny MoE cell (both
+implementations), a tiny SSM cell and a tiny dense cell whose 6 heads do
+not divide over TP = 4, and the dense MoE's tiny cell as a prefill step
+under ``specs.default_rules`` (on 2 x 4, and on 2 x 4 x 1 with a pod
+axis); every arch x shape cell's ``applicable``,
 ``build_cell`` meta and sharding specs on the 16 x 16 mesh (through
 ``jax.eval_shape``; nothing is compiled there), the model-FLOPs formula
 per cell, and the perf hillclimb's cells.
@@ -43,7 +46,7 @@ from repro.configs import SHAPES, get_arch, list_archs  # noqa: E402
 from repro.distributed import sharding as shd  # noqa: E402
 from repro.launch import dryrun, hlo_analysis, perf, specs  # noqa: E402
 from repro.launch.mesh import (  # noqa: E402
-    make_debug_mesh, make_production_mesh, mesh_axis_sizes,
+    _mesh_kwargs, make_debug_mesh, make_production_mesh, mesh_axis_sizes,
 )
 from repro.models import model as M  # noqa: E402
 from repro.models.config import ModelConfig  # noqa: E402
@@ -85,9 +88,31 @@ def meshes():
     return out
 
 
+_DEF_RE = re.compile(r"^\s*(?:ROOT\s+)?%([\w.\-]+)\s*=\s*(\([^=]*?\)|\S+)\s")
+
+
+def _operand_shapes(line, start, defined):
+    """The shapes of a collective's operands: the names in the
+    parenthesised list that opens at ``start``, by the shapes their
+    instructions define (``defined``)."""
+    depth, end = 0, start
+    for end in range(start, len(line)):
+        depth += {"(": 1, ")": -1}.get(line[end], 0)
+        if depth == 0:
+            break
+    return [shape for name in re.findall(r"%([\w.\-]+)", line[start:end])
+            for shape in defined.get(name, [])]
+
+
 def partitioned_collectives(hlo_text):
-    """[kind, result bytes, shapes, op_name] of each collective of an HLO
-    module, parsed as ``hlo_analysis.collective_bytes`` parses it."""
+    """[kind, result bytes, result shapes, op_name, operand shapes] of
+    each collective of an HLO module, parsed as
+    ``hlo_analysis.collective_bytes`` parses it."""
+    defined = {}
+    for line in hlo_text.splitlines():
+        d = _DEF_RE.match(line)
+        if d:
+            defined[d.group(1)] = hlo_analysis._SHAPE_RE.findall(d.group(2))
     ops = []
     for line in hlo_text.splitlines():
         m = hlo_analysis._OP_RE.search(line)
@@ -95,10 +120,12 @@ def partitioned_collectives(hlo_text):
             continue
         shapes = hlo_analysis._SHAPE_RE.findall(m.group(1))
         name = re.search(r'op_name="([^"]*)"', line)
+        operands = _operand_shapes(line, m.end() - 1, defined)
         ops.append([m.group(2),
                     sum(hlo_analysis._shape_bytes(d, s) for d, s in shapes),
                     " ".join(f"{d}[{s}]" for d, s in shapes),
-                    name.group(1) if name else ""])
+                    name.group(1) if name else "",
+                    " ".join(f"{d}[{s}]" for d, s in operands)])
     return ops
 
 
@@ -106,7 +133,8 @@ TINY = dict(name="tiny", num_layers=2, d_model=64, num_heads=4,
             num_kv_heads=4, d_ff=128, vocab_size=256, kv_chunk=32,
             scan_layers=False, attn_unroll=1 << 20)
 # the tiny cells of other families, as tests/test_torch_launch.py builds
-# them: granite-moe's family (both MoE implementations) and mamba2's
+# them: granite-moe's family (both MoE implementations), mamba2's, and a
+# dense cell whose 6 heads do not divide over TP = 4
 TINY_CELLS = {
     "moe_dense": dict(TINY, family="moe", moe_num_experts=4, moe_top_k=2,
                       moe_d_expert=64),
@@ -115,7 +143,15 @@ TINY_CELLS = {
                           moe_impl="shard_map"),
     "ssm": dict(TINY, family="ssm", ssm_state=16, ssm_head_dim=16,
                 ssm_chunk=32),
+    "uneven_heads": dict(TINY, family="dense", d_model=96, num_heads=6,
+                         num_kv_heads=6, head_dim=16),
 }
+# the tiny cells compiled as a prefill step (model.prefill into its
+# cache): the dense MoE on the 2 x 4 mesh, and on a 2 x 4 x 1 (pod x data
+# x model) mesh, whose shard shapes tell which axis splits the dispatch
+PREFILL_CELLS = {"moe_dense_prefill": (TINY_CELLS["moe_dense"], (2, 4)),
+                 "moe_dense_pod_prefill": (TINY_CELLS["moe_dense"],
+                                           (2, 4, 1))}
 
 
 def _dumped(module):
@@ -191,6 +227,53 @@ def tiny_cell(name="dense", fields=None):
     return out
 
 
+def tiny_prefill(name, fields, shape=(2, 4)):
+    """A tiny config's prefill step (8 x 64 tokens into a cache of 72) on
+    a (data, model) mesh, or a (pod, data, model) one, of ``shape`` under
+    ``specs.default_rules``, the rules of the dry run's cells: its
+    argument and temp bytes and its collectives, as :func:`tiny_cell`
+    records them."""
+    if len(shape) == 2:
+        mesh = make_debug_mesh(*shape)
+    else:
+        mesh = jax.make_mesh(shape, ("pod", "data", "model"),
+                             **_mesh_kwargs(3))
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    rules = specs.default_rules(mesh)
+    cfg = ModelConfig(**fields)
+    params = jax.eval_shape(lambda: M.init_params(jax.random.PRNGKey(0), cfg))
+    batch = {"tokens": jax.ShapeDtypeStruct((8, 64), jnp.int32)}
+    cache = jax.eval_shape(lambda: M.init_cache(cfg, 8, 64 + 8,
+                                                jnp.bfloat16))
+
+    def ns(t):
+        return jax.tree.map(lambda s: NamedSharding(mesh, s), t,
+                            is_leaf=lambda x: isinstance(x, P))
+
+    cspecs = ns(shd.cache_specs(cache, rules, sizes))
+    in_sh = (ns(shd.param_specs(params, rules, sizes)),
+             ns(specs.batch_spec_tree(batch, rules, sizes)), cspecs)
+
+    def step(p, b, c):
+        with shd.use_rules(rules):
+            return M.prefill(p, b, cfg, c)
+
+    module = f"tiny_{name}_step"
+    step.__name__ = step.__qualname__ = module
+    with jax.set_mesh(mesh):
+        compiled = jax.jit(
+            step, in_shardings=in_sh,
+            out_shardings=(NamedSharding(mesh, P(rules.batch, None)),
+                           cspecs),
+        ).lower(params, batch, cache).compile()
+    mem = compiled.memory_analysis()
+    partitioned = _dumped(module)
+    return {"argument_bytes": int(mem.argument_size_in_bytes),
+            "temp_bytes": int(mem.temp_size_in_bytes),
+            "collectives": hlo_analysis.collective_bytes(partitioned),
+            "collective_ops": partitioned_collectives(partitioned)}
+
+
 def cells():
     mesh = make_production_mesh(multi_pod=False)
     out = {}
@@ -227,8 +310,10 @@ def _jsonable(x):
 def main():
     try:
         out = {"meshes": meshes(), "tiny": tiny_cell(),
-               "tiny_cells": {k: tiny_cell(k, v)
-                              for k, v in TINY_CELLS.items()},
+               "tiny_cells": {**{k: tiny_cell(k, v)
+                                 for k, v in TINY_CELLS.items()},
+                              **{k: tiny_prefill(k, *v)
+                                 for k, v in PREFILL_CELLS.items()}},
                "cells": cells(), "hillclimb": _jsonable(perf.HILLCLIMB)}
     finally:
         shutil.rmtree(DUMP, ignore_errors=True)

@@ -9,7 +9,9 @@ devices (``tests/_launch_reference_worker.py``), as
 cell of ``test_dryrun_small.py`` on the 2 x 4 debug mesh (shard shapes,
 the compiled ``argument_size_in_bytes`` and the collectives of the
 partitioned module; the same for a tiny MoE cell, both implementations,
-and a tiny SSM cell), and every arch x shape cell
+a tiny SSM cell and a tiny dense cell with 6 heads over TP = 4, and the
+tiny dense-MoE cell as a prefill step, also with a pod axis), and every
+arch x shape cell
 on the 16 x 16 mesh through ``jax.eval_shape`` (``applicable``,
 ``build_cell``'s meta and sharding specs, the model-FLOPs formula);
 nothing of those 40 cells is compiled.  The port side traces on
@@ -18,6 +20,7 @@ process group where a cell is partitioned.  Counts compare exactly.
 """
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -264,7 +267,28 @@ TINY_FAMILIES = {
                                          moe_impl="shard_map"),
     "ssm": dataclasses.replace(TINY, family="ssm", ssm_state=16,
                                ssm_head_dim=16, ssm_chunk=32),
+    # 6 heads do not divide over TP = 4
+    "uneven_heads": dataclasses.replace(TINY, d_model=96, num_heads=6,
+                                        num_kv_heads=6, head_dim=16),
 }
+# the tiny cells traced as a prefill step (8 x 64 tokens into a cache of
+# 72) under the dry run's default rules
+TINY_PREFILLS = {"moe_dense_prefill": TINY_FAMILIES["moe_dense"]}
+
+
+def _tiny_prefill_cell(cfg, shape=(2, 4)):
+    """``cfg``'s prefill cell on a (data, model) mesh, or a (pod, data,
+    model) one, of ``shape``."""
+    from repro_torch.distributed.mesh import DeviceMesh
+
+    mesh = (make_debug_mesh(*shape) if len(shape) == 2 else DeviceMesh(
+        (torch.device("meta"),) * math.prod(shape),
+        ("pod", "data", "model"), shape))
+    return specs.build_cell(_tiny_arch(cfg), "prefill_32k", mesh,
+                            overrides={"global_batch": 8, "seq_len": 64},
+                            partitioned=True)
+
+
 # a port collective's group: the first of these functions on its Python
 # stack (a collective the backward issues has none of the model's frames
 # but ``_ReduceGrad``'s or DTensor's own)
@@ -325,7 +349,7 @@ def _xla_groups(ops):
     on), the softmax statistics (f32 of one number per predicted token)
     and the scalars apart."""
     out = {}
-    for kind, nbytes, shapes, name in ops:
+    for kind, nbytes, shapes, name, *_ in ops:
         group = name.split("/")[-1] or "(none)"
         if shapes == "f32[4,63]":
             group = "stats"
@@ -343,9 +367,12 @@ def _flat_groups(groups):
 
 @pytest.fixture(scope="module")
 def port_tiny_groups():
-    return {name: _flat_groups(_port_groups(_tiny_cell(cfg,
-                                                       partitioned=True)))
-            for name, cfg in TINY_FAMILIES.items()}
+    cells = {name: _tiny_cell(cfg, partitioned=True)
+             for name, cfg in TINY_FAMILIES.items()}
+    cells.update({name: _tiny_prefill_cell(cfg)
+                  for name, cfg in TINY_PREFILLS.items()})
+    return {name: _flat_groups(_port_groups(cell))
+            for name, cell in cells.items()}
 
 
 def _ref_tiny(ref, name):
@@ -468,20 +495,21 @@ def test_tiny_cell_counted_collectives_equal_the_reckoning():
 # (count, result bytes) per (group, kind).  XLA's groups are the ops it
 # attributes each collective to; the port's are the functions that issue
 # them (see PORT_GROUPS).
-PINNED = {'moe_dense': {'port': {'backward/all-gather': [4, 458752],
-                        'backward/all-reduce': [2, 65536],
-                        'backward/all-to-all': [1, 32768],
-                        'backward/reduce-scatter': [15, 36864],
+PINNED = {'moe_dense': {'port': {'backward/all-gather': [2, 131072],
+                        'backward/all-reduce': [10, 401408],
+                        'backward/all-to-all': [3, 98304],
+                        'backward/reduce-scatter': [9, 12288],
                         'grad reduction/all-reduce': [3, 1280],
                         'layout/all-reduce': [1, 32768],
                         'layout/all-to-all': [1, 32768],
                         'lookup/all-gather': [1, 2048],
-                        'moe/all-gather': [8, 917504],
-                        'moe/all-reduce': [4, 327680],
+                        'moe/all-gather': [4, 262144],
+                        'moe/all-reduce': [12, 655360],
+                        'moe/all-to-all': [2, 65536],
                         'scalars/all-reduce': [5, 20],
                         'stats/all-reduce': [3, 3024],
-                        'tp/all-reduce': [13, 622592],
-                        'weights/all-gather': [29, 139264]},
+                        'tp/all-reduce': [9, 294912],
+                        'weights/all-gather': [17, 40960]},
                'xla': {'broadcast_in_dim/all-gather': [8, 8192],
                        'dot_general/all-gather': [17, 40960],
                        'dot_general/all-reduce': [40, 1452032],
@@ -499,6 +527,31 @@ PINNED = {'moe_dense': {'port': {'backward/all-gather': [4, 458752],
                        'scatter-add/collective-permute': [7, 28672],
                        'stats/all-reduce': [3, 3024],
                        'top_k/all-gather': [4, 32768]}},
+ 'moe_dense_prefill': {'port': {'layout/all-reduce': [1, 32768],
+                                'layout/all-to-all': [1, 32768],
+                                'lookup/all-gather': [1, 2048],
+                                'moe/all-gather': [2, 131072],
+                                'moe/all-reduce': [6, 327680],
+                                'moe/all-to-all': [2, 65536],
+                                'tp/all-reduce': [2, 65536],
+                                'tp/all-to-all': [8, 69632],
+                                'weights/all-gather': [9, 24576]},
+                       'xla': {'(none)/all-gather': [1, 4096],
+                               'broadcast_in_dim/all-gather': [2, 2048],
+                               'dot_general/all-gather': [9, 24576],
+                               'dot_general/all-reduce': [8, 393216],
+                               'dot_general/all-to-all': [12, 49152],
+                               'dynamic_update_slice/all-to-all': [4, 32768],
+                               'gather/all-gather': [3, 133120],
+                               'gather/all-reduce': [3, 163840],
+                               'gather/all-to-all': [1, 32768],
+                               'gather/collective-permute': [5, 74752],
+                               'mul/all-gather': [2, 4096],
+                               'reduce_window_sum/all-gather': [2, 32768],
+                               'scatter-add/all-reduce': [2, 163840],
+                               'scatter-add/all-to-all': [4, 196608],
+                               'scatter-add/collective-permute': [2, 8192],
+                               'top_k/all-gather': [2, 16384]}},
  'moe_shard_map': {'port': {'backward/all-gather': [4, 81920],
                             'backward/all-reduce': [4, 131072],
                             'backward/all-to-all': [1, 32768],
@@ -558,33 +611,197 @@ PINNED = {'moe_dense': {'port': {'backward/all-gather': [4, 458752],
                  'scatter-add/all-to-all': [1, 32768],
                  'scatter-add/collective-permute': [1, 4096],
                  'split/collective-permute': [60, 454656],
-                 'stats/all-reduce': [3, 3024]}}}
+                 'stats/all-reduce': [3, 3024]}},
+ 'uneven_heads': {'port': {'backward/all-gather': [14, 819200],
+                           'backward/all-reduce': [2, 98304],
+                           'backward/all-to-all': [1, 49152],
+                           'backward/reduce-scatter': [15, 56832],
+                           'grad reduction/all-reduce': [3, 1920],
+                           'layout/all-reduce': [1, 49152],
+                           'layout/all-to-all': [1, 49152],
+                           'lookup/all-gather': [1, 2048],
+                           'scalars/all-reduce': [5, 20],
+                           'stats/all-reduce': [3, 3024],
+                           'tp/all-gather': [10, 524288],
+                           'tp/all-reduce': [15, 737280],
+                           'weights/all-gather': [29, 159744]},
+                  'xla': {'dot_general/all-gather': [29, 159744],
+                          'dot_general/all-reduce': [32, 921600],
+                          'gather/all-gather': [1, 2048],
+                          'gather/all-reduce': [1, 49152],
+                          'gather/all-to-all': [1, 49152],
+                          'gather/collective-permute': [1, 1024],
+                          'reduce_sum/all-reduce': [5, 1920],
+                          'reshape/all-gather': [14, 344064],
+                          'scalars/all-reduce': [19, 76],
+                          'scatter-add/all-gather': [1, 12288],
+                          'scatter-add/all-reduce': [1, 12288],
+                          'scatter-add/all-to-all': [1, 49152],
+                          'scatter-add/collective-permute': [1, 6144],
+                          'stats/all-reduce': [3, 3024]}}}
 
 
-@pytest.mark.parametrize("name", ["moe_dense", "moe_shard_map", "ssm"])
+@pytest.mark.parametrize("name", ["moe_dense", "moe_dense_prefill",
+                                  "moe_shard_map", "ssm", "uneven_heads"])
 def test_tiny_family_collectives_against_xla(ref, port_tiny_groups, name):
-    """The MoE (both implementations) and SSM tiny cells, group by group
-    against XLA's partitioned module.  Equal: the softmax statistics, and
-    the products' weight gathers outside the MoE block.  Every other
-    group is a named difference, pinned here with its bytes on both
-    sides: XLA partitions the dense MoE's capacity dispatch (a cumulative
-    sum over every token) into gathers, all-to-alls and permutes of the
-    one-hot, the slots and the packed tokens, where the port's program
-    gathers the tokens and routes the whole batch on each device; XLA
-    moves the SSM's fused projection into its parts with collective-
-    permutes and all-to-alls, where the port gathers it over TP and
-    scans each device's heads; the lookup, the scalars and the weight
-    gradients differ as in the dense cell."""
+    """The MoE (both implementations, the dense one also as a prefill
+    step), SSM and uneven-heads tiny cells, group by group against XLA's
+    partitioned module.  Equal: the softmax statistics, the products'
+    weight gathers but the SSM's (the dense MoE's expert weights are not
+    gathered on either side: its products contract their d split over
+    data; the shard_map MoE's are DP-replicated), and in the dense MoE's
+    prefill every product's all-reduce
+    (the experts' ``(E, C, ff / TP)`` sums over data and ``(E, C, d /
+    2)`` sums over model, the attention's over model).  Every other group
+    is a named difference, pinned here with its bytes on both sides: XLA
+    moves the dense MoE's dispatch indices, packed tokens and combined
+    rows with permutes, all-to-alls and all-reduces, where the port's
+    program gathers the tokens once, slices d locally and moves the
+    combined rows to the batch split by one all-to-all; XLA moves the
+    SSM's fused projection into its parts with collective-permutes and
+    all-to-alls, where the port gathers it over TP and scans each
+    device's heads; both gather the uneven heads over TP at the reshape
+    (XLA 14 all-gathers, the port 10 of more bytes: it gathers q, k and v
+    whole and the backward's gradients too); the lookup, the scalars and
+    the weight gradients differ as in the dense cell."""
     xla = _flat_groups(_xla_groups(_ref_tiny(ref, name)["collective_ops"]))
     port = port_tiny_groups[name]
-    assert port["stats/all-reduce"] == xla["stats/all-reduce"]
-    if name == "moe_shard_map":   # the experts are DP-replicated
+    assert port.get("stats/all-reduce") == xla.get("stats/all-reduce")
+    if name != "ssm":   # XLA gathers the SSM's fused projection apart
         assert port["weights/all-gather"] == xla["dot_general/all-gather"]
+    if name == "moe_dense_prefill":
+        assert [a + b for a, b in zip(port["moe/all-reduce"],
+                                      port["tp/all-reduce"])] \
+            == xla["dot_general/all-reduce"] == [8, 393216]
+    if name == "uneven_heads":
+        assert port["tp/all-gather"] == [10, 524288]
+        assert xla["reshape/all-gather"] == [14, 344064]
     assert port["lookup/all-gather"] == [1, 8 * 64 * 4]
-    family = "ssm" if name == "ssm" else "moe"
+    family = {"ssm": "ssm", "uneven_heads": "tp"}.get(name, "moe")
     assert any(k.startswith(f"{family}/") for k in port)
     want = PINNED[name]
     assert {"xla": xla, "port": port} == want
+
+
+def _local_blocks(fn, *args):
+    """{(shape, dtype)} of every local tensor the partitioned program
+    ``fn(*args)`` makes, its backward's included (DTensor-level ops are
+    left to their local ops)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    seen = set()
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            res = func(*args, **(kwargs or {}))
+            seen.update((tuple(r.shape), r.dtype) for r in tree_leaves(res)
+                        if isinstance(r, torch.Tensor))
+            return res
+
+    with Mode():
+        fn(*args)
+    return seen
+
+
+def _dispatch_blocks(blocks, e, c, tk):
+    """The ``(E, C, .)`` slot blocks and the ``(T*k, .)`` row blocks
+    among ``blocks``, as ``(shape, bytes)``."""
+    def nbytes(shape, dtype):
+        return math.prod(shape) * dtype.itemsize
+    slots = {(s, nbytes(s, dt)) for s, dt in blocks
+             if len(s) == 3 and s[:2] == (e, c)}
+    rows = {(s, nbytes(s, dt)) for s, dt in blocks
+            if len(s) == 2 and s[0] == tk}
+    return slots, rows
+
+
+def _xla_shapes(ops, prefix):
+    """The shapes (results and operands) of XLA's collectives that start
+    with ``prefix``, as ``(shape, bytes)``."""
+    size = {"bf16": 2, "f32": 4, "s32": 4, "pred": 1}
+    out = set()
+    for _, _, result, _, operands in ops:
+        for t in (result + " " + operands).split():
+            dtype, dims = t[:-1].split("[")
+            shape = tuple(int(x) for x in dims.split(",") if x)
+            if shape[:len(prefix)] == prefix:
+                out.add((shape, math.prod(shape) * size[dtype]))
+    return out
+
+
+# the dense MoE's tiny cells: (mesh shape, the (E, C, .) shapes XLA moves,
+# the width of the port's token rows: d over data)
+DISPATCH_CELLS = {
+    "moe_dense": ((2, 4), {(4, 320, 32), (4, 320, 16)}, 32),
+    "moe_dense_prefill": ((2, 4), {(4, 320, 32), (4, 320, 16)}, 32),
+    "moe_dense_pod_prefill": ((2, 4, 1), {(4, 320, 16), (4, 320, 64)}, 16),
+}
+
+
+@pytest.mark.parametrize("name", list(DISPATCH_CELLS))
+def test_dense_moe_dispatch_blocks_match_xla(ref, name):
+    """The tiny dense-MoE cell (E = 4, T = 512 tokens, k = 2, C = 320) on
+    the 2 x 4 mesh, as the train step and as the prefill step, and as the
+    prefill step on a 2 x 4 x 1 (pod x data x model) mesh: the port's
+    partitioned program holds its capacity slots, expert outputs and
+    hidden slots in the ``(E, C, .)`` shapes XLA's module moves (d split
+    over data, the axis that splits the expert weights' d, not over pod;
+    ff over model), the same largest ``(E, C, .)`` block, its token rows
+    as ``(T*k, d / data)``, and no ``(T*k, .)`` block larger than XLA's
+    largest (on the pod mesh XLA gathers the rows whole)."""
+    shape, want_slots, width = DISPATCH_CELLS[name]
+    cfg = TINY_FAMILIES["moe_dense"]
+    cell = (_tiny_cell(cfg, partitioned=True) if name == "moe_dense"
+            else _tiny_prefill_cell(cfg, shape))
+    e, tk, c = 4, 512 * 2, 320
+    slots, rows = _dispatch_blocks(_local_blocks(cell.fn, *cell.args), e, c,
+                                   tk)
+    ops = _ref_tiny(ref, name)["collective_ops"]
+    xla_slots, xla_rows = _xla_shapes(ops, (e, c)), _xla_shapes(ops, (tk,))
+    assert {s for s, _ in slots} == {s for s, _ in xla_slots} == want_slots
+    assert max(b for _, b in slots) == max(b for _, b in xla_slots)
+    assert ((tk, width), tk * width * 2) in rows
+    assert max(b for _, b in rows) <= max(b for _, b in xla_rows)
+
+
+def test_partitioned_dense_moe_blocks_shrink_with_the_data_axis():
+    """``apply_moe_dense`` alone on a 2 x 1 and a 4 x 1 (data x model)
+    mesh at one global batch (8 x 64 tokens, d = 64, 4 experts, top 2,
+    fp32): its largest ``(E, C, .)`` and ``(T*k, .)`` blocks halve from
+    data = 2 to data = 4, as its d split halves.  The experts are 16
+    wide, so that the hidden ``(E, C, ff)`` slots, which no data split
+    divides (on XLA's side neither), stay below the d slices."""
+    from repro_torch.launch.mesh import fake_dtensor_mesh
+    from repro_torch.models import moe
+
+    spec = moe.MoESpec(d_model=64, d_expert=16, num_experts=4, top_k=2)
+    rules = shd.AxisRules(batch_axes=("data",), fsdp_axes=("data",),
+                          tp_axis="model")
+    layout = {"router": ((64, 4), shd.P(None, None)),
+              "w_in": ((4, 64, 16), shd.P(None, "data", "model")),
+              "w_gate": ((4, 64, 16), shd.P(None, "data", "model")),
+              "w_out": ((4, 16, 64), shd.P(None, "model", "data"))}
+    largest = {}
+    for n in (2, 4):
+        mesh = make_debug_mesh(n, 1)
+        dmesh = fake_dtensor_mesh(mesh)
+        params = {k: shd.place(torch.empty(shape, device="meta"),
+                               shd.NamedSharding(mesh, p), dmesh)
+                  for k, (shape, p) in layout.items()}
+        x = shd.place(torch.empty(8, 64, 64, device="meta"),
+                      shd.NamedSharding(mesh, shd.P("data", None, None)),
+                      dmesh)
+        with shd.use_rules(rules), shd.use_dtensor_mesh(dmesh):
+            blocks = _local_blocks(moe.apply_moe_dense, params, x, spec)
+        slots, rows = _dispatch_blocks(blocks, 4, spec.capacity(512), 1024)
+        assert ((4, 320, 16), 4 * 320 * 16 * 4) in slots   # the hidden
+        largest[n] = (max(b for _, b in slots), max(b for _, b in rows))
+    assert largest[2] == (4 * 320 * 32 * 4, 1024 * 32 * 4)
+    assert largest[4] == (largest[2][0] // 2, largest[2][1] // 2)
 
 
 def test_single_device_mesh_has_no_collectives():
@@ -834,38 +1051,6 @@ def test_report_tables_match_reference():
     drop = lambda row: row.split("|")[:7] + row.split("|")[8:]  # noqa: E731
     assert drop(got_rows[2]) == drop(want_rows[2])
     assert report.PEAK == step_analysis.PEAK_FLOPS_BF16 == 989.4e12
-
-
-def test_report_marks_the_ports_dense_moe_partition():
-    """A record of the port's own dense-MoE partition carries a dagger in
-    both tables and the summary says what it means; the others none."""
-    recs = _as(_records(), "repro_torch")
-    marked = dict(recs[0], port_partition="dense_moe")
-    rows = report.dryrun_table([marked, recs[0]]).splitlines()
-    assert "| yes† |" in rows[2] and "| yes |" in rows[3]
-    rows = report.roofline_table([marked, recs[0]]).splitlines()
-    assert "**memory**†" in rows[2] and "**memory** |" in rows[3]
-    assert report.summary([marked, recs[0]]).endswith(
-        "1 cells marked: " + report.PORT_PARTITION_NOTE)
-    assert "marked" not in report.summary(recs)
-
-
-@pytest.mark.parametrize("family,marked", [("moe_dense", True),
-                                           ("moe_shard_map", False),
-                                           ("dense", False)])
-def test_run_cell_marks_the_ports_dense_moe_partition(
-        tmp_path, monkeypatch, family, marked):
-    """``run_cell`` marks a dense-impl MoE cell's record, and only that."""
-    monkeypatch.setattr(dryrun, "get_arch",
-                        lambda name: _tiny_arch(TINY_FAMILIES[family]))
-    rules = shd.AxisRules(batch_axes=("data",), fsdp_axes=("data",),
-                          tp_axis="model",
-                          moe_fsdp=family != "moe_shard_map")
-    rec = dryrun.run_cell("tiny", "train_4k", False, str(tmp_path),
-                          overrides=dict(TINY_OVERRIDES), probe=False,
-                          rules=rules, mesh=make_debug_mesh(2, 4))
-    assert rec["status"] == "ok", rec.get("traceback")
-    assert (rec.get("port_partition") == "dense_moe") is marked
 
 
 def test_h100_constants():

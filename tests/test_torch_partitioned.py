@@ -11,8 +11,9 @@ optimizer state, batch and cache placed by their specs
 the device mesh (``use_dtensor_mesh``).  Loss, ``grad_norm``, every
 updated param and moment (the dense cell's also with int8 gradient
 compression, and its error feedback), the prefill's logits and cache, the decode
-step's logits and the dense MoE's fringe pass (called directly: no
-config turns it on) must equal
+step's logits, the dense MoE cell's forward over a served prompt and
+the dense MoE's fringe pass (called directly: no config turns it on)
+must equal
 the unpartitioned results within 1e-5 * max(1, max |ref|) in fp32 (AdamW
 with eps = 1e-6, see ``EPS``).  The
 unpartitioned step is held against the JAX package's in
@@ -199,6 +200,16 @@ def _run(name, cfg, mesh, rules):
     for (path, g), (_, w) in zip(_leaves(got_cache), _leaves(ref_cache)):
         out[f"{name}/prefill/cache{path}"] = _close(g, w)
     out[f"{name}/prefill/decode_logits"] = _close(got_next, ref_next)
+    if name == "moe-dense":
+        # a served prompt's forward: every position's logits, so every
+        # token's MoE output reaches the comparison
+        with torch.no_grad(), shd.use_rules(rules), use_mesh(one):
+            ref_all, ref_aux = model_lib.forward(params, {"tokens": tokens},
+                                                 cfg)
+            with shd.use_dtensor_mesh(mesh):
+                got_all, got_aux = model_lib.forward(d_params, d_batch, cfg)
+        out[f"{name}/serve/logits"] = _close(got_all, ref_all)
+        out[f"{name}/serve/aux"] = _close(got_aux, ref_aux)
     return out
 
 
@@ -292,6 +303,17 @@ def test_partitioned_step_equals_unpartitioned(results, cell, what):
     for rank, res in enumerate(results):
         keys = [k for k in res if k.startswith(f"{cell}/{what}/")]
         assert keys
+        bad = {k: res[k][1] for k in keys if not res[k][0]}
+        assert not bad, (rank, bad)
+
+
+def test_partitioned_moe_serve_forward_equals_unpartitioned(results):
+    """The dense MoE cell's forward over a served prompt (every
+    position's logits and the load-balancing loss), partitioned, within
+    1e-5 * max(1, max |ref|) of the unpartitioned forward."""
+    for rank, res in enumerate(results):
+        keys = [k for k in res if k.startswith("moe-dense/serve/")]
+        assert len(keys) == 2
         bad = {k: res[k][1] for k in keys if not res[k][0]}
         assert not bad, (rank, bad)
 

@@ -35,7 +35,7 @@ the bottom up:
                              imports the other)
 
 ``data`` sits beside ``dynamic``: its generators and the LM batch
-pipeline import numpy alone, and ``mutate`` builds ``dynamic.GraphDelta``
+pipeline import numpy and ``core.arrays`` alone, and ``mutate`` builds ``dynamic.GraphDelta``
 batches (a function-local import, as in the reference).  Nothing below
 ``dynamic`` imports it.
 
