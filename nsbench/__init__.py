@@ -1,0 +1,4 @@
+"""nsbench: the benchmark of the PyTorch and CUDA port (``repro_torch``).
+
+``run.py`` runs one cell of ``BENCHMARK.json``; see ``README.md``.
+"""
