@@ -44,6 +44,11 @@ plan is timed once, synchronised before and after, and recorded in
 ``obs.PROFILER`` with its modeled per-path work against the H100's
 ceilings (:func:`_maybe_profiled`).  With telemetry off nothing is timed
 and nothing synchronises.
+
+Spans (``obs.TRACES``): each SpMM dispatch (:func:`_execute`) is an
+``execute`` span, recorded when the plan's telemetry is on or a profiler
+session is active, and the transpose plan's build a
+``transpose_structure`` span, always.
 """
 from __future__ import annotations
 
@@ -73,7 +78,7 @@ from ..core.plan_ir import (
 from ..core.values import update_values
 from ..errors import DispatchError, KernelLoweringError, PlanBuildError
 from ..kernels import _build, ops
-from ..obs import PROFILER
+from ..obs import PROFILER, TRACES
 from . import cache as _cache
 from .cache import (  # noqa: F401  (re-exported test hooks)
     dispatch_count, fused_trace_count, set_executor_cache_capacity,
@@ -286,16 +291,21 @@ def _spspmm_prof(config: SpmmConfig, n_exp: int, nnz_c: int):
 
 
 def _execute(plan: NeutronPlan, b: torch.Tensor) -> torch.Tensor:
-    """:func:`execute` without the autograd Function around it."""
-    validate_rhs(b, plan.shape)
-    _check_device(plan, b)
-    _apply_cache_capacity(plan.config)
-    batch = int(b.shape[0]) if b.ndim == 3 else None
-    return _guarded_call(
-        plan.signature(), lambda s: build_executor(s, batch=batch),
-        (*plan_leaves(plan), b), "fused" if batch is None else "batched",
-        plan=plan, prof=_spmm_prof(plan, b),
-        kwargs=dict(derived=plan.derived, a_flag=plan.a_unsplittable))
+    """:func:`execute` without the autograd Function around it.
+
+    Recorded as an ``execute`` span when the plan's telemetry is on or a
+    profiler session is active; the executor's stages are its children
+    (``exec.pipeline``)."""
+    with TRACES.call("execute", plan.config.telemetry, plan.device):
+        validate_rhs(b, plan.shape)
+        _check_device(plan, b)
+        _apply_cache_capacity(plan.config)
+        batch = int(b.shape[0]) if b.ndim == 3 else None
+        return _guarded_call(
+            plan.signature(), lambda s: build_executor(s, batch=batch),
+            (*plan_leaves(plan), b), "fused" if batch is None else "batched",
+            plan=plan, prof=_spmm_prof(plan, b),
+            kwargs=dict(derived=plan.derived, a_flag=plan.a_unsplittable))
 
 
 def _execute_with_delta(plan: NeutronPlan, delta: DeltaFringe,
@@ -587,7 +597,8 @@ def transpose_structure(plan: NeutronPlan) -> NeutronPlan:
     Built once per structure and cached in ``plan.derived``, which every
     plan that ``update_values`` derives from this one shares: so only the
     structure may be relied on.  Its values are those of the plan that
-    first asked; :func:`transpose_plan` gives a plan's own.
+    first asked; :func:`transpose_plan` gives a plan's own.  The build is
+    an ``obs`` span, ``transpose_structure``, with its ``prepare`` inside.
     """
     maps = plan.update_maps
     if maps is None:
@@ -598,8 +609,10 @@ def transpose_structure(plan: NeutronPlan) -> NeutronPlan:
     cached = plan.derived.get("transpose_structure")
     if cached is None:
         m, k = plan.shape
-        cached = core_spmm.prepare(maps.cols, maps.rows, maps.vals, (k, m),
-                                   plan.config, device=plan.device)
+        with TRACES.build("transpose_structure"):
+            cached = core_spmm.prepare(maps.cols, maps.rows, maps.vals,
+                                       (k, m), plan.config,
+                                       device=plan.device)
         plan.derived["transpose_structure"] = cached
         # whose values the structure holds: that plan's value array, by
         # identity (update_values gives every updated plan a new array)

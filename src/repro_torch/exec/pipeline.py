@@ -55,6 +55,7 @@ from ..core.plan_ir import (
 )
 from ..errors import PlanBuildError
 from ..kernels import ops
+from ..obs import TRACES
 from ..robust.faults import HARNESS
 from .cache import EXECUTOR_CACHE, record_build
 
@@ -64,7 +65,11 @@ def _fused_body(sig: Tuple):
 
     Returns ``run(*plan_leaves, b, derived=None, a_flag=None)`` for a
     single (K, N) operand; ``derived`` is the plan's cache of kernel-side
-    index arrays and ``a_flag`` its ``a_unsplittable``.
+    index arrays and ``a_flag`` its ``a_unsplittable``.  Inside a recorded
+    ``execute`` span its stages are ``obs`` spans: ``permute_b``,
+    ``matrix`` (the matrix-path kernel with its non-finite check),
+    ``matrix_gather``, ``fringe`` (B2 or B3), ``fringe_gather`` and
+    ``add``.
     """
     (_version, shape, bm, bk, _bn, impl, reorder_cols, fringe_chunk,
      num_windows, _num_steps, _nnz_f, n_fringe_rows, has_core, has_fringe,
@@ -79,42 +84,53 @@ def _fused_body(sig: Tuple):
             derived: Optional[Dict[str, Any]] = None,
             a_flag: Optional[torch.Tensor] = None):
         n = b.shape[1]
-        bp = permute_pad_b(b, col_perm, reorder_cols, bk)
+        with TRACES.stage("permute_b"):
+            bp = permute_pad_b(b, col_perm, reorder_cols, bk)
         c = None
         if has_core:
             # the signature-carried format selects the payload; the general
             # stream always rides along (a demoted plan reads it)
-            if matrix_format == "nm":
-                n_pat, m_pat = format_params
-                packed_m = ops.nm_stream_spmm(
-                    step_window, step_col, nm_values, nm_codes, bp,
-                    num_windows=num_windows, bm=bm, bk=bk, n_pat=n_pat,
-                    m_pat=m_pat, impl=impl, derived=derived, a_flag=a_flag,
-                )
-            elif matrix_format == "bitmap":
-                _n_words, row_cap = format_params
-                packed_m = ops.bitmap_stream_spmm(
-                    step_window, step_col, bitmap_words, bitmap_values, bp,
-                    num_windows=num_windows, bm=bm, bk=bk, row_cap=row_cap,
-                    impl=impl, derived=derived, a_flag=a_flag,
-                )
-            else:
-                packed_m = ops.block_stream_spmm(
-                    step_window, step_col, flat_values, bp,
-                    num_windows=num_windows, bm=bm, bk=bk, impl=impl,
-                    derived=derived, a_flag=a_flag,
-                )
-            c = gather_rows(packed_m, gsrc_m)
+            with TRACES.stage("matrix"):
+                if matrix_format == "nm":
+                    n_pat, m_pat = format_params
+                    packed_m = ops.nm_stream_spmm(
+                        step_window, step_col, nm_values, nm_codes, bp,
+                        num_windows=num_windows, bm=bm, bk=bk, n_pat=n_pat,
+                        m_pat=m_pat, impl=impl, derived=derived,
+                        a_flag=a_flag,
+                    )
+                elif matrix_format == "bitmap":
+                    _n_words, row_cap = format_params
+                    packed_m = ops.bitmap_stream_spmm(
+                        step_window, step_col, bitmap_words, bitmap_values,
+                        bp, num_windows=num_windows, bm=bm, bk=bk,
+                        row_cap=row_cap, impl=impl, derived=derived,
+                        a_flag=a_flag,
+                    )
+                else:
+                    packed_m = ops.block_stream_spmm(
+                        step_window, step_col, flat_values, bp,
+                        num_windows=num_windows, bm=bm, bk=bk, impl=impl,
+                        derived=derived, a_flag=a_flag,
+                    )
+            with TRACES.stage("matrix_gather"):
+                c = gather_rows(packed_m, gsrc_m)
         if has_fringe:
-            packed_v = ops.fringe_spmm(
-                fringe_rows, fringe_cols, fringe_vals, bp,
-                num_rows=n_fringe_rows, impl=impl, chunk=fringe_chunk,
-                tier=fringe_tier, bk=fringe_bk,
-                kb_chunk=kb_chunk, kb_rows=kb_rows,
-                kb_cols=kb_cols, kb_vals=kb_vals, derived=derived,
-            )
-            cv = gather_rows(packed_v, gsrc_v)
-            c = cv if c is None else c + cv
+            with TRACES.stage("fringe"):
+                packed_v = ops.fringe_spmm(
+                    fringe_rows, fringe_cols, fringe_vals, bp,
+                    num_rows=n_fringe_rows, impl=impl, chunk=fringe_chunk,
+                    tier=fringe_tier, bk=fringe_bk,
+                    kb_chunk=kb_chunk, kb_rows=kb_rows,
+                    kb_cols=kb_cols, kb_vals=kb_vals, derived=derived,
+                )
+            with TRACES.stage("fringe_gather"):
+                cv = gather_rows(packed_v, gsrc_v)
+            if c is None:
+                c = cv
+            else:
+                with TRACES.stage("add"):
+                    c = c + cv
         if c is None:  # empty matrix
             c = torch.zeros((m, n), dtype=torch.float32, device=b.device)
         return c

@@ -49,8 +49,9 @@ result's device, then raises :class:`~repro_torch.errors.DeadlineExceeded`
 if it finished later than that after it started (a post-hoc check, as in
 the reference; the work is not cancelled).
 With ``telemetry=True`` in the config, each ``spmm``/``bspmm``/``sddmm``/
-``spspmm`` call records a trace with one ``dispatch`` span in ``obs.TRACES`` (and its
-executor dispatch a roofline record in ``obs.PROFILER``); read them with
+``spspmm`` call records a trace with one ``dispatch`` span in ``obs.TRACES`` (an
+SpMM's ``execute`` span and its stages inside it, and its executor
+dispatch a roofline record in ``obs.PROFILER``); read them with
 ``repro_torch.obs.snapshot()``.
 """
 from __future__ import annotations
@@ -77,23 +78,14 @@ PlanLike = Union[NeutronPlan, ShardedPlan, DynamicPlan]
 
 def _traced_call(name: str, plan: PlanLike, attrs, fn):
     """Run ``fn()``; when the plan opts into telemetry, record an
-    ``obs`` trace with one ``dispatch`` span around it (host-side
-    bookkeeping only: with telemetry off this is the bare call)."""
+    ``obs`` trace with one ``dispatch`` span around it, the call's own
+    spans (``execute`` and its stages) inside that (with telemetry off
+    this is the bare call)."""
     if not plan.config.telemetry:
         return fn()
-    tr = TRACES.begin(f"facade:{name}", **attrs)
-    t0 = TRACES.now_us()
-    try:
-        out = fn()
-    except BaseException as err:
-        TRACES.add_span(tr, "dispatch", t0, TRACES.now_us())
-        tr.attrs["outcome"] = type(err).__name__
-        TRACES.end(tr)
-        raise
-    TRACES.add_span(tr, "dispatch", t0, TRACES.now_us())
-    tr.attrs["outcome"] = "ok"
-    TRACES.end(tr)
-    return out
+    with TRACES.request(f"facade:{name}", **attrs):
+        with TRACES.open("dispatch"):
+            return fn()
 
 
 def _await(out: torch.Tensor, deadline: Optional[float], t0: float,
