@@ -860,8 +860,10 @@ def gcn_training_path(ctx, graph):
                 + "; ".join(f"{name} {ms:.3f}" for name, ms in by_kernel))
     ctx.require(losses[-1] < losses[0], ("loss did not fall", losses))
     ctx.require(all(np.isfinite(losses)), losses)
-    for label, counts in (("forward", fwd0), ("backward", bwd0)):
-        ctx.require(counts["dense_tile_spmm"] > 0
+    # B1 runs where the plan has a core (the card's split may leave none)
+    for label, counts, plan in (("forward", fwd0, a.plan),
+                                ("backward", bwd0, api.transpose_plan(a.plan))):
+        ctx.require((counts["dense_tile_spmm"] > 0) == plan.has_core
                     and sum(counts[k] for k in FRINGE_KERNELS) > 0,
                     (label, counts))
     return {"launches": launches, "err": err_grad, "spmm_errs": spmm_errs,
@@ -1066,8 +1068,8 @@ def coordination_path(ctx, graph):
 
 def telemetry_path(ctx, graph, plan_off, b):
     """Telemetry on the card: the ogbn-arxiv-size plan prepared with
-    ``telemetry=True`` against ``plan_off`` (the same COO and config with
-    it off): ``execute`` and the two per-path calls bit for bit equal and
+    ``telemetry=True`` against ``plan_off`` (the same COO, config and cost
+    model with it off): ``execute`` and the two per-path calls bit for bit equal and
     with the same launches, one roofline row per kind of dispatch, and
     the matrix-path against fringe-path attribution of
     ``obs.snapshot()`` against the H100's ceilings; prints the report."""
@@ -1076,13 +1078,16 @@ def telemetry_path(ctx, graph, plan_off, b):
     import torch
 
     import repro_torch.obs as obs
+    from repro_torch.core.cost_model import default_cost_model
     from repro_torch.core.spmm import prepare
     from repro_torch.exec import api
 
     rows, cols, vals, feats, *_ = graph
     n = feats.shape[0]
+    # the coordinator's model, which split plan_off
     plan_on = prepare(rows, cols, vals, (n, n),
                       dataclasses.replace(plan_off.config, telemetry=True),
+                      default_cost_model(n_cols=plan_off.config.bn),
                       device=ctx.dev)
     ctx.require(plan_on.signature() == plan_off.signature(),
                 "telemetry changed the signature")
@@ -1104,8 +1109,11 @@ def telemetry_path(ctx, graph, plan_off, b):
     ops_seen = {r["op"] for r in attr["rows"]}
     ctx.require(ops_seen == {"spmm", "spmm:matrix_path",
                              "spmm:vector_path"}, ops_seen)
-    ctx.require([t["name"] for t in snap["traces"]] == ["facade:spmm"],
-                snap["traces"])
+    # the facade's call last; the direct executor calls above, on the
+    # telemetry plan, each leave an ``execute`` trace before it
+    names = [t["name"] for t in snap["traces"]]
+    ctx.require(names[-1] == "facade:spmm" and set(names[:-1]) <= {"execute"},
+                names)
     json.dumps(snap)
     ctx.log("telemetry on the ogbn-arxiv-size plan (bit-identical on and "
             "off, same launches; peaks " + json.dumps(
@@ -1430,7 +1438,7 @@ def two_hop_path(ctx):
         f"({pp.fringe_tier}); launches {launches_spmm}")
     log(f"  spmm on P by kernel (torch.profiler, ms per call, device "
         f"total {busy_ms}): {by_kernel}")
-    require(launches_spmm["dense_tile_spmm"] > 0
+    require((launches_spmm["dense_tile_spmm"] > 0) == pp.has_core
             and launches_spmm["gather_spmm"]
             + launches_spmm["gather_spmm_ksharded"] > 0, launches_spmm)
     return A, P, x, {
@@ -1508,7 +1516,9 @@ def health_phase(ctx, A, P):
                          "the dispatch inside the backoff")
         require("next attempt at dispatch 3" in str(refused), str(refused))
         retry, launches_retry = ctx.drive(lambda: sp.bspmm(A, x5))
-    require(launches_retry["dense_tile_spmm"] > 0, launches_retry)
+    require(sum(launches_retry.values()) > 0
+            and (launches_retry["dense_tile_spmm"] > 0) == A.plan.has_core,
+            launches_retry)
     unarmed = sp.bspmm(A, x5)
     require(bits_equal(retry, unarmed), "the retry is bit-equal to an "
             "unarmed call")
@@ -1536,7 +1546,9 @@ def health_phase(ctx, A, P):
     snap = HEALTH.snapshot()
     HEALTH.reset()
     healed, launches_healed = ctx.drive(lambda: sp.bspmm(A, x6))
-    require(launches_healed["dense_tile_spmm"] > 0, launches_healed)
+    require(sum(launches_healed.values()) > 0
+            and (launches_healed["dense_tile_spmm"] > 0) == A.plan.has_core,
+            launches_healed)
     e_healed = max(ctx.err_bound(healed[i], sp.spmm(A, x6[i]))
                    for i in range(6))
     log(f"  pallas_lowering armed for good: demoted after {dispatches} "
@@ -2391,8 +2403,9 @@ def serving_path(ctx, graph):
         _, t_drain = synced(lambda: svc.drain_compactions(timeout=300))
         require(dp.compactions == 1 and dp.delta_nnz == 0,
                 (dp.compactions, dp.delta_nnz))
-        fresh, t_fresh = synced(lambda: sp.from_coo(*dp.to_coo(), shape,
-                                                    device=dev))
+        # the service's config: its table's model splits both plans
+        fresh, t_fresh = synced(lambda: sp.from_coo(
+            *dp.to_coo(), shape, device=dev, config=dp.plan.config))
         for name in LEAF_NAMES:
             require(torch.equal(getattr(dp.plan, name),
                                 getattr(fresh.plan, name)),
@@ -2607,8 +2620,10 @@ def sharded_path(ctx, reddit, graph):
             totals[k] = totals.get(k, 0) + v
         return res, counts
 
-    def once_per_shard(counts, fringe):
-        require(counts["dense_tile_spmm"] == SHARDS
+    def once_per_shard(counts, fringe, splan):
+        """B1 once per shard where the mesh-uniform signature has a core
+        (the card's split may leave none), the fringe kernel always."""
+        require(counts["dense_tile_spmm"] == SHARDS * splan.sig[12]
                 and counts[fringe] == SHARDS, counts)
 
     # --- 1. Reddit scale, rows axis ----------------------------------------
@@ -2628,9 +2643,9 @@ def sharded_path(ctx, reddit, graph):
     b = torch.randn((shape[1], N), device=dev, generator=gen)
     bb = torch.randn((2, shape[1], N), device=dev, generator=gen)
     c, counts = counted(lambda: sp.spmm(S, b))
-    once_per_shard(counts, fringe)
+    once_per_shard(counts, fringe, splan)
     cb, counts_b = counted(lambda: sp.bspmm(S, bb))
-    once_per_shard(counts_b, fringe)
+    once_per_shard(counts_b, fringe, splan)
     peak = torch.cuda.max_memory_allocated() / 1e9
     require(torch.equal(c, sp.spmm(S, b)), "sharded spmm not bit-stable")
     csr = ctx.csr_of(rows, cols, vals, shape)
@@ -2691,7 +2706,7 @@ def sharded_path(ctx, reddit, graph):
     fringe_r = ("gather_spmm_ksharded" if R.plan.sig[14] == "ksharded"
                 else "gather_spmm")
     c, counts = counted(lambda: sp.spmm(R, b))
-    once_per_shard(counts, fringe_r)
+    once_per_shard(counts, fringe_r, R.plan)
     out["arxiv_rhs"] = {
         "prepare_s": t_rhs, "spmm_ms": median_ms(lambda: sp.spmm(R, b)),
         "library_ms": median_ms(lambda: torch.sparse.mm(csr, b)),
@@ -2724,7 +2739,7 @@ def sharded_path(ctx, reddit, graph):
                 else "gather_spmm")
     S2 = S.with_values(w)
     c2, counts_wv = counted(lambda: sp.spmm(S2, b))
-    once_per_shard(counts_wv, fringe_s)
+    once_per_shard(counts_wv, fringe_s, S2.plan)
     wv_csr = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
                                      want_w, shape)
     e_wv = ctx.err_bound(c2, torch.sparse.mm(wv_csr, b))
@@ -2758,7 +2773,7 @@ def sharded_path(ctx, reddit, graph):
             side = dp._materialize()
             t_mat = time.perf_counter() - t0
             cd, counts_d = counted(lambda: sp.spmm(D, b))
-            require(counts_d["dense_tile_spmm"] == SHARDS
+            require(counts_d["dense_tile_spmm"] == SHARDS * dp.plan.sig[12]
                     and counts_d["gather_spmm"]
                     + counts_d["gather_spmm_ksharded"] == 2 * SHARDS,
                     counts_d)
@@ -2809,7 +2824,7 @@ def sharded_path(ctx, reddit, graph):
                 end.record()
 
             _, counts_f = counted(flush)
-            once_per_shard(counts_f, fringe_s)
+            once_per_shard(counts_f, fringe_s, S.plan)
             e = max(ctx.err_bound(svc.fetch(t), torch.sparse.mm(csr, p))
                     for t, p in zip(tickets, panels))
             flushes.append({"requests": k, "ms": start.elapsed_time(end),
@@ -4093,11 +4108,16 @@ def main() -> int:
     phase_done("1 device and kernel build")
 
     # --- phase 2: kernels against their plain versions on the stand-ins ----
+    # split at the reference's alpha, so that both stand-ins hand the tile
+    # kernels a core (the card's split leaves the ogbn-arxiv one none)
+    from repro_torch.core.cost_model import default_cost_model
+
     standin_err = {}
     for name in ("ogbn-arxiv", "reddit"):
         spec = PAPER_DATASETS[name]
         rows, cols, vals = generate(spec)
-        a = sp.from_coo(rows, cols, vals, (spec.m, spec.k), device=dev)
+        a = sp.from_coo(rows, cols, vals, (spec.m, spec.k), device=dev,
+                        alpha=default_cost_model().alpha)
         p = a.plan
         bp, st = kernel_inputs(p, operand(spec.k, N))
         log(f"{name}: tier={p.fringe_tier} bk={p.fringe_bk} "

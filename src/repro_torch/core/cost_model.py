@@ -12,12 +12,15 @@ This module keeps the analytic model, the matrix-format pricing and the
 vector-path tier selection of ``repro.core.cost_model``, with the same
 arithmetic, so plans built from the same COO and config have the same
 leaves.  The deliberate differences are the H100 tier rules in
-:func:`select_fringe_tier` and :func:`select_sddmm_tier`.
+:func:`select_fringe_tier` and :func:`select_sddmm_tier`, and the H100
+split below.
 
-Two calibration modes, as in the reference: ``analytic_tpu`` derives the
-rates from the reference's roofline constants, and ``measure`` times the
-two paths on the current device through the synchronised
-``tuner.timed_best_of`` (the paper's microbenchmark dry run).
+Three calibrations: ``analytic_tpu`` derives the rates from the
+reference's roofline constants (the reference's split, which ``"torch"``
+plans keep); ``analytic_h100`` takes them from the card's own kernels,
+measured once (the split of ``"cuda"`` plans: ``core.tuner`` resolves it);
+and ``measure`` times the two paths on the current device through the
+synchronised ``tuner.timed_best_of`` (the paper's microbenchmark dry run).
 """
 from __future__ import annotations
 
@@ -27,9 +30,8 @@ from typing import Callable, Optional
 import numpy as np
 
 # The reference's TPU constants, kept so that plan leaves match the JAX
-# package's (the split threshold, reuse capacities and fringe tiers are all
-# derived from them).  They do not describe the H100; re-deriving them for
-# it is the ROADMAP item "Tuner and cost model, re-derived for the H100".
+# package's (the reference's split threshold, reuse capacities and fringe
+# tiers are all derived from them).  They do not describe the H100.
 PEAK_FLOPS_BF16 = 197e12  # per chip
 HBM_BW = 819e9  # bytes/s
 ICI_BW = 50e9  # bytes/s/link
@@ -40,10 +42,26 @@ SUBLANES = 8
 
 # The card's ceilings, from NVIDIA's data sheet for the H100 SXM at its
 # 700 W limit: HBM3 bandwidth and the fp32 rate outside the tensor cores.
-# The telemetry roofline (``obs.report``) prices dispatches against them;
-# the split above still runs on the TPU constants.
+# The telemetry roofline (``obs.report``) prices dispatches against them.
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS_PER_S = 67e12
+
+# The split's rates on the H100 80GB HBM3 at 700 W, N = H100_RATE_N, from
+# bench_torch/split_rates.py (PERF.md §6): B1 (dense_tile_spmm)
+# seconds for one bm x bk = 128 x 64 tile on each of its tiers, B read
+# from HBM, and the fringe row walk's (B2/B3) nonzeros a second.  B1 picks
+# the tier per tile by its density (kMmaMinDensity in
+# kernels/csrc/tile_core.cuh).  The walk's rate is the one on ogbn-arxiv's
+# whole matrix, long rows included: the split decides about long rows,
+# and the walk takes them at about that rate (Reddit's rows above 10 k
+# nonzeros: 2.2e9-3.7e9 a second), its short rows at 8e9.
+H100_RATE_N = 256
+H100_TILE_CELLS = 128 * 64
+H100_TILE_WALK_S = 38.78e-9     # a tile on the zero-skipping walk ...
+H100_TILE_WALK_NNZ_S = 0.190e-9  # ... and each nonzero it holds
+H100_TILE_MMA_S = 109.87e-9      # a tile on the 3xTF32 product
+H100_MMA_MIN_DENSITY = 0.05      # kMmaMinDensity
+H100_WALK_NNZ_PER_S = 3.431e9
 
 
 @dataclasses.dataclass
@@ -54,6 +72,9 @@ class EngineCostModel:
     p_vector: float  # vector-path rate: nonzeros / second
     r: float = 1.0   # capacity ratio (paper's r; engine-count analogue)
     n_cols: int = 256  # dense operand width N the rates were calibrated for
+    # whether the model prices B1's tiles by the H100_* constants
+    # (``analytic_h100``), and so each core window as B1 runs it
+    prices_tiles: bool = False
 
     # --- Eq. (1) ---
     def cost_vector(self, nnz: float) -> float:
@@ -85,6 +106,47 @@ class EngineCostModel:
         bytes_per_nnz = n_cols * 2  # gather of one bf16 B row
         p_vector = HBM_BW / bytes_per_nnz
         return cls(p_matrix=p_matrix, p_vector=p_vector, r=r, n_cols=n_cols)
+
+    @classmethod
+    def analytic_h100(cls, r: float = 1.0) -> "EngineCostModel":
+        """The card's own rates at N = ``H100_RATE_N``: B1 per tile and the
+        row walk per nonzero.
+
+        ``p_matrix`` is B1's tile cells a second on its 3xTF32 tier;
+        ``p_vector`` is the row walk's nonzeros a second.  Their alpha
+        (0.046) is the density at which a tile costs B1 what its nonzeros
+        cost the walk, on either of B1's tiers (they cross there).
+        """
+        return cls(p_matrix=H100_TILE_CELLS / H100_TILE_MMA_S,
+                   p_vector=H100_WALK_NNZ_PER_S, r=r, n_cols=H100_RATE_N,
+                   prices_tiles=True)
+
+    @staticmethod
+    def tile_seconds(tile_nnz: np.ndarray, cells: int) -> np.ndarray:
+        """B1's seconds for ``cells``-cell tiles holding these nonzeros:
+        the 3xTF32 product at or above ``H100_MMA_MIN_DENSITY``, else the
+        zero-skipping walk."""
+        nnz = np.asarray(tile_nnz, np.float64)
+        per_tile = cells / H100_TILE_CELLS
+        walk = H100_TILE_WALK_S * per_tile + H100_TILE_WALK_NNZ_S * nnz
+        return np.where(nnz >= H100_MMA_MIN_DENSITY * cells,
+                        H100_TILE_MMA_S * per_tile, walk)
+
+    def windows_cheaper_on_walk(
+        self, tile_window: np.ndarray, tile_nnz: np.ndarray,
+        num_windows: int, cells: int,
+    ) -> np.ndarray:
+        """Ids of the core windows whose nonzeros the row walk takes in
+        less time than B1 takes their padded tiles (none where the model
+        prices no tiles).  Both paths run on one stream, so the least sum
+        of the two is the goal, not balanced finish times."""
+        if not self.prices_tiles or not num_windows:
+            return np.zeros(0, np.int64)
+        b1 = np.bincount(tile_window, self.tile_seconds(tile_nnz, cells),
+                         minlength=num_windows)
+        walk = np.bincount(tile_window, np.asarray(tile_nnz, np.float64),
+                           minlength=num_windows) / self.p_vector
+        return np.flatnonzero(walk < b1)
 
     @classmethod
     def measure(
@@ -345,8 +407,7 @@ def select_sddmm_tier(
 # (plan state fully distributed; balance limited by how evenly window costs
 # split) or replicate the plan and shard RHS columns (perfectly balanced by
 # construction; plan memory replicated per device).  The estimator prices
-# both and picks per plan.  Host code, as in the reference; the port's
-# sharded executor is a later ROADMAP item.
+# both and picks per plan.  Host code, as in the reference.
 ROWS_IMBALANCE_THRESHOLD = 1.25  # max tolerated LPT max/mean before rhs wins
 
 

@@ -17,9 +17,11 @@ replicates the plan and shards B's columns) and builds one padded
 sub-plan per shard, as the reference does; see its section below.
 
 Every dispatch decision consults the cost model that ``core.tuner``
-resolves for the config: the analytic model, or with ``autotune`` the
+resolves for the config: the analytic model (the card's for
+``impl="cuda"``, the reference's otherwise), or with ``autotune`` the
 measured table, whose tuned ``(bm, bk)`` applies before partitioning, as
-in the reference.
+in the reference.  The card's model also prices each core window as B1
+runs it, and sends those cheaper on the row walk to the fringe.
 
 Execution names (``execute``, ``execute_with_delta``,
 ``execute_delta_contribution``, the per-path executors, ``neutron_spmm``,
@@ -31,7 +33,7 @@ at import time; each forwarded access warns once per process that the
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +45,9 @@ from . import formats, partition, plan_ir, reorder, reuse
 from .coordinator import (
     balance_row_window_list, list_imbalance, window_costs_from_coo,
 )
-from .cost_model import EngineCostModel, select_shard_axis
+from .cost_model import (
+    EngineCostModel, default_cost_model, select_shard_axis,
+)
 from .tuner import resolve_cost_model
 from .plan_ir import (  # noqa: F401  (public re-exports, as the reference's)
     IMPL_DEVICE, LEAF_FLAT_VALUES, LEAF_FRINGE_VALS, LEAF_KB_VALS, PATH_CORE,
@@ -109,6 +113,7 @@ def _structured_payload(
     flat_values: np.ndarray,
     has_core: bool,
     tile_density: float,
+    detected: Optional[Tuple[int, int]],
 ):
     """Choose and build the structured matrix-path payload, as the
     reference's ``_structured_payload`` does.
@@ -116,6 +121,7 @@ def _structured_payload(
     Returns ``(matrix_format, format_params, (nm_values, nm_codes),
     (bitmap_words, bitmap_values))``.  The general flat stream is always
     kept beside it, so a format demotion never needs a re-prepare.
+    ``detected`` is :func:`_detected_nm`'s answer.
     """
     hint = config.structure_hint
     general = (
@@ -142,10 +148,7 @@ def _structured_payload(
                 f"structure_hint {hint!r} needs m dividing bk={config.bk}"
             )
     elif hint in (None, "nm"):
-        nm_pat = formats.detect_nm_pattern(rows, cols, shape)
-        # tiles chunk columns at bk boundaries; groups must not straddle
-        if nm_pat is not None and config.bk % nm_pat[1]:
-            nm_pat = None
+        nm_pat = detected
     t_steps, bm, bk = flat_values.shape
     # the bitmap row capacity the packer would choose, priced before the pack
     per_row_max = int(np.count_nonzero(flat_values, axis=2).max())
@@ -180,6 +183,123 @@ def _structured_payload(
             (_DUMMY_F32, _DUMMY_I32), (words, packed),
         )
     return general
+
+
+def _detected_nm(rows: np.ndarray, cols: np.ndarray, shape: Tuple[int, int],
+                 config: SpmmConfig) -> Optional[Tuple[int, int]]:
+    """The N:M pattern an unhinted (or soft ``"nm"``) structured payload
+    takes from detection, or None."""
+    if config.reorder_cols or config.structure_hint not in (None, "nm"):
+        return None
+    nm_pat = formats.detect_nm_pattern(rows, cols, shape)
+    # tiles chunk columns at bk boundaries; groups must not straddle
+    if nm_pat is not None and config.bk % nm_pat[1]:
+        return None
+    return nm_pat
+
+
+def _split_policy(rows: np.ndarray, cols: np.ndarray,
+                  shape: Tuple[int, int], config: SpmmConfig,
+                  cm: EngineCostModel):
+    """Which split a plan takes: ``(split_model, price_windows,
+    detected)``, with ``detected`` :func:`_detected_nm`'s answer.
+
+    A model that prices B1's tiles (the card's) splits rows by its own
+    alpha and then prices each core window.  An explicit ``alpha`` keeps
+    the split it names, unpriced.  A matrix path on the structured kernels
+    (a hint for one, or a detected N:M pattern) splits at the reference's
+    model, since the card's prices B1 and not B6/B7.
+    """
+    detected = _detected_nm(rows, cols, shape, config)
+    if not cm.prices_tiles or config.alpha is not None:
+        return cm, False, detected
+    hint = config.structure_hint
+    if (hint == "bitmap" or detected is not None
+            or (isinstance(hint, tuple) and len(hint) == 3
+                and hint[0] == "nm")):
+        return default_cost_model(n_cols=config.bn), False, detected
+    return cm, True, detected
+
+
+class _CoreTiles(NamedTuple):
+    """The core's first tiling: the global-local reorder and the active
+    (window, k-block) tiles (§6.1)."""
+
+    n_core: int
+    nw: int
+    st: Any                # formats.BlockStructure, None without a core
+    inv_row: np.ndarray    # local core row -> its packed row
+    row_order: np.ndarray  # packed row -> local core row
+    prow: np.ndarray       # packed row of each core nonzero
+    ccols: np.ndarray      # permuted column of each core nonzero
+    block_cols: np.ndarray
+    num_blocks: np.ndarray
+    cluster_of_window: np.ndarray
+    col_perm: np.ndarray
+    tile_density: float
+
+
+def _tile_core(part: partition.PartitionResult, m: int, k: int,
+               config: SpmmConfig) -> _CoreTiles:
+    """Global-local reordering of the dense core (§6.1): only the active
+    (window, k-block) structure; tile values are written once, later,
+    directly into the flat stream."""
+    n_core = int(part.core_row_ids.shape[0])
+    nw = (n_core + config.bm - 1) // config.bm
+    nkb = (k + config.bk - 1) // config.bk
+    if not n_core:
+        empty = np.zeros(0, np.int64)
+        return _CoreTiles(
+            0, nw, None, empty, empty, empty, empty,
+            np.zeros((0, 1), np.int32), empty, empty,
+            np.arange(k, dtype=np.int64), 0.0)
+    local_of_row = np.full(m, -1, np.int64)
+    local_of_row[part.core_row_ids] = np.arange(n_core)
+    lrows = local_of_row[part.core_rows]
+    ro = reorder.reorder(
+        lrows, part.core_cols, (n_core, k), config.bm, config.bk,
+        enable_global=config.enable_global_reorder,
+        enable_local=config.enable_local_reorder,
+        reorder_cols=config.reorder_cols,
+        max_clusters=config.max_clusters,
+        seed=config.seed,
+    )
+    inv_col = np.empty(k, np.int64)
+    inv_col[ro.col_order] = np.arange(k)
+    ccols = inv_col[part.core_cols]
+    inv_row = np.empty(n_core, np.int64)
+    inv_row[ro.row_order] = np.arange(n_core)
+    prow = inv_row[lrows]
+    st = formats.block_structure_from_coo(
+        prow // config.bm, ccols // config.bk, nw, nkb
+    )
+    block_cols = np.zeros((nw, st.max_blocks), np.int32)
+    block_cols[st.uw, st.slot] = st.ub.astype(np.int32)
+    tile_density = part.core_nnz / max(st.uw.size * config.bm * config.bk, 1)
+    return _CoreTiles(
+        n_core, nw, st, inv_row, ro.row_order, prow, ccols, block_cols,
+        st.counts, ro.cluster_of_row[:: config.bm][:nw], ro.col_order,
+        tile_density)
+
+
+def _windows_to_fringe(
+    part: partition.PartitionResult, tiles: _CoreTiles, m: int,
+    cm: EngineCostModel, config: SpmmConfig,
+) -> Tuple[partition.PartitionResult, int]:
+    """The split priced as B1 runs it: every core window whose nonzeros
+    the row walk takes in less time than B1 takes its padded tiles goes to
+    the fringe.  Returns the new split and the number of windows moved."""
+    if tiles.st is None:
+        return part, 0
+    tile_nnz = np.bincount(tiles.st.inv_idx, minlength=tiles.st.uw.size)
+    moved = cm.windows_cheaper_on_walk(
+        tiles.st.uw, tile_nnz, tiles.nw, config.bm * config.bk)
+    if not moved.size:
+        return part, 0
+    row_window = np.full(m, -1, np.int64)
+    row_window[part.core_row_ids] = tiles.inv_row // config.bm
+    return (partition.migrate_core_to_fringe(part, moved, row_window),
+            int(moved.size))
 
 
 def build_plan_arrays(
@@ -217,54 +337,25 @@ def build_plan_arrays(
 
     with TRACES.build("partition") as t_part:
         # 1) heterogeneous workload partitioning (§5.2)
+        split_cm, price_windows, detected = _split_policy(
+            rows, cols, shape, config, cm)
         part = partition.partition_rows_cols(
-            rows, cols, vals, shape, cm, alpha=config.alpha,
+            rows, cols, vals, shape, split_cm, alpha=config.alpha,
             col_stage=config.enable_col_stage,
         )
 
     with TRACES.build("reorder") as t_reorder:
-        # 2) global-local reordering of the dense core (§6.1): only the active
-        # (window, k-block) structure; tile values are written once, directly
-        # into the flat stream (step 3)
-        n_core = int(part.core_row_ids.shape[0])
-        nw = (n_core + config.bm - 1) // config.bm
-        nkb = (k + config.bk - 1) // config.bk
-        if n_core:
-            local_of_row = np.full(m, -1, np.int64)
-            local_of_row[part.core_row_ids] = np.arange(n_core)
-            lrows = local_of_row[part.core_rows]
-            ro = reorder.reorder(
-                lrows, part.core_cols, (n_core, k), config.bm, config.bk,
-                enable_global=config.enable_global_reorder,
-                enable_local=config.enable_local_reorder,
-                reorder_cols=config.reorder_cols,
-                max_clusters=config.max_clusters,
-                seed=config.seed,
-            )
-            inv_col = np.empty(k, np.int64)
-            inv_col[ro.col_order] = np.arange(k)
-            ccols = inv_col[part.core_cols]
-            inv_row = np.empty(n_core, np.int64)
-            inv_row[ro.row_order] = np.arange(n_core)
-            prow = inv_row[lrows]
-            st = formats.block_structure_from_coo(
-                prow // config.bm, ccols // config.bk, nw, nkb
-            )
-            block_cols = np.zeros((nw, st.max_blocks), np.int32)
-            block_cols[st.uw, st.slot] = st.ub.astype(np.int32)
-            num_blocks = st.counts
-            cluster_of_window = ro.cluster_of_row[:: config.bm][:nw]
-            col_perm = ro.col_order
-            tile_density = part.core_nnz / max(
-                st.uw.size * config.bm * config.bk, 1
-            )
-        else:
-            st = None
-            block_cols = np.zeros((0, 1), np.int32)
-            num_blocks = np.zeros(0, np.int64)
-            cluster_of_window = np.zeros(0, np.int64)
-            col_perm = np.arange(k, dtype=np.int64)
-            tile_density = 0.0
+        # 2) global-local reordering of the dense core (§6.1); where the
+        # windows are priced, those cheaper on the row walk go to the
+        # fringe and the rest of the core is tiled once more
+        tiles = _tile_core(part, m, k, config)
+        if price_windows:
+            part, windows_to_fringe = _windows_to_fringe(
+                part, tiles, m, cm, config)
+            if windows_to_fringe:
+                tiles = _tile_core(part, m, k, config)
+        (n_core, nw, st, _, row_order, prow, ccols, block_cols, num_blocks,
+         cluster_of_window, col_perm, tile_density) = tiles
 
         # the reuse order of the windows (§6.2)
         if config.enable_reuse_order and nw:
@@ -311,13 +402,14 @@ def build_plan_arrays(
             _structured_payload(
                 rows, cols, shape, config, cm, flat_values,
                 has_core=bool(part.core_nnz), tile_density=float(tile_density),
+                detected=detected,
             )
         )
 
         # map packed core rows -> original ids
         core_row_map = np.full(nw * config.bm, -1, np.int64)
         if n_core:
-            core_row_map[:n_core] = part.core_row_ids[ro.row_order]
+            core_row_map[:n_core] = part.core_row_ids[row_order]
         core_row_map = core_row_map.astype(np.int32)
 
         # 4) fringe packing: one stable sort (rows are the major key, so row
@@ -394,7 +486,7 @@ def build_plan_arrays(
         ("format_params", tuple(format_params)),
         ("padding_waste",
          float(1.0 - tile_density) if part.core_nnz else 0.0),
-    )
+    ) + ((("windows_to_fringe", windows_to_fringe),) if price_windows else ())
     leaves = {
         "step_window": step_window,
         "step_col": step_col,

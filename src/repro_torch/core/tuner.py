@@ -444,9 +444,12 @@ class Tuner:
         self, op: str, m: int, k: int, nnz: int, config: Any
     ) -> EngineCostModel:
         """The one entry point: the analytic model unless autotune says
-        otherwise."""
+        otherwise; for ``impl="cuda"`` the card's (``analytic_h100``),
+        else the reference's."""
         mode = getattr(config, "autotune", False)
         if not mode:
+            if getattr(config, "impl", None) == "cuda":
+                return EngineCostModel.analytic_h100()
             return default_cost_model(n_cols=config.bn)
         self._maybe_load()
         key = table_key(op, m, k, nnz, config)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.cost_model import default_cost_model
 from repro_torch.core.plan_ir import SpmmConfig
 from repro_torch.core.spmm import prepare
 from repro_torch.data.graphs import PAPER_DATASETS, generate
@@ -29,6 +30,10 @@ from repro_torch.kernels.structured_spmm import bitmap_tile_spmm, nm_tile_spmm
 pytestmark = pytest.mark.gpu
 
 TOL = 1e-4
+# the reference's split: at it the small stand-ins below keep a core for
+# B1 (the card's split, at its own alpha, moves their few dense rows to
+# the row walk)
+REF_ALPHA = default_cost_model().alpha
 
 
 @pytest.fixture
@@ -892,7 +897,8 @@ def test_execute_cuda_with_inf_in_a_matches_plain(cuda):
     vals = vals.copy()
     vals[core[0]] = np.inf
     a_cpu = sp.from_coo(rows, cols, vals, shape, device="cpu")
-    a_cuda = sp.from_coo(rows, cols, vals, shape, device=cuda)
+    a_cuda = sp.from_coo(rows, cols, vals, shape, device=cuda,
+                         alpha=REF_ALPHA)
     assert int(a_cuda.plan.a_unsplittable) == 1
     b = np.random.RandomState(0).randn(spec.k, 64).astype(np.float32)
     want = sp.spmm(a_cpu, torch.from_numpy(b))
@@ -1227,7 +1233,7 @@ def test_sharded_plan_on_a_repeated_card_matches_plain(cuda, shard_axis,
     rows, cols = np.nonzero(a)
     vals = a[rows, cols].astype(np.float32)
     gpu, cpu = _sharded_pair(cuda, rows, cols, vals, a.shape, shard_axis,
-                             fringe_vmem_budget=budget)
+                             fringe_vmem_budget=budget, alpha=REF_ALPHA)
     assert gpu.sig[12] and gpu.sig[13]   # a core and a fringe
     tier = gpu.sig[14]
     assert tier == ("ksharded" if budget else "resident")
@@ -1256,7 +1262,8 @@ def test_sharded_plan_on_a_repeated_card_matches_plain(cuda, shard_axis,
         # 25 % occupancy, as the reference's "xla" does, and its NaN cells
         # are not the tile kernels' (ROADMAP C5): hold the split of B's
         # columns against the card's single-device plan
-        single = prepare(rows, cols, vals, a.shape, SpmmConfig(impl="cuda"))
+        single = prepare(rows, cols, vals, a.shape,
+                         SpmmConfig(impl="cuda", alpha=REF_ALPHA))
         want = api.execute(single, torch.from_numpy(b).to(cuda)).cpu()
     _close_nonfinite(got, want)
 
@@ -1306,7 +1313,8 @@ def test_sharded_sddmm_and_dynamic_on_a_repeated_card(cuda):
     spec = PAPER_DATASETS["cora"]
     rows, cols, vals = generate(spec)
     shape = (spec.m, spec.k)
-    gpu, cpu = _sharded_pair(cuda, rows, cols, vals, shape, "rows")
+    gpu, cpu = _sharded_pair(cuda, rows, cols, vals, shape, "rows",
+                             alpha=REF_ALPHA)
     rng = np.random.RandomState(2)
     x = rng.randn(spec.m, 32).astype(np.float32)
     y = rng.randn(32, spec.k).astype(np.float32)

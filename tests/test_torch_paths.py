@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from repro_torch.core import spmm, tuner
-from repro_torch.core.cost_model import EngineCostModel
+from repro_torch.core.cost_model import EngineCostModel, default_cost_model
 from repro_torch.core.plan_ir import LEAF_NAMES, SpmmConfig
 from repro_torch.data.graphs import PAPER_DATASETS, generate
 from repro_torch.errors import DispatchError
@@ -404,9 +404,12 @@ def cuda():
 
 def _cuda_pair(cuda):
     rows, cols, vals, shape = _panel("reddit", 4096)
-    ours = spmm.prepare(rows, cols, vals, shape, SpmmConfig(impl="cuda"),
-                        device=cuda)
-    plain = spmm.prepare(rows, cols, vals, shape, SpmmConfig(impl="torch"))
+    # both at the reference's split, which gives this panel a core
+    alpha = default_cost_model().alpha
+    ours = spmm.prepare(rows, cols, vals, shape,
+                        SpmmConfig(impl="cuda", alpha=alpha), device=cuda)
+    plain = spmm.prepare(rows, cols, vals, shape,
+                         SpmmConfig(impl="torch", alpha=alpha))
     b = np.random.RandomState(3).randn(shape[1], 256).astype(np.float32)
     return ours, plain, torch.from_numpy(b)
 

@@ -176,9 +176,12 @@ def test_each_tier_forced_by_budget_matches_reference(budget, tier):
 
 
 def test_arxiv_kbucketed_stream_matches_reference():
+    # the reference's split (its cost model, passed explicitly): under the
+    # card's own split, which impl="cuda" resolves, the leaves differ
     rows, cols, vals, shape = _spec("ogbn-arxiv")
-    leaves, meta = spmm.build_plan_arrays(rows, cols, vals, shape,
-                                          SpmmConfig(impl="cuda"))
+    leaves, meta = spmm.build_plan_arrays(
+        rows, cols, vals, shape, SpmmConfig(impl="cuda"),
+        cost_model=cost_model.default_cost_model())
     theirs = jax_spmm.prepare(rows, cols, vals, shape,
                               jax_spmm.SpmmConfig(impl="pallas"))
     assert meta["fringe_tier"] == "ksharded"
