@@ -17,8 +17,8 @@ The graphs are the benchmark's ogbn-arxiv and Reddit configurations
   (``D_IN`` = 602 input features, one head of ``D_HEAD`` = 256), by CUDA
   events, held against the row-wise dot products of Q and K;
 - ``attention``: one ``SparseGraphAttention`` forward: the synchronised
-  wall ms (``with_values`` included, which runs on the host) and each
-  kernel's device ms under ``torch.profiler``.
+  wall ms (``with_values`` included) and each kernel's device ms under
+  ``torch.profiler``.
 
 On ogbn-arxiv only: ``spmm`` on a 4-way rows-sharded plan (the card
 repeated) and on a ``DynamicPlan`` after 1,000 inserts, both by CUDA

@@ -90,7 +90,7 @@ def main() -> int:
     ae, be, lengths, _ = api.spspmm_symbolic(maps, maps, a.shape[1],
                                              a.plan.config.bm)
     t_symbolic = time.perf_counter() - t0
-    va = torch.as_tensor(maps.vals, dtype=torch.float32)
+    va = torch.as_tensor(maps.host_values(), dtype=torch.float32)
     prod = (torch.index_select(va, 0, torch.from_numpy(ae))
             * torch.index_select(va, 0, torch.from_numpy(be)))
     lens = torch.from_numpy(lengths)

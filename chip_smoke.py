@@ -1939,7 +1939,7 @@ def dynamic_path(ctx, graph):
     mv = base.update_maps
 
     def reprepare_cycle():
-        v2 = mv.vals.copy()
+        v2 = mv.host_values().copy()
         v2[rng.choice(nnz, d, replace=False)] = rng.randn(d)
         api.execute(core_spmm.prepare(mv.rows, mv.cols, v2, shape,
                                       base.config, device=dev), b)

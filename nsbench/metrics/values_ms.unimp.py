@@ -1,0 +1,9 @@
+"""values_ms.unimp: device milliseconds a forward of the program's
+``with_values`` spans (the attention weights written into the plan's
+leaves, one a head): a timed call's device time times the calls, over
+the window's forwards."""
+from nsbench import attention_spans
+
+
+def read(run):
+    return attention_spans.per_forward_ms(run, ("with_values",))

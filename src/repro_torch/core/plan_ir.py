@@ -202,16 +202,19 @@ def check_impl_device(impl: str, device: Any) -> torch.device:
 
 @dataclasses.dataclass
 class UpdateMaps:
-    """Host-side COO->slot inverse maps, built once at ``prepare()`` time.
+    """COO->slot inverse maps, built once at ``prepare()`` time (on the
+    host; the values on the plan's device).
 
     For every input nonzero ``j`` the maps record which plan slot its value
-    landed in; ``rows``/``cols``/``vals`` keep the validated input COO.
+    landed in; ``rows``/``cols`` keep the validated input COO, ``vals``
+    its current values as a tensor on the plan's device (a value update
+    writes them there; :meth:`host_values` reads them on the host).
     """
 
     shape: Tuple[int, int]
     rows: np.ndarray             # (nnz,) int64 original COO rows
     cols: np.ndarray             # (nnz,) int64 original COO cols
-    vals: np.ndarray             # (nnz,) current values (input dtype)
+    vals: torch.Tensor           # (nnz,) current values (input dtype)
     path: np.ndarray             # (nnz,) int8 PATH_CORE | PATH_FRINGE
     core_lin: np.ndarray         # (nnz,) int64 flat slot in flat_values, -1
     fringe_pos: np.ndarray       # (nnz,) int64 packed fringe slot, -1
@@ -236,6 +239,11 @@ class UpdateMaps:
                          self.key_sorted.size - 1)
         found = self.key_sorted[pos] == keys
         return np.where(found, self.key_order[pos], -1)
+
+    def host_values(self) -> np.ndarray:
+        """``vals`` on the host: a copy from a card, a view on the CPU
+        (read it, do not write it)."""
+        return self.vals.cpu().numpy()
 
 
 def build_key_index(
@@ -444,9 +452,16 @@ def plan_from_leaves(
         matrix_format=str(meta.get("matrix_format", "general")),
         format_params=tuple(int(x) for x in meta.get("format_params",
                                                      (0, 0))),
-        update_maps=meta.get("update_maps"),
+        update_maps=_maps_on(meta.get("update_maps"), dev),
         a_unsplittable=unsplittable_flag(tensors["flat_values"]),
     )
+
+
+def _maps_on(maps: Optional[UpdateMaps], dev: torch.device):
+    """``maps`` with its values on ``dev``, the plan's device."""
+    if maps is None or maps.vals.device == dev:
+        return maps
+    return dataclasses.replace(maps, vals=maps.vals.to(dev))
 
 
 def _check_payload(leaves: Dict[str, np.ndarray], config: SpmmConfig,
@@ -637,8 +652,8 @@ def build_update_maps(
     cm_order = np.argsort(core_lin, kind="stable")
     key_sorted, key_order = build_key_index(rows, cols, shape[1])
     return UpdateMaps(
-        shape=tuple(shape), rows=rows, cols=cols, vals=vals.copy(),
-        path=path, core_lin=core_lin_of, fringe_pos=fringe_pos_of,
+        shape=tuple(shape), rows=rows, cols=cols,
+        vals=torch.from_numpy(vals.copy()), path=path, core_lin=core_lin_of, fringe_pos=fringe_pos_of,
         kb_pos=kb_pos_of,
         core_lin_sorted=core_lin[cm_order],
         core_members_sorted=core_idx[cm_order],
@@ -927,6 +942,10 @@ class ShardedUpdateMaps:
     @property
     def nnz(self) -> int:
         return int(self.rows.shape[0])
+
+    def host_values(self) -> np.ndarray:
+        """``vals``, which this mirror holds on the host."""
+        return self.vals
 
     lookup = UpdateMaps.lookup
 

@@ -630,7 +630,8 @@ def prepare_sharded(
         plan = by_device[devices[0]]
         um = meta["update_maps"]
         smaps = plan_ir.ShardedUpdateMaps(
-            shape=tuple(shape), rows=um.rows, cols=um.cols, vals=um.vals,
+            shape=tuple(shape), rows=um.rows, cols=um.cols,
+            vals=um.host_values(),
             shard_of_nnz=np.zeros(um.nnz, np.int64),
             local_of_nnz=np.arange(um.nnz, dtype=np.int64),
             shard_maps=(um,), key_sorted=um.key_sorted,

@@ -265,7 +265,7 @@ class DynamicPlan:
             keep = np.ones(keys.size, bool)
         rows = [maps.rows[keep]]
         cols = [maps.cols[keep]]
-        vals = [maps.vals[keep].astype(np.float64)]
+        vals = [maps.host_values()[keep].astype(np.float64)]
         live = [(key, t) for key, t in self._overlay.items()
                 if t is not None]
         if live:
@@ -280,13 +280,13 @@ class DynamicPlan:
     def _base_key_sums(self, keys: np.ndarray) -> np.ndarray:
         """Total base value per key (duplicates accumulate)."""
         maps = self.maps
+        vals = maps.host_values()
         lo = np.searchsorted(maps.key_sorted, keys, "left")
         hi = np.searchsorted(maps.key_sorted, keys, "right")
         out = np.zeros(keys.size, np.float64)
         for i in range(keys.size):  # delta-sized, not matrix-sized
             out[i] = float(
-                maps.vals[maps.key_order[lo[i]:hi[i]]].astype(
-                    np.float64).sum())
+                vals[maps.key_order[lo[i]:hi[i]]].astype(np.float64).sum())
         return out
 
     def _dup_ids(self, key: int) -> np.ndarray:
@@ -333,10 +333,14 @@ class DynamicPlan:
             for d in dups[1:]:
                 pending[int(d)] = 0.0
 
+        base = []  # the base values on the host, read once if needed
+
         def logical_value(key: int) -> float:
+            if not base:
+                base.append(maps.host_values())
             dups = self._dup_ids(key)
             return float(sum(
-                pending.get(int(d), float(maps.vals[d])) for d in dups))
+                pending.get(int(d), float(base[0][d])) for d in dups))
 
         # deletes first: remove a logical entry
         ids = maps.lookup(delta.del_rows, delta.del_cols)

@@ -49,6 +49,7 @@ import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..checkpoint import checkpoint
 from ..core import spmm
@@ -155,7 +156,9 @@ class PlanRegistry:
         for lname, leaf in plan.leaves().items():
             tree[f"leaf_{lname}"] = leaf.detach().cpu().numpy()
         for mname in _MAPS_NAMES:
-            tree[f"maps_{mname}"] = np.asarray(getattr(maps, mname))
+            tree[f"maps_{mname}"] = (
+                maps.host_values() if mname == "vals"
+                else np.asarray(getattr(maps, mname)))
         tree.update(self._overlay_tree(dplan))
 
         rows, cols, vals = dplan.to_coo()
@@ -338,7 +341,9 @@ class PlanRegistry:
         try:
             shape = tuple(int(s) for s in meta["shape"])
             maps = UpdateMaps(
-                shape=shape, **{n: arrays[f"maps_{n}"] for n in _MAPS_NAMES})
+                shape=shape, **{n: arrays[f"maps_{n}"] for n in _MAPS_NAMES
+                                if n != "vals"},
+                vals=torch.from_numpy(np.array(arrays["maps_vals"])))
             plan = plan_from_leaves(
                 {n: arrays[f"leaf_{n}"] for n in LEAF_NAMES},
                 {"shape": shape,

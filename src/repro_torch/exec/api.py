@@ -46,9 +46,10 @@ ceilings (:func:`_maybe_profiled`).  With telemetry off nothing is timed
 and nothing synchronises.
 
 Spans (``obs.TRACES``): each SpMM dispatch (:func:`_execute`) is an
-``execute`` span, recorded when the plan's telemetry is on or a profiler
-session is active, and the transpose plan's build a
-``transpose_structure`` span, always.
+``execute`` span and each SDDMM on a single-device plan
+(:func:`_execute_sddmm`) an ``sddmm`` span, recorded when the plan's
+telemetry is on or a profiler session is active, and the transpose plan's
+build a ``transpose_structure`` span, always.
 """
 from __future__ import annotations
 
@@ -75,7 +76,7 @@ from ..core.plan_ir import (
     fringe_row_order, gather_rows, general_format_sig, permute_pad_b,
     plan_leaves, sddmm_body_leaves, sig_impl, tag_op, validate_rhs,
 )
-from ..core.values import update_values
+from ..core.values import set_values
 from ..errors import DispatchError, KernelLoweringError, PlanBuildError
 from ..kernels import _build, ops
 from ..obs import PROFILER, TRACES
@@ -454,35 +455,42 @@ def _execute_sddmm_sharded(splan: ShardedPlan, x: torch.Tensor,
 
 def _execute_sddmm(plan: NeutronPlan, x: torch.Tensor,
                    y: torch.Tensor) -> torch.Tensor:
-    """:func:`execute_sddmm` without the autograd Function around it."""
-    smaps = build_sddmm_maps(plan)
-    batch = validate_sddmm_operands(x, y, plan.shape)
-    _check_device(plan, x, y)
-    _apply_cache_capacity(plan.config)
-    if smaps.nnz == 0:
-        shape = (0,) if batch is None else (batch, 0)
-        return torch.zeros(shape, dtype=torch.float32, device=plan.device)
-    if getattr(plan.config, "autotune", False) and (
-            plan.config.impl == "cuda"):
-        # the tuned SDDMM tier, as the reference resolves it for its kernel
-        # impls; under the H100 rule a "cuda" plan's tier is always the
-        # gather kernel (a stored "xla" is ignored and counted by the
-        # tuner), so the op tag keeps the config's budget.  A "torch" plan
-        # never reads the tier, as the reference's "xla" does not.
-        tuner.resolve_cost_model(
-            "sddmm", int(plan.shape[0]), int(plan.shape[1]), smaps.nnz,
-            plan.config,
-        ).select_sddmm_tier(
-            int(x.shape[-1]), int(plan.shape[0]), int(plan.shape[1]),
-            vmem_budget=plan.config.fringe_vmem_budget, impl="cuda")
-    sig = tag_op(plan.signature(), "sddmm", smaps.nnz, smaps.nnz_f,
-                 plan.config.fringe_vmem_budget)
-    return _guarded_call(
-        sig, lambda s: build_executor(s, batch=batch),
-        (*sddmm_body_leaves(plan, smaps), x, y), "sddmm", plan=plan,
-        prof=_sddmm_prof(plan.config, smaps.nnz, smaps.nnz_f,
-                         int(x.shape[-1]), batch),
-        kwargs=dict(derived=plan.derived))
+    """:func:`execute_sddmm` without the autograd Function around it.
+
+    Recorded as an ``sddmm`` span when the plan's telemetry is on or a
+    profiler session is active; the body's stages are its children
+    (``exec.pipeline._sddmm_body``), once per item of a batch."""
+    with TRACES.call("sddmm", plan.config.telemetry, plan.device):
+        smaps = build_sddmm_maps(plan)
+        batch = validate_sddmm_operands(x, y, plan.shape)
+        _check_device(plan, x, y)
+        _apply_cache_capacity(plan.config)
+        if smaps.nnz == 0:
+            shape = (0,) if batch is None else (batch, 0)
+            return torch.zeros(shape, dtype=torch.float32,
+                               device=plan.device)
+        if getattr(plan.config, "autotune", False) and (
+                plan.config.impl == "cuda"):
+            # the tuned SDDMM tier, as the reference resolves it for its
+            # kernel impls; under the H100 rule a "cuda" plan's tier is
+            # always the gather kernel (a stored "xla" is ignored and
+            # counted by the tuner), so the op tag keeps the config's
+            # budget.  A "torch" plan never reads the tier, as the
+            # reference's "xla" does not.
+            tuner.resolve_cost_model(
+                "sddmm", int(plan.shape[0]), int(plan.shape[1]), smaps.nnz,
+                plan.config,
+            ).select_sddmm_tier(
+                int(x.shape[-1]), int(plan.shape[0]), int(plan.shape[1]),
+                vmem_budget=plan.config.fringe_vmem_budget, impl="cuda")
+        sig = tag_op(plan.signature(), "sddmm", smaps.nnz, smaps.nnz_f,
+                     plan.config.fringe_vmem_budget)
+        return _guarded_call(
+            sig, lambda s: build_executor(s, batch=batch),
+            (*sddmm_body_leaves(plan, smaps), x, y), "sddmm", plan=plan,
+            prof=_sddmm_prof(plan.config, smaps.nnz, smaps.nnz_f,
+                             int(x.shape[-1]), batch),
+            kwargs=dict(derived=plan.derived))
 
 
 # --- sparse x sparse (spspmm) ----------------------------------------------
@@ -610,12 +618,12 @@ def transpose_structure(plan: NeutronPlan) -> NeutronPlan:
     if cached is None:
         m, k = plan.shape
         with TRACES.build("transpose_structure"):
-            cached = core_spmm.prepare(maps.cols, maps.rows, maps.vals,
-                                       (k, m), plan.config,
-                                       device=plan.device)
+            cached = core_spmm.prepare(maps.cols, maps.rows,
+                                       maps.host_values(), (k, m),
+                                       plan.config, device=plan.device)
         plan.derived["transpose_structure"] = cached
-        # whose values the structure holds: that plan's value array, by
-        # identity (update_values gives every updated plan a new array)
+        # whose values the structure holds: that plan's values, by identity
+        # (a value update gives every updated plan a new object)
         plan.derived["transpose_values_of"] = weakref.ref(maps.vals)
     return cached
 
@@ -624,9 +632,10 @@ def transpose_plan(plan: NeutronPlan) -> NeutronPlan:
     """The plan of Aᵀ with ``plan``'s values.  For the plan whose values
     the cached structure (:func:`transpose_structure`) holds, that
     structure; for another, the structure with its values written in
-    (``update_values``), kept for the last such plan in ``plan.derived``
-    so that its next backward builds nothing.  Plans are told apart by
-    the identity of their value arrays, so no call compares values."""
+    (``core.values.set_values``), kept for the last such plan in
+    ``plan.derived`` so that its next backward builds nothing.  Plans are
+    told apart by the identity of their values (``UpdateMaps.vals``), so
+    no call compares values."""
     structure = transpose_structure(plan)
     derived = plan.derived
     vals = plan.update_maps.vals
@@ -635,7 +644,7 @@ def transpose_plan(plan: NeutronPlan) -> NeutronPlan:
     last = derived.get("transpose_last")
     if last is not None and last[0]() is vals:
         return last[1]
-    own = update_values(structure, np.arange(vals.shape[0]), vals)
+    own = set_values(structure, vals)
     derived["transpose_last"] = (weakref.ref(vals), own)
     return own
 
@@ -702,13 +711,12 @@ def _sddmm_grads(plan: NeutronPlan, x: torch.Tensor, y: torch.Tensor,
                  g: torch.Tensor, need_x: bool, need_y: bool):
     """dX = S_g @ Yᵀ and dY = (S_gᵀ @ X)ᵀ for one (M, D) x, (D, K) y and
     (nnz,) g, where S_g is the pattern carrying g (duplicate entries sum
-    in their shared slot, as ``update_values`` writes them)."""
-    ids = np.arange(g.shape[0])
+    in their shared slot, as a value update writes them)."""
     dx = dy = None
     if need_x:
-        dx = _execute(update_values(plan, ids, g), y.t().to(torch.float32))
+        dx = _execute(set_values(plan, g), y.t().to(torch.float32))
     if need_y:
-        at = update_values(transpose_structure(plan), ids, g)
+        at = set_values(transpose_structure(plan), g)
         dy = _execute(at, x.to(torch.float32)).t()
     return dx, dy
 

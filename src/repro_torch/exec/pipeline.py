@@ -150,7 +150,10 @@ def _sddmm_body(sig: Tuple):
     its.  Unlike the reference, whose ``"xla"`` impl skips the tile path
     and gathers every nonzero, both impls run both paths here:
     ``"torch"`` with the plain versions, so the CPU tests cover the
-    placement the card runs.
+    placement the card runs.  Inside a recorded ``sddmm`` span its stages
+    are ``obs`` spans: ``sddmm_operands`` (the Y^T panel and the
+    window-gathered X rows), ``sddmm_walk`` (B5, the fringe) and
+    ``sddmm_tiles`` (B4, the core).
     """
     (_version, _shape, bm, bk, _bn, impl, reorder_cols, fringe_chunk,
      _num_windows, _num_steps, _nnz_f, _n_fringe_rows, has_core, has_fringe,
@@ -161,19 +164,23 @@ def _sddmm_body(sig: Tuple):
     def run(step_window, step_col, core_row_map, col_perm,
             core_lin, w_indptr, w_cols, w_pos, x, y,
             derived: Optional[Dict[str, Any]] = None):
-        x = x.to(torch.float32).contiguous()
-        ypt = permute_pad_b(y.t(), col_perm, reorder_cols, bk)  # (K, D)
+        with TRACES.stage("sddmm_operands"):
+            x = x.to(torch.float32).contiguous()
+            ypt = permute_pad_b(y.t(), col_perm, reorder_cols, bk)  # (K, D)
+            # matrix path: window-gathered X rows against the same panel
+            xp = (gather_rows(x, core_row_map).contiguous() if has_core
+                  else None)
         out = torch.empty(nnz, dtype=torch.float32, device=x.device)
         if has_fringe:
-            ops.sddmm_gather(w_indptr, w_cols, w_pos, x, ypt, out,
-                             impl=impl, chunk=fringe_chunk,
-                             vmem_budget=vmem_budget)
+            with TRACES.stage("sddmm_walk"):
+                ops.sddmm_gather(w_indptr, w_cols, w_pos, x, ypt, out,
+                                 impl=impl, chunk=fringe_chunk,
+                                 vmem_budget=vmem_budget)
         if has_core:
-            # matrix path: window-gathered X rows against the same panel
-            xp = gather_rows(x, core_row_map).contiguous()
-            ops.sddmm_block_stream(step_window, step_col, core_lin, xp, ypt,
-                                   out, bm=bm, bk=bk, impl=impl,
-                                   derived=derived)
+            with TRACES.stage("sddmm_tiles"):
+                ops.sddmm_block_stream(step_window, step_col, core_lin, xp,
+                                       ypt, out, bm=bm, bk=bk, impl=impl,
+                                       derived=derived)
         return out
 
     return run

@@ -62,7 +62,8 @@ def update_maps_from_arrays(arrays: Dict[str, Any]) -> UpdateMaps:
 
     ``arrays`` holds every field of ``repro.core.plan_ir.UpdateMaps`` by
     name (``shape`` as a pair, the rest as numpy arrays); the arrays are
-    copied.  Pass the result as ``meta["update_maps"]`` to
+    copied, the values into a tensor (which :func:`plan_from_arrays` puts
+    on the plan's device).  Pass the result as ``meta["update_maps"]`` to
     :func:`plan_from_arrays`.
     """
     names = [f.name for f in dataclasses.fields(UpdateMaps)]
@@ -71,7 +72,9 @@ def update_maps_from_arrays(arrays: Dict[str, Any]) -> UpdateMaps:
         raise ValueError(f"update maps lack fields {missing}")
     return UpdateMaps(
         shape=tuple(int(s) for s in arrays["shape"]),
-        **{n: np.array(arrays[n]) for n in names if n != "shape"})
+        vals=torch.from_numpy(np.array(arrays["vals"])),
+        **{n: np.array(arrays[n]) for n in names
+           if n not in ("shape", "vals")})
 
 
 def _weight(w) -> torch.Tensor:

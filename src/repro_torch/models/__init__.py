@@ -1,7 +1,10 @@
-"""Model zoo (the LM stack's inference path) and the sparse graph layers."""
-from . import config, layers, model, moe, ssm, transformer
+"""Model zoo (the LM stack's inference path) and the sparse graph layers
+and models."""
+from . import config, layers, model, moe, ssm, transformer, unimp
 from .config import ModelConfig
-from .layers import SparseGraphAttention, SparseGraphConv
+from .layers import GraphTransformerConv, SparseGraphAttention, SparseGraphConv
+from .unimp import UniMP
 
-__all__ = ["config", "layers", "model", "moe", "ssm", "transformer",
-           "ModelConfig", "SparseGraphAttention", "SparseGraphConv"]
+__all__ = ["config", "layers", "model", "moe", "ssm", "transformer", "unimp",
+           "ModelConfig", "GraphTransformerConv", "SparseGraphAttention",
+           "SparseGraphConv", "UniMP"]

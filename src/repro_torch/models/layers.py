@@ -15,15 +15,17 @@ reference's do: a fully masked chunk then contributes ``exp(0)`` per
 entry, which the next unmasked chunk rescales to 0.
 
 The graph half ports ``repro.models.layers.SparseGraphConv`` and
-``SparseGraphAttention`` as ``nn.Module``\\ s.  Each holds a prepared
-:class:`~repro_torch.sparse.SparseMatrix` (the graph) and its weights,
-laid out as in the reference ((d_in, d_out), applied as ``x @ w``).
-``SparseGraphConv``'s weight is an ``nn.Parameter``: the layer is linear
-in X and its aggregation is differentiable (``sparse.spmm``), so it
-trains, as the reference's composes with ``jax.grad``
-(``repro_torch.examples.gcn_training``).  ``SparseGraphAttention`` keeps
-its weights as buffers: its value swap goes through the host, and the
-reference calls that layer inference/forward oriented.
+``SparseGraphAttention`` as ``nn.Module``\\ s, and adds the multi-head
+:class:`GraphTransformerConv` (UniMP's layer, ``models.unimp``), of which
+``SparseGraphAttention`` is the one-head case with no root or gate.  Each
+holds a prepared :class:`~repro_torch.sparse.SparseMatrix` (the graph) and
+its weights, laid out as in the reference ((d_in, d_out), applied as
+``x @ w``), as ``nn.Parameter``\\ s.  ``SparseGraphConv`` is linear in X
+and its aggregation is differentiable (``sparse.spmm``), so it trains, as
+the reference's composes with ``jax.grad``
+(``repro_torch.examples.gcn_training``).  ``SparseGraphAttention``
+freezes its weights: the reference calls that layer inference/forward
+oriented.
 
 The graph projections are plain ``torch.matmul``; the edge softmax is plain
 segment arithmetic (``scatter_reduce`` with amax, ``index_add_``).  The
@@ -43,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import sparse as sp
+from ..obs import TRACES
 from ..distributed.sharding import (
     constrain, gather_weight, grad_reduced as _rg, logical_placements,
     to_placements,
@@ -504,27 +507,181 @@ class SparseGraphConv(nn.Module):
         return sp.spmm(self.a, x @ self.w)
 
 
-class SparseGraphAttention(nn.Module):
-    """Single-head dot-product graph attention (GAT-style).
+def edge_softmax(scores: torch.Tensor, rows: torch.Tensor,
+                 m: int) -> torch.Tensor:
+    """Softmax of each head's scores over the nonzeros of each destination
+    row: ``scores`` (H, nnz) in the graph's input COO order, ``rows``
+    (nnz,) int64 their rows, ``m`` the row count.  Plain segment
+    arithmetic, head by head: a segment max (``scatter_reduce`` with
+    amax), ``exp``, a segment sum (``index_add_``), a divide.  A row with
+    no nonzero has no weight."""
+    out = torch.empty_like(scores)
+    for h in range(scores.shape[0]):
+        e = scores[h]
+        e_max = torch.full((m,), -math.inf, dtype=e.dtype, device=e.device)
+        e_max = e_max.scatter_reduce(0, rows, e, "amax")
+        p = torch.exp(e - e_max[rows])
+        denom = torch.zeros(m, dtype=e.dtype, device=e.device)
+        denom.index_add_(0, rows, p)
+        out[h] = p / denom[rows].clamp(min=1e-30)
+    return out
 
-    Scores are an SDDMM over the graph's pattern, ``(Q K^T)/sqrt(d)`` at
-    the edges only, followed by a softmax over each destination row's
-    edges and one SpMM with the attention weights swapped in by
-    ``SparseMatrix.with_values`` (same plan signature, same executor).
+
+def _uniform(shape, fan_in: int, generator: Optional[torch.Generator],
+             device) -> torch.Tensor:
+    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)): PyTorch Geometric's ``Linear``
+    weights and biases at their default initialisation."""
+    bound = 1.0 / math.sqrt(fan_in)
+    return (torch.rand(shape, generator=generator, device=device) * 2 - 1) \
+        * bound
+
+
+class GraphTransformerConv(nn.Module):
+    """Multi-head graph transformer layer: PyTorch Geometric's
+    ``TransformerConv(..., beta=True)``, as UniMP (Shi et al. 2021,
+    arXiv:2009.03509) stacks it, on the port's operator family.
+
+    For node ``i``, head ``h`` of width ``C`` and ``j`` over the nonzeros
+    of row ``i`` of A (the graph's edges into ``i``):
+
+    - ``q, k, v, r = x W + b``: one fp32 GEMM for the queries, keys and
+      values of every head and the root term (``weight`` is (d_in,
+      3·H·C + R), laid out ``[W_q | W_k | W_v | W_r]``);
+    - ``α_hij = softmax_j(q_hi · k_hj / √C)``: one ``sparse.sddmm`` batched
+      over the heads, then :func:`edge_softmax`;
+    - ``m_i``: per head one ``A.with_values(α_h)`` and one ``sparse.spmm``
+      of V, concatenated over the heads (``concat``) or their mean;
+    - with the root weight (R > 0),
+      ``β_i = σ(w_βᵀ [m_i ‖ r_i ‖ m_i − r_i])`` and
+      ``y_i = β_i r_i + (1 − β_i) m_i`` (``w_beta`` given), else
+      ``y_i = m_i + r_i``; without it, ``y_i = m_i``.
+
+    ``bias`` (3·H·C + R,) or None.  The attention weights take no gradient
+    (``with_values`` carries none, as in the reference's facade), so in
+    training only V, the root and the gate would learn; the layer is built
+    for inference.  The edge softmax is an ``edge_softmax`` span
+    (``obs.TRACES``) on the graph's device, recorded when its plan's
+    telemetry is on or a profiler session is active.
     """
 
-    def __init__(self, a, wq: torch.Tensor, wk: torch.Tensor,
-                 wv: torch.Tensor):
+    def __init__(self, a, weight: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, *, heads: int = 1,
+                 concat: bool = True, root: int = 0,
+                 w_beta: Optional[torch.Tensor] = None):
         super().__init__()
         self.a = _graph(a)
         dev = self.a.device
-        self.register_buffer("wq", wq.to(dev, torch.float32))
-        self.register_buffer("wk", wk.to(dev, torch.float32))
-        self.register_buffer("wv", wv.to(dev, torch.float32))
+        qkv = int(weight.shape[1]) - int(root)
+        if heads < 1 or qkv <= 0 or qkv % (3 * heads):
+            raise ValueError(
+                f"weight of width {int(weight.shape[1])} does not hold Q, K "
+                f"and V of {heads} heads and a root of {root}")
+        self.heads, self.concat, self.root = int(heads), bool(concat), \
+            int(root)
+        self.head_dim = qkv // (3 * heads)
+        def own(t):  # a copy: the layer shares no storage with its caller
+            return None if t is None else nn.Parameter(
+                t.detach().to(dev, torch.float32, copy=True))
+
+        self.weight, self.bias, self.w_beta = own(weight), own(bias), \
+            own(w_beta)
         # edge endpoints are static per graph; the softmax segments by row
         self.register_buffer(
             "rows", torch.from_numpy(self.a.row).to(dev, torch.int64),
             persistent=False)
+
+    @property
+    def out_dim(self) -> int:
+        return self.heads * self.head_dim if self.concat else self.head_dim
+
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        """The fused projection ``x W + b``: (M, 3·H·C + R)."""
+        return (x @ self.weight if self.bias is None
+                else torch.addmm(self.bias, x, self.weight))
+
+    def _heads(self, z: torch.Tensor, part: int) -> torch.Tensor:
+        """Q (0), K (1) or V (2) of the fused projection: (H, M, C)."""
+        hc = self.heads * self.head_dim
+        t = z[:, part * hc:(part + 1) * hc]
+        return t.reshape(z.shape[0], self.heads, self.head_dim) \
+            .permute(1, 0, 2).contiguous()
+
+    def attention(self, z: torch.Tensor) -> torch.Tensor:
+        """Softmaxed attention weights (H, nnz), input COO order, from the
+        fused projection ``z``."""
+        q, k = self._heads(z, 0), self._heads(z, 1)
+        e = sp.sddmm(self.a, q, k.transpose(1, 2))
+        e = e / math.sqrt(self.head_dim)
+        plan = self.a.plan
+        with TRACES.call("edge_softmax", plan.config.telemetry, plan.device):
+            return edge_softmax(e, self.rows, self.a.shape[0])
+
+    def edge_scores(self, x: torch.Tensor) -> torch.Tensor:
+        """The attention weights (H, nnz) of input ``x``."""
+        return self.attention(self.project(x))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        z = self.project(x)
+        alpha = self.attention(z)
+        v = self._heads(z, 2)
+        out = [sp.spmm(self.a.with_values(alpha[h]), v[h])
+               for h in range(self.heads)]
+        m = torch.cat(out, dim=1) if self.concat else \
+            torch.stack(out).mean(0)
+        if not self.root:
+            return m
+        r = z[:, z.shape[1] - self.root:]
+        if self.w_beta is None:
+            return m + r
+        beta = torch.sigmoid(torch.cat([m, r, m - r], dim=1) @ self.w_beta)
+        return beta[:, None] * r + (1 - beta[:, None]) * m
+
+    @classmethod
+    def init(cls, a, d_in: int, head_dim: int, heads: int, *,
+             concat: bool = True, root: bool = True, beta: bool = True,
+             generator: Optional[torch.Generator] = None
+             ) -> "GraphTransformerConv":
+        """Weights and biases drawn as PyTorch Geometric initialises
+        ``TransformerConv``'s ``Linear`` layers; the root as wide as the
+        output."""
+        a = _graph(a)
+        dev = a.device
+        out = heads * head_dim if concat else head_dim
+        width = 3 * heads * head_dim + (out if root else 0)
+        return cls(a, _uniform((d_in, width), d_in, generator, dev),
+                   _uniform((width,), d_in, generator, dev), heads=heads,
+                   concat=concat, root=out if root else 0,
+                   w_beta=(_uniform((3 * out,), 3 * out, generator, dev)
+                           if root and beta else None))
+
+
+class SparseGraphAttention(GraphTransformerConv):
+    """Single-head dot-product graph attention: the one-head
+    :class:`GraphTransformerConv` with no bias, root or gate, as the
+    reference's layer computes it (scores ``(Q Kᵀ)/√d`` at the edges, a
+    softmax over each destination row's edges, one SpMM with the weights
+    swapped in by ``SparseMatrix.with_values``).  Its weights are frozen,
+    as the reference calls the layer inference oriented; ``wq``, ``wk`` and
+    ``wv`` are views of the fused weight, and :meth:`edge_scores` gives
+    (nnz,).
+    """
+
+    def __init__(self, a, wq: torch.Tensor, wk: torch.Tensor,
+                 wv: torch.Tensor):
+        super().__init__(a, torch.cat([wq, wk, wv], dim=1), heads=1)
+        self.requires_grad_(False)
+
+    @property
+    def wq(self) -> torch.Tensor:
+        return self.weight[:, :self.head_dim]
+
+    @property
+    def wk(self) -> torch.Tensor:
+        return self.weight[:, self.head_dim:2 * self.head_dim]
+
+    @property
+    def wv(self) -> torch.Tensor:
+        return self.weight[:, 2 * self.head_dim:]
 
     @classmethod
     def init(cls, a, d_in: int, d_head: int,
@@ -537,18 +694,4 @@ class SparseGraphAttention(nn.Module):
 
     def edge_scores(self, x: torch.Tensor) -> torch.Tensor:
         """Softmaxed attention weight per edge, in input COO order."""
-        q = x @ self.wq
-        k = x @ self.wk
-        e = sp.sddmm(self.a, q, k.t()) / math.sqrt(self.wq.shape[1])
-        m = self.a.shape[0]
-        e_max = torch.full((m,), -math.inf, dtype=e.dtype, device=e.device)
-        e_max = e_max.scatter_reduce(0, self.rows, e, "amax")
-        p = torch.exp(e - e_max[self.rows])
-        denom = torch.zeros(m, dtype=e.dtype, device=e.device)
-        denom.index_add_(0, self.rows, p)
-        return p / denom[self.rows].clamp(min=1e-30)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        alpha = self.edge_scores(x)
-        a_att = self.a.with_values(alpha)
-        return sp.spmm(a_att, x @ self.wv)
+        return super().edge_scores(x)[0]

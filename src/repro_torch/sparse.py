@@ -64,7 +64,8 @@ import torch
 
 from .core import spmm as core_spmm
 from .core.plan_ir import NeutronPlan, ShardedPlan, SpmmConfig
-from .dynamic import DynamicPlan, update_values
+from .core.values import set_values
+from .dynamic import DynamicPlan
 from .errors import DeadlineExceeded, PlanBuildError
 from .exec import api as _exec
 from .obs import TRACES
@@ -179,7 +180,7 @@ class SparseMatrix:
         maps = self.plan.update_maps
         if maps is None:
             raise PlanBuildError("plan was built without update maps")
-        return maps.rows, maps.cols, maps.vals
+        return maps.rows, maps.cols, maps.host_values()
 
     def dense(self) -> np.ndarray:
         """Dense fp64 mirror (duplicates accumulate). Debug/test sized."""
@@ -194,7 +195,9 @@ class SparseMatrix:
 
         Functional: returns a new handle (on the static plan) and leaves
         this one as it was.  The plan signature, and so the cached
-        executor, is unchanged (``dynamic.update_values`` underneath).
+        executor, is unchanged (``core.values.set_values`` underneath: the
+        leaves are written on the plan's device, a tensor's values never
+        reach the host).
         """
         p = self._static_plan("with_values")
         nnz = p.update_maps.nnz
@@ -204,7 +207,7 @@ class SparseMatrix:
             raise ValueError(
                 f"with_values needs one value per nonzero: got shape "
                 f"{tuple(values.shape)} for nnz={nnz}")
-        return SparseMatrix(update_values(p, np.arange(nnz), values))
+        return SparseMatrix(set_values(p, values))
 
     def __matmul__(self, other):
         if isinstance(other, SparseMatrix):

@@ -24,6 +24,7 @@ from repro.dynamic import update_values as jax_update_values  # noqa: E402
 import repro_torch.sparse as sp  # noqa: E402
 from repro_torch.core import plan_ir, spmm  # noqa: E402
 from repro_torch.core.plan_ir import LEAF_NAMES, SpmmConfig  # noqa: E402
+from repro_torch.core.values import set_values  # noqa: E402
 from repro_torch.dynamic import update_values  # noqa: E402
 from repro_torch.errors import PlanBuildError  # noqa: E402
 from repro_torch.exec import api, cache  # noqa: E402
@@ -206,6 +207,42 @@ def test_update_values_on_a_carried_kbucketed_plan_matches_reference():
                               np.asarray(getattr(theirs, name))), name
     assert not np.array_equal(ours.fringe_kb_vals.numpy(),
                               carried.fringe_kb_vals.numpy())
+
+
+def test_set_values_writes_a_carried_kbucketed_stream():
+    """A plan the reference built for its streaming tier carries a real
+    k-bucketed stream; the device write fills it as a fresh build does."""
+    rng = np.random.RandomState(0)
+    rows = rng.randint(0, 60, 400)
+    cols = rng.randint(0, 96, 400)
+    vals = rng.randn(400).astype(np.float32)
+    jcfg = jax_spmm.SpmmConfig(impl="pallas", bn=128, alpha=1.0,
+                               fringe_vmem_budget=60_000)
+
+    def carried(v):
+        jplan = jax_spmm.prepare(rows, cols, v, (60, 96), jcfg)
+        assert jplan.fringe_tier == "ksharded"
+        leaves, _ = jplan.tree_flatten()
+        cfg = {k: x for k, x in dataclasses.asdict(jplan.config).items()
+               if k in _PORT_FIELDS}
+        cfg["impl"] = "torch"
+        return plan_from_arrays(
+            {n: np.asarray(x) for n, x in zip(LEAF_NAMES, leaves)},
+            dict(shape=jplan.shape, config=cfg, stats=jplan.stats,
+                 fringe_tier=jplan.fringe_tier, fringe_bk=jplan.fringe_bk,
+                 update_maps=update_maps_from_arrays(
+                     {n: getattr(jplan.update_maps, n)
+                      for n in _MAP_FIELDS})))
+
+    plan = carried(vals)
+    new = rng.randn(400).astype(np.float32)
+    got = set_values(plan, torch.from_numpy(new))
+    want = carried(new)
+    for name in ("fringe_vals", "fringe_kb_vals"):
+        assert np.array_equal(getattr(got, name).numpy().view(np.int32),
+                              getattr(want, name).numpy().view(np.int32)), \
+            name
+    assert got.fringe_kb_vals.numel() > 1
 
 
 def test_with_values_takes_numpy_and_tensors():
